@@ -1,0 +1,20 @@
+"""nflows_tpu_torch: the PyTorch / CUDA port of nflows_tpu for NVIDIA Hopper.
+
+It mirrors ``nflows_tpu``'s layout and names and imports nothing of it or
+of JAX. Plain tensor code is PyTorch; the JAX package's Pallas kernels
+become hand-written CUDA kernels in ``ops/cuda`` (sources in ``csrc``),
+built with nvcc at first use. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+"""
+
+from nflows_tpu_torch.version import VERSION, __version__
+
+from nflows_tpu_torch import distributions, flows, models, transforms, utils
+from nflows_tpu_torch.flows.base import Flow
+from nflows_tpu_torch.interop import load_jax_params
+from nflows_tpu_torch.models.nsf import NeuralSplineFlow
+from nflows_tpu_torch.serving import CompiledFlow
+
+__all__ = ["VERSION", "__version__", "distributions", "flows", "models",
+           "transforms", "utils", "Flow", "NeuralSplineFlow", "CompiledFlow",
+           "load_jax_params"]

@@ -1,0 +1,5 @@
+"""Flows (counterpart of nflows_tpu/flows)."""
+
+from nflows_tpu_torch.flows.base import Flow
+
+__all__ = ["Flow"]

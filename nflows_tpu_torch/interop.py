@@ -1,0 +1,68 @@
+"""Carry a JAX model's weights into the port's model.
+
+The port never imports JAX. The caller flattens the JAX model into numpy
+leaves keyed by their pytree paths, e.g. with
+``jax.tree_util.tree_flatten_with_path`` and ``jax.tree_util.keystr``::
+
+    params = {keystr(path): np.asarray(leaf)
+              for path, leaf in tree_flatten_with_path(jax_flow)[0]}
+    load_jax_params(torch_flow, params)
+
+Keys look like ``.transform.transforms[1].transform_net.initial_layer.weight``;
+the port's module tree keeps the JAX attribute names, so a key maps to a
+state-dict entry by dropping the leading dot and writing ``[i]`` as ``.i``.
+JAX ``Dense`` weights are [in, out] and ``nn.Linear`` weights [out, in], so
+those are transposed. The coupling conditioner's output columns are
+feature-major in both packages.
+
+A ``StackedTransform`` (the JAX package's scan-stacked chain) has to be
+unstacked first: build the JAX flow with ``stacked=False``, or walk its
+``layers()``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+__all__ = ["load_jax_params"]
+
+
+def _jax_key_to_name(key: str) -> str:
+    """``.a.b[3].c`` -> ``a.b.3.c``."""
+    return re.sub(r"\[(\d+)\]", r".\1", key).lstrip(".")
+
+
+def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None:
+    """Write the JAX leaves ``params`` into ``module``'s parameters and
+    persistent buffers, in place. Raises on a missing key, an unexpected
+    key or a shape mismatch."""
+    state = module.state_dict(keep_vars=True)
+    linear_weights = {f"{name}.weight" if name else "weight"
+                      for name, m in module.named_modules()
+                      if isinstance(m, nn.Linear)}
+    incoming = {_jax_key_to_name(k): (k, v) for k, v in params.items()}
+    missing = sorted(set(state) - set(incoming))
+    unexpected = sorted(incoming[n][0] for n in set(incoming) - set(state))
+    if missing or unexpected:
+        raise KeyError(f"load_jax_params: missing {missing}, unexpected {unexpected}")
+    values = {}
+    for name, target in state.items():
+        key, value = incoming[name]
+        value = np.asarray(value)
+        if name in linear_weights:
+            value = value.T
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(
+                f"load_jax_params: {key} has shape {tuple(np.shape(params[key]))}, "
+                f"the port expects {tuple(target.shape)}"
+                + (" (transposed)" if name in linear_weights else ""))
+        values[name] = value
+    with torch.no_grad():
+        for name, value in values.items():
+            target = state[name]
+            target.copy_(torch.from_numpy(np.array(value)).to(target.dtype))

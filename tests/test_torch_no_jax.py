@@ -1,0 +1,66 @@
+"""The port stands alone: no module of ``nflows_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, statically or at run
+time."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "optax", "nflows_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    return sorted((ROOT / "nflows_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_scan_covers_the_port():
+    files = _port_files()
+    assert len(files) > 20 and all(f.exists() for f in files)
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import(path):
+    bad = [name for name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_rule():
+    assert _forbidden("jax.numpy") and _forbidden("nflows_tpu.ops")
+    assert _forbidden("nflows_tpu") and not _forbidden("nflows_tpu_torch.ops")
+
+
+def test_runtime_loads_no_jax():
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import nflows_tpu_torch as nt\n"
+        "f = nt.NeuralSplineFlow(6, 8, num_layers=2, num_bins=4, device='cpu',\n"
+        "                        generator=torch.Generator().manual_seed(0))\n"
+        "x = torch.randn(16, 6)\n"
+        "nt.CompiledFlow(f, 16, 6, device='cpu').log_prob(x)\n"
+        "nt.CompiledFlow(f, 16, 6, device='cpu', use_fused=False).log_prob(x)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'nflows_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
