@@ -4,16 +4,21 @@
 
 Builds the port's CUDA kernels from ``nflows_tpu_torch/csrc`` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, then
-serves the flagship NeuralSplineFlow at full width (features 6, hidden
+drives the flagship NeuralSplineFlow at full width (features 6, hidden
 256, 10 layers x 2 blocks, 8 bins, tail bound 3; random weights from a
-fixed seed) through ``CompiledFlow``: fused (kernel B2, one launch a
-request) and unfused (kernel B1 in each of the 10 couplings). Every phase
-raises on failure, so the exit code is non-zero.
+fixed seed) through the entry points a user calls. Serving through
+``CompiledFlow``: fused (kernel B2, one launch a request) and unfused
+(kernel B1 in each of the 10 couplings). Training, 20 Adam steps at batch
+512 on both routes: fused (``fused_trainer``: kernel B3, one launch a step;
+its composable variant runs B2 forward and B4 backward) and eager
+(``make_train_step``: autograd through the unfused chain, ten B1 a
+forward). Every phase raises on failure, so the exit code is non-zero.
 
 Prints, before the last line, the card's name and power limit, a JSON
-line ``{"kernels": [...]}`` with each kernel's launches on the main path,
-error against its plain version, device time, plain time, bound and
-library time; the last line is
+line ``{"kernels": [...]}`` with each kernel's launches on the main path
+(a serving request for B1 and B2, a train step for B3 and B4), error
+against its plain version, device time, plain time, bound and library time
+at the main path's shape; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Tolerances. Each kernel is held to its plain PyTorch version on the same
@@ -30,6 +35,20 @@ one-ulp error of a bin edge moves the inverse by up to ~1e3 ulps; there
 the plain fp32 version itself moves by several 1e-4, and the run prints
 both. B2: 1e-3 on outputs and logabsdet at random init (ten layers of
 fp32 GEMMs and splines, summed over 30 elements).
+B3 and B4: log_prob 1e-3 and loss 1e-4 as B2's logabsdet and its mean;
+each gradient stack 2e-4 absolute, the bar the JAX package holds its
+training kernels to (a weight gradient of the mean loss is a sum over the
+batch of fp32 products, taken tile by tile and added with atomics, where
+autograd sums in cuBLAS's order); B4's input cotangent 5e-3 after scaling by
+N (its cotangents are drawn at scale 1/N, as a mean loss gives them; pulled
+back through ten spline layers the scaled values grow well past 1, the run
+prints the largest, and the plain fp32 version is itself up to 7e-4 from
+float64). Two B3
+launches on the same buffers: 1e-5 absolute plus 1e-4 relative, since only
+the order of the atomic adds differs. Fused against eager training losses
+over the first three steps: 2e-3 (two different fp32 evaluations of an NLL
+near 10, then Adam steps whose direction can differ where a gradient is
+near zero).
 """
 
 from __future__ import annotations
@@ -47,6 +66,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 SERVE_BATCH = 4096
+TRAIN_BATCH = 512
+TRAIN_STEPS = 20
 FLAGSHIP = dict(features=6, hidden_features=256, num_layers=10,
                 num_blocks_per_layer=2, num_bins=8, tail_bound=3.0)
 
@@ -150,9 +171,16 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from nflows_tpu_torch import CompiledFlow, NeuralSplineFlow
-    from nflows_tpu_torch.ops.cuda import _build, nsf_flow_kernel, rq_spline
+    from nflows_tpu_torch import (
+        CompiledFlow,
+        NeuralSplineFlow,
+        create_train_state,
+        fused_trainer,
+        make_train_step,
+    )
+    from nflows_tpu_torch.ops.cuda import _build, nsf_flow_kernel, nsf_train, rq_spline
     from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
+    from nflows_tpu_torch.training.fused import MIN_AUTO_BATCH
     from nflows_tpu_torch.ops.splines import rational_quadratic as rq
 
     # -- phase 1: device and settings ----------------------------------------
@@ -274,24 +302,42 @@ def main() -> int:
     unfused = CompiledFlow(flow, batch_size=SERVE_BATCH, features=D, use_fused=False)
 
     def requests(server, seed):
+        """log_prob, then the two sampling requests; launches counted
+        separately for the first request and for the other two."""
         g = torch.Generator(device=dev).manual_seed(seed)
+        reset_counts()
         lp = server.log_prob(x)
+        torch.cuda.synchronize()
+        first = read_counts()
+        reset_counts()
         s = server.sample(g)
         s2, lp2 = server.sample_and_log_prob(g)
         torch.cuda.synchronize()
-        return lp, s, s2, lp2
+        return lp, s, s2, lp2, first, read_counts()
+
+    def reset_counts():
+        rq_spline.launch_count = 0
+        nsf_flow_kernel.launch_count = 0
+        nsf_train.loss_grad_launch_count = 0
+        nsf_train.bwd_launch_count = 0
+
+    def read_counts():
+        return {"B1": rq_spline.launch_count, "B2": nsf_flow_kernel.launch_count,
+                "B3": nsf_train.loss_grad_launch_count, "B4": nsf_train.bwd_launch_count}
+
+    def expect_counts(what, counts, **expected):
+        expected = {**dict(B1=0, B2=0, B3=0, B4=0), **expected}
+        if counts != expected:
+            raise AssertionError(f"{what} launched {counts}, expected {expected}")
 
     launches = {}
     for name, server, kernel_of_path in (("fused", served, "B2"), ("unfused", unfused, "B1")):
-        rq_spline.launch_count = 0
-        nsf_flow_kernel.launch_count = 0
-        lp, s, s2, lp2 = requests(server, 1)
-        counts = {"B1": rq_spline.launch_count, "B2": nsf_flow_kernel.launch_count}
-        log(f"serving ({name}): launches {counts}")
-        expected = {"B2": {"B1": 0, "B2": 3}, "B1": {"B1": 3 * L, "B2": 0}}[kernel_of_path]
-        if counts != expected:
-            raise AssertionError(f"{name} path launched {counts}, expected {expected}")
-        launches[kernel_of_path] = counts[kernel_of_path]
+        lp, s, s2, lp2, first, rest = requests(server, 1)
+        log(f"serving ({name}): launches a request {first}, two more requests {rest}")
+        per_request = {"B2": 1, "B1": L}[kernel_of_path]
+        expect_counts(f"one {name} request", first, **{kernel_of_path: per_request})
+        expect_counts(f"two {name} requests", rest, **{kernel_of_path: 2 * per_request})
+        launches[kernel_of_path] = first[kernel_of_path]
         for t, shape in ((lp, (SERVE_BATCH,)), (s, (SERVE_BATCH, D)), (s2, (SERVE_BATCH, D)),
                          (lp2, (SERVE_BATCH,))):
             if tuple(t.shape) != shape or not torch.isfinite(t).all():
@@ -320,16 +366,192 @@ def main() -> int:
             log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
                 f"device busy {device_ms(torch, fn, 10):.3f} ms")
 
-    # -- phase 6: the kernels line ---------------------------------------------
+    # -- phase 6: B3 and B4 against their plain versions (full-width flagship) ----
+    trainer = fused_trainer(flow, TRAIN_BATCH)
+    tw32 = {k: v.detach() for k, v in trainer.weights.items()}
+    tw64 = {k: v.double() for k, v in tw32.items()}
+    tkw = dict(wh_scale=trainer._wh_scale, **trainer._static)
+    stacks = nsf_train.WEIGHT_KEYS
+    grad_bytes = 4 * sum(v.numel() for v in tw32.values())
+    b3, b4 = {}, {}
+    for n in (TRAIN_BATCH, SERVE_BATCH):
+        x = (1.5 * torch.randn(n, D, generator=gen)).to(dev)
+        nops = 3 * 2 * n * L * (Tid * H + 2 * nb * H * H + H * TM)
+        log(f"B3 at N={n}:")
+        loss, lp, grads = nsf_train.nsf_loss_grad_cuda(x, tw32, idx, **tkw)
+        p_loss, p_lp, p_grads = nsf_train.nsf_loss_grad_plain(x, tw32, idx, **tkw)
+        d_loss, d_lp, d_grads = nsf_train.nsf_loss_grad_plain(x.double(), tw64, idx, **tkw)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (loss, lp, *grads.values())):
+            raise AssertionError("B3 produced non-finite values")
+        errs = [hold("loss", loss, p_loss, d_loss, 1e-4), hold("lp", lp, p_lp, d_lp, 1e-3)]
+        errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4) for k in stacks]
+        first = {k: v.clone() for k, v in grads.items()}
+        _, _, again = nsf_train.nsf_loss_grad_cuda(x, tw32, idx, grads=grads, **tkw)
+        torch.cuda.synchronize()
+        drift = max(max_err(again[k], first[k]) for k in stacks)
+        log(f"  a second launch into the same buffers moves a gradient by {drift:.3e} at most "
+            "(limit 1e-5 + 1e-4 relative)")
+        if not all(torch.allclose(again[k], first[k], atol=1e-5, rtol=1e-4) for k in stacks):
+            raise AssertionError("B3: a second launch added to the first one's gradients")
+        packed = nsf_flow_kernel.pack_weights(tw32, idx)
+        run = lambda: nsf_train.nsf_loss_grad_cuda(  # noqa: E731
+            x, tw32, idx, packed=packed, grads=grads, **tkw)
+        run_plain = lambda: nsf_train.nsf_loss_grad_plain(x, tw32, idx, **tkw)  # noqa: E731
+        ms = device_ms(torch, run, 10, kernel="nsf_loss_grad_kernel")
+        plain_ms = device_ms(torch, run_plain, 3)
+        nbytes = weight_bytes + grad_bytes + 4 * n * (D + 1)
+        bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
+        bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nops / 1e9:.1f} GFLOP)  {nops / ms / 1e9:.1f} TFLOP/s")
+        b3[n] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
+
+        log(f"B4 at N={n}:")
+        gy = (torch.randn(n, D, generator=gen) / n).to(dev)
+        glad = (torch.randn(n, generator=gen) / n).to(dev)
+        gx, grads = nsf_train.nsf_train_bwd_cuda(x, gy, glad, tw32, idx, **tkw)
+        p_gx, p_grads = nsf_train.nsf_train_bwd_plain(x, gy, glad, tw32, idx, **tkw)
+        d_gx, d_grads = nsf_train.nsf_train_bwd_plain(
+            x.double(), gy.double(), glad.double(), tw64, idx, **tkw)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (gx, *grads.values())):
+            raise AssertionError("B4 produced non-finite values")
+        log(f"  largest |gx * N|: {float((d_gx * n).abs().max()):.3f}")
+        errs = [hold("gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)]
+        errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4) for k in stacks]
+        run = lambda: nsf_train.nsf_train_bwd_cuda(  # noqa: E731
+            x, gy, glad, tw32, idx, packed=packed, grads=grads, **tkw)
+        run_plain = lambda: nsf_train.nsf_train_bwd_plain(  # noqa: E731
+            x, gy, glad, tw32, idx, **tkw)
+        ms = device_ms(torch, run, 10, kernel="nsf_train_bwd_kernel")
+        plain_ms = device_ms(torch, run_plain, 3)
+        nbytes = weight_bytes + grad_bytes + 4 * n * (3 * D + 1)
+        bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
+        bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nops / 1e9:.1f} GFLOP)  {nops / ms / 1e9:.1f} TFLOP/s")
+        b4[n] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
+
+    # -- phase 7: the trainers on the card --------------------------------------
+    import copy
+
+    adam = lambda params: torch.optim.Adam(params, lr=3e-4)  # noqa: E731
+    mix = torch.randn(D, D, generator=gen).to(dev) / D ** 0.5
+
+    def batches(n, count, seed):
+        """Seeded synthetic data: correlated Gaussian features, scale 1.5."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [1.5 * torch.randn(n, D, generator=g, device=dev) @ mix + 0.5
+                for _ in range(count)]
+
+    def routes(n):
+        """Fresh trainers of the three routes from the flagship's initial
+        weights: name -> step(batch) -> loss, and the objects behind them."""
+        fused_tr = fused_trainer(copy.deepcopy(flow), n)
+        split_tr = fused_trainer(copy.deepcopy(flow), n)
+        split_opt = split_tr.init_opt(adam)
+        state = create_train_state(copy.deepcopy(flow).train(), adam)
+        eager_step = make_train_step()
+
+        def autograd_step(batch):
+            # the composable route: loss_fn under autograd, B2 then B4
+            split_opt.zero_grad(set_to_none=True)
+            loss = split_tr.loss_fn(split_tr.weights, batch)
+            loss.backward()
+            split_opt.step()
+            return loss.detach()
+
+        steps = {
+            "fused": fused_tr.make_train_step(fused_tr.init_opt(adam)),
+            "fused-autograd": autograd_step,
+            "eager": lambda batch: eager_step(state, batch)[1]["loss"],
+        }
+        return steps, fused_tr, state
+
+    steps, fused_tr, state = routes(TRAIN_BATCH)
+    data = batches(TRAIN_BATCH, TRAIN_STEPS, seed=3)
+    losses = {}
+    for name, expected in (("fused", dict(B3=1)), ("fused-autograd", dict(B2=1, B4=1)),
+                           ("eager", dict(B1=L))):
+        reset_counts()
+        first = steps[name](data[0])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"training ({name}): launches a step {counts}")
+        expect_counts(f"one {name} step", counts, **expected)
+        for kid in expected:
+            launches.setdefault(kid, counts[kid])
+        rest = [steps[name](batch) for batch in data[1:]]
+        losses[name] = [float(v) for v in [first, *rest]]
+        log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
+            f"{losses[name][0]:.4f} -> {losses[name][-1]:.4f}")
+        if not all(np.isfinite(losses[name])) or not losses[name][-1] < losses[name][0]:
+            raise AssertionError(f"{name}: the loss is not finite and falling: {losses[name]}")
+    for name in ("fused-autograd", "eager"):
+        gap = max(abs(a - b) for a, b in zip(losses["fused"][:3], losses[name][:3]))
+        log(f"  first three losses, fused vs {name}: {gap:.3e} apart (limit 2e-3)")
+        if gap > 2e-3:
+            raise AssertionError(f"the fused and {name} routes disagree at the start")
+    held = batches(TRAIN_BATCH, 1, seed=4)[0]
+    trained = fused_tr.to_flow().eval()
+    served_lp = CompiledFlow(trained, batch_size=TRAIN_BATCH, features=D).log_prob(held)
+    _, trainer_lp, _ = nsf_train.nsf_loss_grad_cuda(
+        held, fused_tr.weights, fused_tr._indices, wh_scale=fused_tr._wh_scale,
+        **fused_tr._static)
+    gap = max_err(served_lp, trainer_lp)
+    log(f"  to_flow() served through CompiledFlow vs the trainer's log_prob: {gap:.3e} "
+        "(limit 1e-3)")
+    if gap > 1e-3:
+        raise AssertionError("the trained flow served disagrees with the trainer")
+    eager_gap = max_err(served_lp, state.flow.log_prob(held).detach())
+    log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: {eager_gap:.3e}")
+
+    log("train step times (host clock over 20 steps ending in a synchronise; device busy "
+        "from torch.profiler):")
+    step_ms = {}
+    for n in (TRAIN_BATCH, 2048, SERVE_BATCH):
+        steps, fused_tr, _ = routes(n)
+        data = batches(n, 4, seed=5)
+        for name, step in steps.items():
+            for batch in data[:3]:
+                step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(20):
+                step(data[i % 4])
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 20
+            busy = device_ms(torch, lambda: step(data[0]), 10)  # noqa: B023
+            step_ms[(name, n)] = wall
+            log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
+                f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
+        repack = device_ms(torch, lambda: fused_tr._repack(fused_tr.weights), 20)  # noqa: B023
+        log(f"  batch {n}: re-packing the weights for the forward GEMMs {repack:.4f} ms a step")
+    faster = [n for n in (TRAIN_BATCH, 2048, SERVE_BATCH)
+              if step_ms[("fused", n)] < step_ms[("eager", n)]]
+    log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes the "
+        f"fused route from batch {MIN_AUTO_BATCH['nsf']}")
+
+    # -- phase 8: the kernels line ---------------------------------------------
     rows = []
     for kid, stats, source, replaces, tpu in (
             ("B1", b1[SERVE_BATCH * 3], "nflows_tpu_torch/csrc/rq_spline.cu",
              "nflows_tpu/ops/pallas/rq_spline.py:39", "ops/pallas/rq_spline.py:_kernel"),
             ("B2", b2[SERVE_BATCH], "nflows_tpu_torch/csrc/nsf_flow_kernel.cu",
              "nflows_tpu/ops/pallas/nsf_flow_kernel.py:1095",
-             "ops/pallas/nsf_flow_kernel.py:_kernel")):
+             "ops/pallas/nsf_flow_kernel.py:_kernel"),
+            ("B3", b3[TRAIN_BATCH], "nflows_tpu_torch/csrc/nsf_train.cu",
+             "nflows_tpu/ops/pallas/nsf_train.py:295",
+             "ops/pallas/nsf_train.py:_loss_grad_kernel"),
+            ("B4", b4[TRAIN_BATCH], "nflows_tpu_torch/csrc/nsf_train.cu",
+             "nflows_tpu/ops/pallas/nsf_train.py:163",
+             "ops/pallas/nsf_train.py:_bwd_kernel")):
         rows.append({
-            "name": {"B1": "rq_spline", "B2": "nsf_flow_kernel"}[kid], "id": kid,
+            "name": {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
+                     "B4": "nsf_train_bwd"}[kid], "id": kid,
             "route": "cuda", "source": source, "replaces": replaces, "tpu": tpu,
             "launches": launches[kid], "max_abs_err": stats["err"], "max_err": stats["err"],
             "ms": stats["ms"], "kernel_ms": stats["ms"], "plain_ms": stats["plain_ms"],

@@ -9,12 +9,22 @@ caller passes ``device="cpu"``.
 
 from nflows_tpu_torch.version import VERSION, __version__
 
-from nflows_tpu_torch import distributions, flows, models, transforms, utils
+from nflows_tpu_torch import distributions, flows, models, training, transforms, utils
 from nflows_tpu_torch.flows.base import Flow
-from nflows_tpu_torch.interop import load_jax_params
+from nflows_tpu_torch.interop import load_jax_params, load_jax_trainer_weights
 from nflows_tpu_torch.models.nsf import NeuralSplineFlow
 from nflows_tpu_torch.serving import CompiledFlow
 
+from nflows_tpu_torch.training import (
+    TrainState,
+    create_train_state,
+    fused_trainer,
+    make_train_step,
+    nll_loss,
+)
+
 __all__ = ["VERSION", "__version__", "distributions", "flows", "models",
-           "transforms", "utils", "Flow", "NeuralSplineFlow", "CompiledFlow",
-           "load_jax_params"]
+           "training", "transforms", "utils", "Flow", "NeuralSplineFlow",
+           "CompiledFlow", "load_jax_params", "load_jax_trainer_weights",
+           "TrainState", "create_train_state", "make_train_step", "nll_loss",
+           "fused_trainer"]

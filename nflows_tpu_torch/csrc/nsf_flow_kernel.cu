@@ -18,9 +18,10 @@
 // global memory, where they stay resident in the 50 MB L2 across blocks.
 // - The activations h and t of the tile live in shared memory,
 //   feature-major ([H][ROWS] fp32); they never touch device memory.
-// - Each GEMM is a register-tiled fp32 FMA loop in the SIMT layout of
-//   CUTLASS: a warp owns 32 samples x 32 columns, a lane 8 x 4 of them, so
-//   each shared-memory float4 a lane loads is shared with other lanes.
+// - Each GEMM (tile_gemm.cuh, shared with the training kernels) is a
+//   register-tiled fp32 FMA loop in the SIMT layout of CUTLASS: a warp
+//   owns 32 samples x 32 columns, a lane 8 x 4 of them, so each
+//   shared-memory float4 a lane loads is shared with other lanes.
 //   One block fills an SM's shared memory, so its warps are all the SM
 //   has: the small warp tile gives 8 warps per 32-sample tile and 16 per
 //   64-sample tile, for latency hiding. Weight rows are
@@ -28,7 +29,9 @@
 //   double-buffered, so the next chunk's copy overlaps this chunk's FMAs.
 // - The conditioner's output P ([TM][ROWS], K-major as extracted) stays in
 //   shared memory; one thread per (sample, transformed feature) runs the
-//   shared rq_spline_eval (rq_spline.cuh) on it with stride T.
+//   shared rq_spline_eval (rq_spline.cuh) on it with stride T. Weights that
+//   do not carry the softmax 1/sqrt(H) (the trainers') get it on the width
+//   and height rows of P first (wh_scale).
 // - Permutation, split and merge use the per-layer index lists of
 //   NSFLayerIndices, read from a small int array.
 // - The ragged last tile computes on zero rows and skips their stores.
@@ -38,11 +41,13 @@
 #include <stdint.h>
 
 #include "rq_spline.cuh"
+#include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int KC = 32;   // weight rows per staged chunk
-constexpr int OC = 256;  // output columns per pass (32 lanes x 8)
+using nflows::KC;
+using nflows::OC;
+using nflows::tile_gemm;
 
 struct FlowArgs {
   const float* x;
@@ -58,125 +63,9 @@ struct FlowArgs {
   const float* bf;  // [L][TMp]
   const int* idx;   // [L][2 Tid + 2 T + 2 D]
   int inverse;
+  float wh_scale;   // multiplies the width and height rows of P (1: already folded)
   nflows::RQConfig cfg;
 };
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// out[o][s] (= or +=) g(sum_k f(in[k][s]) W[k][o] + bias[o]) for the ROWS
-// samples of the tile; f is relu when relu_in, g when relu_out. Activations are
-// feature-major in shared memory ([features][ROWS]); W is [I][O] in global
-// memory, I and O multiples of 4. Warps tile the pass as (ROWS/32) x 8
-// blocks of 32 samples x 32 columns; lanes as 4 x 8, each lane owning
-// samples {4ls..4ls+3, 4ls+16..4ls+19} and columns {4lc..4lc+3} of its
-// warp's block, so every float4 it loads serves 8 (activations) or 4
-// (weights) lanes. A warp with no live columns in the pass skips its
-// FMAs. Ends with a barrier.
-template <int ROWS, bool RELU>
-__device__ __forceinline__ void chunk_fma(const float* in_c, const float* ws, int kn,
-                                          int s_off, int c_off, float (&acc)[8][4]) {
-#pragma unroll 4
-  for (int k = 0; k < kn; ++k) {
-    float4 a0 = *reinterpret_cast<const float4*>(in_c + k * ROWS + s_off);
-    float4 a1 = *reinterpret_cast<const float4*>(in_c + k * ROWS + s_off + 16);
-    if (RELU) {
-      a0.x = fmaxf(a0.x, 0.0f); a0.y = fmaxf(a0.y, 0.0f);
-      a0.z = fmaxf(a0.z, 0.0f); a0.w = fmaxf(a0.w, 0.0f);
-      a1.x = fmaxf(a1.x, 0.0f); a1.y = fmaxf(a1.y, 0.0f);
-      a1.z = fmaxf(a1.z, 0.0f); a1.w = fmaxf(a1.w, 0.0f);
-    }
-    const float4 b0 = *reinterpret_cast<const float4*>(ws + k * OC + c_off);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
-template <int ROWS>
-__device__ void tile_gemm(const float* in, int I, const float* __restrict__ W,
-                          const float* __restrict__ bias, int O, float* out, bool relu_in,
-                          bool relu_out, bool accumulate, float* wst) {
-  constexpr int NT = ROWS * 8;
-  constexpr int SW = ROWS / 32;  // warps along the samples
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int s_off = (warp % SW) * 32 + (lane & 3) * 4;
-  const int c_off = (warp / SW) * 32 + (lane >> 2) * 4;
-  const int nchunks = (I + KC - 1) / KC;
-  for (int oc = 0; oc < O; oc += OC) {
-    const int live = min(OC, O - oc);  // live columns in this pass
-    const bool active = (warp / SW) * 32 < live;
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    auto stage = [&](int c) {
-      float* dst = wst + (c & 1) * KC * OC;
-      const int k0 = c * KC;
-      const int kn = min(KC, I - k0);
-      const int f4 = live / 4;
-      for (int e = tid; e < kn * f4; e += NT) {
-        const int r = e / f4, c4 = (e % f4) * 4;
-        cp_async16(dst + r * OC + c4, W + (size_t)(k0 + r) * O + oc + c4, 16);
-      }
-      cp_async_commit();
-    };
-
-    stage(0);
-    for (int c = 0; c < nchunks; ++c) {
-      if (c + 1 < nchunks) stage(c + 1);
-      else cp_async_commit();
-      cp_async_wait_one();
-      __syncthreads();
-      if (active) {
-        const float* ws = wst + (c & 1) * KC * OC;
-        const float* in_c = in + c * KC * ROWS;
-        const int kn = min(KC, I - c * KC);
-        if (relu_in) chunk_fma<ROWS, true>(in_c, ws, kn, s_off, c_off, acc);
-        else chunk_fma<ROWS, false>(in_c, ws, kn, s_off, c_off, acc);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = oc + c_off + j;
-      if (col < O) {
-        const float bj = bias[col];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float4* dst = reinterpret_cast<float4*>(out + (size_t)col * ROWS + s_off + 16 * half);
-          float4 v = make_float4(acc[4 * half + 0][j] + bj, acc[4 * half + 1][j] + bj,
-                                 acc[4 * half + 2][j] + bj, acc[4 * half + 3][j] + bj);
-          if (accumulate) {
-            const float4 o = *dst;
-            v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
-          }
-          if (relu_out) {
-            v.x = fmaxf(v.x, 0.0f); v.y = fmaxf(v.y, 0.0f);
-            v.z = fmaxf(v.z, 0.0f); v.w = fmaxf(v.w, 0.0f);
-          }
-          *dst = v;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
 
 template <int ROWS>
 __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
@@ -231,7 +120,12 @@ __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
     tile_gemm<ROWS>(hbuf, H, a.wf + (size_t)l * H * TMp, a.bf + (size_t)l * TMp, TMp, tbuf,
                     false, false, false, wst);
 
-    // P = tbuf is [TM][ROWS], K-major rows: parameter j of feature t at row j*T + t
+    // P = tbuf is [TM][ROWS], K-major rows: parameter j of feature t at row j*T + t;
+    // weights that do not carry the softmax 1/sqrt(H) get it here
+    if (a.wh_scale != 1.0f) {
+      for (int e = tid; e < 2 * K * T * ROWS; e += NT) tbuf[e] *= a.wh_scale;
+      __syncthreads();
+    }
     for (int e = tid; e < T * ROWS; e += NT) {
       const int t = e / ROWS, s = e % ROWS;
       const float* P = tbuf + t * ROWS + s;
@@ -281,7 +175,8 @@ extern "C" int nsf_flow_launch(const float* x, float* y, float* lad, int64_t n, 
                                int H, int Tid, int I4, int T, int TMp, int nb2,
                                const float* w0, const float* b0, const float* wb,
                                const float* bb, const float* wf, const float* bf,
-                               const int* idx, int inverse, int num_bins, float tail_bound,
+                               const int* idx, int inverse, float wh_scale, int num_bins,
+                               float tail_bound,
                                float min_bin_width, float min_bin_height,
                                float min_derivative, int rows_per_block, void* stream) {
   if (n == 0) return 0;
@@ -294,6 +189,7 @@ extern "C" int nsf_flow_launch(const float* x, float* y, float* lad, int64_t n, 
   a.nb2 = nb2;
   a.w0 = w0; a.b0 = b0; a.wb = wb; a.bb = bb; a.wf = wf; a.bf = bf; a.idx = idx;
   a.inverse = inverse;
+  a.wh_scale = wh_scale;
   a.cfg = nflows::RQConfig{num_bins, tail_bound, min_bin_width, min_bin_height, min_derivative,
                            1.0f};
   cudaStream_t s = (cudaStream_t)stream;

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "load_jax_trainer_weights"]
 
 
 def _jax_key_to_name(key: str) -> str:
@@ -66,3 +66,25 @@ def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None
         for name, value in values.items():
             target = state[name]
             target.copy_(torch.from_numpy(np.array(value)).to(target.dtype))
+
+
+def load_jax_trainer_weights(trainer, weights: Mapping[str, np.ndarray]) -> None:
+    """Write the JAX fused trainer's kernel-layout weights (``w0``, ``b0``,
+    ``wb``, ``bb``, ``wf``, ``bf`` as numpy arrays) into the port's
+    ``trainer.weights``, in place. The two layouts are equal by
+    construction, so nothing is transposed. Raises on a missing key, an
+    unexpected key or a shape mismatch."""
+    missing = sorted(set(trainer.weights) - set(weights))
+    unexpected = sorted(set(weights) - set(trainer.weights))
+    if missing or unexpected:
+        raise KeyError(
+            f"load_jax_trainer_weights: missing {missing}, unexpected {unexpected}")
+    values = {k: np.asarray(v) for k, v in weights.items()}
+    for k, target in trainer.weights.items():
+        if tuple(values[k].shape) != tuple(target.shape):
+            raise ValueError(
+                f"load_jax_trainer_weights: {k} has shape {tuple(values[k].shape)}, "
+                f"the port expects {tuple(target.shape)}")
+    with torch.no_grad():
+        for k, target in trainer.weights.items():
+            target.copy_(torch.from_numpy(np.array(values[k])).to(target.dtype))

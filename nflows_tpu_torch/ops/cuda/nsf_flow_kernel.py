@@ -4,11 +4,14 @@
 
 Weights come in the layout ``nsf_fused._extract`` gives, which is the JAX
 package's: w0 [L, H, Tid], b0 [L, H, 1], wb [L, 2 nb, H, H] (out, in),
-bb [L, 2 nb, H, 1], wf [L, TM, H] with K-major rows and the softmax
-1/sqrt(H) folded in, bf [L, TM, 1]. :func:`pack_weights` re-lays them once
-for the kernel: in-major [in, out] matrices, the initial layer's inputs
-and the final layer's outputs zero-padded to multiples of 4, and the
-per-layer index lists as one int32 array.
+bb [L, 2 nb, H, 1], wf [L, TM, H] with K-major rows, bf [L, TM, 1]. The
+softmax 1/sqrt(H) is either folded into the width and height rows of wf and
+bf (serving) or applied by the kernel to those rows of the conditioner's
+output (``wh_scale``; training, where the weights stay a pure transpose of
+the model's). :func:`pack_weights` re-lays them for the kernel: in-major
+[in, out] matrices, the initial layer's inputs and the final layer's outputs
+zero-padded to multiples of 4, and the per-layer index lists as one int32
+array.
 
 Samples are rows here: x is [N, D] and the result is (y [N, D], lad [N]).
 This slice covers the rq family in fp32 without context.
@@ -54,47 +57,55 @@ def shared_memory_bytes(rows: int, D: int, H: int, Tid: int, T: int,
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nsf_flow_launch.argtypes = (
-        [p, p, p, ctypes.c_int64] + [i] * 8 + [p] * 7 + [i, i] + [f] * 4
+        [p, p, p, ctypes.c_int64] + [i] * 8 + [p] * 7 + [i, f, i] + [f] * 4
         + [i, p])
     lib.nsf_flow_launch.restype = i
 
 
-def pack_weights(weights: Dict[str, torch.Tensor],
-                 layer_indices: Sequence) -> Dict[str, torch.Tensor]:
+def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
+                 out: Dict[str, torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Kernel layout of the extracted weights (fp32, contiguous, on the
-    weights' device)."""
+    weights' device). With ``out``, an earlier result for the same model,
+    the matrices are copied into its tensors and the index array is kept:
+    the trainers re-pack this way after each optimizer step."""
     w0, wf = weights["w0"], weights["wf"]
     L, H, Tid = w0.shape
     TM = wf.shape[1]
     I4, TMp = _round4(Tid), _round4(TM)
     dev = w0.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    pw0 = torch.zeros(L, I4, H, **f32)
-    pw0[:, :Tid] = w0.transpose(1, 2)
-    pwf = torch.zeros(L, H, TMp, **f32)
-    pwf[:, :, :TM] = wf.transpose(1, 2)
-    pbf = torch.zeros(L, TMp, **f32)
-    pbf[:, :TM] = weights["bf"][..., 0]
-    idx = torch.tensor(
-        [list(li.id_rows) + list(li.tr_rows) + list(li.merge_fwd)
-         + list(li.id_idx) + list(li.tr_idx) + list(li.merge_inv)
-         for li in layer_indices], dtype=torch.int32, device=dev)
-    return dict(
-        w0=pw0, b0=weights["b0"][..., 0].float().contiguous(),
-        wb=weights["wb"].transpose(2, 3).float().contiguous(),
-        bb=weights["bb"][..., 0].float().contiguous(),
-        wf=pwf, bf=pbf, idx=idx,
-    )
+    if out is None:
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = dict(
+            w0=torch.zeros(L, I4, H, **f32), wb=torch.empty(weights["wb"].shape, **f32),
+            wf=torch.zeros(L, H, TMp, **f32), bf=torch.zeros(L, TMp, **f32),
+            idx=torch.tensor(
+                [list(li.id_rows) + list(li.tr_rows) + list(li.merge_fwd)
+                 + list(li.id_idx) + list(li.tr_idx) + list(li.merge_inv)
+                 for li in layer_indices], dtype=torch.int32, device=dev))
+    with torch.no_grad():
+        out["w0"][:, :Tid].copy_(w0.transpose(1, 2))
+        out["wb"].copy_(weights["wb"].transpose(2, 3))
+        out["wf"][:, :, :TM].copy_(wf.transpose(1, 2))
+        out["bf"][:, :TM].copy_(weights["bf"][..., 0])
+        # the biases need no re-laying: views where the weights are fp32
+        out["b0"] = weights["b0"][..., 0].detach().float().contiguous()
+        out["bb"] = weights["bb"][..., 0].detach().float().contiguous()
+    return out
 
 
 def nsf_flow_kernel_plain(
     x: torch.Tensor, weights: Dict[str, torch.Tensor], layer_indices,
     *, inverse: bool, num_blocks: int, num_bins: int, tail_bound: float,
     min_bin_width: float, min_bin_height: float, min_derivative: float,
+    wh_scale: float = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chain in plain PyTorch on the extracted weights, step by step as
     the kernel runs it (boundary derivatives exactly 1). Computes in x's
-    dtype, so float64 inputs and weights give a high-precision reference."""
+    dtype, so float64 inputs and weights give a high-precision reference.
+    ``wh_scale`` multiplies the width and height parameters before the
+    spline, for weights extracted without the softmax rescale folded in.
+    Differentiable: the training kernels' plain versions are autograd over
+    this function."""
     K = num_bins
     n = x.shape[0]
     lad = torch.zeros(n, dtype=x.dtype, device=x.device)
@@ -115,6 +126,8 @@ def nsf_flow_kernel_plain(
             h = h + t
         P = h @ weights["wf"][l].T + weights["bf"][l, :, 0]       # [n, TM]
         P = P.reshape(n, -1, T).transpose(1, 2)                   # [n, T, 3K-1]
+        if wh_scale is not None:
+            P = torch.cat([P[..., :2 * K] * wh_scale, P[..., 2 * K:]], dim=-1)
         one = torch.ones_like(P[..., :1])
         derivs = torch.cat(
             [one, min_derivative + rq_ref._softplus(P[..., 2 * K:]), one], dim=-1)
@@ -130,16 +143,18 @@ def nsf_flow_kernel_cuda(
     x: torch.Tensor, weights: Dict[str, torch.Tensor], layer_indices,
     *, inverse: bool, num_blocks: int, num_bins: int, tail_bound: float,
     min_bin_width: float, min_bin_height: float, min_derivative: float,
-    packed: Dict[str, torch.Tensor] = None,
+    packed: Dict[str, torch.Tensor] = None, wh_scale: float = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the chain: x [N, D] -> (y [N, D], logabsdet [N]).
 
     ``packed`` is :func:`pack_weights` of ``weights``, built here when not
-    given (callers that launch repeatedly keep it)."""
+    given (callers that launch repeatedly keep it). ``wh_scale``: see
+    :func:`nsf_flow_kernel_plain`; None leaves the parameters as they are."""
     global launch_count
     kw = dict(inverse=inverse, num_blocks=num_blocks, num_bins=num_bins,
               tail_bound=tail_bound, min_bin_width=min_bin_width,
-              min_bin_height=min_bin_height, min_derivative=min_derivative)
+              min_bin_height=min_bin_height, min_derivative=min_derivative,
+              wh_scale=wh_scale)
     if x.device.type == "cpu":
         return nsf_flow_kernel_plain(x, weights, layer_indices, **kw)
     if packed is None:
@@ -183,7 +198,8 @@ def nsf_flow_kernel_cuda(
             packed["w0"].data_ptr(), packed["b0"].data_ptr(),
             packed["wb"].data_ptr(), packed["bb"].data_ptr(),
             packed["wf"].data_ptr(), packed["bf"].data_ptr(),
-            packed["idx"].data_ptr(), int(inverse), num_bins, tail_bound,
+            packed["idx"].data_ptr(), int(inverse),
+            1.0 if wh_scale is None else wh_scale, num_bins, tail_bound,
             min_bin_width, min_bin_height, min_derivative, rows, stream)
     launch_count += 1
     _build.check(code, "nsf_flow_launch")

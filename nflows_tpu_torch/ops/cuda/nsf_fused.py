@@ -80,10 +80,15 @@ def can_fuse_nsf(flow) -> bool:
         return False
 
 
-def _extract(flow, dtype):
+def _extract(flow, dtype, fold_wh_scale=True):
     """Re-lay a qualifying flow's weights for B2, in the JAX package's
     layout. Returns (layer_indices, weights, static, features,
-    context_features)."""
+    context_features).
+
+    ``fold_wh_scale=False`` leaves the softmax 1/sqrt(hidden) rescale out of
+    the final layer's width and height rows; the kernel then applies it
+    (``wh_scale``). Every weight is then a transpose or permutation of the
+    model's own, which is what the fused trainer optimises."""
     from nflows_tpu_torch.distributions.normal import StandardNormal
     from nflows_tpu_torch.nn.nets.resnet import ResidualNet
     from nflows_tpu_torch.transforms.coupling import (
@@ -153,15 +158,18 @@ def _extract(flow, dtype):
         linears = [lin for blk in net.blocks for lin in (blk.linear_0, blk.linear_1)]
         wbs.append(torch.stack([lin.weight.detach().float() for lin in linears]))
         bbs.append(torch.stack([lin.bias.detach().float()[:, None] for lin in linears]))
-        # final layer: rows K-major (new row j*T+t = old t*M+j) and the
-        # softmax 1/sqrt(H) folded into the width/height rows
+        # final layer: rows K-major (new row j*T+t = old t*M+j) and, when
+        # folding, the softmax 1/sqrt(H) on the width/height rows
         wf = net.final_layer.weight.detach().float()
         order = torch.tensor([t * M + j for j in range(M) for t in range(T)],
                              device=wf.device)
-        scale = torch.ones(T * M, dtype=torch.float32, device=wf.device)
-        scale[:2 * K * T] = float(np.float32(1.0 / np.sqrt(H)))
-        wfs.append(wf[order] * scale[:, None])
-        bfs.append((net.final_layer.bias.detach().float()[order] * scale)[:, None])
+        wf, bf = wf[order], net.final_layer.bias.detach().float()[order]
+        if fold_wh_scale:
+            scale = torch.ones(T * M, dtype=torch.float32, device=wf.device)
+            scale[:2 * K * T] = float(np.float32(1.0 / np.sqrt(H)))
+            wf, bf = wf * scale[:, None], bf * scale
+        wfs.append(wf)
+        bfs.append(bf[:, None])
 
     (K, T, Tid, H, num_blocks, tail_bound, mbw, mbh, md) = ref_cfg
     if dtype != torch.float32:

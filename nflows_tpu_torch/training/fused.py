@@ -1,0 +1,64 @@
+"""Selection of the fused trainer (counterpart of
+nflows_tpu/training/fused.py).
+
+``fused_trainer(flow, batch_size)`` probes the flow's structure and returns
+the matching trainer: :class:`FusedNSFTrainer` for RQ coupling chains, the
+one family ported so far. A flow that matches no kernel raises with the
+prober's reason (or gives ``None`` with ``required=False``), and
+``training.make_train_step`` (the eager route) is then the path.
+"""
+
+from __future__ import annotations
+
+__all__ = ["fused_trainer", "MIN_AUTO_BATCH"]
+
+# Smallest batch at which the fused step was faster than the eager step, by
+# family; None: never at a measured batch. Measured by chip_smoke.py on the
+# flagship NSF (features 6, hidden 256, 10 layers, 8 bins) with Adam, as the
+# wall time of a step on one NVIDIA H100 80GB HBM3 with a 700.00 W power
+# limit: fused 3.48, 3.54 and 3.66 ms against eager 70.6, 92.1 and 77.1 ms
+# at batches 512, 2,048 and 4,096 (the eager step is host-bound, its device
+# work 7.0 to 11.4 ms). The fused step won at every measured batch, so the
+# floor is the smallest batch the trainers take. Another card needs its own
+# measurement.
+MIN_AUTO_BATCH = {
+    "nsf": 128,
+}
+
+
+def fused_trainer(flow, batch_size, required=None, auto=False):
+    """Return the fused trainer matching ``flow``'s structure.
+
+    Args:
+        flow: a ``Flow`` over a StandardNormal base.
+        batch_size: training batch size (a multiple of 128, as in the JAX
+            package).
+        required: when False, return ``None`` instead of raising if no
+            kernel matches. Defaults to ``not auto``.
+        auto: when True, also return ``None`` when the measured crossover
+            (:data:`MIN_AUTO_BATCH`) says the eager route is faster at this
+            batch size.
+    """
+    from nflows_tpu_torch.ops.cuda.nsf_train import FusedNSFTrainer
+
+    if required is None:
+        required = not auto
+    if batch_size % 128:
+        raise ValueError(
+            f"batch_size={batch_size} must be a multiple of 128 (the kernel "
+            "lane width of the JAX package, kept so that one call behaves "
+            "the same in both)")
+    try:
+        trainer = FusedNSFTrainer(flow, batch_size=batch_size)
+    except (ValueError, AttributeError) as e:
+        if not required:
+            return None
+        raise ValueError(
+            "this flow matches no fused training kernel -- train it on the "
+            "eager route (training.make_train_step). Prober reasons:\n  "
+            f"FusedNSFTrainer: {e}") from e
+    if auto:
+        floor = MIN_AUTO_BATCH["nsf"]
+        if floor is None or batch_size < floor:
+            return None
+    return trainer

@@ -1,5 +1,5 @@
-"""Kernels B1 and B2 on the card, each against its plain PyTorch version on
-the same CUDA tensors, and the serving path through them.
+"""Kernels B1 to B4 on the card, each against its plain PyTorch version on
+the same CUDA tensors, and the serving and training paths through them.
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -10,14 +10,26 @@ Tolerances, as in chip_smoke.py: B1 1e-4 on outputs and 1e-3 on the
 per-element logabsdet (a log of ratios of small bin quantities, which
 loses more digits); B1 gradients 1e-4 absolute and relative; B2 1e-3 on
 outputs and logabsdet (fp32 GEMMs summed in another order than cuBLAS).
+B3 and B4: log_prob 1e-3 as B2; gradients 2e-4 of the plain version's plus
+1e-3 of its size (the bar the JAX package holds its training kernels to,
+with a relative part because a weight gradient is a sum over the batch taken
+by atomics in another order than autograd's); two launches on the same
+inputs agree within 1e-5 plus 1e-4 relative (only the order of the atomic
+adds differs).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nflows_tpu_torch import CompiledFlow, NeuralSplineFlow
-from nflows_tpu_torch.ops.cuda import nsf_flow_kernel, rq_spline
+from nflows_tpu_torch import (
+    CompiledFlow,
+    NeuralSplineFlow,
+    create_train_state,
+    fused_trainer,
+    make_train_step,
+)
+from nflows_tpu_torch.ops.cuda import nsf_flow_kernel, nsf_train, rq_spline
 from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq
 
@@ -130,3 +142,131 @@ def test_compiled_flow_runs_the_kernels(cuda):
     s, slp = fused.sample_and_log_prob(torch.Generator(device=cuda).manual_seed(4))
     assert torch.isfinite(s).all() and torch.isfinite(slp).all()
     _close(slp, fused.log_prob(s), 5e-3)
+
+
+# -- training kernels B3 and B4 -----------------------------------------------
+
+
+def _trainer(device, features=6, batch=128, **overrides):
+    return nsf_train.FusedNSFTrainer(_flow(device, features, **overrides), batch)
+
+
+def _train_args(tr):
+    return (tr.weights, tr._indices), dict(wh_scale=tr._wh_scale, **tr._static)
+
+
+def _grads_close(got, ref, atol=2e-4, rtol=1e-3):
+    for k in nsf_train.WEIGHT_KEYS:
+        torch.testing.assert_close(got[k], ref[k], atol=atol, rtol=rtol, msg=lambda m: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("features", [6, 5])
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b3_matches_plain(cuda, features, n):
+    """203 leaves a ragged last tile; 16,384 takes 64-sample tiles and gives
+    each block of the persistent grid several tiles."""
+    tr = _trainer(cuda, features)
+    (w, idx), kw = _train_args(tr)
+    x = 1.5 * torch.randn(n, features, generator=torch.Generator().manual_seed(n)).to(cuda)
+    before = nsf_train.loss_grad_launch_count
+    loss, lp, grads = nsf_train.nsf_loss_grad_cuda(x, w, idx, **kw)
+    assert nsf_train.loss_grad_launch_count == before + 1
+    p_loss, p_lp, p_grads = nsf_train.nsf_loss_grad_plain(x, w, idx, **kw)
+    _close(lp, p_lp, 1e-3)
+    _close(loss, p_loss, 1e-4)
+    _grads_close(grads, p_grads)
+
+
+@pytest.mark.parametrize("features", [6, 5])
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b4_matches_plain(cuda, features, n):
+    tr = _trainer(cuda, features)
+    (w, idx), kw = _train_args(tr)
+    g = torch.Generator().manual_seed(n + 1)
+    x = 1.5 * torch.randn(n, features, generator=g).to(cuda)
+    gy = torch.randn(n, features, generator=g).to(cuda) / n
+    glad = torch.randn(n, generator=g).to(cuda) / n
+    before = nsf_train.bwd_launch_count
+    gx, grads = nsf_train.nsf_train_bwd_cuda(x, gy, glad, w, idx, **kw)
+    assert nsf_train.bwd_launch_count == before + 1
+    p_gx, p_grads = nsf_train.nsf_train_bwd_plain(x, gy, glad, w, idx, **kw)
+    torch.testing.assert_close(gx, p_gx, atol=2e-4 / n, rtol=1e-3)
+    _grads_close(grads, p_grads)
+
+
+def test_b3_gradients_do_not_depend_on_the_tile_or_an_earlier_launch(cuda):
+    tr = _trainer(cuda)
+    (w, idx), kw = _train_args(tr)
+    x = 1.5 * torch.randn(1024, 6, generator=torch.Generator().manual_seed(5)).to(cuda)
+    _, lp32, g32 = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=32, **kw)
+    _, lp64, g64 = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=64, **kw)
+    _close(lp32, lp64, 1e-5)
+    _grads_close(g64, g32, atol=1e-5, rtol=1e-4)
+    # a second launch into the same buffers starts from zero again
+    first = {k: v.clone() for k, v in g32.items()}
+    _, _, again = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=32, grads=g32, **kw)
+    assert all(again[k] is g32[k] for k in again)
+    _grads_close(again, first, atol=1e-5, rtol=1e-4)
+
+
+def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    tr = _trainer(cuda)
+    (w, idx), kw = _train_args(tr)
+    x = torch.zeros(128, 6, device=cuda)
+    with pytest.raises(ValueError):
+        nsf_train.nsf_loss_grad_cuda(x.double(), w, idx, **kw)
+    with pytest.raises(ValueError):
+        nsf_train.nsf_loss_grad_cuda(x[:, :5].contiguous(), w, idx, **kw)
+    with pytest.raises(ValueError):
+        nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=48, **kw)
+    with pytest.raises(ValueError):
+        nsf_train.nsf_train_bwd_cuda(x, x, torch.zeros(64, device=cuda), w, idx, **kw)
+    with pytest.raises(ValueError):
+        nsf_train.nsf_loss_grad_cuda(x, {**w, "wf": w["wf"].transpose(1, 2)}, idx, **kw)
+
+
+def _autograd_step(trainer, optimizer):
+    """A train step on the composable route: ``loss_fn`` under autograd, so
+    the backward is the backward kernel's (on the CPU, the plain chain's)."""
+    def step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = trainer.loss_fn(trainer.weights, batch)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+    return step
+
+
+def test_train_steps_launch_the_kernels_and_agree(cuda):
+    """One B3 a fused step; one B2 and one B4 an autograd-route step; the
+    eager route runs B1 in each coupling. Three Adam steps of the three
+    routes from the same weights give the same losses."""
+    import copy
+
+    flow = _flow(cuda)
+    adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
+    fused = fused_trainer(copy.deepcopy(flow), 128)
+    split = fused_trainer(copy.deepcopy(flow), 128)
+    step_fused = fused.make_train_step(fused.init_opt(adam))
+    step_split = _autograd_step(split, split.init_opt(adam))
+    state = create_train_state(copy.deepcopy(flow).train(), adam)
+    step_eager = make_train_step()
+    g = torch.Generator().manual_seed(9)
+    for _ in range(3):
+        batch = (1.5 * torch.randn(128, 6, generator=g)).to(cuda)
+        counts = lambda: (rq_spline.launch_count, nsf_flow_kernel.launch_count,  # noqa: E731
+                          nsf_train.loss_grad_launch_count, nsf_train.bwd_launch_count)
+        c0 = counts()
+        loss_fused = step_fused(batch)
+        c1 = counts()
+        loss_split = step_split(batch)
+        c2 = counts()
+        state, metrics = step_eager(state, batch)
+        c3 = counts()
+        assert tuple(b - a for a, b in zip(c0, c1)) == (0, 0, 1, 0)
+        assert tuple(b - a for a, b in zip(c1, c2)) == (0, 1, 0, 1)
+        assert tuple(b - a for a, b in zip(c2, c3)) == (3, 0, 0, 0)
+        _close(loss_fused, loss_split, 2e-4)
+        _close(loss_fused, metrics["loss"], 2e-4)
+    x = torch.randn(128, 6, generator=g).to(cuda)
+    _close(fused.to_flow().log_prob(x), state.flow.log_prob(x), 5e-3)

@@ -56,6 +56,10 @@ def test_runtime_loads_no_jax():
         "x = torch.randn(16, 6)\n"
         "nt.CompiledFlow(f, 16, 6, device='cpu').log_prob(x)\n"
         "nt.CompiledFlow(f, 16, 6, device='cpu', use_fused=False).log_prob(x)\n"
+        "adam = lambda p: torch.optim.Adam(p, lr=1e-3)\n"
+        "tr = nt.fused_trainer(f, 128)\n"
+        "tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 6))\n"
+        "nt.make_train_step()(nt.create_train_state(f, adam), x)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'nflows_tpu')]\n"
         "print(bad)\n"

@@ -1,12 +1,15 @@
-"""A/B two versions of the whole-chain kernel B2 on one card.
+"""A/B two versions of a whole-chain kernel on one card: B2
+(``nsf_flow_kernel``) or the training kernel B3 (``nsf_train``).
 
-    python3 tools/kernel_ab.py OLD_CSRC_DIR
+    python3 tools/kernel_ab.py OLD_CSRC_DIR [nsf_flow_kernel|nsf_train] [more old dirs]
 
-Builds ``OLD_CSRC_DIR/nsf_flow_kernel.cu`` beside the checkout's own
-``nflows_tpu_torch/csrc/nsf_flow_kernel.cu`` (same nvcc flags), holds both
-against B2's plain version on the full-width flagship (random weights
-from seed 0), and times them in turns (old, new, new, old) at N = 4,096
-and N = 65,536 with torch.profiler device time. Make OLD_CSRC_DIR with
+Builds ``OLD_CSRC_DIR/<kernel>.cu`` beside the checkout's own
+``nflows_tpu_torch/csrc/<kernel>.cu`` (same nvcc flags), holds both against
+the kernel's plain version on the full-width flagship (random weights from
+seed 0), and times them in turns (old, new, new, old) with torch.profiler
+device time: B2 at N = 4,096 and 65,536, B3 at N = 512 and 4,096. Further
+directories are timed as well, each in turns with the checkout's kernel.
+The old source must have the checkout's C interface. Make OLD_CSRC_DIR with
 ``git archive <commit> nflows_tpu_torch/csrc | tar -x -C <dir>`` into a
 directory that .gitignore lists.
 """
@@ -23,7 +26,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main(old_dir: str) -> int:
+def main(kernel: str, old_dirs) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -34,49 +37,78 @@ def main(old_dir: str) -> int:
     from nflows_tpu_torch import NeuralSplineFlow
     from nflows_tpu_torch.ops.cuda import _build
     from nflows_tpu_torch.ops.cuda import nsf_flow_kernel as nfk
+    from nflows_tpu_torch.ops.cuda import nsf_train
     from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line())
-    new = _build.build_all()["nsf_flow_kernel"]
-    nfk._declare(new)
-    old_lib = os.path.join(_build.BUILD_ROOT, "ab_old_libnsf_flow_kernel.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", old_dir, "-o", old_lib,
-                    os.path.join(old_dir, "nsf_flow_kernel.cu")], check=True,
-                   capture_output=True)
-    old = ctypes.CDLL(old_lib)
-    nfk._declare(old)
+    declare = {"nsf_flow_kernel": nfk._declare, "nsf_train": nsf_train._declare}[kernel]
+    new = _build.build_all()[kernel]
+    declare(new)
+    olds = []
+    for i, old_dir in enumerate(old_dirs):
+        old_lib = os.path.join(_build.BUILD_ROOT, f"ab_old{i}_lib{kernel}.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", old_dir, "-o", old_lib,
+                        os.path.join(old_dir, f"{kernel}.cu")], check=True,
+                       capture_output=True)
+        olds.append((f"old{i}" if i else "old", ctypes.CDLL(old_lib)))
+        declare(olds[-1][1])
 
     def use(lib):
         _build.load_library = lambda stem, declare: lib
 
     flow = NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
                             rng=np.random.default_rng(0), device="cuda", **cs.FLAGSHIP)
-    fused = fuse_nsf(flow)
-    args = (fused._weights, fused._indices)
     gen = torch.Generator().manual_seed(1)
-    for n in (4096, 65536):
-        x = torch.randn(n, cs.FLAGSHIP["features"], generator=gen).cuda()
-        for inverse in (False, True):
-            kw = dict(inverse=inverse, **fused._static)
-            p_y, p_lad = nfk.nsf_flow_kernel_plain(x, *args, **kw)
-            for tag, lib in (("old", old), ("new", new)):
+    D = cs.FLAGSHIP["features"]
+
+    def turns(n, what, run, name):
+        for tag, old in olds:
+            times = []
+            for t, lib in ((tag, old), ("new", new), ("new", new), (tag, old)):
                 use(lib)
-                y, lad = nfk.nsf_flow_kernel_cuda(x, *args, packed=fused._packed, **kw)
-                torch.cuda.synchronize()
-                print(f"N={n} inverse={inverse} {tag}: |y-plain| {cs.max_err(y, p_y):.3e} "
-                      f"|lad-plain| {cs.max_err(lad, p_lad):.3e}")
-        kw = dict(inverse=False, **fused._static)
-
-        def run():
-            return nfk.nsf_flow_kernel_cuda(x, *args, packed=fused._packed, **kw)
-
-        times = []
-        for tag, lib in (("old", old), ("new", new), ("new", new), ("old", old)):
-            use(lib)
-            times.append(f"{tag} {cs.device_ms(torch, run, 10, kernel='nsf_flow_kernel'):.4f}")
-        print(f"N={n} forward device ms: " + ", ".join(times))
+                times.append(f"{t} {cs.device_ms(torch, run, 10, kernel=name):.4f}")
+            print(f"N={n} {what} device ms: " + ", ".join(times))
+        use(new)
         print(f"N={n} new, under load: {clocks_under_load(torch, run)}")
+
+    if kernel == "nsf_flow_kernel":
+        fused = fuse_nsf(flow)
+        args = (fused._weights, fused._indices)
+        for n in (4096, 65536):
+            x = torch.randn(n, D, generator=gen).cuda()
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, **fused._static)
+                p_y, p_lad = nfk.nsf_flow_kernel_plain(x, *args, **kw)
+                for tag, lib in (*olds, ("new", new)):
+                    use(lib)
+                    y, lad = nfk.nsf_flow_kernel_cuda(x, *args, packed=fused._packed, **kw)
+                    torch.cuda.synchronize()
+                    print(f"N={n} inverse={inverse} {tag}: |y-plain| {cs.max_err(y, p_y):.3e} "
+                          f"|lad-plain| {cs.max_err(lad, p_lad):.3e}")
+            kw = dict(inverse=False, **fused._static)
+            turns(n, "forward", lambda: nfk.nsf_flow_kernel_cuda(  # noqa: B023
+                x, *args, packed=fused._packed, **kw), "nsf_flow_kernel")
+        return 0
+
+    trainer = nsf_train.FusedNSFTrainer(flow, 512)
+    w = {k: v.detach() for k, v in trainer.weights.items()}
+    kw = dict(wh_scale=trainer._wh_scale, **trainer._static)
+    packed = nfk.pack_weights(w, trainer._indices)
+    for n in (512, 4096):
+        x = (1.5 * torch.randn(n, D, generator=gen)).cuda()
+        _, p_lp, p_grads = nsf_train.nsf_loss_grad_plain(x, w, trainer._indices, **kw)
+        for tag, lib in (*olds, ("new", new)):
+            use(lib)
+            _, lp, grads = nsf_train.nsf_loss_grad_cuda(x, w, trainer._indices,
+                                                        packed=packed, **kw)
+            torch.cuda.synchronize()
+            worst = max(cs.max_err(grads[k], p_grads[k]) for k in grads)
+            print(f"N={n} {tag}: |lp-plain| {cs.max_err(lp, p_lp):.3e} "
+                  f"|grads-plain| {worst:.3e}")
+        grads = {k: torch.empty_like(v) for k, v in w.items()}
+        turns(n, "loss and gradients", lambda: nsf_train.nsf_loss_grad_cuda(  # noqa: B023
+            x, w, trainer._indices, packed=packed, grads=grads, **kw), "nsf_loss_grad_kernel")
     return 0
 
 
@@ -102,6 +134,8 @@ def clocks_under_load(torch, fn, seconds=1.0):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    dirs = [a for a in sys.argv[1:] if a not in ("nsf_flow_kernel", "nsf_train")]
+    kernels = [a for a in sys.argv[1:] if a in ("nsf_flow_kernel", "nsf_train")]
+    if not dirs or len(kernels) > 1:
         sys.exit(__doc__)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(kernels[0] if kernels else "nsf_flow_kernel", dirs))
