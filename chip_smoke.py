@@ -12,13 +12,21 @@ fixed seed) through the entry points a user calls. Serving through
 512 on both routes: fused (``fused_trainer``: kernel B3, one launch a step;
 its composable variant runs B2 forward and B4 backward) and eager
 (``make_train_step``: autograd through the unfused chain, ten B1 a
-forward). Every phase raises on failure, so the exit code is non-zero.
+forward). Then the autoregressive family at full width (features 10,
+hidden 256, 5 layers x 2 blocks, ReversePermutation, no context): the
+whole-chain kernel B9 and its backward B10 against their plain versions on
+a MAF (affine), an NSF-AR (rq, 8 bins) and a wrapped IAF chain; the MAF and
+the NSF-AR served through ``CompiledFlow`` fused (B9, one launch a request)
+and unfused; the MAF trained for 20 Adam steps on the fused route
+(``fused_trainer``: B9 forward and B10 backward a step) and the eager one.
+Every phase raises on failure, so the exit code is non-zero.
 
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
-(a serving request for B1 and B2, a train step for B3 and B4), error
-against its plain version, device time, plain time, bound and library time
-at the main path's shape; the last line is
+(a serving request for B1, B2 and B9, a train step for B3, B4 and B10),
+error against its plain version, device time (``ms_source`` says whether
+torch.profiler or CUDA events gave it), plain time, bound and library time at
+the main path's shape; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Tolerances. Each kernel is held to its plain PyTorch version on the same
@@ -49,6 +57,42 @@ the order of the atomic adds differs. Fused against eager training losses
 over the first three steps: 2e-3 (two different fp32 evaluations of an NLL
 near 10, then Adam steps whose direction can differ where a gradient is
 near zero).
+B9 forward: 1e-3 on outputs and logabsdet, as B2. B9 where it runs the fixed
+point (the inverse of a MAF or NSF-AR, the forward of an IAF): 5e-3, because
+each of the D + 1 MADE passes of a layer feeds its fp32 rounding into the
+next through D features and every layer, so two fp32 evaluations in
+different summation orders drift apart; the float64 plain version bounds
+that drift (the kernel may be no further from it than twice the plain fp32
+version is), and the round trip forward(inverse(z)) must return within 5e-3
+of z and of -logabsdet: the plain version bounds the arithmetic, float64 the
+rounding, the round trip the fixed point itself. Those absolute tolerances
+are held on MAF and IAF chains whose final MADE weights are scaled by 0.1.
+The MAF as initialised is held too, by relative error: there the sampling
+direction is ill-conditioned (samples of N(0, 1) noise reach 1e18, and the
+plain fp32 version is itself up to 2e-2 relative from float64), so the
+per-sample relative error against float64, |a - f64| / (1 + |f64|), the
+largest over a sample's features, is compared between kernel and plain
+version: the kernel's median and 90th percentile over the batch may be at
+most twice the plain version's, its 99th percentile at most four times and
+its maximum at most ten times. The quantiles are what separates a fault at
+extreme scales from rounding: over four seeds the kernel's median and 90th
+percentile were 1.1 to 1.5 times the plain version's (a 256-term sum in one
+fp32 accumulator against cuBLAS's blocked sums) and its 99th percentile 1.0
+to 1.9 times. The maximum is one sample's rounding at the largest condition
+number, and the ratio of two such draws spreads: 0.6 to 3.5 over the same
+seeds, hence ten. B9 with 32- against
+64-sample tiles: 1e-5, a sample's arithmetic does not depend on its tile.
+B10: as B4 (gradient stacks
+2e-4, gx x N 5e-3). Masked weights after 20 Adam steps: bit-equal.
+
+Bounds. ``bound_ms`` is the larger of the bytes a function must move over
+3.35 TB/s and the fp32 operations it needs over 67 TFLOP/s. For B9 and B10
+the operations are counted from the MADE masks of the model in the run: two
+for every weight a mask leaves, once a sample for B9 in either direction
+(the autoregressive inverse needs each hidden unit and each parameter once,
+when the features before it are known), three times for B10. The kernels
+multiply the masked zeros too, and B9's inverse runs D + 1 full passes a
+layer; ``schedule_ms`` is that dense count at the same peak rate.
 """
 
 from __future__ import annotations
@@ -70,6 +114,9 @@ TRAIN_BATCH = 512
 TRAIN_STEPS = 20
 FLAGSHIP = dict(features=6, hidden_features=256, num_layers=10,
                 num_blocks_per_layer=2, num_bins=8, tail_bound=3.0)
+# the autoregressive family at full width: MAF (affine) and NSF-AR (rq)
+MAF = dict(features=10, hidden_features=256, num_layers=5, num_blocks_per_layer=2)
+NSF_AR = dict(**MAF, num_bins=8, tail_bound=3.0)
 
 
 def log(*args):
@@ -100,24 +147,37 @@ def call_ms(torch, fn, iters):
 
 def device_ms(torch, fn, iters, kernel=None):
     """Mean device time of one call of ``fn``: the summed duration of the
-    kernels it runs (those whose name contains ``kernel``, or all), from
-    torch.profiler's CUDA trace. Falls back to :func:`call_ms` if the
-    trace holds no device time."""
+    kernels it runs (those whose name contains ``kernel``, of which ``fn``
+    launches one a call; or all), from torch.profiler's CUDA trace. Falls
+    back to :func:`call_ms` if the trace holds no device time or not every
+    launch of the named kernel. ``device_ms.source`` says which of the two
+    the last reading came from: ``"profiler"`` or ``"events"``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    pad = torch.empty(1, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the trace can lose the records nearest its ends: pad both with a
+        # one-element fill, so that what is lost is the padding
+        pad.zero_()
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+        pad.zero_()
+        torch.cuda.synchronize()
+    total_us, seen = 0.0, 0
     for evt in prof.key_averages():
         if kernel is None or kernel in evt.key:
             total_us += getattr(evt, "self_device_time_total", 0.0) or 0.0
-    if total_us <= 0.0:
-        log("  (profiler saw no device time; timing with CUDA events)")
+            seen += evt.count
+    if total_us <= 0.0 or (kernel is not None and seen != iters):
+        log(f"  (the profiler's trace is incomplete: {seen} records of {kernel or 'any kernel'} "
+            f"for {iters} calls; timing with CUDA events)")
+        device_ms.source = "events"
         return call_ms(torch, fn, iters)
+    device_ms.source = "profiler"
     return total_us / 1e3 / iters
 
 
@@ -149,6 +209,28 @@ def hold_exact(name, kernel, plain32, plain64, tol):
     return err
 
 
+def hold_relative(torch, name, kernel, plain32, plain64):
+    """Hold a kernel to its plain version where values span many orders of
+    magnitude and both fp32 evaluations are far from float64 (see the module
+    doc): per-sample relative errors against float64, the kernel's quantiles
+    against the plain version's."""
+    def quantiles(t):
+        e = (t.double() - plain64).abs() / (1.0 + plain64.abs())
+        e = e.reshape(e.shape[0], -1).max(dim=1).values
+        q = torch.quantile(e, torch.tensor([0.5, 0.9, 0.99], dtype=e.dtype, device=e.device))
+        return [*q.tolist(), float(e.max())]
+
+    k, p = quantiles(kernel), quantiles(plain32)
+    limits = (2.0, 2.0, 4.0, 10.0)
+    ok = all(a <= f * b for a, b, f in zip(k, p, limits))
+    fmt = lambda v: " ".join(f"{x:.2e}" for x in v)  # noqa: E731
+    log(f"  {name}, relative error against f64 (median, 90%, 99%, max): kernel {fmt(k)}  "
+        f"plain {fmt(p)}  limits x2 x2 x4 x10  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the kernel's error is not the plain version's rounding")
+    return k, p
+
+
 def coupling_inputs(flow, x):
     """What the first coupling of ``flow`` hands B1 for inputs ``x``: the
     transformed features and the spline parameters (widths and heights
@@ -173,12 +255,24 @@ def main() -> int:
     sys.path.insert(0, root)
     from nflows_tpu_torch import (
         CompiledFlow,
+        InverseAutoregressiveFlow,
+        MaskedAutoregressiveFlow,
         NeuralSplineFlow,
+        NeuralSplineFlowAR,
         create_train_state,
         fused_trainer,
         make_train_step,
     )
-    from nflows_tpu_torch.ops.cuda import _build, nsf_flow_kernel, nsf_train, rq_spline
+    from nflows_tpu_torch.ops.cuda import (
+        _build,
+        maf_flow_kernel,
+        maf_train,
+        nsf_flow_kernel,
+        nsf_train,
+        rq_spline,
+    )
+    from nflows_tpu_torch.ops.cuda.maf_fused import _extract as extract_maf
+    from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
     from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
     from nflows_tpu_torch.training.fused import MIN_AUTO_BATCH
     from nflows_tpu_torch.ops.splines import rational_quadratic as rq
@@ -239,6 +333,7 @@ def main() -> int:
             run_plain = lambda: rq.unconstrained_rational_quadratic_spline_plain(  # noqa: E731
                 *args, tail_bound=B)
             ms = device_ms(torch, run, 100, kernel="rq_spline_kernel")
+            ms_source = device_ms.source
             plain_ms = device_ms(torch, run_plain, 10)
             log(f"  a call, events: kernel {call_ms(torch, run, 100):.4f} ms  "
                 f"plain {call_ms(torch, run_plain, 10):.4f} ms")
@@ -248,8 +343,8 @@ def main() -> int:
             bound_by = "bytes" if nbytes / PEAK_BYTES >= nops / PEAK_FP32_FLOPS else "operations"
             log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms "
                 f"({bound_by})")
-            b1[n] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+            b1[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
 
     # -- phase 4: B2 against its plain version (full-width flagship) -----------
     fused = fuse_nsf(flow)
@@ -282,6 +377,7 @@ def main() -> int:
             x, w32, idx, packed=fused._packed, **kw)
         run_plain = lambda: nsf_flow_kernel.nsf_flow_kernel_plain(x, w32, idx, **kw)  # noqa: E731
         ms = device_ms(torch, run, 10, kernel="nsf_flow_kernel")
+        ms_source = device_ms.source
         plain_ms = device_ms(torch, run_plain, 5)
         log(f"  a call, events: kernel {call_ms(torch, run, 10):.4f} ms  "
             f"plain {call_ms(torch, run_plain, 5):.4f} ms")
@@ -291,80 +387,96 @@ def main() -> int:
         bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
             f"({bound_by}, {nops / 1e9:.1f} GFLOP)  {nops / ms / 1e9:.1f} TFLOP/s")
-        b2[n] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by)
+        b2[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
 
     # -- phase 5: serving through CompiledFlow ---------------------------------
-    x = torch.randn(SERVE_BATCH, D, generator=gen).to(dev)
-    served = CompiledFlow(flow, batch_size=SERVE_BATCH, features=D)
-    if not served.is_fused:
-        raise AssertionError("CompiledFlow did not select the fused kernel")
-    unfused = CompiledFlow(flow, batch_size=SERVE_BATCH, features=D, use_fused=False)
-
-    def requests(server, seed):
-        """log_prob, then the two sampling requests; launches counted
-        separately for the first request and for the other two."""
-        g = torch.Generator(device=dev).manual_seed(seed)
-        reset_counts()
-        lp = server.log_prob(x)
-        torch.cuda.synchronize()
-        first = read_counts()
-        reset_counts()
-        s = server.sample(g)
-        s2, lp2 = server.sample_and_log_prob(g)
-        torch.cuda.synchronize()
-        return lp, s, s2, lp2, first, read_counts()
-
     def reset_counts():
         rq_spline.launch_count = 0
         nsf_flow_kernel.launch_count = 0
         nsf_train.loss_grad_launch_count = 0
         nsf_train.bwd_launch_count = 0
+        maf_flow_kernel.launch_count = 0
+        maf_train.bwd_launch_count = 0
 
     def read_counts():
         return {"B1": rq_spline.launch_count, "B2": nsf_flow_kernel.launch_count,
-                "B3": nsf_train.loss_grad_launch_count, "B4": nsf_train.bwd_launch_count}
+                "B3": nsf_train.loss_grad_launch_count, "B4": nsf_train.bwd_launch_count,
+                "B9": maf_flow_kernel.launch_count, "B10": maf_train.bwd_launch_count}
 
     def expect_counts(what, counts, **expected):
-        expected = {**dict(B1=0, B2=0, B3=0, B4=0), **expected}
+        expected = {**dict(B1=0, B2=0, B3=0, B4=0, B9=0, B10=0), **expected}
         if counts != expected:
             raise AssertionError(f"{what} launched {counts}, expected {expected}")
 
     launches = {}
-    for name, server, kernel_of_path in (("fused", served, "B2"), ("unfused", unfused, "B1")):
-        lp, s, s2, lp2, first, rest = requests(server, 1)
-        log(f"serving ({name}): launches a request {first}, two more requests {rest}")
-        per_request = {"B2": 1, "B1": L}[kernel_of_path]
-        expect_counts(f"one {name} request", first, **{kernel_of_path: per_request})
-        expect_counts(f"two {name} requests", rest, **{kernel_of_path: 2 * per_request})
-        launches[kernel_of_path] = first[kernel_of_path]
-        for t, shape in ((lp, (SERVE_BATCH,)), (s, (SERVE_BATCH, D)), (s2, (SERVE_BATCH, D)),
-                         (lp2, (SERVE_BATCH,))):
-            if tuple(t.shape) != shape or not torch.isfinite(t).all():
-                raise AssertionError(f"{name}: bad output {tuple(t.shape)}")
-        consistency = max_err(lp2, server.log_prob(s2))
-        log(f"  sample_and_log_prob vs log_prob(samples): {consistency:.3e} (limit 5e-3)")
-        if consistency > 5e-3:
-            raise AssertionError(f"{name}: sample_and_log_prob disagrees with log_prob")
-        if name == "fused":
-            lp_fused = lp
-        else:
-            gap = max_err(lp, lp_fused)
-            log(f"  unfused vs fused log_prob: {gap:.3e} (limit 1e-3)")
-            if gap > 1e-3:
-                raise AssertionError("unfused and fused log_prob disagree")
-        for endpoint, fn in (("log_prob", lambda: server.log_prob(x)),
-                             ("sample", lambda: server.sample(
-                                 torch.Generator(device=dev).manual_seed(2)))):
-            fn()
+
+    def serve(model, flow, features, fused_kernel, unfused_log_prob, unfused_sample):
+        """Serve ``flow`` through CompiledFlow on both paths: a log_prob
+        request, then the two sampling requests, with the launches of each
+        counted from zero; ``fused_kernel`` must run once a fused request,
+        and the unfused path must launch exactly ``unfused_log_prob`` /
+        ``unfused_sample`` a request."""
+        x = torch.randn(SERVE_BATCH, features, generator=gen).to(dev)
+        served = CompiledFlow(flow, batch_size=SERVE_BATCH, features=features)
+        if not served.is_fused:
+            raise AssertionError(f"{model}: CompiledFlow did not select the fused kernel")
+        unfused = CompiledFlow(flow, batch_size=SERVE_BATCH, features=features,
+                               use_fused=False)
+        lp_fused = None
+        for name, server in (("fused", served), ("unfused", unfused)):
+            g = torch.Generator(device=dev).manual_seed(1)
+            reset_counts()
+            lp = server.log_prob(x)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(10):
+            first = read_counts()
+            reset_counts()
+            s = server.sample(g)
+            s2, lp2 = server.sample_and_log_prob(g)
+            torch.cuda.synchronize()
+            rest = read_counts()
+            log(f"serving {model} ({name}): launches a request {first}, two more requests "
+                f"{rest}")
+            if name == "fused":
+                expect_counts(f"one fused {model} request", first, **{fused_kernel: 1})
+                expect_counts(f"two fused {model} requests", rest, **{fused_kernel: 2})
+                launches.setdefault(fused_kernel, first[fused_kernel])
+            else:
+                expect_counts(f"one unfused {model} request", first, **unfused_log_prob)
+                expect_counts(f"two unfused {model} requests", rest,
+                              **{k: 2 * v for k, v in unfused_sample.items()})
+                for kid in unfused_log_prob:
+                    launches.setdefault(kid, first[kid])
+            for t, shape in ((lp, (SERVE_BATCH,)), (s, (SERVE_BATCH, features)),
+                             (s2, (SERVE_BATCH, features)), (lp2, (SERVE_BATCH,))):
+                if tuple(t.shape) != shape or not torch.isfinite(t).all():
+                    raise AssertionError(f"{model} {name}: bad output {tuple(t.shape)}")
+            consistency = max_err(lp2, server.log_prob(s2))
+            log(f"  sample_and_log_prob vs log_prob(samples): {consistency:.3e} (limit 5e-3)")
+            if consistency > 5e-3:
+                raise AssertionError(
+                    f"{model} {name}: sample_and_log_prob disagrees with log_prob")
+            if name == "fused":
+                lp_fused = lp
+            else:
+                gap = max_err(lp, lp_fused)
+                log(f"  unfused vs fused log_prob: {gap:.3e} (limit 1e-3)")
+                if gap > 1e-3:
+                    raise AssertionError(f"{model}: unfused and fused log_prob disagree")
+            for endpoint, fn in (("log_prob", lambda: server.log_prob(x)),  # noqa: B023
+                                 ("sample", lambda: server.sample(  # noqa: B023
+                                     torch.Generator(device=dev).manual_seed(2)))):
                 fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0) / 10
-            log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
-                f"device busy {device_ms(torch, fn, 10):.3f} ms")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / 10
+                log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
+                    f"device busy {device_ms(torch, fn, 10):.3f} ms")
+
+    serve("NSF", flow, D, "B2", dict(B1=L), dict(B1=L))
 
     # -- phase 6: B3 and B4 against their plain versions (full-width flagship) ----
     trainer = fused_trainer(flow, TRAIN_BATCH)
@@ -399,14 +511,15 @@ def main() -> int:
             x, tw32, idx, packed=packed, grads=grads, **tkw)
         run_plain = lambda: nsf_train.nsf_loss_grad_plain(x, tw32, idx, **tkw)  # noqa: E731
         ms = device_ms(torch, run, 10, kernel="nsf_loss_grad_kernel")
+        ms_source = device_ms.source
         plain_ms = device_ms(torch, run_plain, 3)
         nbytes = weight_bytes + grad_bytes + 4 * n * (D + 1)
         bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
         bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
             f"({bound_by}, {nops / 1e9:.1f} GFLOP)  {nops / ms / 1e9:.1f} TFLOP/s")
-        b3[n] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by)
+        b3[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
 
         log(f"B4 at N={n}:")
         gy = (torch.randn(n, D, generator=gen) / n).to(dev)
@@ -426,14 +539,15 @@ def main() -> int:
         run_plain = lambda: nsf_train.nsf_train_bwd_plain(  # noqa: E731
             x, gy, glad, tw32, idx, **tkw)
         ms = device_ms(torch, run, 10, kernel="nsf_train_bwd_kernel")
+        ms_source = device_ms.source
         plain_ms = device_ms(torch, run_plain, 3)
         nbytes = weight_bytes + grad_bytes + 4 * n * (3 * D + 1)
         bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
         bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
             f"({bound_by}, {nops / 1e9:.1f} GFLOP)  {nops / ms / 1e9:.1f} TFLOP/s")
-        b4[n] = dict(err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by)
+        b4[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
 
     # -- phase 7: the trainers on the card --------------------------------------
     import copy
@@ -535,7 +649,328 @@ def main() -> int:
     log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes the "
         f"fused route from batch {MIN_AUTO_BATCH['nsf']}")
 
+    # -- phase 9: B9 against its plain version (full-width MAF and NSF-AR) ---------
+    def bound(nops, nbytes):
+        by_ops = nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES
+        return (1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES),
+                "operations" if by_ops else "bytes")
+
+    seeded = lambda seed: dict(generator=torch.Generator().manual_seed(seed),  # noqa: E731
+                               rng=np.random.default_rng(seed), device=dev)
+
+    def tame(ar_flow, factor=0.1):
+        """Scale the final MADE layer's weights of every affine AR layer. At
+        the library's initialisation a full-width MAF's fixed point on N(0, 1)
+        noise is ill-conditioned: a large early feature drives the later
+        scales toward 1e-3, and the samples reach 1e13, where absolute errors
+        mean nothing. A trained flow's inverse maps noise to data; smaller
+        final weights give the random model that conditioning."""
+        with torch.no_grad():
+            for t in ar_flow.transform.transforms:
+                net = getattr(getattr(t, "transform", t), "autoregressive_net", None)
+                if net is not None:
+                    net.final_layer.weight.mul_(factor)
+        return ar_flow.eval()
+
+    raw_maf = MaskedAutoregressiveFlow(**MAF, **seeded(0)).eval()
+    maf = tame(MaskedAutoregressiveFlow(**MAF, **seeded(0)))
+    nsf_ar = NeuralSplineFlowAR(**NSF_AR, **seeded(0)).eval()
+    iaf = tame(InverseAutoregressiveFlow(**MAF, use_random_permutations=True, **seeded(1)))
+    DA, HA, LA = MAF["features"], MAF["hidden_features"], MAF["num_layers"]
+    nba = MAF["num_blocks_per_layer"]
+    RAGGED = SERVE_BATCH - 95   # leaves a last tile of one sample
+    LARGE_BATCH = 1 << 16
+    default_rows = maf_flow_kernel.tile_rows(
+        LARGE_BATCH, DA, HA, 2 * DA, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    def masked_ops(n, ar_flow):
+        """fp32 FLOP that one MADE pass of every layer needs on n samples:
+        two for each weight the masks leave (about 55% of the matrices)."""
+        masks = extract_maf(ar_flow, torch.float32, return_masks=True)[-1]
+        return 2 * n * sum(int(m.sum()) for m in masks.values())
+
+    def dense_ops(n, P):
+        """fp32 FLOP of the same pass as the kernels run it: the folded
+        weights' structural zeros are multiplied like any other entry."""
+        return 2 * n * LA * (DA * HA + 2 * nba * HA * HA + HA * P)
+
+    # the MAF as initialised, the configuration a user builds: its sampling
+    # direction on N(0, 1) noise, held by relative error
+    view = fuse_maf(raw_maf)
+    x = torch.randn(SERVE_BATCH, DA, generator=gen).to(dev)
+    kw = dict(inverse=True, num_blocks=view._num_blocks, transformer=view._transformer,
+              spline_kw=view._spline_kw)
+    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+        x, view._weights, view._static, packed=view._packed, **kw)
+    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, view._weights, view._static, **kw)
+    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+        x.double(), {k: v.double() for k, v in view._weights.items()}, view._static, **kw)
+    torch.cuda.synchronize()
+    log(f"B9 on the MAF as initialised, inverse of N(0, 1) noise at N={SERVE_BATCH}: largest "
+        f"|sample| {float(d_y.abs().max()):.3e}")
+    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+        raise AssertionError("B9 produced non-finite values on the MAF as initialised")
+    hold_relative(torch, "inverse out", y, p_y, d_y)
+    hold_relative(torch, "inverse lad", lad, p_lad, d_lad)
+
+    b9 = {}
+    for model, ar_flow in (("MAF", maf), ("NSF-AR", nsf_ar), ("IAF", iaf)):
+        view = fuse_maf(ar_flow)
+        w32 = view._weights
+        w64 = {k: v.double() for k, v in w32.items()}
+        skw = dict(num_blocks=view._num_blocks, transformer=view._transformer,
+                   spline_kw=view._spline_kw)
+        P = w32["wf"].shape[0] // LA
+        ar_bytes = 4 * sum(v.numel() for v in w32.values())
+        need = masked_ops(1, ar_flow)
+        for n in ((SERVE_BATCH,) if model == "IAF" else (SERVE_BATCH, RAGGED)):
+            x = torch.randn(n, DA, generator=gen).to(dev)
+            log(f"B9 on {model} at N={n}:")
+            errs = {}
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, **skw)
+                y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+                    x, w32, view._static, packed=view._packed, **kw)
+                p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w32, view._static, **kw)
+                d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+                    x.double(), w64, view._static, **kw)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                    raise AssertionError("B9 produced non-finite values")
+                tag = "inverse" if inverse else "forward"
+                fixed_point = inverse != (model == "IAF")
+                tol = 5e-3 if fixed_point else 1e-3
+                errs[tag] = max(hold(f"{tag} out", y, p_y, d_y, tol),
+                                hold(f"{tag} lad", lad, p_lad, d_lad, tol))
+                back, lad_back = maf_flow_kernel.maf_flow_kernel_cuda(
+                    y, w32, view._static, packed=view._packed, **{**kw, "inverse": not inverse})
+                trip = max(max_err(back, x), max_err(lad_back, -lad))
+                log(f"  {tag} then back: {trip:.3e} from the input (limit 5e-3)")
+                if trip > 5e-3:
+                    raise AssertionError(f"B9 {model}: the round trip does not close")
+            if model == "IAF" or n != SERVE_BATCH:
+                continue
+            stats = dict(err=errs["forward"], inverse_err=errs["inverse"])
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, **skw)
+                run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+                    x, w32, view._static, packed=view._packed, **kw)
+                run_plain = lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: E731
+                    x, w32, view._static, **kw)
+                ms = device_ms(torch, run, 10, kernel="maf_flow_kernel")
+                ms_source = device_ms.source
+                plain_ms = device_ms(torch, run_plain, 3)
+                log(f"  a call, events: kernel {call_ms(torch, run, 10):.4f} ms  "
+                    f"plain {call_ms(torch, run_plain, 3):.4f} ms")
+                # the bound counts what the function needs: the weights the
+                # masks leave, once. That holds for the inverse too: feature k
+                # depends on the features before it alone, so every hidden unit
+                # and every parameter can be computed once, when its inputs are
+                # known, and the logabsdet comes from the same parameters. The
+                # kernel runs D + 1 dense passes a layer instead.
+                nops = n * need
+                run_ops = dense_ops(n, P) * ((DA + 1) if inverse else 1)
+                io_bytes = ar_bytes + 4 * n * (2 * DA + 1)
+                bound_ms, bound_by = bound(nops, io_bytes)
+                tag = "inverse" if inverse else "forward"
+                log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                    f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
+                    f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
+                    f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
+                    f"{run_ops / ms / 1e9:.1f} TFLOP/s")
+                pre = "inverse_" if inverse else ""
+                stats.update({pre + "ms": ms, pre + "ms_source": ms_source,
+                              pre + "plain_ms": plain_ms,
+                              pre + "bound_ms": bound_ms, pre + "bound_by": bound_by,
+                              pre + "schedule_ms": bound(run_ops, io_bytes)[0]})
+                if inverse:
+                    # the tile-size diagnostic: 64-sample tiles halve the weight
+                    # traffic of the fixed point but fill half the SMs here
+                    ref_y, ref_lad = run()
+                    for rows in (32, 64):
+                        tiled = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+                            x, w32, view._static, packed=view._packed, rows=rows, **kw)  # noqa: B023
+                        t = device_ms(torch, tiled, 10, kernel="maf_flow_kernel")
+                        t_y, t_lad = tiled()
+                        gap = max(max_err(t_y, ref_y), max_err(t_lad, ref_lad))
+                        log(f"    inverse with {rows}-sample tiles: {t:.4f} ms, {gap:.3e} from "
+                            "the default tile's result (limit 1e-5)")
+                        if gap > 1e-5:
+                            raise AssertionError(f"B9 {model}: the result depends on the tile")
+            xt = x[:TRAIN_BATCH].contiguous()
+            ms512 = device_ms(torch, lambda: maf_flow_kernel.maf_flow_kernel_cuda(
+                xt, w32, view._static, packed=view._packed, inverse=False, **skw), 10,
+                kernel="maf_flow_kernel")
+            log(f"  forward at N={TRAIN_BATCH}: kernel {ms512:.4f} ms  bound "
+                f"{bound(TRAIN_BATCH * need, ar_bytes)[0]:.4f} ms")
+            # the wrapper's own choice of tile at a large batch: 64 samples,
+            # once that gives every SM a tile, against 32
+            xl = torch.randn(LARGE_BATCH, DA, generator=gen).to(dev)
+            for inverse in (False, True):
+                times = {}
+                for rows in (32, None):
+                    tiled = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+                        xl, w32, view._static, packed=view._packed, rows=rows,  # noqa: B023
+                        inverse=inverse, **skw)  # noqa: B023
+                    times[rows] = device_ms(torch, tiled, 3, kernel="maf_flow_kernel")
+                tag = "inverse" if inverse else "forward"
+                log(f"  {tag} at N={LARGE_BATCH}: 32-sample tiles {times[32]:.4f} ms, the "
+                    f"default ({default_rows}-sample tiles) {times[None]:.4f} ms, bound "
+                    f"{bound(LARGE_BATCH * need, ar_bytes)[0]:.4f} ms")
+                stats[f"{tag}_ms_at_{LARGE_BATCH}"] = {"rows_32": times[32],
+                                                      f"rows_{default_rows}": times[None]}
+            b9[model] = stats
+
+    # -- phase 10: serving the autoregressive flows through CompiledFlow ------------
+    # the unfused MAF launches no kernel of the port (its transformer is plain
+    # tensor code); the unfused NSF-AR runs B1 once a MADE pass: LA a log_prob,
+    # LA x DA a sampling request
+    serve("MAF", maf, DA, "B9", {}, {})
+    serve("NSF-AR", nsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA))
+
+    # -- phase 11: B10 against its plain version (full-width MAF and NSF-AR) --------
+    b10 = {}
+    mstacks = maf_train.WEIGHT_KEYS
+    for model, ar_flow in (("MAF", maf), ("NSF-AR", nsf_ar)):
+        mtr = fused_trainer(ar_flow, TRAIN_BATCH)
+        if not isinstance(mtr, maf_train.FusedMAFTrainer):
+            raise AssertionError(f"fused_trainer gave {type(mtr).__name__} for {model}")
+        f32 = {k: v.detach().contiguous() for k, v in mtr._fold(mtr.weights).items()}
+        f64 = {k: v.double() for k, v in f32.items()}
+        mkw = dict(wh_scale=mtr._wh_scale, **mtr._static)
+        P = mtr._dims["P"]
+        ar_bytes = 4 * sum(v.numel() for v in f32.values())
+        need = masked_ops(1, ar_flow)
+        mpacked = maf_flow_kernel.pack_weights(f32, mtr._layers, nba)
+        for n in (TRAIN_BATCH, SERVE_BATCH):
+            log(f"B10 on {model} at N={n}:")
+            x = (1.5 * torch.randn(n, DA, generator=gen)).to(dev)
+            gy = (torch.randn(n, DA, generator=gen) / n).to(dev)
+            glad = (torch.randn(n, generator=gen) / n).to(dev)
+            gx, grads = maf_train.maf_train_bwd_cuda(x, gy, glad, f32, mtr._layers, **mkw)
+            p_gx, p_grads = maf_train.maf_train_bwd_plain(x, gy, glad, f32, mtr._layers, **mkw)
+            d_gx, d_grads = maf_train.maf_train_bwd_plain(
+                x.double(), gy.double(), glad.double(), f64, mtr._layers, **mkw)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(t).all() for t in (gx, *grads.values())):
+                raise AssertionError("B10 produced non-finite values")
+            log(f"  largest |gx * N|: {float((d_gx * n).abs().max()):.3f}")
+            errs = [hold("gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)]
+            errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4) for k in mstacks]
+            run = lambda: maf_train.maf_train_bwd_cuda(  # noqa: E731
+                x, gy, glad, f32, mtr._layers, packed=mpacked, grads=grads, **mkw)
+            run_plain = lambda: maf_train.maf_train_bwd_plain(  # noqa: E731
+                x, gy, glad, f32, mtr._layers, **mkw)
+            ms = device_ms(torch, run, 10, kernel="maf_train_bwd_kernel")
+            ms_source = device_ms.source
+            plain_ms = device_ms(torch, run_plain, 3)
+            # recompute, input cotangents and weight gradients, each over the
+            # weights the masks leave; the kernel runs the three dense
+            nops = 3 * n * need
+            run_ops = 3 * dense_ops(n, P)
+            io_bytes = 2 * ar_bytes + 4 * n * (3 * DA + 1)
+            bound_ms, bound_by = bound(nops, io_bytes)
+            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by}, {nops / 1e9:.2f} GFLOP needed); the kernel's schedule multiplies "
+                f"{run_ops / 1e9:.1f} GFLOP ({bound(run_ops, io_bytes)[0]:.4f} ms at the peak "
+                f"rate), {run_ops / ms / 1e9:.1f} TFLOP/s")
+            b10[(model, n)] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   schedule_ms=bound(run_ops, io_bytes)[0])
+
+    # -- phase 12: training the MAF on the card ----------------------------------------
+    mix_a = torch.randn(DA, DA, generator=gen).to(dev) / DA ** 0.5
+
+    def maf_batches(n, count, seed):
+        """Seeded synthetic data: correlated Gaussian features in 10 dimensions."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [1.5 * torch.randn(n, DA, generator=g, device=dev) @ mix_a + 0.5
+                for _ in range(count)]
+
+    def maf_routes(n):
+        fused_tr = fused_trainer(copy.deepcopy(maf), n)
+        state = create_train_state(copy.deepcopy(maf).train(), adam)
+        eager_step = make_train_step()
+        steps = {"fused": fused_tr.make_train_step(fused_tr.init_opt(adam)),
+                 "eager": lambda batch: eager_step(state, batch)[1]["loss"]}
+        return steps, fused_tr, state
+
+    steps, fused_tr, state = maf_routes(TRAIN_BATCH)
+    start = {k: v.detach().clone() for k, v in fused_tr.weights.items()}
+    data = maf_batches(TRAIN_BATCH, TRAIN_STEPS, seed=6)
+    losses = {}
+    for name, expected in (("fused", dict(B9=1, B10=1)), ("eager", {})):
+        reset_counts()
+        first = steps[name](data[0])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"training MAF ({name}): launches a step {counts}")
+        expect_counts(f"one {name} MAF step", counts, **expected)
+        if name == "fused":
+            launches["B10"] = counts["B10"]
+        rest = [steps[name](batch) for batch in data[1:]]
+        losses[name] = [float(v) for v in [first, *rest]]
+        log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
+            f"{losses[name][0]:.4f} -> {losses[name][-1]:.4f}")
+        if not all(np.isfinite(losses[name])) or not losses[name][-1] < losses[name][0]:
+            raise AssertionError(f"MAF {name}: the loss is not finite and falling: "
+                                 f"{losses[name]}")
+    gap = max(abs(a - b) for a, b in zip(losses["fused"][:3], losses["eager"][:3]))
+    log(f"  first three losses, fused vs eager: {gap:.3e} apart (limit 2e-3)")
+    if gap > 2e-3:
+        raise AssertionError("the fused and eager MAF routes disagree at the start")
+    for k in maf_train.MASKED_KEYS:
+        dead = fused_tr._masks[k] == 0
+        moved = not torch.equal(fused_tr.weights[k].detach()[dead], start[k][dead])
+        live = not torch.equal(fused_tr.weights[k].detach()[~dead], start[k][~dead])
+        log(f"  {k}: {int(dead.sum())} masked entries bit-equal after {TRAIN_STEPS} steps: "
+            f"{not moved}; the others moved: {live}")
+        if moved or not live:
+            raise AssertionError(f"MAF {k}: masked entries moved, or nothing trained")
+    held = maf_batches(TRAIN_BATCH, 1, seed=7)[0]
+    trained = fused_tr.to_flow().eval()
+    served_lp = CompiledFlow(trained, batch_size=TRAIN_BATCH, features=DA).log_prob(held)
+    with torch.no_grad():
+        y, lad = fused_tr._apply(fused_tr.weights, held)
+        trainer_lp = -0.5 * (y * y).sum(dim=1) - 0.5 * DA * np.log(2 * np.pi) + lad
+    gap = max_err(served_lp, trainer_lp)
+    log(f"  to_flow() served through CompiledFlow vs the trainer's log_prob: {gap:.3e} "
+        "(limit 1e-3)")
+    if gap > 1e-3:
+        raise AssertionError("the trained MAF served disagrees with the trainer")
+    log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
+        f"{max_err(served_lp, state.flow.log_prob(held).detach()):.3e}")
+
+    log("MAF train step times (host clock over 20 steps ending in a synchronise; device "
+        "busy from torch.profiler):")
+    maf_step_ms = {}
+    for n in (TRAIN_BATCH, 2048, SERVE_BATCH):
+        steps, fused_tr, _ = maf_routes(n)
+        data = maf_batches(n, 4, seed=8)
+        for name, step in steps.items():
+            for batch in data[:3]:
+                step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(20):
+                step(data[i % 4])
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 20
+            busy = device_ms(torch, lambda: step(data[0]), 10)  # noqa: B023
+            maf_step_ms[(name, n)] = wall
+            log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
+                f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
+        fold = device_ms(torch, lambda: fused_tr._repack(  # noqa: B023
+            fused_tr._fold(fused_tr.weights)), 20)
+        log(f"  batch {n}: folding the masks and re-packing the weights {fold:.4f} ms a step")
+    faster = [n for n in (TRAIN_BATCH, 2048, SERVE_BATCH)
+              if maf_step_ms[("fused", n)] < maf_step_ms[("eager", n)]]
+    log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes the "
+        f"fused route from batch {MIN_AUTO_BATCH['maf']}")
+
     # -- phase 8: the kernels line ---------------------------------------------
+    names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
+             "B4": "nsf_train_bwd", "B9": "maf_flow_kernel", "B10": "maf_train_bwd"}
     rows = []
     for kid, stats, source, replaces, tpu in (
             ("B1", b1[SERVE_BATCH * 3], "nflows_tpu_torch/csrc/rq_spline.cu",
@@ -548,15 +983,23 @@ def main() -> int:
              "ops/pallas/nsf_train.py:_loss_grad_kernel"),
             ("B4", b4[TRAIN_BATCH], "nflows_tpu_torch/csrc/nsf_train.cu",
              "nflows_tpu/ops/pallas/nsf_train.py:163",
-             "ops/pallas/nsf_train.py:_bwd_kernel")):
+             "ops/pallas/nsf_train.py:_bwd_kernel"),
+            ("B9", b9["MAF"], "nflows_tpu_torch/csrc/maf_flow_kernel.cu",
+             "nflows_tpu/ops/pallas/maf_flow_kernel.py:99",
+             "ops/pallas/maf_flow_kernel.py:_kernel"),
+            ("B10", b10[("MAF", TRAIN_BATCH)], "nflows_tpu_torch/csrc/maf_train.cu",
+             "nflows_tpu/ops/pallas/maf_train.py:161",
+             "ops/pallas/maf_train.py:_bwd_kernel")):
         rows.append({
-            "name": {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
-                     "B4": "nsf_train_bwd"}[kid], "id": kid,
+            "name": names[kid], "id": kid,
             "route": "cuda", "source": source, "replaces": replaces, "tpu": tpu,
             "launches": launches[kid], "max_abs_err": stats["err"], "max_err": stats["err"],
-            "ms": stats["ms"], "kernel_ms": stats["ms"], "plain_ms": stats["plain_ms"],
+            "ms": stats["ms"], "kernel_ms": stats["ms"], "ms_source": stats["ms_source"],
+            "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
             "library_ms": None,
+            **{k: v for k, v in stats.items()
+               if k.startswith(("inverse_", "forward_", "schedule_"))},
         })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -10,9 +10,12 @@ caller passes ``device="cpu"``.
 from nflows_tpu_torch.version import VERSION, __version__
 
 from nflows_tpu_torch import distributions, flows, models, training, transforms, utils
+from nflows_tpu_torch.flows.autoregressive import MaskedAutoregressiveFlow
 from nflows_tpu_torch.flows.base import Flow
 from nflows_tpu_torch.interop import load_jax_params, load_jax_trainer_weights
+from nflows_tpu_torch.models.iaf import InverseAutoregressiveFlow
 from nflows_tpu_torch.models.nsf import NeuralSplineFlow
+from nflows_tpu_torch.models.nsf_ar import NeuralSplineFlowAR
 from nflows_tpu_torch.serving import CompiledFlow
 
 from nflows_tpu_torch.training import (
@@ -25,6 +28,8 @@ from nflows_tpu_torch.training import (
 
 __all__ = ["VERSION", "__version__", "distributions", "flows", "models",
            "training", "transforms", "utils", "Flow", "NeuralSplineFlow",
+           "NeuralSplineFlowAR", "MaskedAutoregressiveFlow",
+           "InverseAutoregressiveFlow",
            "CompiledFlow", "load_jax_params", "load_jax_trainer_weights",
            "TrainState", "create_train_state", "make_train_step", "nll_loss",
            "fused_trainer"]

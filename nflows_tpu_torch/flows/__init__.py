@@ -1,5 +1,6 @@
 """Flows (counterpart of nflows_tpu/flows)."""
 
+from nflows_tpu_torch.flows.autoregressive import MaskedAutoregressiveFlow
 from nflows_tpu_torch.flows.base import Flow
 
-__all__ = ["Flow"]
+__all__ = ["Flow", "MaskedAutoregressiveFlow"]

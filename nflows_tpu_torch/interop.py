@@ -12,8 +12,11 @@ Keys look like ``.transform.transforms[1].transform_net.initial_layer.weight``;
 the port's module tree keeps the JAX attribute names, so a key maps to a
 state-dict entry by dropping the leading dot and writing ``[i]`` as ``.i``.
 JAX ``Dense`` weights are [in, out] and ``nn.Linear`` weights [out, in], so
-those are transposed. The coupling conditioner's output columns are
-feature-major in both packages.
+those are transposed. The conditioners' output columns are feature-major
+in both packages. A ``MaskedDense`` carries its ``mask`` buffer, [in, out]
+there and [out, in] here: the port builds its own masks from the degree
+rule, so an incoming mask is only compared, and one that differs is
+refused (the two models would not be the same autoregressive function).
 
 A ``StackedTransform`` (the JAX package's scan-stacked chain) has to be
 unstacked first: build the JAX flow with ``stacked=False``, or walk its
@@ -40,11 +43,16 @@ def _jax_key_to_name(key: str) -> str:
 def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None:
     """Write the JAX leaves ``params`` into ``module``'s parameters and
     persistent buffers, in place. Raises on a missing key, an unexpected
-    key or a shape mismatch."""
+    key, a shape mismatch or a MADE mask that differs from the port's."""
+    from nflows_tpu_torch.nn.made import MaskedDense
+
     state = module.state_dict(keep_vars=True)
     linear_weights = {f"{name}.weight" if name else "weight"
                       for name, m in module.named_modules()
                       if isinstance(m, nn.Linear)}
+    masks = {f"{name}.mask" if name else "mask"
+             for name, m in module.named_modules()
+             if isinstance(m, MaskedDense)}
     incoming = {_jax_key_to_name(k): (k, v) for k, v in params.items()}
     missing = sorted(set(state) - set(incoming))
     unexpected = sorted(incoming[n][0] for n in set(incoming) - set(state))
@@ -54,13 +62,19 @@ def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None
     for name, target in state.items():
         key, value = incoming[name]
         value = np.asarray(value)
-        if name in linear_weights:
+        transposed = name in linear_weights or name in masks
+        if transposed:
             value = value.T
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(
                 f"load_jax_params: {key} has shape {tuple(np.shape(params[key]))}, "
                 f"the port expects {tuple(target.shape)}"
-                + (" (transposed)" if name in linear_weights else ""))
+                + (" (transposed)" if transposed else ""))
+        if name in masks and not np.array_equal(value, target.detach().cpu().numpy()):
+            raise ValueError(
+                f"load_jax_params: {key} differs from the mask the port built "
+                "for this layer: the two models assign degrees differently "
+                "(random masks need the same numpy rng on both sides)")
         values[name] = value
     with torch.no_grad():
         for name, value in values.items():
@@ -69,10 +83,12 @@ def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None
 
 
 def load_jax_trainer_weights(trainer, weights: Mapping[str, np.ndarray]) -> None:
-    """Write the JAX fused trainer's kernel-layout weights (``w0``, ``b0``,
-    ``wb``, ``bb``, ``wf``, ``bf`` as numpy arrays) into the port's
-    ``trainer.weights``, in place. The two layouts are equal by
-    construction, so nothing is transposed. Raises on a missing key, an
+    """Write a JAX fused trainer's kernel-layout weights as numpy arrays
+    (``w0``, ``b0``, ``wb``, ``bb``, ``wf``, ``bf`` of ``FusedNSFTrainer``;
+    the flat ``wi``, ``bi``, ``wb``, ``bb``, ``wf``, ``bf`` stacks of
+    ``FusedMAFTrainer``) into the port's ``trainer.weights``, in place. The
+    two layouts are equal by construction, so nothing is transposed; the
+    MAF trainer's masks stay the port's own. Raises on a missing key, an
     unexpected key or a shape mismatch."""
     missing = sorted(set(trainer.weights) - set(weights))
     unexpected = sorted(set(weights) - set(trainer.weights))

@@ -1,6 +1,7 @@
 """Conditioner building blocks (counterpart of nflows_tpu/nn)."""
 
-from nflows_tpu_torch.nn import nets
+from nflows_tpu_torch.nn import made, nets
+from nflows_tpu_torch.nn.made import MADE, MaskedDense
 from nflows_tpu_torch.nn.primitives import Dense, Dropout, glu
 
-__all__ = ["nets", "Dense", "Dropout", "glu"]
+__all__ = ["made", "nets", "Dense", "Dropout", "glu", "MADE", "MaskedDense"]

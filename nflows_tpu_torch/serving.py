@@ -9,13 +9,15 @@ The JAX class compiles each endpoint ahead of time; PyTorch runs eagerly,
 so nothing is compiled here and the name is kept for the surface. Requests
 of another shape are refused, as there.
 
-Serving is the amortised-inference context, so the whole-chain kernel B2
-is the default whenever the flow qualifies (``use_fused=None``). Only a
-structural ``ValueError``/``AttributeError`` from ``fuse_nsf`` sends a flow
-to the unfused chain (where each coupling launches kernel B1 on the card);
-a kernel that fails to build or launch raises. ``use_fused=True`` raises
-when the flow does not qualify; ``use_fused=False`` serves the unfused
-chain.
+Serving is the amortised-inference context, so a whole-chain kernel is the
+default whenever the flow qualifies (``use_fused=None``): B2 for RQ
+coupling chains (``fuse_nsf``), B9 for autoregressive chains
+(``fuse_maf``), probed in that order. Only a structural
+``ValueError``/``AttributeError`` from every prober sends a flow to the
+unfused chain (where each RQ spline launches kernel B1 on the card); a
+kernel that fails to build or launch raises. ``use_fused=True`` raises with
+each prober's reason when the flow does not qualify; ``use_fused=False``
+serves the unfused chain.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ class CompiledFlow:
         self.context_features = context_features
         self._dtype = dtype
         # the JAX class also checks the weights against the TPU's VMEM
-        # budget; B2 streams weights from L2, so fuse_nsf checks its tile
+        # budget; B2 and B9 stream weights from L2, so the probers check
+        # their shared-memory tile instead
         self._fused = None
         if use_fused is None or use_fused:
             self._fused = self._try_build_fused(flow, required=bool(use_fused))
@@ -65,23 +68,29 @@ class CompiledFlow:
         return self._fused is not None
 
     def _try_build_fused(self, flow, required: bool):
+        from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
         from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
 
-        try:
-            fused = fuse_nsf(flow, dtype=self._dtype)
-        except (ValueError, AttributeError) as e:
-            if required:
-                raise ValueError(
-                    "use_fused=True but this flow does not match the NSF "
-                    f"kernel's structure: {e}") from e
-            return None
-        if (fused.context_features is None) != (self.context_features is None):
-            msg = ("flow conditionality does not match CompiledFlow's "
-                   f"context_features={self.context_features}")
-            if required:
-                raise ValueError(msg)
-            return None
-        return fused
+        errors = []
+        for fuse in (fuse_nsf, fuse_maf):
+            try:
+                fused = fuse(flow, dtype=self._dtype)
+            except (ValueError, AttributeError) as e:
+                errors.append(f"{fuse.__name__}: {e}")
+                continue
+            if (fused.context_features is None) != (self.context_features is None):
+                msg = ("flow conditionality does not match CompiledFlow's "
+                       f"context_features={self.context_features}")
+                if required:
+                    raise ValueError(msg)
+                errors.append(f"{fuse.__name__}: {msg}")
+                continue
+            return fused
+        if required:
+            raise ValueError(
+                "use_fused=True but this flow matches no whole-chain kernel's "
+                "structure. Prober reasons:\n  " + "\n  ".join(errors))
+        return None
 
     # -- request-time validation ----------------------------------------------
 

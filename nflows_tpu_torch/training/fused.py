@@ -2,9 +2,11 @@
 nflows_tpu/training/fused.py).
 
 ``fused_trainer(flow, batch_size)`` probes the flow's structure and returns
-the matching trainer: :class:`FusedNSFTrainer` for RQ coupling chains, the
-one family ported so far. A flow that matches no kernel raises with the
-prober's reason (or gives ``None`` with ``required=False``), and
+the matching trainer: :class:`FusedNSFTrainer` for RQ coupling chains
+(kernel B3, or B2 + B4 under autograd), :class:`FusedMAFTrainer` for
+unwrapped autoregressive chains, MAF and NSF-AR (kernels B9 + B10), probed
+in that order. A flow that matches no kernel raises with every prober's
+reason (or gives ``None`` with ``required=False``), and
 ``training.make_train_step`` (the eager route) is then the path.
 """
 
@@ -13,16 +15,24 @@ from __future__ import annotations
 __all__ = ["fused_trainer", "MIN_AUTO_BATCH"]
 
 # Smallest batch at which the fused step was faster than the eager step, by
-# family; None: never at a measured batch. Measured by chip_smoke.py on the
-# flagship NSF (features 6, hidden 256, 10 layers, 8 bins) with Adam, as the
-# wall time of a step on one NVIDIA H100 80GB HBM3 with a 700.00 W power
-# limit: fused 3.48, 3.54 and 3.66 ms against eager 70.6, 92.1 and 77.1 ms
-# at batches 512, 2,048 and 4,096 (the eager step is host-bound, its device
-# work 7.0 to 11.4 ms). The fused step won at every measured batch, so the
-# floor is the smallest batch the trainers take. Another card needs its own
-# measurement.
+# family; None: never at a measured batch. Measured by chip_smoke.py with
+# Adam, as the wall time of a step on one NVIDIA H100 80GB HBM3 with a
+# 700.00 W power limit. Another card needs its own measurement.
+# - "nsf", the flagship NSF (features 6, hidden 256, 10 layers, 8 bins):
+#   fused 3.48, 3.54 and 3.66 ms against eager 70.6, 92.1 and 77.1 ms at
+#   batches 512, 2,048 and 4,096 (the eager step is host-bound, its device
+#   work 7.0 to 11.4 ms).
+# - "maf", the full-width MAF (features 10, hidden 256, 5 layers x 2 blocks):
+#   fused (B9 forward, B10 backward, mask fold, Adam) 2.27, 2.31 and 2.34 ms
+#   against eager 7.51, 8.21 and 7.57 ms at batches 512, 2,048 and 4,096;
+#   three other runs read the eager step at 15.4 to 22.9 ms (it is
+#   host-bound, its device work 1.5 to 2.3 ms) and the fused one at 2.30 to
+#   2.89 ms.
+# The fused step won at every measured batch in both families, so each floor
+# is the smallest batch the trainers take.
 MIN_AUTO_BATCH = {
     "nsf": 128,
+    "maf": 128,
 }
 
 
@@ -39,6 +49,7 @@ def fused_trainer(flow, batch_size, required=None, auto=False):
             (:data:`MIN_AUTO_BATCH`) says the eager route is faster at this
             batch size.
     """
+    from nflows_tpu_torch.ops.cuda.maf_train import FusedMAFTrainer
     from nflows_tpu_torch.ops.cuda.nsf_train import FusedNSFTrainer
 
     if required is None:
@@ -48,17 +59,21 @@ def fused_trainer(flow, batch_size, required=None, auto=False):
             f"batch_size={batch_size} must be a multiple of 128 (the kernel "
             "lane width of the JAX package, kept so that one call behaves "
             "the same in both)")
-    try:
-        trainer = FusedNSFTrainer(flow, batch_size=batch_size)
-    except (ValueError, AttributeError) as e:
-        if not required:
-            return None
-        raise ValueError(
-            "this flow matches no fused training kernel -- train it on the "
-            "eager route (training.make_train_step). Prober reasons:\n  "
-            f"FusedNSFTrainer: {e}") from e
-    if auto:
-        floor = MIN_AUTO_BATCH["nsf"]
-        if floor is None or batch_size < floor:
-            return None
-    return trainer
+    errors = []
+    for cls, family in ((FusedNSFTrainer, "nsf"), (FusedMAFTrainer, "maf")):
+        try:
+            trainer = cls(flow, batch_size=batch_size)
+        except (ValueError, AttributeError) as e:
+            errors.append(f"{cls.__name__}: {e}")
+            continue
+        if auto:
+            floor = MIN_AUTO_BATCH[family]
+            if floor is None or batch_size < floor:
+                return None
+        return trainer
+    if not required:
+        return None
+    raise ValueError(
+        "this flow matches no fused training kernel -- train it on the "
+        "eager route (training.make_train_step). Prober reasons:\n  "
+        + "\n  ".join(errors))

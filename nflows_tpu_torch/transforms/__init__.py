@@ -1,5 +1,10 @@
 """Transforms (counterpart of nflows_tpu/transforms)."""
 
+from nflows_tpu_torch.transforms.autoregressive import (
+    AutoregressiveTransform,
+    MaskedAffineAutoregressiveTransform,
+    MaskedPiecewiseRationalQuadraticAutoregressiveTransform,
+)
 from nflows_tpu_torch.transforms.base import (
     CompositeTransform,
     InputOutsideDomain,
@@ -24,4 +29,6 @@ __all__ = [
     "Permutation", "RandomPermutation", "ReversePermutation",
     "CouplingTransform", "PiecewiseCouplingTransform",
     "PiecewiseRationalQuadraticCouplingTransform",
+    "AutoregressiveTransform", "MaskedAffineAutoregressiveTransform",
+    "MaskedPiecewiseRationalQuadraticAutoregressiveTransform",
 ]

@@ -1,4 +1,4 @@
-"""Kernels B1 to B4 on the card, each against its plain PyTorch version on
+"""Kernels B1 to B4, B9 and B10 on the card, each against its plain PyTorch version on
 the same CUDA tensors, and the serving and training paths through them.
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
@@ -269,4 +269,180 @@ def test_train_steps_launch_the_kernels_and_agree(cuda):
         _close(loss_fused, loss_split, 2e-4)
         _close(loss_fused, metrics["loss"], 2e-4)
     x = torch.randn(128, 6, generator=g).to(cuda)
+    _close(fused.to_flow().log_prob(x), state.flow.log_prob(x), 5e-3)
+
+
+# -- autoregressive kernels B9 and B10 ------------------------------------------
+#
+# Tolerances. B9 forward 1e-3 on outputs and logabsdet, as B2. B9 inverse: the
+# D-step fixed point feeds each pass's rounding into the next through D
+# features and every layer, so the kernel and its plain version (two fp32
+# evaluations in different summation orders) are held 5e-3 apart, and the
+# round trip forward(inverse(z)) to 5e-3 of z. B10 as B3 and B4.
+
+
+def _ar_flow(device, kind, features=5, layers=3):
+    from nflows_tpu_torch import (
+        InverseAutoregressiveFlow,
+        MaskedAutoregressiveFlow,
+        NeuralSplineFlowAR,
+    )
+
+    kw = dict(generator=torch.Generator().manual_seed(features),
+              rng=np.random.default_rng(features), device=device)
+    if kind == "rq":
+        flow = NeuralSplineFlowAR(features, 64, num_layers=layers, num_blocks_per_layer=2,
+                                  num_bins=8, tail_bound=B, **kw)
+    else:
+        cls = InverseAutoregressiveFlow if kind == "iaf" else MaskedAutoregressiveFlow
+        flow = cls(features, 64, layers, 2, use_random_permutations=True, **kw)
+    return flow.eval()
+
+
+def _maf_kw(fused):
+    return dict(num_blocks=fused._num_blocks, transformer=fused._transformer,
+                spline_kw=fused._spline_kw)
+
+
+@pytest.mark.parametrize("kind", ["affine", "rq", "iaf"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b9_matches_plain(cuda, kind, inverse, n):
+    """203 leaves a ragged last tile of 32-sample tiles; 16,384 fills the
+    card with 64-sample tiles. 5 features are padded to 8 input rows; the
+    IAF chain is wrapped, so its forward runs the fixed point."""
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+    from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
+
+    fused = fuse_maf(_ar_flow(cuda, kind))
+    x = torch.randn(n, 5, generator=torch.Generator().manual_seed(n)).to(cuda)
+    kw = dict(inverse=inverse, **_maf_kw(fused))
+    before = maf_flow_kernel.launch_count
+    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+        x, fused._weights, fused._static, packed=fused._packed, **kw)
+    assert maf_flow_kernel.launch_count == before + 1
+    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, fused._weights, fused._static, **kw)
+    fixed_point = inverse != (kind == "iaf")
+    _close(y, p_y, 5e-3 if fixed_point else 1e-3)
+    _close(lad, p_lad, 5e-3 if fixed_point else 1e-3)
+    back, lad_back = maf_flow_kernel.maf_flow_kernel_cuda(
+        y, fused._weights, fused._static, packed=fused._packed,
+        **{**kw, "inverse": not inverse})
+    _close(back, x, 5e-3)
+    _close(lad_back, -lad, 5e-3)
+
+
+def test_b9_tile_sizes_agree_and_a_relaunch_is_independent(cuda):
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+    from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
+
+    fused = fuse_maf(_ar_flow(cuda, "affine"))
+    x = torch.randn(1000, 5, generator=torch.Generator().manual_seed(1)).to(cuda)
+    run = lambda rows: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+        x, fused._weights, fused._static, packed=fused._packed, inverse=True, rows=rows,
+        **_maf_kw(fused))
+    y32, lad32 = run(32)
+    y64, lad64 = run(64)
+    again, lad_again = run(32)
+    assert torch.equal(y32, again) and torch.equal(lad32, lad_again)
+    _close(y32, y64, 1e-5)
+    _close(lad32, lad64, 1e-5)
+    with pytest.raises(ValueError):
+        run(48)
+    with pytest.raises(ValueError):
+        maf_flow_kernel.maf_flow_kernel_cuda(
+            x.double(), fused._weights, fused._static, inverse=False, **_maf_kw(fused))
+
+
+def test_compiled_flow_serves_a_maf_with_one_launch_a_request(cuda):
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+
+    flow = _ar_flow(cuda, "affine")
+    x = torch.randn(256, 5, generator=torch.Generator().manual_seed(3)).to(cuda)
+    fused = CompiledFlow(flow, batch_size=256, features=5)
+    unfused = CompiledFlow(flow, batch_size=256, features=5, use_fused=False)
+    assert fused.is_fused and not unfused.is_fused
+    b9 = maf_flow_kernel.launch_count
+    lp = fused.log_prob(x)
+    s, slp = fused.sample_and_log_prob(torch.Generator(device=cuda).manual_seed(4))
+    assert maf_flow_kernel.launch_count == b9 + 2
+    _close(lp, unfused.log_prob(x), 1e-3)
+    assert maf_flow_kernel.launch_count == b9 + 2
+    assert torch.isfinite(s).all() and torch.isfinite(slp).all()
+    _close(slp, fused.log_prob(s), 5e-3)
+
+
+def _maf_trainer(device, kind, batch=128):
+    from nflows_tpu_torch.ops.cuda import maf_train
+
+    return maf_train.FusedMAFTrainer(_ar_flow(device, kind), batch)
+
+
+def _maf_grads_close(got, ref, atol=2e-4, rtol=1e-3):
+    for k in ("wi", "bi", "wb", "bb", "wf", "bf"):
+        torch.testing.assert_close(got[k], ref[k], atol=atol, rtol=rtol, msg=lambda m: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("kind", ["affine", "rq"])
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b10_matches_plain(cuda, kind, n):
+    """203 leaves a ragged last tile; 16,384 takes 64-sample tiles and gives
+    each block of the persistent grid several tiles."""
+    from nflows_tpu_torch.ops.cuda import maf_train
+
+    tr = _maf_trainer(cuda, kind)
+    folded = {k: v.detach().contiguous() for k, v in tr._fold(tr.weights).items()}
+    kw = dict(wh_scale=tr._wh_scale, **tr._static)
+    g = torch.Generator().manual_seed(n + 1)
+    x = 1.5 * torch.randn(n, 5, generator=g).to(cuda)
+    gy = torch.randn(n, 5, generator=g).to(cuda) / n
+    glad = torch.randn(n, generator=g).to(cuda) / n
+    before = maf_train.bwd_launch_count
+    gx, grads = maf_train.maf_train_bwd_cuda(x, gy, glad, folded, tr._layers, **kw)
+    assert maf_train.bwd_launch_count == before + 1
+    p_gx, p_grads = maf_train.maf_train_bwd_plain(x, gy, glad, folded, tr._layers, **kw)
+    torch.testing.assert_close(gx, p_gx, atol=2e-4 / n, rtol=1e-3)
+    _maf_grads_close(grads, p_grads)
+    # a second launch into the same buffers starts from zero again
+    first = {k: v.clone() for k, v in grads.items()}
+    _, again = maf_train.maf_train_bwd_cuda(x, gy, glad, folded, tr._layers, grads=grads, **kw)
+    assert all(again[k] is grads[k] for k in again)
+    _maf_grads_close(again, first, atol=1e-5, rtol=1e-4)
+    if n == 16384:
+        _, g32 = maf_train.maf_train_bwd_cuda(x, gy, glad, folded, tr._layers, rows=32, **kw)
+        _maf_grads_close(g32, first, atol=1e-5, rtol=1e-4)
+
+
+def test_maf_train_steps_launch_the_kernels_and_keep_masked_entries(cuda):
+    """One B9 and one B10 a fused step; three Adam steps of the fused and
+    the eager route from the same weights give the same losses; a masked
+    entry's gradient is exactly zero and the entry does not move."""
+    import copy
+
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel, maf_train
+
+    flow = _ar_flow(cuda, "affine")
+    adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
+    fused = fused_trainer(copy.deepcopy(flow), 128)
+    assert isinstance(fused, maf_train.FusedMAFTrainer)
+    start = {k: v.detach().clone() for k, v in fused.weights.items()}
+    step_fused = fused.make_train_step(fused.init_opt(adam))
+    state = create_train_state(copy.deepcopy(flow).train(), adam)
+    step_eager = make_train_step()
+    g = torch.Generator().manual_seed(9)
+    for _ in range(3):
+        batch = (1.5 * torch.randn(128, 5, generator=g)).to(cuda)
+        c0 = (maf_flow_kernel.launch_count, maf_train.bwd_launch_count)
+        loss_fused = step_fused(batch)
+        c1 = (maf_flow_kernel.launch_count, maf_train.bwd_launch_count)
+        assert tuple(b - a for a, b in zip(c0, c1)) == (1, 1)
+        state, metrics = step_eager(state, batch)
+        assert (maf_flow_kernel.launch_count, maf_train.bwd_launch_count) == c1
+        _close(loss_fused, metrics["loss"], 2e-4)
+    for k in maf_train.MASKED_KEYS:
+        dead = fused._masks[k] == 0
+        assert torch.equal(fused.weights[k].grad[dead], torch.zeros_like(start[k][dead]))
+        assert torch.equal(fused.weights[k].detach()[dead], start[k][dead])
+        assert not torch.equal(fused.weights[k].detach()[~dead], start[k][~dead])
+    x = torch.randn(128, 5, generator=g).to(cuda)
     _close(fused.to_flow().log_prob(x), state.flow.log_prob(x), 5e-3)

@@ -33,6 +33,10 @@ def _imports(path):
 def test_scan_covers_the_port():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"nflows_tpu_torch/nn/made.py", "nflows_tpu_torch/transforms/autoregressive.py",
+            "nflows_tpu_torch/ops/cuda/maf_flow_kernel.py",
+            "nflows_tpu_torch/ops/cuda/maf_train.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -60,6 +64,17 @@ def test_runtime_loads_no_jax():
         "tr = nt.fused_trainer(f, 128)\n"
         "tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 6))\n"
         "nt.make_train_step()(nt.create_train_state(f, adam), x)\n"
+        "for m in (nt.MaskedAutoregressiveFlow(5, 8, 2, 1, device='cpu'),\n"
+        "          nt.NeuralSplineFlowAR(5, 8, num_layers=2, num_bins=4, device='cpu')):\n"
+        "    y = torch.randn(16, 5)\n"
+        "    assert nt.CompiledFlow(m, 16, 5, device='cpu').is_fused\n"
+        "    nt.CompiledFlow(m, 16, 5, device='cpu').sample(torch.Generator().manual_seed(0))\n"
+        "    nt.CompiledFlow(m, 16, 5, device='cpu', use_fused=False).log_prob(y)\n"
+        "    tr = nt.fused_trainer(m, 128)\n"
+        "    tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 5))\n"
+        "    tr.to_flow()\n"
+        "    nt.make_train_step()(nt.create_train_state(m, adam), y)\n"
+        "nt.InverseAutoregressiveFlow(5, 8, 2, 1, device='cpu').log_prob(torch.randn(4, 5))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'nflows_tpu')]\n"
         "print(bad)\n"
