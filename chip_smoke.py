@@ -19,11 +19,20 @@ a MAF (affine), an NSF-AR (rq, 8 bins) and a wrapped IAF chain; the MAF and
 the NSF-AR served through ``CompiledFlow`` fused (B9, one launch a request)
 and unfused; the MAF trained for 20 Adam steps on the fused route
 (``fused_trainer``: B9 forward and B10 backward a step) and the eager one.
-Every phase raises on failure, so the exit code is non-zero.
+Then the mixture-density family at full width (a MixtureOfGaussiansMADE of
+features 10, hidden 256, 2 blocks, 10 components, and its conditional twin,
+a MADEMoG with context 10): the log-prob kernel B11 and its backward B12
+against their plain versions; both models served through ``CompiledFlow``
+fused (B11, one launch a log_prob request; sampling is the model's
+sequential sampler) and unfused; both trained for 20 Adam steps on the
+fused route (B11 forward and B12 backward a step) and the eager one.
+Every phase raises on failure, so the exit code is non-zero. Each report
+line starts with the seconds since the script began.
 
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
-(a serving request for B1, B2 and B9, a train step for B3, B4 and B10),
+(a serving request for B1, B2, B9 and B11, a train step for B3, B4, B10 and
+B12),
 error against its plain version, device time (``ms_source`` says whether
 torch.profiler or CUDA events gave it), plain time, bound and library time at
 the main path's shape; the last line is
@@ -84,6 +93,9 @@ seeds, hence ten. B9 with 32- against
 64-sample tiles: 1e-5, a sample's arithmetic does not depend on its tile.
 B10: as B4 (gradient stacks
 2e-4, gx x N 5e-3). Masked weights after 20 Adam steps: bit-equal.
+B11: 1e-3 on lp, as B2 (fp32 GEMMs in another order than cuBLAS, then a
+logsumexp a feature summed over 10 features). B12: as B10, and gctx x N
+5e-3 like gx x N.
 
 Bounds. ``bound_ms`` is the larger of the bytes a function must move over
 3.35 TB/s and the fp32 operations it needs over 67 TFLOP/s. For B9 and B10
@@ -92,7 +104,10 @@ for every weight a mask leaves, once a sample for B9 in either direction
 (the autoregressive inverse needs each hidden unit and each parameter once,
 when the features before it are known), three times for B10. The kernels
 multiply the masked zeros too, and B9's inverse runs D + 1 full passes a
-layer; ``schedule_ms`` is that dense count at the same peak rate.
+layer; ``schedule_ms`` is that dense count at the same peak rate. B11 and
+B12 count the same way: two FLOP for every MADE weight the masks leave and
+every context weight, once a sample for B11 and three times for B12; their
+rows carry the conditional twin's numbers as ``context_*``.
 """
 
 from __future__ import annotations
@@ -117,10 +132,18 @@ FLAGSHIP = dict(features=6, hidden_features=256, num_layers=10,
 # the autoregressive family at full width: MAF (affine) and NSF-AR (rq)
 MAF = dict(features=10, hidden_features=256, num_layers=5, num_blocks_per_layer=2)
 NSF_AR = dict(**MAF, num_bins=8, tail_bound=3.0)
+# the mixture-density family: "a typical neural-density-estimation config"
+# (benchmarks/bench_fused_mademog.py), and its conditional twin
+MOG = dict(features=10, hidden_features=256, num_blocks=2, num_mixture_components=10)
+MOG_CONTEXT = 10
+
+
+_START = time.perf_counter()
 
 
 def log(*args):
-    print(*args, flush=True)
+    """A line of the run's report, after the seconds since the script began."""
+    print(f"[{time.perf_counter() - _START:6.1f} s]", *args, flush=True)
 
 
 def card_line() -> str:
@@ -179,6 +202,24 @@ def device_ms(torch, fn, iters, kernel=None):
         return call_ms(torch, fn, iters)
     device_ms.source = "profiler"
     return total_us / 1e3 / iters
+
+
+def host_ops(fn, iters=10, top=8):
+    """Where the host's time goes in ``fn``: the operations with the most
+    self CPU time over ``iters`` calls, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(iters):
+            fn()
+    events = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    total = sum(e.self_cpu_time_total for e in events) / 1e3 / iters
+    log(f"  host time of a call, by operation ({total:.3f} ms of self CPU time a call in "
+        "all, under the profiler):")
+    for e in events[:top]:
+        log(f"    {e.key}: {e.self_cpu_time_total / 1e3 / iters:.3f} ms, "
+            f"{e.count // iters} a call")
 
 
 def max_err(a, b):
@@ -256,7 +297,9 @@ def main() -> int:
     from nflows_tpu_torch import (
         CompiledFlow,
         InverseAutoregressiveFlow,
+        MADEMoG,
         MaskedAutoregressiveFlow,
+        MixtureOfGaussiansMADE,
         NeuralSplineFlow,
         NeuralSplineFlowAR,
         create_train_state,
@@ -265,6 +308,8 @@ def main() -> int:
     )
     from nflows_tpu_torch.ops.cuda import (
         _build,
+        mademog_fused,
+        mademog_train,
         maf_flow_kernel,
         maf_train,
         nsf_flow_kernel,
@@ -398,48 +443,59 @@ def main() -> int:
         nsf_train.bwd_launch_count = 0
         maf_flow_kernel.launch_count = 0
         maf_train.bwd_launch_count = 0
+        mademog_fused.launch_count = 0
+        mademog_train.bwd_launch_count = 0
 
     def read_counts():
         return {"B1": rq_spline.launch_count, "B2": nsf_flow_kernel.launch_count,
                 "B3": nsf_train.loss_grad_launch_count, "B4": nsf_train.bwd_launch_count,
-                "B9": maf_flow_kernel.launch_count, "B10": maf_train.bwd_launch_count}
+                "B9": maf_flow_kernel.launch_count, "B10": maf_train.bwd_launch_count,
+                "B11": mademog_fused.launch_count, "B12": mademog_train.bwd_launch_count}
 
     def expect_counts(what, counts, **expected):
-        expected = {**dict(B1=0, B2=0, B3=0, B4=0, B9=0, B10=0), **expected}
+        expected = {**dict(B1=0, B2=0, B3=0, B4=0, B9=0, B10=0, B11=0, B12=0), **expected}
         if counts != expected:
             raise AssertionError(f"{what} launched {counts}, expected {expected}")
 
     launches = {}
 
-    def serve(model, flow, features, fused_kernel, unfused_log_prob, unfused_sample):
+    def serve(model, flow, features, fused_kernel, unfused_log_prob, unfused_sample,
+              fused_sample=None, context_features=None):
         """Serve ``flow`` through CompiledFlow on both paths: a log_prob
         request, then the two sampling requests, with the launches of each
-        counted from zero; ``fused_kernel`` must run once a fused request,
-        and the unfused path must launch exactly ``unfused_log_prob`` /
-        ``unfused_sample`` a request."""
+        counted from zero; ``fused_kernel`` must run once a fused log_prob
+        request and ``fused_sample`` (default: twice) in the two sampling
+        requests, and the unfused path must launch exactly
+        ``unfused_log_prob`` / ``unfused_sample`` a request. A conditional
+        model is served one sample a context row."""
         x = torch.randn(SERVE_BATCH, features, generator=gen).to(dev)
-        served = CompiledFlow(flow, batch_size=SERVE_BATCH, features=features)
+        ctx = (None if context_features is None
+               else torch.randn(SERVE_BATCH, context_features, generator=gen).to(dev))
+        kw = dict(batch_size=SERVE_BATCH, features=features, context_features=context_features,
+                  num_samples=None if ctx is None else 1)
+        served = CompiledFlow(flow, **kw)
         if not served.is_fused:
             raise AssertionError(f"{model}: CompiledFlow did not select the fused kernel")
-        unfused = CompiledFlow(flow, batch_size=SERVE_BATCH, features=features,
-                               use_fused=False)
+        unfused = CompiledFlow(flow, use_fused=False, **kw)
         lp_fused = None
         for name, server in (("fused", served), ("unfused", unfused)):
             g = torch.Generator(device=dev).manual_seed(1)
             reset_counts()
-            lp = server.log_prob(x)
+            lp = server.log_prob(x, ctx)
             torch.cuda.synchronize()
             first = read_counts()
             reset_counts()
-            s = server.sample(g)
-            s2, lp2 = server.sample_and_log_prob(g)
+            s = server.sample(g, ctx).reshape(SERVE_BATCH, features)
+            s2, lp2 = server.sample_and_log_prob(g, ctx)
+            s2, lp2 = s2.reshape(SERVE_BATCH, features), lp2.reshape(SERVE_BATCH)
             torch.cuda.synchronize()
             rest = read_counts()
             log(f"serving {model} ({name}): launches a request {first}, two more requests "
                 f"{rest}")
             if name == "fused":
                 expect_counts(f"one fused {model} request", first, **{fused_kernel: 1})
-                expect_counts(f"two fused {model} requests", rest, **{fused_kernel: 2})
+                expect_counts(f"two fused {model} requests", rest,
+                              **(fused_sample or {fused_kernel: 2}))
                 launches.setdefault(fused_kernel, first[fused_kernel])
             else:
                 expect_counts(f"one unfused {model} request", first, **unfused_log_prob)
@@ -451,7 +507,7 @@ def main() -> int:
                              (s2, (SERVE_BATCH, features)), (lp2, (SERVE_BATCH,))):
                 if tuple(t.shape) != shape or not torch.isfinite(t).all():
                     raise AssertionError(f"{model} {name}: bad output {tuple(t.shape)}")
-            consistency = max_err(lp2, server.log_prob(s2))
+            consistency = max_err(lp2, server.log_prob(s2, ctx))
             log(f"  sample_and_log_prob vs log_prob(samples): {consistency:.3e} (limit 5e-3)")
             if consistency > 5e-3:
                 raise AssertionError(
@@ -463,9 +519,9 @@ def main() -> int:
                 log(f"  unfused vs fused log_prob: {gap:.3e} (limit 1e-3)")
                 if gap > 1e-3:
                     raise AssertionError(f"{model}: unfused and fused log_prob disagree")
-            for endpoint, fn in (("log_prob", lambda: server.log_prob(x)),  # noqa: B023
+            for endpoint, fn in (("log_prob", lambda: server.log_prob(x, ctx)),  # noqa: B023
                                  ("sample", lambda: server.sample(  # noqa: B023
-                                     torch.Generator(device=dev).manual_seed(2)))):
+                                     torch.Generator(device=dev).manual_seed(2), ctx))):
                 fn()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -473,8 +529,11 @@ def main() -> int:
                     fn()
                 torch.cuda.synchronize()
                 wall = 1e3 * (time.perf_counter() - t0) / 10
+                # the unfused path's profile holds thousands of launches a call:
+                # fewer calls keep its cost to the run down
+                busy = device_ms(torch, fn, 10 if name == "fused" else 3)
                 log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
-                    f"device busy {device_ms(torch, fn, 10):.3f} ms")
+                    f"device busy {busy:.3f} ms")
 
     serve("NSF", flow, D, "B2", dict(B1=L), dict(B1=L))
 
@@ -638,7 +697,9 @@ def main() -> int:
                 step(data[i % 4])
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0) / 20
-            busy = device_ms(torch, lambda: step(data[0]), 10)  # noqa: B023
+            # an eager step is some thousand launches: three profiled steps
+            busy = device_ms(torch, lambda: step(data[0]),  # noqa: B023
+                             3 if name == "eager" else 10)
             step_ms[(name, n)] = wall
             log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
                 f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
@@ -956,7 +1017,8 @@ def main() -> int:
                 step(data[i % 4])
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0) / 20
-            busy = device_ms(torch, lambda: step(data[0]), 10)  # noqa: B023
+            busy = device_ms(torch, lambda: step(data[0]),  # noqa: B023
+                             3 if name == "eager" else 10)
             maf_step_ms[(name, n)] = wall
             log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
                 f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
@@ -968,9 +1030,235 @@ def main() -> int:
     log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes the "
         f"fused route from batch {MIN_AUTO_BATCH['maf']}")
 
+
+    # -- phase 13: B11 against its plain version (full-width MADEMoG) ------------------
+    mog = MixtureOfGaussiansMADE(**MOG, **seeded(0)).eval()
+    mog_ctx = MADEMoG(**MOG, context_features=MOG_CONTEXT, custom_initialization=True,
+                      **seeded(1)).eval()
+    DM = MOG["features"]
+    mog_models = (("MoG-MADE", mog, None), ("MADEMoG, context", mog_ctx, MOG_CONTEXT))
+
+    def mog_ops(model, n):
+        """fp32 FLOP of one MADE pass on n samples: the weights the masks
+        leave and every context weight (``need``), and the dense count the
+        kernels run (``dense``), two for each."""
+        weights, _, cf, masks = mademog_fused._extract(model, torch.float32, return_masks=True)
+        ctx_weights = sum(weights[k].numel() for k in ("wci", "wcb") if cf)
+        dense = sum(weights[k].numel() for k in ("wi", "wb", "wf")) + ctx_weights
+        need = sum(int(m.sum()) for m in masks.values()) + ctx_weights
+        return 2 * n * need, 2 * n * dense
+
+    b11 = {}
+    for model, dist, cf in mog_models:
+        view = mademog_fused.fuse_mademog(dist)
+        w32 = view._weights
+        w64 = {k: v.double() for k, v in w32.items()}
+        mog_bytes = 4 * sum(v.numel() for v in w32.values())
+        for n in (SERVE_BATCH, LARGE_BATCH, RAGGED):
+            x = (1.5 * torch.randn(n, DM, generator=gen)).to(dev)
+            c = None if cf is None else torch.randn(n, cf, generator=gen).to(dev)
+            log(f"B11 on the {model} at N={n}:")
+            lp = mademog_fused.mademog_log_prob_cuda(x, w32, view._static, c,
+                                                     packed=view._packed)
+            p_lp = mademog_fused.mademog_log_prob_plain(x, w32, view._static, c)
+            d_lp = mademog_fused.mademog_log_prob_plain(
+                x.double(), w64, view._static, None if c is None else c.double())
+            torch.cuda.synchronize()
+            if not torch.isfinite(lp).all():
+                raise AssertionError("B11 produced non-finite values")
+            err = hold("lp", lp, p_lp, d_lp, 1e-3)
+            if n == RAGGED:
+                continue
+            run = lambda: mademog_fused.mademog_log_prob_cuda(  # noqa: E731
+                x, w32, view._static, c, packed=view._packed)  # noqa: B023
+            run_plain = lambda: mademog_fused.mademog_log_prob_plain(  # noqa: E731
+                x, w32, view._static, c)  # noqa: B023
+            ms = device_ms(torch, run, 10, kernel="mademog_log_prob_kernel")
+            ms_source = device_ms.source
+            plain_ms = device_ms(torch, run_plain, 5)
+            need, dense = mog_ops(dist, n)
+            io_bytes = mog_bytes + 4 * n * (DM + (cf or 0) + 1)
+            bound_ms, bound_by = bound(need, io_bytes)
+            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by}, {need / 1e9:.2f} GFLOP needed); the kernel's schedule "
+                f"multiplies {dense / 1e9:.2f} GFLOP ({bound(dense, io_bytes)[0]:.4f} ms at "
+                f"the peak rate), {dense / ms / 1e9:.1f} TFLOP/s")
+            b11[(model, n)] = dict(err=err, ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   schedule_ms=bound(dense, io_bytes)[0])
+
+    # -- phase 14: serving the mixture-density models through CompiledFlow ------------
+    # log_prob is one B11 launch; sample runs the model's sequential sampler
+    # (no kernel of the port) and sample_and_log_prob adds one B11 for the
+    # samples' log_prob; the unfused path is cuBLAS only
+    serve("MoG-MADE", mog, DM, "B11", {}, {}, fused_sample=dict(B11=1))
+    serve("MADEMoG, context", mog_ctx, DM, "B11", {}, {}, fused_sample=dict(B11=1),
+          context_features=MOG_CONTEXT)
+
+    # -- phase 15: B12 against its plain version (full-width MADEMoG) -------------------
+    b12 = {}
+    gstacks = mademog_fused.WEIGHT_KEYS + mademog_fused.CONTEXT_KEYS
+    for model, dist, cf in mog_models:
+        mtr = fused_trainer(dist, TRAIN_BATCH)
+        if not isinstance(mtr, mademog_train.FusedMADEMoGTrainer):
+            raise AssertionError(f"fused_trainer gave {type(mtr).__name__} for the {model}")
+        f32 = {k: v.detach().contiguous() for k, v in mtr._fold(mtr.weights).items()}
+        f64 = {k: v.double() for k, v in f32.items()}
+        mpacked = mademog_fused.pack_weights(f32, mtr._static)
+        mog_bytes = 4 * sum(v.numel() for v in f32.values())
+        for n in (TRAIN_BATCH, SERVE_BATCH, RAGGED):
+            log(f"B12 on the {model} at N={n}:")
+            x = (1.5 * torch.randn(n, DM, generator=gen)).to(dev)
+            c = None if cf is None else torch.randn(n, cf, generator=gen).to(dev)
+            glp = (torch.randn(n, generator=gen) / n).to(dev)
+            gx, gctx, grads = mademog_train.mademog_train_bwd_cuda(x, glp, f32, mtr._static, c)
+            p_gx, p_gctx, p_grads = mademog_train.mademog_train_bwd_plain(
+                x, glp, f32, mtr._static, c)
+            d_gx, d_gctx, d_grads = mademog_train.mademog_train_bwd_plain(
+                x.double(), glp.double(), f64, mtr._static, None if c is None else c.double())
+            torch.cuda.synchronize()
+            outs = [gx, *grads.values()] + ([] if gctx is None else [gctx])
+            if not all(torch.isfinite(t).all() for t in outs):
+                raise AssertionError("B12 produced non-finite values")
+            log(f"  largest |gx * N|: {float((d_gx * n).abs().max()):.3f}")
+            errs = [hold("gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)]
+            if cf is not None:
+                errs.append(hold("gctx * N", gctx * n, p_gctx * n, d_gctx * n, 5e-3))
+            errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4)
+                     for k in gstacks if k in grads]
+            if n == RAGGED:
+                continue
+            run = lambda: mademog_train.mademog_train_bwd_cuda(  # noqa: E731
+                x, glp, f32, mtr._static, c, packed=mpacked, grads=grads)  # noqa: B023
+            run_plain = lambda: mademog_train.mademog_train_bwd_plain(  # noqa: E731
+                x, glp, f32, mtr._static, c)  # noqa: B023
+            ms = device_ms(torch, run, 10, kernel="mademog_train_bwd_kernel")
+            ms_source = device_ms.source
+            plain_ms = device_ms(torch, run_plain, 3)
+            # recompute, input cotangents and weight gradients, each over the
+            # weights the masks leave and the context weights; the kernel runs
+            # the three dense
+            need, dense = (3 * v for v in mog_ops(dist, n))
+            io_bytes = 2 * mog_bytes + 4 * n * (2 * DM + 2 * (cf or 0) + 1)
+            bound_ms, bound_by = bound(need, io_bytes)
+            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by}, {need / 1e9:.2f} GFLOP needed); the kernel's schedule "
+                f"multiplies {dense / 1e9:.2f} GFLOP ({bound(dense, io_bytes)[0]:.4f} ms at "
+                f"the peak rate), {dense / ms / 1e9:.1f} TFLOP/s")
+            b12[(model, n)] = dict(err=max(errs), ms=ms, ms_source=ms_source,
+                                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   schedule_ms=bound(dense, io_bytes)[0])
+
+    # -- phase 16: training the mixture-density models on the card --------------------
+    mix_c = torch.randn(MOG_CONTEXT, DM, generator=gen).to(dev) / MOG_CONTEXT ** 0.5
+
+    def mog_batches(n, count, seed, cf):
+        """Seeded synthetic data: the MAF's correlated features, shifted by a
+        linear function of a N(0, 1) context where the model has one."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        out = []
+        for x in maf_batches(n, count, seed):
+            c = None if cf is None else torch.randn(n, cf, generator=g, device=dev)
+            out.append((x if c is None else x + c @ mix_c, c))
+        return out
+
+    def mog_routes(dist, n):
+        fused_tr = fused_trainer(copy.deepcopy(dist), n)
+        state = create_train_state(copy.deepcopy(dist).train(), adam)
+        eager_step = make_train_step()
+        fused_step = fused_tr.make_train_step(fused_tr.init_opt(adam))
+        steps = {"fused": lambda batch: fused_step(*batch),
+                 "eager": lambda batch: eager_step(state, *batch)[1]["loss"]}
+        return steps, fused_tr, state
+
+    mog_step_ms = {}
+    for model, dist, cf in mog_models:
+        steps, fused_tr, state = mog_routes(dist, TRAIN_BATCH)
+        start = {k: v.detach().clone() for k, v in fused_tr.weights.items()}
+        data = mog_batches(TRAIN_BATCH, TRAIN_STEPS, 9, cf)
+        losses = {}
+        for name, expected in (("fused", dict(B11=1, B12=1)), ("eager", {})):
+            reset_counts()
+            first = steps[name](data[0])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            log(f"training the {model} ({name}): launches a step {counts}")
+            expect_counts(f"one {name} {model} step", counts, **expected)
+            if name == "fused":
+                launches.setdefault("B12", counts["B12"])
+            rest = [steps[name](batch) for batch in data[1:]]
+            losses[name] = [float(v) for v in [first, *rest]]
+            log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
+                f"{losses[name][0]:.4f} -> {losses[name][-1]:.4f}")
+            if not all(np.isfinite(losses[name])) or not losses[name][-1] < losses[name][0]:
+                raise AssertionError(f"{model} {name}: the loss is not finite and falling: "
+                                     f"{losses[name]}")
+        gap = max(abs(a - b) for a, b in zip(losses["fused"][:3], losses["eager"][:3]))
+        log(f"  first three losses, fused vs eager: {gap:.3e} apart (limit 2e-3)")
+        if gap > 2e-3:
+            raise AssertionError(f"the fused and eager {model} routes disagree at the start")
+        for k in mademog_fused.MASKED_KEYS:
+            dead = fused_tr._masks[k] == 0
+            moved = not torch.equal(fused_tr.weights[k].detach()[dead], start[k][dead])
+            live = not torch.equal(fused_tr.weights[k].detach()[~dead], start[k][~dead])
+            log(f"  {k}: {int(dead.sum())} masked entries bit-equal after {TRAIN_STEPS} "
+                f"steps: {not moved}; the others moved: {live}")
+            if moved or not live:
+                raise AssertionError(f"{model} {k}: masked entries moved, or nothing trained")
+        held, held_c = mog_batches(TRAIN_BATCH, 1, 10, cf)[0]
+        trained = fused_tr.to_dist().eval()
+        served_lp = CompiledFlow(trained, batch_size=TRAIN_BATCH, features=DM,
+                                 context_features=cf).log_prob(held, held_c)
+        with torch.no_grad():
+            trainer_lp = fused_tr._apply(fused_tr.weights, held, held_c)
+        gap = max_err(served_lp, trainer_lp)
+        log(f"  to_dist() served through CompiledFlow vs the trainer's log_prob: {gap:.3e} "
+            "(limit 1e-3)")
+        if gap > 1e-3:
+            raise AssertionError(f"the trained {model} served disagrees with the trainer")
+        log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
+            f"{max_err(served_lp, state.flow.log_prob(held, held_c).detach()):.3e}")
+
+        log(f"{model} train step times (host clock over 20 steps ending in a synchronise; "
+            "device busy from torch.profiler):")
+        for n in (TRAIN_BATCH, 2048, SERVE_BATCH):
+            steps, fused_tr, _ = mog_routes(dist, n)
+            data = mog_batches(n, 4, 11, cf)
+            for name, step in steps.items():
+                for batch in data[:3]:
+                    step(batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(20):
+                    step(data[i % 4])
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / 20
+                busy = device_ms(torch, lambda: step(data[0]), 10)  # noqa: B023
+                mog_step_ms[(model, name, n)] = wall
+                log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
+                    f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
+            fold = device_ms(torch, lambda: fused_tr._repack(  # noqa: B023
+                fused_tr._fold(fused_tr.weights)), 20)
+            log(f"  batch {n}: folding the masks and re-packing the weights {fold:.4f} ms a "
+                "step")
+            if n == TRAIN_BATCH and cf is None:
+                host_ops(lambda: steps["fused"](data[0]))  # noqa: B023
+        faster = [n for n in (TRAIN_BATCH, 2048, SERVE_BATCH)
+                  if mog_step_ms[(model, "fused", n)] < mog_step_ms[(model, "eager", n)]]
+        log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes "
+            f"the fused route from batch {MIN_AUTO_BATCH['mademog']}")
+
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
-             "B4": "nsf_train_bwd", "B9": "maf_flow_kernel", "B10": "maf_train_bwd"}
+             "B4": "nsf_train_bwd", "B9": "maf_flow_kernel", "B10": "maf_train_bwd",
+             "B11": "mademog_log_prob", "B12": "mademog_train_bwd"}
+
+    def with_context(stats, ctx_stats, **more):
+        """A MADEMoG row: the unconditional model's numbers, the conditional
+        twin's beside them."""
+        return {**stats, **{f"context_{k}": v for k, v in ctx_stats.items()}, **more}
+
+    uncond, cond = (m for m, _, _ in mog_models)
     rows = []
     for kid, stats, source, replaces, tpu in (
             ("B1", b1[SERVE_BATCH * 3], "nflows_tpu_torch/csrc/rq_spline.cu",
@@ -989,7 +1277,17 @@ def main() -> int:
              "ops/pallas/maf_flow_kernel.py:_kernel"),
             ("B10", b10[("MAF", TRAIN_BATCH)], "nflows_tpu_torch/csrc/maf_train.cu",
              "nflows_tpu/ops/pallas/maf_train.py:161",
-             "ops/pallas/maf_train.py:_bwd_kernel")):
+             "ops/pallas/maf_train.py:_bwd_kernel"),
+            ("B11", with_context(b11[(uncond, SERVE_BATCH)], b11[(cond, SERVE_BATCH)],
+                                 ms_at_65536=b11[(uncond, LARGE_BATCH)]["ms"]),
+             "nflows_tpu_torch/csrc/mademog_fused.cu",
+             "nflows_tpu/ops/pallas/mademog_fused.py:169",
+             "ops/pallas/mademog_fused.py:_kernel"),
+            ("B12", with_context(b12[(uncond, TRAIN_BATCH)], b12[(cond, TRAIN_BATCH)],
+                                 ms_at_4096=b12[(uncond, SERVE_BATCH)]["ms"]),
+             "nflows_tpu_torch/csrc/mademog_train.cu",
+             "nflows_tpu/ops/pallas/mademog_train.py:88",
+             "ops/pallas/mademog_train.py:_bwd_kernel")):
         rows.append({
             "name": names[kid], "id": kid,
             "route": "cuda", "source": source, "replaces": replaces, "tpu": tpu,
@@ -999,7 +1297,7 @@ def main() -> int:
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
             "library_ms": None,
             **{k: v for k, v in stats.items()
-               if k.startswith(("inverse_", "forward_", "schedule_"))},
+               if k.startswith(("inverse_", "forward_", "schedule_", "context_", "ms_at_"))},
         })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -10,12 +10,14 @@ caller passes ``device="cpu"``.
 from nflows_tpu_torch.version import VERSION, __version__
 
 from nflows_tpu_torch import distributions, flows, models, training, transforms, utils
+from nflows_tpu_torch.distributions.mixture import MADEMoG
 from nflows_tpu_torch.flows.autoregressive import MaskedAutoregressiveFlow
 from nflows_tpu_torch.flows.base import Flow
 from nflows_tpu_torch.interop import load_jax_params, load_jax_trainer_weights
 from nflows_tpu_torch.models.iaf import InverseAutoregressiveFlow
 from nflows_tpu_torch.models.nsf import NeuralSplineFlow
 from nflows_tpu_torch.models.nsf_ar import NeuralSplineFlowAR
+from nflows_tpu_torch.nn.nde import MixtureOfGaussiansMADE
 from nflows_tpu_torch.serving import CompiledFlow
 
 from nflows_tpu_torch.training import (
@@ -29,7 +31,7 @@ from nflows_tpu_torch.training import (
 __all__ = ["VERSION", "__version__", "distributions", "flows", "models",
            "training", "transforms", "utils", "Flow", "NeuralSplineFlow",
            "NeuralSplineFlowAR", "MaskedAutoregressiveFlow",
-           "InverseAutoregressiveFlow",
+           "InverseAutoregressiveFlow", "MADEMoG", "MixtureOfGaussiansMADE",
            "CompiledFlow", "load_jax_params", "load_jax_trainer_weights",
            "TrainState", "create_train_state", "make_train_step", "nll_loss",
            "fused_trainer"]

@@ -18,6 +18,9 @@ there and [out, in] here: the port builds its own masks from the degree
 rule, so an incoming mask is only compared, and one that differs is
 refused (the two models would not be the same autoregressive function).
 
+A MixtureOfGaussiansMADE carries as a MADE does; a MADEMoG's keys start
+with ``.made.``, its attribute in both packages.
+
 A ``StackedTransform`` (the JAX package's scan-stacked chain) has to be
 unstacked first: build the JAX flow with ``stacked=False``, or walk its
 ``layers()``.
@@ -86,9 +89,11 @@ def load_jax_trainer_weights(trainer, weights: Mapping[str, np.ndarray]) -> None
     """Write a JAX fused trainer's kernel-layout weights as numpy arrays
     (``w0``, ``b0``, ``wb``, ``bb``, ``wf``, ``bf`` of ``FusedNSFTrainer``;
     the flat ``wi``, ``bi``, ``wb``, ``bb``, ``wf``, ``bf`` stacks of
-    ``FusedMAFTrainer``) into the port's ``trainer.weights``, in place. The
-    two layouts are equal by construction, so nothing is transposed; the
-    MAF trainer's masks stay the port's own. Raises on a missing key, an
+    ``FusedMAFTrainer``, and of ``FusedMADEMoGTrainer`` with ``wci``,
+    ``bci``, ``wcb``, ``bcb`` under a context) into the port's
+    ``trainer.weights``, in place. The two layouts are equal by
+    construction, so nothing is transposed; the MADE trainers' masks stay
+    the port's own. Raises on a missing key, an
     unexpected key or a shape mismatch."""
     missing = sorted(set(trainer.weights) - set(weights))
     unexpected = sorted(set(weights) - set(trainer.weights))

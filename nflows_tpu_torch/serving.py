@@ -9,15 +9,17 @@ The JAX class compiles each endpoint ahead of time; PyTorch runs eagerly,
 so nothing is compiled here and the name is kept for the surface. Requests
 of another shape are refused, as there.
 
-Serving is the amortised-inference context, so a whole-chain kernel is the
-default whenever the flow qualifies (``use_fused=None``): B2 for RQ
+Serving is the amortised-inference context, so a fused kernel is the
+default whenever the model qualifies (``use_fused=None``): B2 for RQ
 coupling chains (``fuse_nsf``), B9 for autoregressive chains
-(``fuse_maf``), probed in that order. Only a structural
-``ValueError``/``AttributeError`` from every prober sends a flow to the
-unfused chain (where each RQ spline launches kernel B1 on the card); a
-kernel that fails to build or launch raises. ``use_fused=True`` raises with
-each prober's reason when the flow does not qualify; ``use_fused=False``
-serves the unfused chain.
+(``fuse_maf``), B11 for the log_prob of a MADEMoG or a bare
+MixtureOfGaussiansMADE (``fuse_mademog``; its sampling endpoints run the
+model's sequential sampler, as in the JAX package), probed in that order.
+Only a structural ``ValueError``/``AttributeError`` from every prober sends
+a flow to the unfused chain (where each RQ spline launches kernel B1 on the
+card); a kernel that fails to build or launch raises. ``use_fused=True``
+raises with each prober's reason when the flow does not qualify;
+``use_fused=False`` serves the unfused chain.
 """
 
 from __future__ import annotations
@@ -63,16 +65,17 @@ class CompiledFlow:
 
     @property
     def is_fused(self) -> bool:
-        """True when requests run the whole-chain kernel rather than the
-        unfused chain."""
+        """True when requests run a fused kernel rather than the unfused
+        chain."""
         return self._fused is not None
 
     def _try_build_fused(self, flow, required: bool):
+        from nflows_tpu_torch.ops.cuda.mademog_fused import fuse_mademog
         from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
         from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
 
         errors = []
-        for fuse in (fuse_nsf, fuse_maf):
+        for fuse in (fuse_nsf, fuse_maf, fuse_mademog):
             try:
                 fused = fuse(flow, dtype=self._dtype)
             except (ValueError, AttributeError) as e:
@@ -88,7 +91,7 @@ class CompiledFlow:
             return fused
         if required:
             raise ValueError(
-                "use_fused=True but this flow matches no whole-chain kernel's "
+                "use_fused=True but this flow matches no fused kernel's "
                 "structure. Prober reasons:\n  " + "\n  ".join(errors))
         return None
 

@@ -4,10 +4,12 @@ nflows_tpu/training/fused.py).
 ``fused_trainer(flow, batch_size)`` probes the flow's structure and returns
 the matching trainer: :class:`FusedNSFTrainer` for RQ coupling chains
 (kernel B3, or B2 + B4 under autograd), :class:`FusedMAFTrainer` for
-unwrapped autoregressive chains, MAF and NSF-AR (kernels B9 + B10), probed
-in that order. A flow that matches no kernel raises with every prober's
-reason (or gives ``None`` with ``required=False``), and
-``training.make_train_step`` (the eager route) is then the path.
+unwrapped autoregressive chains, MAF and NSF-AR (kernels B9 + B10),
+:class:`FusedMADEMoGTrainer` for a MADEMoG or a bare
+MixtureOfGaussiansMADE (kernels B11 + B12), probed in that order. A model
+that matches no kernel raises with every prober's reason (or gives ``None``
+with ``required=False``), and ``training.make_train_step`` (the eager
+route) is then the path.
 """
 
 from __future__ import annotations
@@ -28,11 +30,18 @@ __all__ = ["fused_trainer", "MIN_AUTO_BATCH"]
 #   three other runs read the eager step at 15.4 to 22.9 ms (it is
 #   host-bound, its device work 1.5 to 2.3 ms) and the fused one at 2.30 to
 #   2.89 ms.
-# The fused step won at every measured batch in both families, so each floor
-# is the smallest batch the trainers take.
+# - "mademog", the full-width MixtureOfGaussiansMADE (features 10, hidden
+#   256, 2 blocks, 10 components): fused (B11 forward, B12 backward, mask
+#   fold, Adam) 1.90, 1.86 and 2.00 ms against eager 4.33, 3.68 and 4.06 ms
+#   at batches 512, 2,048 and 4,096; its conditional twin (context 10) 2.59,
+#   2.68 and 2.32 against 5.02, 5.07 and 5.14 ms. Both routes are host-bound
+#   here (0.67 to 0.83 ms of device work fused, 0.42 to 0.76 eager).
+# The fused step won at every measured batch in all three families, so each
+# floor is the smallest batch the trainers take.
 MIN_AUTO_BATCH = {
     "nsf": 128,
     "maf": 128,
+    "mademog": 128,
 }
 
 
@@ -40,7 +49,8 @@ def fused_trainer(flow, batch_size, required=None, auto=False):
     """Return the fused trainer matching ``flow``'s structure.
 
     Args:
-        flow: a ``Flow`` over a StandardNormal base.
+        flow: a ``Flow`` over a StandardNormal base, or a MADEMoG /
+            MixtureOfGaussiansMADE.
         batch_size: training batch size (a multiple of 128, as in the JAX
             package).
         required: when False, return ``None`` instead of raising if no
@@ -49,6 +59,7 @@ def fused_trainer(flow, batch_size, required=None, auto=False):
             (:data:`MIN_AUTO_BATCH`) says the eager route is faster at this
             batch size.
     """
+    from nflows_tpu_torch.ops.cuda.mademog_train import FusedMADEMoGTrainer
     from nflows_tpu_torch.ops.cuda.maf_train import FusedMAFTrainer
     from nflows_tpu_torch.ops.cuda.nsf_train import FusedNSFTrainer
 
@@ -60,7 +71,8 @@ def fused_trainer(flow, batch_size, required=None, auto=False):
             "lane width of the JAX package, kept so that one call behaves "
             "the same in both)")
     errors = []
-    for cls, family in ((FusedNSFTrainer, "nsf"), (FusedMAFTrainer, "maf")):
+    for cls, family in ((FusedNSFTrainer, "nsf"), (FusedMAFTrainer, "maf"),
+                        (FusedMADEMoGTrainer, "mademog")):
         try:
             trainer = cls(flow, batch_size=batch_size)
         except (ValueError, AttributeError) as e:

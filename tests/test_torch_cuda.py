@@ -1,5 +1,5 @@
-"""Kernels B1 to B4, B9 and B10 on the card, each against its plain PyTorch version on
-the same CUDA tensors, and the serving and training paths through them.
+"""Kernels B1 to B4 and B9 to B12 on the card, each against its plain PyTorch version
+on the same CUDA tensors, and the serving and training paths through them.
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -446,3 +446,152 @@ def test_maf_train_steps_launch_the_kernels_and_keep_masked_entries(cuda):
         assert not torch.equal(fused.weights[k].detach()[~dead], start[k][~dead])
     x = torch.randn(128, 5, generator=g).to(cuda)
     _close(fused.to_flow().log_prob(x), state.flow.log_prob(x), 5e-3)
+
+
+# -- the mixture-density family: B11 and B12 ----------------------------------------
+# B11 as B2 (1e-3 on lp: fp32 GEMMs summed in another order than cuBLAS, a
+# sum over features of logsumexps). B12 as B4 and B10: gradients 2e-4 of the
+# plain version's plus 1e-3 of its size, gx and gctx 2e-4 / N plus 1e-3
+# relative (their cotangents come at scale 1/N).
+
+MOG_CASES = {
+    "narrow": dict(features=5, hidden_features=64, num_mixture_components=4,
+                   context_features=None),
+    "narrow_context": dict(features=5, hidden_features=64, num_mixture_components=4,
+                           context_features=3),
+    "full_context": dict(features=10, hidden_features=256, num_mixture_components=10,
+                         context_features=10),
+}
+
+
+def _mog(device, case):
+    from nflows_tpu_torch import MixtureOfGaussiansMADE
+
+    cfg = MOG_CASES[case]
+    return MixtureOfGaussiansMADE(num_blocks=2, generator=torch.Generator().manual_seed(7),
+                                  rng=np.random.default_rng(7), device=device, **cfg).eval()
+
+
+def _mog_inputs(device, case, n, seed):
+    cfg = MOG_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    x = (1.5 * torch.randn(n, cfg["features"], generator=g)).to(device)
+    cf = cfg["context_features"]
+    c = None if cf is None else torch.randn(n, cf, generator=g).to(device)
+    return x, c
+
+
+@pytest.mark.parametrize("case", sorted(MOG_CASES))
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b11_matches_plain(cuda, case, n):
+    """203 leaves a ragged last tile of 32 samples."""
+    from nflows_tpu_torch.ops.cuda import mademog_fused
+
+    fused = mademog_fused.fuse_mademog(_mog(cuda, case))
+    x, c = _mog_inputs(cuda, case, n, seed=n)
+    before = mademog_fused.launch_count
+    lp = mademog_fused.mademog_log_prob_cuda(x, fused._weights, fused._static, c,
+                                             packed=fused._packed)
+    assert mademog_fused.launch_count == before + 1
+    _close(lp, mademog_fused.mademog_log_prob_plain(x, fused._weights, fused._static, c), 1e-3)
+    again = mademog_fused.mademog_log_prob_cuda(x, fused._weights, fused._static, c)
+    assert torch.equal(lp, again)              # no atomics: the same bits every launch
+    with pytest.raises(ValueError):
+        mademog_fused.mademog_log_prob_cuda(x.double(), fused._weights, fused._static, c)
+    if c is not None:
+        with pytest.raises(ValueError, match="context"):
+            mademog_fused.mademog_log_prob_cuda(x, fused._weights, fused._static)
+
+
+@pytest.mark.parametrize("case", sorted(MOG_CASES))
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b12_matches_plain(cuda, case, n):
+    """203 leaves a ragged last tile; 16,384 gives each block of the
+    persistent grid several tiles."""
+    from nflows_tpu_torch.ops.cuda import mademog_train
+
+    tr = mademog_train.FusedMADEMoGTrainer(_mog(cuda, case), 128)
+    folded = {k: v.detach().contiguous() for k, v in tr._fold(tr.weights).items()}
+    x, c = _mog_inputs(cuda, case, n, seed=n + 1)
+    glp = torch.randn(n, generator=torch.Generator().manual_seed(n + 2)).to(cuda) / n
+    before = mademog_train.bwd_launch_count
+    gx, gctx, grads = mademog_train.mademog_train_bwd_cuda(x, glp, folded, tr._static, c)
+    assert mademog_train.bwd_launch_count == before + 1
+    p_gx, p_gctx, p_grads = mademog_train.mademog_train_bwd_plain(x, glp, folded, tr._static, c)
+    torch.testing.assert_close(gx, p_gx, atol=2e-4 / n, rtol=1e-3)
+    if c is None:
+        assert gctx is None
+    else:
+        torch.testing.assert_close(gctx, p_gctx, atol=2e-4 / n, rtol=1e-3)
+    assert sorted(grads) == sorted(p_grads)
+    for k in grads:
+        torch.testing.assert_close(grads[k], p_grads[k], atol=2e-4, rtol=1e-3,
+                                   msg=lambda m: f"{k}: {m}")  # noqa: B023
+    # a second launch into the same buffers starts from zero again
+    first = {k: v.clone() for k, v in grads.items()}
+    _, _, again = mademog_train.mademog_train_bwd_cuda(x, glp, folded, tr._static, c,
+                                                       grads=grads)
+    assert all(again[k] is grads[k] for k in again)
+    for k in grads:
+        torch.testing.assert_close(again[k], first[k], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["narrow", "narrow_context"])
+def test_compiled_flow_serves_a_mademog_with_one_launch_a_log_prob(cuda, case):
+    from nflows_tpu_torch import MADEMoG
+    from nflows_tpu_torch.ops.cuda import mademog_fused
+
+    cfg = MOG_CASES[case]
+    dist = MADEMoG(num_blocks=2, custom_initialization=True, device=cuda,
+                   generator=torch.Generator().manual_seed(3), **cfg).eval()
+    x, c = _mog_inputs(cuda, case, 256, seed=3)
+    kw = dict(batch_size=256, features=cfg["features"], num_samples=None if c is None else 1,
+              context_features=cfg["context_features"])
+    fused = CompiledFlow(dist, **kw)
+    unfused = CompiledFlow(dist, use_fused=False, **kw)
+    assert fused.is_fused and not unfused.is_fused
+    b11 = mademog_fused.launch_count
+    lp = fused.log_prob(x, c)
+    assert mademog_fused.launch_count == b11 + 1
+    s, slp = fused.sample_and_log_prob(torch.Generator(device=cuda).manual_seed(4), c)
+    assert mademog_fused.launch_count == b11 + 2     # the samples' log_prob
+    _close(lp, unfused.log_prob(x, c), 1e-3)
+    assert mademog_fused.launch_count == b11 + 2
+    assert torch.isfinite(s).all() and torch.isfinite(slp).all()
+    # a conditional request draws one sample a context row
+    _close(slp.reshape(256), fused.log_prob(s.reshape(256, cfg["features"]), c), 5e-3)
+
+
+@pytest.mark.parametrize("case", ["narrow", "narrow_context"])
+def test_mademog_train_steps_launch_the_kernels_and_keep_masked_entries(cuda, case):
+    """One B11 and one B12 a fused step; three Adam steps of the fused and
+    the eager route from the same weights give the same losses; a masked
+    entry's gradient is exactly zero and the entry does not move."""
+    import copy
+
+    from nflows_tpu_torch.ops.cuda import mademog_fused, mademog_train
+
+    model = _mog(cuda, case)
+    adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
+    fused = fused_trainer(copy.deepcopy(model), 128)
+    assert isinstance(fused, mademog_train.FusedMADEMoGTrainer)
+    start = {k: v.detach().clone() for k, v in fused.weights.items()}
+    step_fused = fused.make_train_step(fused.init_opt(adam))
+    state = create_train_state(copy.deepcopy(model).train(), adam)
+    step_eager = make_train_step()
+    for i in range(3):
+        x, c = _mog_inputs(cuda, case, 128, seed=20 + i)
+        c0 = (mademog_fused.launch_count, mademog_train.bwd_launch_count)
+        loss_fused = step_fused(x, c)
+        c1 = (mademog_fused.launch_count, mademog_train.bwd_launch_count)
+        assert tuple(b - a for a, b in zip(c0, c1)) == (1, 1)
+        state, metrics = step_eager(state, x, c)
+        assert (mademog_fused.launch_count, mademog_train.bwd_launch_count) == c1
+        _close(loss_fused, metrics["loss"], 2e-4)
+    for k in mademog_fused.MASKED_KEYS:
+        dead = fused._masks[k] == 0
+        assert torch.equal(fused.weights[k].grad[dead], torch.zeros_like(start[k][dead]))
+        assert torch.equal(fused.weights[k].detach()[dead], start[k][dead])
+        assert not torch.equal(fused.weights[k].detach()[~dead], start[k][~dead])
+    x, c = _mog_inputs(cuda, case, 128, seed=30)
+    _close(fused.to_dist().log_prob(x, c), state.flow.log_prob(x, c), 5e-3)

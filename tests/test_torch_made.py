@@ -35,12 +35,14 @@ def _jax_params(module):
 
 def _pair(kind, features, seed=0, context_features=None, multiplier=3, hidden=32):
     """The same MADE in both packages: same numpy rng for the degrees,
-    weights carried over from the JAX one."""
+    weights carried over from the JAX one (the port's own are seeded too, so
+    that a test on them sees the same weights every run)."""
     kw = dict(features=features, hidden_features=hidden, num_blocks=2,
               output_multiplier=multiplier, context_features=context_features,
               **KINDS[kind])
     jnet = jax_made.MADE(key=jax.random.key(seed), rng=np.random.default_rng(seed), **kw)
-    tnet = torch_made.MADE(rng=np.random.default_rng(seed), device="cpu", **kw)
+    tnet = torch_made.MADE(rng=np.random.default_rng(seed), device="cpu",
+                           generator=torch.Generator().manual_seed(seed), **kw)
     return jnet, tnet
 
 

@@ -340,7 +340,7 @@ def test_auto_uses_the_measured_floor_of_each_family(monkeypatch):
 
     maf = MaskedAutoregressiveFlow(5, 16, 2, 1, device="cpu")
     nsf = NeuralSplineFlow(6, 16, num_layers=2, num_bins=4, device="cpu")
-    assert set(fused.MIN_AUTO_BATCH) == {"nsf", "maf"}
+    assert set(fused.MIN_AUTO_BATCH) == {"nsf", "maf", "mademog"}
     floor = fused.MIN_AUTO_BATCH["maf"]
     assert floor is None or (isinstance(floor, int) and floor % 128 == 0)
     monkeypatch.setitem(fused.MIN_AUTO_BATCH, "maf", 1024)

@@ -36,7 +36,12 @@ def test_scan_covers_the_port():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"nflows_tpu_torch/nn/made.py", "nflows_tpu_torch/transforms/autoregressive.py",
             "nflows_tpu_torch/ops/cuda/maf_flow_kernel.py",
-            "nflows_tpu_torch/ops/cuda/maf_train.py"} <= names
+            "nflows_tpu_torch/ops/cuda/maf_train.py",
+            "nflows_tpu_torch/nn/nde/made.py", "nflows_tpu_torch/distributions/mixture.py",
+            "nflows_tpu_torch/ops/cuda/mademog_fused.py",
+            "nflows_tpu_torch/ops/cuda/mademog_train.py"} <= names
+    sources = {p.name for p in (ROOT / "nflows_tpu_torch" / "csrc").glob("*.cu*")}
+    assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh"} <= sources
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -75,6 +80,19 @@ def test_runtime_loads_no_jax():
         "    tr.to_flow()\n"
         "    nt.make_train_step()(nt.create_train_state(m, adam), y)\n"
         "nt.InverseAutoregressiveFlow(5, 8, 2, 1, device='cpu').log_prob(torch.randn(4, 5))\n"
+        "for m, cf in ((nt.MixtureOfGaussiansMADE(5, 8, device='cpu'), None),\n"
+        "              (nt.MADEMoG(5, 8, 3, num_mixture_components=2, device='cpu'), 3)):\n"
+        "    y = torch.randn(16, 5)\n"
+        "    c = None if cf is None else torch.randn(16, cf)\n"
+        "    served = nt.CompiledFlow(m, 16, 5, context_features=cf, device='cpu')\n"
+        "    assert served.is_fused\n"
+        "    served.log_prob(y, c)\n"
+        "    served.sample_and_log_prob(torch.Generator().manual_seed(0), c)\n"
+        "    tr = nt.fused_trainer(m, 128)\n"
+        "    c = None if cf is None else torch.randn(128, cf)\n"
+        "    tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 5), c)\n"
+        "    tr.to_dist()\n"
+        "    nt.make_train_step()(nt.create_train_state(m, adam), torch.randn(128, 5), c)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'nflows_tpu')]\n"
         "print(bad)\n"
