@@ -26,13 +26,21 @@ against their plain versions; both models served through ``CompiledFlow``
 fused (B11, one launch a log_prob request; sampling is the model's
 sequential sampler) and unfused; both trained for 20 Adam steps on the
 fused route (B11 forward and B12 backward a step) and the eager one.
+Then the other spline coupling families at the flagship's widths: the
+linear-rational NSF (``NeuralSplineFlow(spline="lrs")``) and the same chain
+with linear, quadratic or cubic couplings: their elementwise kernels B5-B8
+against their plain versions, forward and inverse, with gradients through
+each wrapper; each flow served through ``CompiledFlow`` at 4,096 on the
+unfused chain (B2 has no stage for these families; one launch of the
+family's kernel in each of the 10 couplings a request) and trained for 20
+eager Adam steps.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
-(a serving request for B1, B2, B9 and B11, a train step for B3, B4, B10 and
-B12),
+(a serving request for B1, B2, B5-B9 and B11, a train step for B3, B4, B10
+and B12),
 error against its plain version, device time (``ms_source`` says whether
 torch.profiler or CUDA events gave it), plain time, bound and library time at
 the main path's shape; the last line is
@@ -95,7 +103,11 @@ B10: as B4 (gradient stacks
 2e-4, gx x N 5e-3). Masked weights after 20 Adam steps: bit-equal.
 B11: 1e-3 on lp, as B2 (fp32 GEMMs in another order than cuBLAS, then a
 logsumexp a feature summed over 10 features). B12: as B10, and gctx x N
-5e-3 like gx x N.
+5e-3 like gx x N. B5-B8 as B1: on the values the main path hands them
+(each flow's first coupling) 1e-4 on outputs and 1e-3 on the logabsdet; on
+N(0, 1) parameters 1e-2, or within twice the plain fp32 version's own
+distance from float64; their gradients, kernel forward and plain backward,
+1e-4 from the plain version's.
 
 Bounds. ``bound_ms`` is the larger of the bytes a function must move over
 3.35 TB/s and the fp32 operations it needs over 67 TFLOP/s. For B9 and B10
@@ -107,7 +119,11 @@ multiply the masked zeros too, and B9's inverse runs D + 1 full passes a
 layer; ``schedule_ms`` is that dense count at the same peak rate. B11 and
 B12 count the same way: two FLOP for every MADE weight the masks leave and
 every context weight, once a sample for B11 and three times for B12; their
-rows carry the conditional twin's numbers as ``context_*``.
+rows carry the conditional twin's numbers as ``context_*``. B5-B8 count
+x, the parameters and two outputs an element (136, 44, 72 and 84 bytes at
+K = 8) and an estimate of their fp32 operations an element (B8's inverse
+with its 30 bisection halvings); their rows carry the inverse's numbers as
+``inverse_*``.
 """
 
 from __future__ import annotations
@@ -272,18 +288,66 @@ def hold_relative(torch, name, kernel, plain32, plain64):
     return k, p
 
 
-def coupling_inputs(flow, x):
-    """What the first coupling of ``flow`` hands B1 for inputs ``x``: the
-    transformed features and the spline parameters (widths and heights
-    already rescaled), as contiguous tensors."""
+def family_inputs(family, flow, x):
+    """What the first coupling of ``flow`` hands its spline kernel for inputs
+    ``x``: the transformed features, then the spline parameters in the
+    wrapper's order (widths and heights rescaled as the coupling does), as
+    contiguous tensors. ``family`` is rq, lrs, linear, quadratic or cubic."""
     perm, cpl = flow.transform.transforms[0], flow.transform.transforms[1]
     z, _ = perm(x)
     params = cpl.transform_net(z[:, cpl.identity_features])
     params = params.reshape(x.shape[0], cpl.num_transform_features, -1)
     K = cpl.num_bins
-    w, h = cpl._softmax_rescale(params[..., :K], params[..., K:2 * K])
-    return [t.contiguous() for t in (z[:, cpl.transform_features], w, h,
-                                     params[..., 2 * K:])]
+    if family == "linear":
+        parts = [params]
+    else:
+        w, h = cpl._softmax_rescale(
+            params[..., :K], params[..., K:] if family == "quadratic" else params[..., K:2 * K])
+        parts = {"rq": [w, h, params[..., 2 * K:]],
+                 "lrs": [w, h, params[..., 3 * K:], params[..., 2 * K:3 * K]],
+                 "quadratic": [w, h],
+                 "cubic": [w, h, params[..., 2 * K:2 * K + 1], params[..., 2 * K + 1:]]}[family]
+    return [t.contiguous() for t in (z[:, cpl.transform_features], *parts)]
+
+
+def family_flow(family, device, seed):
+    """The flagship's chain at its widths (FLAGSHIP) with a linear, quadratic
+    or cubic coupling in place of the RQ one: 10 x [RandomPermutation,
+    coupling with a 2-block relu ResidualNet], alternating masks, 8 bins,
+    linear tails at 3, StandardNormal base, random weights from ``seed``
+    (the repo builds these chains in benchmarks/hw_numerics.py:79-100 and
+    tests/ops/test_spline_couplings_fused.py:27-29)."""
+    import torch
+
+    from nflows_tpu_torch import Flow
+    from nflows_tpu_torch.distributions import StandardNormal
+    from nflows_tpu_torch.nn import nets
+    from nflows_tpu_torch.transforms import (
+        CompositeTransform,
+        PiecewiseCubicCouplingTransform,
+        PiecewiseLinearCouplingTransform,
+        PiecewiseQuadraticCouplingTransform,
+        RandomPermutation,
+    )
+    from nflows_tpu_torch.utils.masks import create_alternating_binary_mask
+
+    cls = {"linear": PiecewiseLinearCouplingTransform,
+           "quadratic": PiecewiseQuadraticCouplingTransform,
+           "cubic": PiecewiseCubicCouplingTransform}[family]
+    cfg = FLAGSHIP
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    chain = []
+    for i in range(cfg["num_layers"]):
+        chain.append(RandomPermutation(cfg["features"], rng=rng, device=device))
+        chain.append(cls(
+            mask=create_alternating_binary_mask(cfg["features"], even=bool(i % 2)),
+            transform_net_create_fn=lambda n_in, n_out: nets.ResidualNet(
+                n_in, n_out, hidden_features=cfg["hidden_features"],
+                num_blocks=cfg["num_blocks_per_layer"], generator=gen, device=device),
+            num_bins=cfg["num_bins"], tails="linear", tail_bound=cfg["tail_bound"],
+            device=device))
+    return Flow(CompositeTransform(chain), StandardNormal([cfg["features"]])).to(device).eval()
 
 
 def main() -> int:
@@ -308,12 +372,16 @@ def main() -> int:
     )
     from nflows_tpu_torch.ops.cuda import (
         _build,
+        cubic_spline,
+        linear_spline,
+        lrs_spline,
         mademog_fused,
         mademog_train,
         maf_flow_kernel,
         maf_train,
         nsf_flow_kernel,
         nsf_train,
+        quadratic_spline,
         rq_spline,
     )
     from nflows_tpu_torch.ops.cuda.maf_fused import _extract as extract_maf
@@ -321,6 +389,7 @@ def main() -> int:
     from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
     from nflows_tpu_torch.training.fused import MIN_AUTO_BATCH
     from nflows_tpu_torch.ops.splines import rational_quadratic as rq
+    from nflows_tpu_torch.ops.splines import cubic, linear, linear_rational, quadratic
 
     # -- phase 1: device and settings ----------------------------------------
     card = card_line()
@@ -350,7 +419,7 @@ def main() -> int:
     b1 = {}
     with torch.no_grad():
         for samples in (SERVE_BATCH, (1 << 20) // 3):
-            args = coupling_inputs(flow, torch.randn(samples, D, generator=gen).to(dev))
+            args = family_inputs("rq", flow, torch.randn(samples, D, generator=gen).to(dev))
             args[0].view(-1)[:4] = torch.tensor([B, -B, B + 0.5, -B - 0.5])
             stress = [args[0], *(torch.randn(t.shape, generator=gen).to(dev)
                                  for t in args[1:])]
@@ -445,15 +514,19 @@ def main() -> int:
         maf_train.bwd_launch_count = 0
         mademog_fused.launch_count = 0
         mademog_train.bwd_launch_count = 0
+        for module in (lrs_spline, linear_spline, quadratic_spline, cubic_spline):
+            module.launch_count = 0
 
     def read_counts():
         return {"B1": rq_spline.launch_count, "B2": nsf_flow_kernel.launch_count,
                 "B3": nsf_train.loss_grad_launch_count, "B4": nsf_train.bwd_launch_count,
                 "B9": maf_flow_kernel.launch_count, "B10": maf_train.bwd_launch_count,
-                "B11": mademog_fused.launch_count, "B12": mademog_train.bwd_launch_count}
+                "B11": mademog_fused.launch_count, "B12": mademog_train.bwd_launch_count,
+                "B5": lrs_spline.launch_count, "B6": linear_spline.launch_count,
+                "B7": quadratic_spline.launch_count, "B8": cubic_spline.launch_count}
 
     def expect_counts(what, counts, **expected):
-        expected = {**dict(B1=0, B2=0, B3=0, B4=0, B9=0, B10=0, B11=0, B12=0), **expected}
+        expected = {**{k: 0 for k in counts}, **expected}
         if counts != expected:
             raise AssertionError(f"{what} launched {counts}, expected {expected}")
 
@@ -1248,10 +1321,175 @@ def main() -> int:
         log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes "
             f"the fused route from batch {MIN_AUTO_BATCH['mademog']}")
 
+    # -- phase 17: B5-B8 against their plain versions (the other spline families) ----
+    # family -> (kernel id, wrapper module, wrapper, plain version, kernel name,
+    # parameters a feature, fp32 operations an element: forward, inverse)
+    families = {
+        "lrs": ("B5", lrs_spline, lrs_spline.lrs_spline_cuda,
+                linear_rational.unconstrained_linear_rational_spline_plain,
+                "lrs_spline_kernel", 4 * K - 1, 14 * K + 80, 14 * K + 80),
+        "linear": ("B6", linear_spline, linear_spline.linear_spline_cuda,
+                   linear.unconstrained_linear_spline_plain, "linear_spline_kernel",
+                   K, 5 * K + 20, 6 * K + 20),
+        "quadratic": ("B7", quadratic_spline, quadratic_spline.quadratic_spline_cuda,
+                      quadratic.unconstrained_quadratic_spline_plain,
+                      "quadratic_spline_kernel", 2 * K - 1, 16 * K + 40, 16 * K + 40),
+        "cubic": ("B8", cubic_spline, cubic_spline.cubic_spline_cuda,
+                  cubic.unconstrained_cubic_spline_plain, "cubic_spline_kernel",
+                  2 * K + 2, 12 * K + 80, 12 * K + 80 + 9 * cubic.BISECTION_STEPS),
+    }
+    family_flows = {"lrs": NeuralSplineFlow(spline="lrs", **seeded(0), **FLAGSHIP).eval()}
+    for fam in ("linear", "quadratic", "cubic"):
+        family_flows[fam] = family_flow(fam, dev, seed=0)
+    family_stats = {}
+    for fam, (kid, module, wrapper, plain, kname, P, ops_fwd, ops_inv) in families.items():
+        flow_f = family_flows[fam]
+        family_stats[kid] = {}
+        with torch.no_grad():
+            for samples in (SERVE_BATCH, (1 << 20) // 3):
+                args = family_inputs(fam, flow_f, torch.randn(samples, D, generator=gen).to(dev))
+                args[0].view(-1)[:4] = torch.tensor([B, -B, B + 0.5, -B - 0.5])
+                stress = [args[0], *(torch.randn(t.shape, generator=gen).to(dev)
+                                     for t in args[1:])]
+                n = args[0].numel()
+                log(f"{kid} ({fam}) at {n} elements (the full-width flow's coupling 1, then "
+                    "N(0,1) parameters):")
+                errs, stats = [], {}
+                for inverse in (False, True):
+                    kw = dict(inverse=inverse, tail_bound=B)
+                    tag = "inverse" if inverse else "forward"
+                    for what, inputs, out_tol, lad_tol in (("", args, 1e-4, 1e-3),
+                                                          ("stress ", stress, 1e-2, 1e-2)):
+                        out, lad = wrapper(*inputs, **kw)
+                        p_out, p_lad = plain(*inputs, **kw)
+                        d_out, d_lad = plain(*[t.double() for t in inputs], **kw)
+                        torch.cuda.synchronize()
+                        if not (torch.isfinite(out).all() and torch.isfinite(lad).all()):
+                            raise AssertionError(f"{kid} produced non-finite values")
+                        e = [hold(f"{what}{tag} out", out, p_out, d_out, out_tol),
+                             hold(f"{what}{tag} lad", lad, p_lad, d_lad, lad_tol)]
+                        if not what:
+                            errs += e
+                    run = lambda: wrapper(*args, **kw)  # noqa: E731
+                    run_plain = lambda: plain(*args, **kw)  # noqa: E731
+                    ms = device_ms(torch, run, 100, kernel=kname)
+                    ms_source = device_ms.source
+                    plain_ms = device_ms(torch, run_plain, 10)
+                    nbytes = 4 * n * (1 + P + 2)  # x and the parameters; out, lad
+                    nops = n * (ops_inv if inverse else ops_fwd)
+                    bound_ms, bound_by = bound(nops, nbytes)
+                    log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                        f"{bound_ms:.5f} ms ({bound_by}: {nbytes / n:.0f} B, {nops / n:.0f} "
+                        "FLOP an element)")
+                    pre = "inverse_" if inverse else ""
+                    stats.update({pre + "ms": ms, pre + "ms_source": ms_source,
+                                  pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
+                                  pre + "bound_by": bound_by})
+                family_stats[kid][n] = dict(err=max(errs), **stats)
+        # gradients through the autograd Function: kernel forward, plain backward
+        args = family_inputs(fam, flow_f, torch.randn(SERVE_BATCH, D, generator=gen).to(dev))
+        for inverse in (False, True):
+            leaves = [t.detach().clone().requires_grad_(True) for t in args]
+            out, lad = wrapper(*leaves, inverse=inverse, tail_bound=B)
+            (out * 1.3 + lad * 0.7).sum().backward()
+            ref = [t.detach().clone().requires_grad_(True) for t in args]
+            p_out, p_lad = plain(*ref, inverse=inverse, tail_bound=B)
+            (p_out * 1.3 + p_lad * 0.7).sum().backward()
+            gap = max(max_err(a.grad, b.grad) for a, b in zip(leaves, ref))
+            log(f"  gradients through the wrapper ({'inverse' if inverse else 'forward'}) vs "
+                f"the plain version's: {gap:.3e} (limit 1e-4)")
+            if gap > 1e-4:
+                raise AssertionError(f"{kid}: the wrapper's gradients disagree")
+
+    # -- phase 18: serving the four families' full-width flows through CompiledFlow ---
+    # B2 has no stage for these families: CompiledFlow serves them on the
+    # unfused chain, one launch of the family's kernel in each of the 10 couplings
+    for fam, flow_f in family_flows.items():
+        kid = families[fam][0]
+        try:
+            CompiledFlow(flow_f, batch_size=SERVE_BATCH, features=D, use_fused=True)
+        except ValueError as e:
+            reason = next(line for line in str(e).splitlines() if "fuse_nsf" in line)
+            log(f"serving {fam}: use_fused=True refuses: {reason.strip()}")
+        else:
+            raise AssertionError(f"{fam}: use_fused=True did not refuse")
+        served = CompiledFlow(flow_f, batch_size=SERVE_BATCH, features=D)
+        if served.is_fused:
+            raise AssertionError(f"{fam}: CompiledFlow chose a fused kernel")
+        x = torch.randn(SERVE_BATCH, D, generator=gen).to(dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        counts = {}
+        for endpoint, fn in (("log_prob", lambda: served.log_prob(x)),  # noqa: B023
+                             ("sample", lambda: served.sample(g)),  # noqa: B023
+                             ("sample_and_log_prob", lambda: served.sample_and_log_prob(g))):  # noqa: B023
+            reset_counts()
+            result = fn()
+            torch.cuda.synchronize()
+            counts[endpoint] = read_counts()
+            expect_counts(f"one {fam} {endpoint} request", counts[endpoint], **{kid: L})
+            for t in (result if isinstance(result, tuple) else (result,)):
+                if t.shape[0] != SERVE_BATCH or not torch.isfinite(t).all():
+                    raise AssertionError(f"{fam} {endpoint}: bad output {tuple(t.shape)}")
+        launches[kid] = counts["log_prob"][kid]
+        log(f"serving {fam} (unfused): {kid} launches a request: "
+            f"{ {k: v[kid] for k, v in counts.items()} }")
+        s2, lp2 = served.sample_and_log_prob(g)
+        consistency = max_err(lp2, served.log_prob(s2))
+        log(f"  sample_and_log_prob vs log_prob(samples): {consistency:.3e} (limit 5e-3)")
+        if consistency > 5e-3:
+            raise AssertionError(f"{fam}: sample_and_log_prob disagrees with log_prob")
+        for endpoint, fn in (("log_prob", lambda: served.log_prob(x)),  # noqa: B023
+                             ("sample", lambda: served.sample(  # noqa: B023
+                                 torch.Generator(device=dev).manual_seed(2)))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 10
+            busy = device_ms(torch, fn, 3)
+            family_stats[kid][f"serve_{endpoint}"] = (wall, busy)
+            log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
+                f"device busy {busy:.3f} ms")
+
+    # -- phase 19: eager training of the four families at full width ------------------
+    for fam, flow_f in family_flows.items():
+        kid = families[fam][0]
+        state = create_train_state(copy.deepcopy(flow_f).train(), adam)
+        eager_step = make_train_step()
+        data = batches(TRAIN_BATCH, TRAIN_STEPS, seed=12)
+        reset_counts()
+        first = eager_step(state, data[0])[1]["loss"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"training {fam} (eager): launches a step {counts}")
+        expect_counts(f"one eager {fam} step", counts, **{kid: L})
+        losses = [float(v) for v in [first] + [eager_step(state, b)[1]["loss"]
+                                              for b in data[1:]]]
+        log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{fam}: the loss is not finite and falling: {losses}")
+        step = lambda: eager_step(state, data[0])  # noqa: E731
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / 20
+        busy = device_ms(torch, step, 3)
+        family_stats[kid]["eager_step"] = (wall, busy)
+        log(f"  batch {TRAIN_BATCH} eager: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
+            f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
+
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
-             "B4": "nsf_train_bwd", "B9": "maf_flow_kernel", "B10": "maf_train_bwd",
-             "B11": "mademog_log_prob", "B12": "mademog_train_bwd"}
+             "B4": "nsf_train_bwd", "B5": "lrs_spline", "B6": "linear_spline",
+             "B7": "quadratic_spline", "B8": "cubic_spline", "B9": "maf_flow_kernel",
+             "B10": "maf_train_bwd", "B11": "mademog_log_prob", "B12": "mademog_train_bwd"}
 
     def with_context(stats, ctx_stats, **more):
         """A MADEMoG row: the unconditional model's numbers, the conditional
@@ -1287,7 +1525,17 @@ def main() -> int:
                                  ms_at_4096=b12[(uncond, SERVE_BATCH)]["ms"]),
              "nflows_tpu_torch/csrc/mademog_train.cu",
              "nflows_tpu/ops/pallas/mademog_train.py:88",
-             "ops/pallas/mademog_train.py:_bwd_kernel")):
+             "ops/pallas/mademog_train.py:_bwd_kernel"),
+            *((kid, {**family_stats[kid][SERVE_BATCH * 3],
+                     f"ms_at_{big}": family_stats[kid][big]["ms"],
+                     f"inverse_ms_at_{big}": family_stats[kid][big]["inverse_ms"]},
+               f"nflows_tpu_torch/csrc/{stem}.cu", f"nflows_tpu/ops/pallas/{stem}.py:{line}",
+               f"ops/pallas/{stem}.py:_kernel")
+              for kid, stem, line, big in (
+                  ("B5", "lrs_spline", 31, (1 << 20) // 3 * 3),
+                  ("B6", "linear_spline", 28, (1 << 20) // 3 * 3),
+                  ("B7", "quadratic_spline", 29, (1 << 20) // 3 * 3),
+                  ("B8", "cubic_spline", 35, (1 << 20) // 3 * 3)))):
         rows.append({
             "name": names[kid], "id": kid,
             "route": "cuda", "source": source, "replaces": replaces, "tpu": tpu,
@@ -1299,6 +1547,7 @@ def main() -> int:
             **{k: v for k, v in stats.items()
                if k.startswith(("inverse_", "forward_", "schedule_", "context_", "ms_at_"))},
         })
+    rows.sort(key=lambda row: int(row["id"][1:]))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

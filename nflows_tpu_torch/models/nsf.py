@@ -1,9 +1,10 @@
 """Neural Spline Flow prebuilt: the flagship model (counterpart of
 nflows_tpu/models/nsf.py).
 
-``num_layers`` x [random feature permutation, RQ-spline coupling with a
+``num_layers`` x [random feature permutation, spline coupling with a
 ResidualNet conditioner (alternating masks)], StandardNormal base
-(Durkan et al. 2019, arXiv:1906.04032).
+(Durkan et al. 2019, arXiv:1906.04032). RQ splines by default, or the
+linear-rational family (``spline="lrs"``, beyond the reference).
 
 The chain is always unrolled. ``stacked`` is accepted for the JAX
 package's signature; it only decides, as there, whether odd feature counts
@@ -23,6 +24,7 @@ from nflows_tpu_torch.nn import nets
 from nflows_tpu_torch.nn.primitives import default_generator
 from nflows_tpu_torch.transforms.base import CompositeTransform
 from nflows_tpu_torch.transforms.coupling import (
+    PiecewiseLinearRationalCouplingTransform,
     PiecewiseRationalQuadraticCouplingTransform,
 )
 from nflows_tpu_torch.transforms.permutations import (
@@ -36,7 +38,8 @@ __all__ = ["NeuralSplineFlow"]
 
 
 class NeuralSplineFlow(Flow):
-    """NSF (coupling) for tabular data with RQ splines.
+    """NSF (coupling) for tabular data: RQ splines (``spline="rq"``) or the
+    linear-rational family (``spline="lrs"``).
 
     Weights are drawn from ``generator`` (a CPU ``torch.Generator``; None =
     fresh seed) and permutations from the numpy ``rng`` (None = derived from
@@ -53,8 +56,10 @@ class NeuralSplineFlow(Flow):
                  batch_norm_within_layers=False, rng=None, spline="rq",
                  stacked=None, device=None):
         device = resolve_device(device)
-        if spline != "rq":
-            raise NotImplementedError(f"spline={spline!r} is not ported yet")
+        couplings = {"rq": PiecewiseRationalQuadraticCouplingTransform,
+                     "lrs": PiecewiseLinearRationalCouplingTransform}
+        if spline not in couplings:
+            raise ValueError(f"spline must be 'rq' or 'lrs', got {spline!r}")
         generator = default_generator(generator)
         if rng is None:
             rng = np.random.default_rng(generator.initial_seed())
@@ -85,7 +90,7 @@ class NeuralSplineFlow(Flow):
                 layers.append(RandomPermutation(features, rng=rng, device=device))
             else:
                 layers.append(ReversePermutation(features, device=device))
-            layers.append(PiecewiseRationalQuadraticCouplingTransform(
+            layers.append(couplings[spline](
                 mask=create_alternating_binary_mask(
                     features, even=False if fixed_parity else bool(i % 2)),
                 transform_net_create_fn=create_net,

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["bin_index", "select_bin", "normalize_bins", "pad_zero_left"]
+__all__ = ["bin_index", "select_bin", "normalize_bins", "pad_zero_left",
+           "edges_on", "unit_knots", "softplus"]
 
 
 def bin_index(bin_edges: torch.Tensor, inputs: torch.Tensor,
@@ -42,3 +43,29 @@ def normalize_bins(unnormalized: torch.Tensor, num_bins: int,
 def pad_zero_left(x: torch.Tensor) -> torch.Tensor:
     """Prepend a zero along the last axis."""
     return F.pad(x, (1, 0))
+
+
+def edges_on(unnormalized: torch.Tensor, num_bins: int, min_size: float,
+             lo: float, hi: float):
+    """Bin sizes [..., K] and cumulative edges [..., K+1] on [lo, hi] from
+    unnormalised sizes, both endpoints pinned (reference splines/*.py)."""
+    sizes = normalize_bins(unnormalized, num_bins, min_size)
+    cum = pad_zero_left(torch.cumsum(sizes, dim=-1))
+    cum = (hi - lo) * cum + lo
+    cum = torch.cat([torch.full_like(cum[..., :1], lo), cum[..., 1:-1],
+                     torch.full_like(cum[..., :1], hi)], dim=-1)
+    return cum[..., 1:] - cum[..., :-1], cum
+
+
+def unit_knots(sizes: torch.Tensor) -> torch.Tensor:
+    """Knots [..., K+1] on [0, 1] from bin sizes [..., K] that sum to 1:
+    running sums with the last pinned to exactly 1, zero prepended."""
+    cum = torch.cumsum(sizes, dim=-1)
+    return pad_zero_left(
+        torch.cat([cum[..., :-1], torch.ones_like(cum[..., -1:])], dim=-1))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jnp.logaddexp(x, 0)`` computes it (no
+    threshold, unlike ``F.softplus``)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))

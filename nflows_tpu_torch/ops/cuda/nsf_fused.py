@@ -9,9 +9,12 @@ dropout or batch norm, StandardNormal base, no context) and re-lays the
 weights out as the JAX package's ``_extract`` does: transposed, final
 layer rows permuted K-major, softmax 1/sqrt(hidden) folded in.
 
-This slice fuses the rq family in fp32 without context; other families,
-conditional flows and bf16 weights are still to port. A flow that does not
-qualify raises ``ValueError``.
+B2 runs the rq family in fp32 without context so far; its stages for
+the other spline families (linear-rational, linear, quadratic, cubic) and
+the affine couplings, conditional flows and bf16 weights are still to
+port. A flow that does not qualify raises ``ValueError``; ``CompiledFlow``
+then serves it on the unfused chain, where each coupling of those families
+launches its elementwise kernel (B5-B8).
 """
 
 from __future__ import annotations
@@ -109,7 +112,12 @@ def _extract(flow, dtype, fold_wh_scale=True):
         if perm is not None and (not isinstance(perm, Permutation) or perm.dim != 1):
             raise ValueError("layer must start with a feature Permutation")
         if not isinstance(cpl, PiecewiseRationalQuadraticCouplingTransform):
-            raise ValueError("only RQ-spline couplings are fused in this port so far")
+            raise ValueError(
+                f"{type(cpl).__name__} has no stage in the whole-chain kernel B2 "
+                "yet (only the RQ family is fused so far): serve it with "
+                "use_fused=None or False, which runs the unfused chain and the "
+                "family's elementwise spline kernel, and train it with "
+                "training.make_train_step")
         if cpl.tails != "linear":
             raise ValueError("fused path requires tails='linear'")
         net = cpl.transform_net

@@ -38,20 +38,9 @@ DEFAULT_MIN_DERIVATIVE = 1e-3
 
 
 def _softplus(x, beta=1.0):
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
     if beta == 1.0:
-        return torch.logaddexp(x, zero)
-    return torch.logaddexp(beta * x, zero) / beta
-
-
-def _edges(unnormalized, num_bins, min_size, lo, hi):
-    """Bin sizes and cumulative edges on [lo, hi], endpoints pinned."""
-    sizes = binning.normalize_bins(unnormalized, num_bins, min_size)
-    cum = binning.pad_zero_left(torch.cumsum(sizes, dim=-1))
-    cum = (hi - lo) * cum + lo
-    cum = torch.cat([torch.full_like(cum[..., :1], lo), cum[..., 1:-1],
-                     torch.full_like(cum[..., :1], hi)], dim=-1)
-    return cum[..., 1:] - cum[..., :-1], cum
+        return binning.softplus(x)
+    return binning.softplus(beta * x) / beta
 
 
 def _spline(inputs, unnormalized_widths, unnormalized_heights, derivatives,
@@ -64,10 +53,10 @@ def _spline(inputs, unnormalized_widths, unnormalized_heights, derivatives,
         raise ValueError("Minimal bin height too large for the number of bins")
 
     inputs = inputs.clamp(bottom, top) if inverse else inputs.clamp(left, right)
-    widths, cumwidths = _edges(unnormalized_widths, num_bins, min_bin_width,
-                               left, right)
-    heights, cumheights = _edges(unnormalized_heights, num_bins,
-                                 min_bin_height, bottom, top)
+    widths, cumwidths = binning.edges_on(unnormalized_widths, num_bins,
+                                         min_bin_width, left, right)
+    heights, cumheights = binning.edges_on(unnormalized_heights, num_bins,
+                                           min_bin_height, bottom, top)
 
     idx = binning.bin_index(cumheights if inverse else cumwidths, inputs)
     input_cumwidths = binning.select_bin(cumwidths[..., :-1], idx)

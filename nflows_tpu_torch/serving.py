@@ -16,8 +16,10 @@ coupling chains (``fuse_nsf``), B9 for autoregressive chains
 MixtureOfGaussiansMADE (``fuse_mademog``; its sampling endpoints run the
 model's sequential sampler, as in the JAX package), probed in that order.
 Only a structural ``ValueError``/``AttributeError`` from every prober sends
-a flow to the unfused chain (where each RQ spline launches kernel B1 on the
-card); a kernel that fails to build or launch raises. ``use_fused=True``
+a flow to the unfused chain (where each spline launches its family's
+elementwise kernel on the card: B1 for RQ, B5-B8 for the linear-rational,
+linear, quadratic and cubic couplings, which B2 does not fuse yet); a
+kernel that fails to build or launch raises. ``use_fused=True``
 raises with each prober's reason when the flow does not qualify;
 ``use_fused=False`` serves the unfused chain.
 """

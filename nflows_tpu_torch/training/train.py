@@ -7,7 +7,8 @@ nflows_tpu/training/train.py): the eager route.
 
 One step is ``loss_fn(flow, batch, context)``, ``backward()`` and
 ``optimizer.step()``: autograd through the unfused chain, whose couplings
-run kernel B1 on the card (B1's backward is autograd of its plain version).
+run their spline kernel on the card (B1, or B5-B8 for the other spline
+families; each kernel's backward is autograd of its plain version).
 The conditioner's GEMMs are ``nn.Linear``, as the JAX package leaves them to
 XLA. For the fused route see :mod:`nflows_tpu_torch.training.fused`.
 

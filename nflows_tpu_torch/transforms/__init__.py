@@ -15,6 +15,10 @@ from nflows_tpu_torch.transforms.base import (
 from nflows_tpu_torch.transforms.coupling import (
     CouplingTransform,
     PiecewiseCouplingTransform,
+    PiecewiseCubicCouplingTransform,
+    PiecewiseLinearCouplingTransform,
+    PiecewiseLinearRationalCouplingTransform,
+    PiecewiseQuadraticCouplingTransform,
     PiecewiseRationalQuadraticCouplingTransform,
 )
 from nflows_tpu_torch.transforms.permutations import (
@@ -28,7 +32,9 @@ __all__ = [
     "InverseNotAvailable", "InputOutsideDomain",
     "Permutation", "RandomPermutation", "ReversePermutation",
     "CouplingTransform", "PiecewiseCouplingTransform",
-    "PiecewiseRationalQuadraticCouplingTransform",
+    "PiecewiseLinearCouplingTransform", "PiecewiseQuadraticCouplingTransform",
+    "PiecewiseCubicCouplingTransform", "PiecewiseRationalQuadraticCouplingTransform",
+    "PiecewiseLinearRationalCouplingTransform",
     "AutoregressiveTransform", "MaskedAffineAutoregressiveTransform",
     "MaskedPiecewiseRationalQuadraticAutoregressiveTransform",
 ]

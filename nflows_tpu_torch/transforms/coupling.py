@@ -3,8 +3,9 @@ reference nflows/transforms/coupling.py).
 
 A coupling transform splits the features by a fixed binary mask: the
 identity half feeds a conditioner net whose output parameterises an
-elementwise bijection of the transform half. This slice ports the RQ
-spline coupling on [N, D] inputs.
+elementwise bijection of the transform half. Ported: the spline couplings
+(linear, quadratic, cubic, rational-quadratic, linear-rational) on [N, D]
+inputs.
 
 The conditioner's output columns are feature-major (column ``t*M + j`` is
 parameter j of transformed feature t), as in the JAX package, so weights
@@ -23,7 +24,11 @@ from nflows_tpu_torch.transforms.base import Transform
 from nflows_tpu_torch.utils import shapes as shapeutils
 
 __all__ = ["CouplingTransform", "PiecewiseCouplingTransform",
-           "PiecewiseRationalQuadraticCouplingTransform"]
+           "PiecewiseLinearCouplingTransform",
+           "PiecewiseQuadraticCouplingTransform",
+           "PiecewiseCubicCouplingTransform",
+           "PiecewiseRationalQuadraticCouplingTransform",
+           "PiecewiseLinearRationalCouplingTransform"]
 
 
 class CouplingTransform(Transform):
@@ -123,17 +128,128 @@ class PiecewiseCouplingTransform(CouplingTransform):
     def _piecewise_cdf(self, inputs, transform_params, inverse=False):
         raise NotImplementedError()
 
-    def _softmax_rescale(self, *param_groups):
-        """Divide softmax inputs by sqrt(hidden) for init quality
-        (reference coupling.py:554-563)."""
+    def _softmax_rescale(self, *param_groups, include_channels=False):
+        """Divide softmax inputs by sqrt(hidden) for init quality.
+
+        The quadratic and cubic couplings scale only when the net has
+        ``hidden_features`` (reference coupling.py:407-409, 478-480), and the
+        linear-rational one follows them; only the RQ coupling also falls
+        back to ``hidden_channels`` and warns otherwise (coupling.py:554-563):
+        ``include_channels=True`` for that variant."""
         net = self.transform_net
+        s = 1.0
         if hasattr(net, "hidden_features"):
             s = 1.0 / np.sqrt(net.hidden_features)
-        else:
+        elif include_channels and hasattr(net, "hidden_channels"):
+            s = 1.0 / np.sqrt(net.hidden_channels)
+        elif include_channels:
             warnings.warn(
                 "Inputs to the softmax are not scaled down: initialization might be bad.")
-            s = 1.0
         return tuple(p * s for p in param_groups)
+
+
+def _no_unconditional_transform(apply_unconditional_transform):
+    if apply_unconditional_transform:
+        raise NotImplementedError(
+            "the unconditional spline CDF on the identity half is not ported yet")
+
+
+class PiecewiseLinearCouplingTransform(PiecewiseCouplingTransform):
+    """Linear-spline coupling (Müller et al. 2018; reference
+    coupling.py:299-352)."""
+
+    def __init__(self, mask, transform_net_create_fn, num_bins=10, tails=None,
+                 tail_bound=1.0, apply_unconditional_transform=False,
+                 img_shape=None, device=None):
+        _no_unconditional_transform(apply_unconditional_transform)
+        self.num_bins = num_bins
+        self.tails = tails
+        self.tail_bound = tail_bound
+        super().__init__(mask, transform_net_create_fn, device=device)
+
+    def _transform_dim_multiplier(self):
+        return self.num_bins
+
+    def _piecewise_cdf(self, inputs, transform_params, inverse=False):
+        if self.tails is None:
+            return splines.linear_spline(inputs, transform_params, inverse=inverse)
+        return splines.unconstrained_linear_spline(
+            inputs, transform_params, inverse=inverse, tails=self.tails,
+            tail_bound=self.tail_bound)
+
+
+class PiecewiseQuadraticCouplingTransform(PiecewiseCouplingTransform):
+    """Quadratic-spline coupling (Müller et al. 2018; reference
+    coupling.py:355-426)."""
+
+    def __init__(self, mask, transform_net_create_fn, num_bins=10, tails=None,
+                 tail_bound=1.0, apply_unconditional_transform=False,
+                 img_shape=None,
+                 min_bin_width=splines.quadratic.DEFAULT_MIN_BIN_WIDTH,
+                 min_bin_height=splines.quadratic.DEFAULT_MIN_BIN_HEIGHT,
+                 device=None):
+        _no_unconditional_transform(apply_unconditional_transform)
+        self.num_bins = num_bins
+        self.tails = tails
+        self.tail_bound = tail_bound
+        self.min_bin_width = min_bin_width
+        self.min_bin_height = min_bin_height
+        super().__init__(mask, transform_net_create_fn, device=device)
+
+    def _transform_dim_multiplier(self):
+        if self.tails == "linear":
+            return self.num_bins * 2 - 1
+        return self.num_bins * 2 + 1
+
+    def _piecewise_cdf(self, inputs, transform_params, inverse=False):
+        K = self.num_bins
+        unnormalized_widths, unnormalized_heights = self._softmax_rescale(
+            transform_params[..., :K], transform_params[..., K:])
+        kwargs = dict(min_bin_width=self.min_bin_width,
+                      min_bin_height=self.min_bin_height)
+        if self.tails is None:
+            spline_fn = splines.quadratic_spline
+        else:
+            spline_fn = splines.unconstrained_quadratic_spline
+            kwargs.update(tails=self.tails, tail_bound=self.tail_bound)
+        return spline_fn(inputs, unnormalized_widths, unnormalized_heights,
+                         inverse=inverse, **kwargs)
+
+
+class PiecewiseCubicCouplingTransform(PiecewiseCouplingTransform):
+    """Cubic-spline coupling (reference coupling.py:429-499)."""
+
+    def __init__(self, mask, transform_net_create_fn, num_bins=10, tails=None,
+                 tail_bound=1.0, apply_unconditional_transform=False,
+                 img_shape=None,
+                 min_bin_width=splines.cubic.DEFAULT_MIN_BIN_WIDTH,
+                 min_bin_height=splines.cubic.DEFAULT_MIN_BIN_HEIGHT,
+                 device=None):
+        _no_unconditional_transform(apply_unconditional_transform)
+        self.num_bins = num_bins
+        self.tails = tails
+        self.tail_bound = tail_bound
+        self.min_bin_width = min_bin_width
+        self.min_bin_height = min_bin_height
+        super().__init__(mask, transform_net_create_fn, device=device)
+
+    def _transform_dim_multiplier(self):
+        return self.num_bins * 2 + 2
+
+    def _piecewise_cdf(self, inputs, transform_params, inverse=False):
+        K = self.num_bins
+        unnormalized_widths, unnormalized_heights = self._softmax_rescale(
+            transform_params[..., :K], transform_params[..., K:2 * K])
+        kwargs = dict(min_bin_width=self.min_bin_width,
+                      min_bin_height=self.min_bin_height)
+        if self.tails is None:
+            spline_fn = splines.cubic_spline
+        else:
+            spline_fn = splines.unconstrained_cubic_spline
+            kwargs.update(tails=self.tails, tail_bound=self.tail_bound)
+        return spline_fn(inputs, unnormalized_widths, unnormalized_heights,
+                         transform_params[..., 2 * K:2 * K + 1],
+                         transform_params[..., 2 * K + 1:], inverse=inverse, **kwargs)
 
 
 class PiecewiseRationalQuadraticCouplingTransform(PiecewiseCouplingTransform):
@@ -146,9 +262,7 @@ class PiecewiseRationalQuadraticCouplingTransform(PiecewiseCouplingTransform):
                  min_bin_height=splines.rational_quadratic.DEFAULT_MIN_BIN_HEIGHT,
                  min_derivative=splines.rational_quadratic.DEFAULT_MIN_DERIVATIVE,
                  device=None):
-        if apply_unconditional_transform:
-            raise NotImplementedError(
-                "the unconditional RQ CDF on the identity half is not ported yet")
+        _no_unconditional_transform(apply_unconditional_transform)
         self.num_bins = num_bins
         self.tails = tails
         self.tail_bound = tail_bound
@@ -168,7 +282,7 @@ class PiecewiseRationalQuadraticCouplingTransform(PiecewiseCouplingTransform):
         unnormalized_heights = transform_params[..., K:2 * K]
         unnormalized_derivatives = transform_params[..., 2 * K:]
         unnormalized_widths, unnormalized_heights = self._softmax_rescale(
-            unnormalized_widths, unnormalized_heights)
+            unnormalized_widths, unnormalized_heights, include_channels=True)
         kwargs = dict(min_bin_width=self.min_bin_width,
                       min_bin_height=self.min_bin_height,
                       min_derivative=self.min_derivative)
@@ -185,3 +299,51 @@ class PiecewiseRationalQuadraticCouplingTransform(PiecewiseCouplingTransform):
             inverse=inverse,
             **kwargs,
         )
+
+
+class PiecewiseLinearRationalCouplingTransform(PiecewiseCouplingTransform):
+    """Linear-rational-spline coupling (Dolatabadi et al. 2020,
+    arXiv:2001.05168), beyond the reference library: the RQ coupling's
+    contract with a per-bin split point lambda and a linear inverse
+    (ops/splines/linear_rational.py)."""
+
+    def __init__(self, mask, transform_net_create_fn, num_bins=10, tails=None,
+                 tail_bound=1.0, apply_unconditional_transform=False,
+                 img_shape=None,
+                 min_bin_width=splines.linear_rational.DEFAULT_MIN_BIN_WIDTH,
+                 min_bin_height=splines.linear_rational.DEFAULT_MIN_BIN_HEIGHT,
+                 min_derivative=splines.linear_rational.DEFAULT_MIN_DERIVATIVE,
+                 min_lambda=splines.linear_rational.DEFAULT_MIN_LAMBDA,
+                 device=None):
+        _no_unconditional_transform(apply_unconditional_transform)
+        self.num_bins = num_bins
+        self.tails = tails
+        self.tail_bound = tail_bound
+        self.min_bin_width = min_bin_width
+        self.min_bin_height = min_bin_height
+        self.min_derivative = min_derivative
+        self.min_lambda = min_lambda
+        super().__init__(mask, transform_net_create_fn, device=device)
+
+    def _transform_dim_multiplier(self):
+        # widths K + heights K + lambdas K + derivatives (K-1 | K+1)
+        if self.tails == "linear":
+            return self.num_bins * 4 - 1
+        return self.num_bins * 4 + 1
+
+    def _piecewise_cdf(self, inputs, transform_params, inverse=False):
+        K = self.num_bins
+        unnormalized_widths, unnormalized_heights = self._softmax_rescale(
+            transform_params[..., :K], transform_params[..., K:2 * K])
+        kwargs = dict(min_bin_width=self.min_bin_width,
+                      min_bin_height=self.min_bin_height,
+                      min_derivative=self.min_derivative,
+                      min_lambda=self.min_lambda)
+        if self.tails is None:
+            spline_fn = splines.linear_rational_spline
+        else:
+            spline_fn = splines.unconstrained_linear_rational_spline
+            kwargs.update(tails=self.tails, tail_bound=self.tail_bound)
+        return spline_fn(inputs, unnormalized_widths, unnormalized_heights,
+                         transform_params[..., 3 * K:], transform_params[..., 2 * K:3 * K],
+                         inverse=inverse, **kwargs)

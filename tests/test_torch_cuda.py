@@ -1,4 +1,4 @@
-"""Kernels B1 to B4 and B9 to B12 on the card, each against its plain PyTorch version
+"""Kernels B1 to B12 on the card, each against its plain PyTorch version
 on the same CUDA tensors, and the serving and training paths through them.
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
@@ -15,7 +15,9 @@ B3 and B4: log_prob 1e-3 as B2; gradients 2e-4 of the plain version's plus
 with a relative part because a weight gradient is a sum over the batch taken
 by atomics in another order than autograd's); two launches on the same
 inputs agree within 1e-5 plus 1e-4 relative (only the order of the atomic
-adds differs).
+adds differs). B5-B8 as B1: outputs 1e-4 and logabsdet 1e-3 against their
+plain versions (the plain fp32 versions are within 2.4e-5 of float64 on
+these inputs), gradients 1e-4 absolute and relative.
 """
 
 import numpy as np
@@ -595,3 +597,136 @@ def test_mademog_train_steps_launch_the_kernels_and_keep_masked_entries(cuda, ca
         assert not torch.equal(fused.weights[k].detach()[~dead], start[k][~dead])
     x, c = _mog_inputs(cuda, case, 128, seed=30)
     _close(fused.to_dist().log_prob(x, c), state.flow.log_prob(x, c), 5e-3)
+
+
+# -- B5-B8: the elementwise spline kernels of the other coupling families ------------
+
+from nflows_tpu_torch.flows.base import Flow  # noqa: E402
+from nflows_tpu_torch.distributions import StandardNormal  # noqa: E402
+from nflows_tpu_torch.nn import nets  # noqa: E402
+from nflows_tpu_torch.ops import splines  # noqa: E402
+from nflows_tpu_torch.ops.cuda import (  # noqa: E402
+    cubic_spline,
+    linear_spline,
+    lrs_spline,
+    quadratic_spline,
+)
+from nflows_tpu_torch.utils.masks import create_alternating_binary_mask  # noqa: E402
+from nflows_tpu_torch.transforms import (  # noqa: E402
+    CompositeTransform,
+    PiecewiseCubicCouplingTransform,
+    PiecewiseLinearCouplingTransform,
+    PiecewiseQuadraticCouplingTransform,
+    RandomPermutation,
+)
+
+# family -> (parameter widths for K, wrapper module, wrapper, plain version)
+SPLINE_FAMILIES = {
+    "lrs": (lambda K: (K, K, K - 1, K), lrs_spline, lrs_spline.lrs_spline_cuda,
+            splines.linear_rational.unconstrained_linear_rational_spline_plain),
+    "linear": (lambda K: (K,), linear_spline, linear_spline.linear_spline_cuda,
+               splines.linear.unconstrained_linear_spline_plain),
+    "quadratic": (lambda K: (K, K - 1), quadratic_spline,
+                  quadratic_spline.quadratic_spline_cuda,
+                  splines.quadratic.unconstrained_quadratic_spline_plain),
+    "cubic": (lambda K: (K, K, 1, 1), cubic_spline, cubic_spline.cubic_spline_cuda,
+              splines.cubic.unconstrained_cubic_spline_plain),
+}
+
+
+def _family_inputs(family, K, device, seed=0, shape=(512, 3)):
+    rng = np.random.default_rng(seed)
+    x = (2.5 * rng.standard_normal(shape)).astype(np.float32)
+    x.reshape(-1)[:4] = [B, -B, B + 0.5, -B - 0.5]
+    arrays = [x] + [(0.5 * rng.standard_normal(shape + (p,))).astype(np.float32)
+                    for p in SPLINE_FAMILIES[family][0](K)]
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("family", sorted(SPLINE_FAMILIES))
+@pytest.mark.parametrize("K", [4, 8])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_b5_to_b8_match_plain(cuda, family, K, inverse):
+    _, module, wrapper, plain = SPLINE_FAMILIES[family]
+    args = _family_inputs(family, K, cuda, seed=K)
+    before = module.launch_count
+    out, lad = wrapper(*args, inverse=inverse, tail_bound=B)
+    assert module.launch_count == before + 1
+    p_out, p_lad = plain(*args, inverse=inverse, tail_bound=B)
+    _close(out, p_out, 1e-4)
+    _close(lad, p_lad, 1e-3)
+    outside = args[0].abs() > B
+    assert torch.equal(out[outside], args[0][outside]) and not lad[outside].any()
+
+
+@pytest.mark.parametrize("family", sorted(SPLINE_FAMILIES))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_b5_to_b8_gradients_match_plain(cuda, family, inverse):
+    _, module, wrapper, plain = SPLINE_FAMILIES[family]
+    args = _family_inputs(family, 8, cuda, seed=1)
+    args[0].clamp_(-B + 0.1, B - 0.1)  # away from the clamp's tie at +-B
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    before = module.launch_count
+    out, lad = wrapper(*leaves, inverse=inverse, tail_bound=B)
+    (out * 1.3 + lad * 0.7).sum().backward()
+    assert module.launch_count == before + 1
+    ref = [t.clone().requires_grad_(True) for t in args]
+    p_out, p_lad = plain(*ref, inverse=inverse, tail_bound=B)
+    (p_out * 1.3 + p_lad * 0.7).sum().backward()
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, r.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("family", sorted(SPLINE_FAMILIES))
+def test_b5_to_b8_wrappers_refuse_what_the_kernels_do_not_take(cuda, family):
+    wrapper = SPLINE_FAMILIES[family][2]
+    args = _family_inputs(family, 8, cuda)
+    with pytest.raises(TypeError):
+        wrapper(*[t.double() for t in args], tail_bound=B)
+    with pytest.raises(ValueError):
+        wrapper(args[0].t(), *[t.transpose(0, 1) for t in args[1:]], tail_bound=B)
+    with pytest.raises(ValueError):
+        wrapper(args[0][:-1].contiguous(), *args[1:], tail_bound=B)
+
+
+def _family_flow(device, family, features=6, hidden=32, layers=10, bins=8):
+    """The flagship's chain with the family's coupling: ``layers`` x [random
+    permutation, coupling with a 2-block ResidualNet], linear tails."""
+    if family == "lrs":
+        return NeuralSplineFlow(
+            features, hidden, num_layers=layers, num_bins=bins, tail_bound=B, spline="lrs",
+            generator=torch.Generator().manual_seed(features),
+            rng=np.random.default_rng(features), device=device).eval()
+    cls = {"linear": PiecewiseLinearCouplingTransform,
+           "quadratic": PiecewiseQuadraticCouplingTransform,
+           "cubic": PiecewiseCubicCouplingTransform}[family]
+    gen = torch.Generator().manual_seed(features)
+    rng = np.random.default_rng(features)
+    chain = []
+    for i in range(layers):
+        chain.append(RandomPermutation(features, rng=rng, device=device))
+        chain.append(cls(
+            mask=create_alternating_binary_mask(features, even=bool(i % 2)),
+            transform_net_create_fn=lambda n_in, n_out: nets.ResidualNet(
+                n_in, n_out, hidden_features=hidden, num_blocks=2, generator=gen,
+                device=device),
+            num_bins=bins, tails="linear", tail_bound=B, device=device))
+    return Flow(CompositeTransform(chain), StandardNormal([features])).to(device).eval()
+
+
+@pytest.mark.parametrize("family", sorted(SPLINE_FAMILIES))
+def test_compiled_flow_launches_ten_family_kernels_a_request(cuda, family):
+    module = SPLINE_FAMILIES[family][1]
+    flow = _family_flow(cuda, family)
+    served = CompiledFlow(flow, batch_size=256, features=6)
+    assert not served.is_fused
+    with pytest.raises(ValueError):
+        CompiledFlow(flow, batch_size=256, features=6, use_fused=True)
+    x = torch.randn(256, 6, generator=torch.Generator().manual_seed(3)).to(cuda)
+    before, b1 = module.launch_count, rq_spline.launch_count
+    lp = served.log_prob(x)
+    assert module.launch_count == before + 10
+    s, lp2 = served.sample_and_log_prob(torch.Generator(device=cuda).manual_seed(4))
+    assert module.launch_count == before + 20 and rq_spline.launch_count == b1
+    assert torch.isfinite(lp).all() and torch.isfinite(lp2).all()
+    _close(lp2, served.log_prob(s), 5e-3)

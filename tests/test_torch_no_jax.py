@@ -39,9 +39,20 @@ def test_scan_covers_the_port():
             "nflows_tpu_torch/ops/cuda/maf_train.py",
             "nflows_tpu_torch/nn/nde/made.py", "nflows_tpu_torch/distributions/mixture.py",
             "nflows_tpu_torch/ops/cuda/mademog_fused.py",
-            "nflows_tpu_torch/ops/cuda/mademog_train.py"} <= names
+            "nflows_tpu_torch/ops/cuda/mademog_train.py",
+            "nflows_tpu_torch/ops/splines/linear_rational.py",
+            "nflows_tpu_torch/ops/splines/linear.py",
+            "nflows_tpu_torch/ops/splines/quadratic.py",
+            "nflows_tpu_torch/ops/splines/cubic.py",
+            "nflows_tpu_torch/ops/cuda/_spline_common.py",
+            "nflows_tpu_torch/ops/cuda/lrs_spline.py",
+            "nflows_tpu_torch/ops/cuda/linear_spline.py",
+            "nflows_tpu_torch/ops/cuda/quadratic_spline.py",
+            "nflows_tpu_torch/ops/cuda/cubic_spline.py"} <= names
     sources = {p.name for p in (ROOT / "nflows_tpu_torch" / "csrc").glob("*.cu*")}
-    assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh"} <= sources
+    assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh"} <= sources
+    for stem in ("lrs_spline", "linear_spline", "quadratic_spline", "cubic_spline"):
+        assert {f"{stem}.cu", f"{stem}.cuh"} <= sources
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -80,6 +91,17 @@ def test_runtime_loads_no_jax():
         "    tr.to_flow()\n"
         "    nt.make_train_step()(nt.create_train_state(m, adam), y)\n"
         "nt.InverseAutoregressiveFlow(5, 8, 2, 1, device='cpu').log_prob(torch.randn(4, 5))\n"
+        "lrs = nt.NeuralSplineFlow(6, 8, num_layers=2, num_bins=4, spline='lrs', device='cpu')\n"
+        "nt.CompiledFlow(lrs, 16, 6, device='cpu').sample_and_log_prob(torch.Generator())\n"
+        "nt.make_train_step()(nt.create_train_state(lrs, adam), x)\n"
+        "from nflows_tpu_torch.transforms import (PiecewiseLinearCouplingTransform,\n"
+        "    PiecewiseQuadraticCouplingTransform, PiecewiseCubicCouplingTransform)\n"
+        "from nflows_tpu_torch.nn.nets import ResidualNet\n"
+        "for cls in (PiecewiseLinearCouplingTransform, PiecewiseQuadraticCouplingTransform,\n"
+        "            PiecewiseCubicCouplingTransform):\n"
+        "    c = cls([1, -1, 1, -1, 1, -1], lambda i, o: ResidualNet(i, o, 8, device='cpu'),\n"
+        "            num_bins=4, tails='linear', tail_bound=3.0, device='cpu')\n"
+        "    c.inverse(c.forward(x)[0])\n"
         "for m, cf in ((nt.MixtureOfGaussiansMADE(5, 8, device='cpu'), None),\n"
         "              (nt.MADEMoG(5, 8, 3, num_mixture_components=2, device='cpu'), 3)):\n"
         "    y = torch.randn(16, 5)\n"

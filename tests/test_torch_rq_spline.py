@@ -18,6 +18,7 @@ import torch
 from nflows_tpu.ops import splines as jax_splines
 from nflows_tpu.ops.pallas.rq_spline import rq_spline_pallas
 from nflows_tpu_torch.ops.cuda import rq_spline as b1
+from nflows_tpu_torch.ops.cuda._spline_common import KernelSpline
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq
 
 torch.set_num_threads(1)
@@ -102,16 +103,17 @@ def test_autograd_wrapper_gradients_match_jax(inverse, monkeypatch):
     """The autograd Function around B1 (forward = kernel, backward = plain
     version under autograd). On the CPU the kernel's place is taken by the
     plain forward, so the backward wiring itself is what runs."""
-    def plain_forward(inputs, uw, uh, ud, inv, tail_bound, mbw, mbh, md):
+    plain = rq.unconstrained_rational_quadratic_spline_plain
+
+    def plain_forward(*tensors, **statics):
         with torch.no_grad():
-            return rq.unconstrained_rational_quadratic_spline_plain(
-                inputs, uw, uh, ud, inverse=inv, tail_bound=tail_bound,
-                min_bin_width=mbw, min_bin_height=mbh, min_derivative=md)
+            return plain(*tensors, **statics)
     monkeypatch.setattr(b1, "_launch", plain_forward)
 
     arrays = _inputs(8, seed=20, on_bound=False, scale=0.5)
     leaves = [t.clone().requires_grad_(True) for t in _torch(*arrays)]
-    out, lad = b1._RQSpline.apply(*leaves, (inverse, B, 1e-3, 1e-3, 1e-3))
+    out, lad = KernelSpline.apply(b1._launch, plain, dict(inverse=inverse, tail_bound=B),
+                                  *leaves)
     (out * 1.3 + lad * 0.7).sum().backward()
     for leaf, ref in zip(leaves, _jax_grads(*arrays, inverse)):
         _close_grad(leaf.grad, ref)

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from nflows_tpu.ops import splines as jax_splines
+from nflows_tpu_torch.ops import binning
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq
 
 torch.set_num_threads(1)
@@ -48,7 +49,7 @@ def _autograd(x, w, h, d, g_out, g_lad):
 
 def _bins_hit(x, w, K):
     """Indices of the bins the inside points fall in."""
-    widths, cum = rq._edges(w, K, rq.DEFAULT_MIN_BIN_WIDTH, -B, B)
+    widths, cum = binning.edges_on(w, K, rq.DEFAULT_MIN_BIN_WIDTH, -B, B)
     inside = x.abs() <= B
     return set(torch.searchsorted(cum[inside][:, 1:-1].contiguous(),
                                   x[inside][:, None]).flatten().tolist())
@@ -102,7 +103,7 @@ def test_boundary_bins_have_no_slope_gradient_at_the_edges():
     the lower one: the slopes at +-B are constants."""
     K = 4
     x, w, h, d, g_out, g_lad = (torch.from_numpy(a) for a in _inputs(K, seed=5, scale=0.3))
-    _, cum = rq._edges(w, K, rq.DEFAULT_MIN_BIN_WIDTH, -B, B)
+    _, cum = binning.edges_on(w, K, rq.DEFAULT_MIN_BIN_WIDTH, -B, B)
     _, _, _, g_d = rq.rq_spline_forward_adjoint_plain(x, w, h, d, g_out, g_lad, tail_bound=B)
     first = (x >= -B) & (x < cum[:, 1])
     last = (x <= B) & (x >= cum[:, K - 1])
