@@ -13,6 +13,7 @@ from nflows_tpu_torch import distributions, flows, models, training, transforms,
 from nflows_tpu_torch.distributions.mixture import MADEMoG
 from nflows_tpu_torch.flows.autoregressive import MaskedAutoregressiveFlow
 from nflows_tpu_torch.flows.base import Flow
+from nflows_tpu_torch.flows.realnvp import SimpleRealNVP
 from nflows_tpu_torch.interop import load_jax_params, load_jax_trainer_weights
 from nflows_tpu_torch.models.iaf import InverseAutoregressiveFlow
 from nflows_tpu_torch.models.nsf import NeuralSplineFlow
@@ -31,7 +32,7 @@ from nflows_tpu_torch.training import (
 __all__ = ["VERSION", "__version__", "distributions", "flows", "models",
            "training", "transforms", "utils", "Flow", "NeuralSplineFlow",
            "NeuralSplineFlowAR", "MaskedAutoregressiveFlow",
-           "InverseAutoregressiveFlow", "MADEMoG", "MixtureOfGaussiansMADE",
+           "InverseAutoregressiveFlow", "SimpleRealNVP", "MADEMoG", "MixtureOfGaussiansMADE",
            "CompiledFlow", "load_jax_params", "load_jax_trainer_weights",
            "TrainState", "create_train_state", "make_train_step", "nll_loss",
            "fused_trainer"]

@@ -1,16 +1,19 @@
-// B2: the whole L-layer RQ-NSF coupling chain in one launch.
+// B2: the whole L-layer coupling chain in one launch.
 //
 // Replaces the TPU kernel nflows_tpu/ops/pallas/nsf_flow_kernel.py:_kernel
-// (rq family, fp32, no context). For each layer: permutation and coupling
-// split (static index lists), the ResidualNet conditioner (initial layer,
+// (fp32, no context). For each layer: permutation and coupling split
+// (static index lists), the ResidualNet conditioner (initial layer,
 // num_blocks x [relu, linear, relu, linear, residual add], final layer),
-// the RQ spline of the transformed features with boundary derivatives of
-// exactly 1, the merge, and the running logabsdet sum.
+// the coupling stage of the chain's family on the transformed features
+// (coupling_stage.cuh: the rq, lrs, linear, quadratic or cubic spline with
+// linear tails, or the affine or additive coupling), the merge, and the
+// running logabsdet sum.
 //
 // Bound on the H100: operations. At the flagship (D 6, hidden 256, 10
 // layers, 2 blocks, 8 bins) a sample costs about 5.6 MFLOP of fp32 GEMM on
-// the CUDA cores; it reads and writes 28 bytes. The spline stage is a few
-// percent of the work.
+// the CUDA cores; it reads and writes 28 bytes. The coupling stage is a few
+// percent of the work in every family (the cubic inverse's 30 halvings
+// included).
 //
 // Design. The TPU kernel keeps every layer's weights resident in VMEM; here
 // the 11 MB of fp32 weights do not fit in shared memory (227 KB), so each
@@ -29,9 +32,14 @@
 //   double-buffered, so the next chunk's copy overlaps this chunk's FMAs.
 // - The conditioner's output P ([TM][ROWS], K-major as extracted) stays in
 //   shared memory; one thread per (sample, transformed feature) runs the
-//   shared rq_spline_eval (rq_spline.cuh) on it with stride T. Weights that
-//   do not carry the softmax 1/sqrt(H) (the trainers') get it on the width
-//   and height rows of P first (wh_scale).
+//   family's stage on it with stride T ROWS. The family is a template
+//   parameter, picked on the host: each instantiation holds one stage's
+//   code (a switch over all seven in one kernel cost the rq chain some 5%
+//   on the card, measured with tools/checkout_ab.py). Weights that do not
+//   carry the softmax 1/sqrt(H) (the trainers') get it on the first
+//   min(2 K T, TM) rows of P first (wh_scale): the widths and heights of
+//   rq, lrs and cubic, every row of quadratic, whose 2K - 1 parameters a
+//   feature are fewer than 2K.
 // - Permutation, split and merge use the per-layer index lists of
 //   NSFLayerIndices, read from a small int array.
 // - The ragged last tile computes on zero rows and skips their stores.
@@ -40,7 +48,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "rq_spline.cuh"
+#include "coupling_stage.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -55,6 +63,7 @@ struct FlowArgs {
   float* lad;
   int64_t n;
   int D, L, H, Tid, I4, T, TMp, TB, nb2;
+  int scaled_rows;  // rows of P that wh_scale multiplies: min(2 K T, TM)
   const float* w0;  // [L][I4][H]
   const float* b0;  // [L][H]
   const float* wb;  // [L][nb2][H][H]  (in-major)
@@ -63,11 +72,11 @@ struct FlowArgs {
   const float* bf;  // [L][TMp]
   const int* idx;   // [L][2 Tid + 2 T + 2 D]
   int inverse;
-  float wh_scale;   // multiplies the width and height rows of P (1: already folded)
-  nflows::RQConfig cfg;
+  float wh_scale;   // multiplies the first scaled_rows rows of P (1: already folded)
+  nflows::StageConfig cfg;
 };
 
-template <int ROWS>
+template <int ROWS, int FAMILY>
 __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
   constexpr int NT = ROWS * 8;
   extern __shared__ __align__(16) float smem[];
@@ -92,7 +101,6 @@ __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
   for (int s = tid; s < ROWS; s += NT) ladacc[s] = 0.0f;
   __syncthreads();
 
-  const int K = a.cfg.num_bins;
   const int idx_stride = 2 * Tid + 2 * T + 2 * D;
   for (int step = 0; step < a.L; ++step) {
     const int l = a.inverse ? a.L - 1 - step : step;
@@ -123,15 +131,14 @@ __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
     // P = tbuf is [TM][ROWS], K-major rows: parameter j of feature t at row j*T + t;
     // weights that do not carry the softmax 1/sqrt(H) get it here
     if (a.wh_scale != 1.0f) {
-      for (int e = tid; e < 2 * K * T * ROWS; e += NT) tbuf[e] *= a.wh_scale;
+      for (int e = tid; e < a.scaled_rows * ROWS; e += NT) tbuf[e] *= a.wh_scale;
       __syncthreads();
     }
     for (int e = tid; e < T * ROWS; e += NT) {
       const int t = e / ROWS, s = e % ROWS;
-      const float* P = tbuf + t * ROWS + s;
-      nflows::rq_spline_eval(xs[s * D + tr_src[t]], P, P + K * T * ROWS, P + 2 * K * T * ROWS,
-                             T * ROWS, a.inverse != 0, a.cfg, ybuf + s * T + t,
-                             lbuf + s * T + t);
+      nflows::coupling_stage<FAMILY>(xs[s * D + tr_src[t]], tbuf + t * ROWS + s, T * ROWS,
+                                     a.inverse != 0, a.cfg, ybuf + s * T + t,
+                                     lbuf + s * T + t);
     }
     __syncthreads();
 
@@ -157,43 +164,64 @@ size_t smem_bytes(int rows, const FlowArgs& a) {
   return sizeof(float) * ((size_t)2 * KC * OC + (size_t)rows * (a.H + a.TB + 2 * a.D + 2 * a.T + 1));
 }
 
-template <int ROWS>
+template <int ROWS, int FAMILY>
 int launch(const FlowArgs& a, cudaStream_t stream) {
   const size_t bytes = smem_bytes(ROWS, a);
-  cudaError_t err = cudaFuncSetAttribute(nsf_flow_kernel<ROWS>,
+  cudaError_t err = cudaFuncSetAttribute(nsf_flow_kernel<ROWS, FAMILY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (a.n + ROWS - 1) / ROWS;
-  nsf_flow_kernel<ROWS><<<(unsigned)blocks, ROWS * 8, bytes, stream>>>(a);
+  nsf_flow_kernel<ROWS, FAMILY><<<(unsigned)blocks, ROWS * 8, bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// one instantiation of the kernel a family (see coupling_stage.cuh)
+template <int ROWS>
+int launch_family(const FlowArgs& a, cudaStream_t stream) {
+  switch (a.cfg.family) {
+    case nflows::kRQ: return launch<ROWS, nflows::kRQ>(a, stream);
+    case nflows::kLRS: return launch<ROWS, nflows::kLRS>(a, stream);
+    case nflows::kLinear: return launch<ROWS, nflows::kLinear>(a, stream);
+    case nflows::kQuadratic: return launch<ROWS, nflows::kQuadratic>(a, stream);
+    case nflows::kCubic: return launch<ROWS, nflows::kCubic>(a, stream);
+    default: return launch<ROWS, nflows::kAffine>(a, stream);  // kAffine, kAdditive
+  }
 }
 
 }  // namespace
 
-// rows_per_block: 32 or 64. Returns a cudaError_t value (0 on success).
+// family: a CouplingFamily (coupling_stage.cuh), scale_act a ScaleActivation
+// (affine only); num_bins is 0 for the affine and additive couplings, and a
+// family ignores the floats it has no use for. rows_per_block: 32 or 64.
+// Returns a cudaError_t value (0 on success).
 extern "C" int nsf_flow_launch(const float* x, float* y, float* lad, int64_t n, int D, int L,
-                               int H, int Tid, int I4, int T, int TMp, int nb2,
+                               int H, int Tid, int I4, int T, int TM, int TMp, int nb2,
                                const float* w0, const float* b0, const float* wb,
                                const float* bb, const float* wf, const float* bf,
-                               const int* idx, int inverse, float wh_scale, int num_bins,
-                               float tail_bound,
-                               float min_bin_width, float min_bin_height,
-                               float min_derivative, int rows_per_block, void* stream) {
+                               const int* idx, int inverse, int family, int scale_act,
+                               int num_bins, float wh_scale, float tail_bound,
+                               float min_bin_width, float min_bin_height, float min_derivative,
+                               float min_lambda, float edge_derivative, float log_inv_bins,
+                               int rows_per_block, void* stream) {
   if (n == 0) return 0;
-  if (H % 4 || I4 % 4 || TMp % 4 || nb2 % 2) return (int)cudaErrorInvalidValue;
+  if (H % 4 || I4 % 4 || TMp % 4 || nb2 % 2 || TM > TMp || family < nflows::kRQ ||
+      family > nflows::kAdditive)
+    return (int)cudaErrorInvalidValue;
   FlowArgs a;
   a.x = x; a.y = y; a.lad = lad; a.n = n;
   a.D = D; a.L = L; a.H = H; a.Tid = Tid; a.I4 = I4; a.T = T; a.TMp = TMp;
   a.TB = H > TMp ? H : TMp;
   if (I4 > a.TB) a.TB = I4;
   a.nb2 = nb2;
+  a.scaled_rows = 2 * num_bins * T < TM ? 2 * num_bins * T : TM;
   a.w0 = w0; a.b0 = b0; a.wb = wb; a.bb = bb; a.wf = wf; a.bf = bf; a.idx = idx;
   a.inverse = inverse;
   a.wh_scale = wh_scale;
-  a.cfg = nflows::RQConfig{num_bins, tail_bound, min_bin_width, min_bin_height, min_derivative,
-                           1.0f};
+  a.cfg = nflows::make_stage_config(family, scale_act, num_bins, tail_bound, min_bin_width,
+                                    min_bin_height, min_derivative, min_lambda,
+                                    edge_derivative, log_inv_bins);
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows_per_block == 32) return launch<32>(a, s);
-  if (rows_per_block == 64) return launch<64>(a, s);
+  if (rows_per_block == 32) return launch_family<32>(a, s);
+  if (rows_per_block == 64) return launch_family<64>(a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-// B3 and B4: training kernels of the RQ-NSF coupling chain.
+// B3 and B4: training kernels of the coupling chain (rq, affine and
+// additive families).
 //
 // B3 (nsf_loss_grad_kernel) replaces the TPU kernel
 // nflows_tpu/ops/pallas/nsf_train.py:_loss_grad_kernel: one launch gives the
@@ -8,7 +9,8 @@
 // B4 (nsf_train_bwd_kernel) replaces nsf_train.py:_bwd_kernel: it recomputes
 // the chain from x and pulls given cotangents (gy, glad) back to gx and
 // every weight gradient; it is the backward of B2 (nsf_flow_kernel.cu).
-// Both are rq family, fp32, no context, and share all their device code.
+// Both run the rq spline and the affine and additive couplings, fp32, no
+// context, and share all their device code.
 //
 // Bound on the H100: operations. One chain pass and its backward are three
 // forward-equivalents of fp32 GEMM work (forward, input cotangents, weight
@@ -18,7 +20,10 @@
 // Design.
 // - The TPU kernels differentiate each layer with jax.vjp traced inside the
 //   kernel. Here the adjoints are written out: the conditioner's backward as
-//   tile GEMMs (tile_gemm.cuh), the spline's by rq_spline_bwd.cuh.
+//   tile GEMMs (tile_gemm.cuh), the coupling stage's by rq_spline_bwd.cuh
+//   (rq) or affine_coupling.cuh (affine, additive). The forward runs the
+//   shared stage of coupling_stage.cuh; the other spline families' adjoints
+//   are not written yet, and the entry point refuses them.
 // - A block walks over tiles of ROWS samples (a persistent grid of at most
 //   one block an SM). Per tile: one forward pass of the chain that keeps
 //   what the backward needs, then the backward sweep over the layers.
@@ -51,7 +56,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "rq_spline.cuh"
+#include "coupling_stage.cuh"
 #include "rq_spline_bwd.cuh"
 #include "tile_gemm.cuh"
 
@@ -71,6 +76,7 @@ struct TrainArgs {
   float* gx;          // [n][D]  B4: cotangent of x
   int64_t n;
   int D, L, H, Tid, I4, T, TM, TMp, TB, nb2;
+  int scaled_rows;   // rows of P that wh_scale multiplies: min(2 K T, TM)
   // forward weights, in-major and padded (pack_weights)
   const float* pw0;  // [L][I4][H]
   const float* pwb;  // [L][nb2][H][H]
@@ -92,7 +98,7 @@ struct TrainArgs {
   float* gbf;
   float* stash;  // [grid][L][(nb2 + 1) H + TMp][ROWS + 4]
   float wh_scale, inv_n, log_z;
-  nflows::RQConfig cfg;
+  nflows::StageConfig cfg;
 };
 
 // rows x [RS] floats from the block's scratch in global memory into shared
@@ -132,8 +138,7 @@ __device__ void train_block(const TrainArgs& a) {
   float* gladv = ladacc + ROWS;             // [ROWS] cotangent of the logabsdet
 
   const int tid = threadIdx.x;
-  const int K = a.cfg.num_bins;
-  const int KT = K * T;
+  const int KT = a.cfg.rq.num_bins * T;
   const int idx_stride = 2 * Tid + 2 * T + 2 * D;
   const size_t SR = (size_t)(nb2 + 1) * H + TMp;  // scratch rows a layer
   float* stash = a.stash + (size_t)blockIdx.x * L * SR * RS;
@@ -179,11 +184,11 @@ __device__ void train_block(const TrainArgs& a) {
                           false, false, false, wst);
 
       // P = Y is [TM][RS], K-major rows; the softmax 1/sqrt(H) goes on the
-      // width and height rows here, and P is kept as the spline reads it
+      // width and height rows here, and P is kept as the stage reads it
       float* pst = st + (size_t)(nb2 + 1) * H * RS;
       for (int e = tid; e < TMp * ROWS; e += NT) {
         const int r = e / ROWS, at = r * RS + e % ROWS;
-        const float v = r < 2 * KT ? Y[at] * a.wh_scale : Y[at];
+        const float v = r < a.scaled_rows ? Y[at] * a.wh_scale : Y[at];
         Y[at] = v;
         pst[at] = v;
       }
@@ -191,9 +196,8 @@ __device__ void train_block(const TrainArgs& a) {
 
       for (int e = tid; e < T * ROWS; e += NT) {
         const int t = e / ROWS, s = e % ROWS;
-        const float* P = Y + t * RS + s;
-        nflows::rq_spline_eval(xl[s * D + tr_src[t]], P, P + KT * RS, P + 2 * KT * RS, T * RS,
-                               false, a.cfg, ybuf + s * T + t, lbuf + s * T + t);
+        nflows::coupling_stage_eval(xl[s * D + tr_src[t]], Y + t * RS + s, T * RS, false,
+                                    a.cfg, ybuf + s * T + t, lbuf + s * T + t);
       }
       __syncthreads();
 
@@ -240,15 +244,20 @@ __device__ void train_block(const TrainArgs& a) {
       for (int e = tid; e < (TMp - TM) * RS; e += NT) Y[TM * RS + e] = 0.0f;
       __syncthreads();
 
-      // spline adjoint: gP into Y, the transformed inputs' cotangents into ybuf
+      // stage adjoint: gP into Y, the transformed inputs' cotangents into ybuf
       for (int e = tid; e < T * ROWS; e += NT) {
         const int t = e / ROWS, s = e % ROWS;
         const float* P = X + t * RS + s;
         float* G = Y + t * RS + s;
-        nflows::rq_spline_forward_adjoint(
-            xl[s * D + tr_src[t]], P, P + KT * RS, P + 2 * KT * RS, T * RS, a.cfg,
-            gcat[s * D + Tid + t], gladv[s], a.wh_scale, ybuf + s * T + t, G, G + KT * RS,
-            G + 2 * KT * RS);
+        const float x = xl[s * D + tr_src[t]];
+        if (a.cfg.family == nflows::kRQ)
+          nflows::rq_spline_forward_adjoint(
+              x, P, P + KT * RS, P + 2 * KT * RS, T * RS, a.cfg.rq, gcat[s * D + Tid + t],
+              gladv[s], a.wh_scale, ybuf + s * T + t, G, G + KT * RS, G + 2 * KT * RS);
+        else
+          nflows::affine_coupling_forward_adjoint(x, P, T * RS, a.cfg.scale_act,
+                                                  gcat[s * D + Tid + t], gladv[s],
+                                                  ybuf + s * T + t, G);
       }
       __syncthreads();
 
@@ -344,6 +353,9 @@ int launch(const TrainArgs& a, int grid, cudaStream_t stream) {
 
 // One entry point for both kernels: loss != 0 runs B3 (writes lp; gy, glad and
 // gx unused), loss == 0 runs B4 (reads gy and glad, writes gx; lp unused).
+// family: kRQ, kAffine or kAdditive (coupling_stage.cuh), scale_act a
+// ScaleActivation (affine only); num_bins is 0 for the affine and additive
+// couplings, which ignore the spline's floats.
 // grid: blocks to launch; stash holds grid x L x ((nb2 + 1) H + TMp) x
 // (rows_per_block + 4) floats. rows_per_block: 32 or 64. Returns a
 // cudaError_t value (0 on success).
@@ -353,16 +365,20 @@ extern "C" int nsf_train_launch(
     const float* pw0, const float* pwb, const float* pwf, const float* pbf, const float* w0,
     const float* b0, const float* wb, const float* bb, const float* wf, const int* idx,
     float* gw0, float* gb0, float* gwb, float* gbb, float* gwf, float* gbf, float* stash,
-    int grid, float wh_scale, float inv_n, int num_bins, float tail_bound, float min_bin_width,
-    float min_bin_height, float min_derivative, int rows_per_block, void* stream) {
+    int grid, float wh_scale, float inv_n, int family, int scale_act, int num_bins,
+    float tail_bound, float min_bin_width, float min_bin_height, float min_derivative,
+    int rows_per_block, void* stream) {
   if (n == 0) return 0;
-  if (H % 4 || I4 % 4 || TMp % 4 || nb2 % 2 || grid < 1) return (int)cudaErrorInvalidValue;
+  if (H % 4 || I4 % 4 || TMp % 4 || nb2 % 2 || grid < 1 || TM > TMp ||
+      (family != nflows::kRQ && family != nflows::kAffine && family != nflows::kAdditive))
+    return (int)cudaErrorInvalidValue;
   TrainArgs a;
   a.x = x; a.gy = gy; a.glad = glad; a.lp = lp; a.gx = gx; a.n = n;
   a.D = D; a.L = L; a.H = H; a.Tid = Tid; a.I4 = I4; a.T = T; a.TM = TM; a.TMp = TMp;
   a.TB = H > TMp ? H : TMp;
   if (I4 > a.TB) a.TB = I4;
   a.nb2 = nb2;
+  a.scaled_rows = 2 * num_bins * T < TM ? 2 * num_bins * T : TM;
   a.pw0 = pw0; a.pwb = pwb; a.pwf = pwf; a.pbf = pbf;
   a.w0 = w0; a.b0 = b0; a.wb = wb; a.bb = bb; a.wf = wf; a.idx = idx;
   a.gw0 = gw0; a.gb0 = gb0; a.gwb = gwb; a.gbb = gbb; a.gwf = gwf; a.gbf = gbf;
@@ -370,8 +386,8 @@ extern "C" int nsf_train_launch(
   a.wh_scale = wh_scale;
   a.inv_n = inv_n;
   a.log_z = 0.5f * (float)D * logf(2.0f * 3.14159265358979323846f);
-  a.cfg = nflows::RQConfig{num_bins, tail_bound, min_bin_width, min_bin_height, min_derivative,
-                           1.0f};
+  a.cfg = nflows::make_stage_config(family, scale_act, num_bins, tail_bound, min_bin_width,
+                                    min_bin_height, min_derivative, 0.0f, 1.0f, 0.0f);
   cudaStream_t s = (cudaStream_t)stream;
   if (rows_per_block == 32) return loss ? launch<32, true>(a, grid, s) : launch<32, false>(a, grid, s);
   if (rows_per_block == 64) return loss ? launch<64, true>(a, grid, s) : launch<64, false>(a, grid, s);

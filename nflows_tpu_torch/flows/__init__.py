@@ -2,5 +2,6 @@
 
 from nflows_tpu_torch.flows.autoregressive import MaskedAutoregressiveFlow
 from nflows_tpu_torch.flows.base import Flow
+from nflows_tpu_torch.flows.realnvp import SimpleRealNVP
 
-__all__ = ["Flow", "MaskedAutoregressiveFlow"]
+__all__ = ["Flow", "MaskedAutoregressiveFlow", "SimpleRealNVP"]

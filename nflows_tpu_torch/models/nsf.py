@@ -100,3 +100,16 @@ class NeuralSplineFlow(Flow):
         super().__init__(transform=CompositeTransform(layers),
                          distribution=StandardNormal([features]))
         self.to(device)
+
+    def fused(self, dtype=None):
+        """Inference view of this flow on the whole-chain kernel B2
+        (``ops/cuda/nsf_fused.FusedNSF``): ``sample`` / ``log_prob`` /
+        ``sample_and_log_prob`` / ``forward`` / ``inverse`` each run the
+        entire transform chain as one launch on the card (B2's plain
+        version on the CPU).
+
+        ``dtype`` is the conditioner GEMM precision. The JAX package's
+        default is bf16; the port runs fp32 (the default here) and raises
+        ``NotImplementedError`` for anything else, as ``fuse_nsf`` does."""
+        from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
+        return fuse_nsf(self, dtype=torch.float32 if dtype is None else dtype)

@@ -1,24 +1,33 @@
-"""Kernel B2: the whole RQ-NSF coupling chain in one launch
-(counterpart of nflows_tpu/ops/pallas/nsf_flow_kernel.py; source
-``csrc/nsf_flow_kernel.cu``).
+"""Kernel B2: the whole coupling chain in one launch (counterpart of
+nflows_tpu/ops/pallas/nsf_flow_kernel.py; source ``csrc/nsf_flow_kernel.cu``,
+the coupling stages in ``csrc/coupling_stage.cuh``).
+
+The chain is L layers of [permutation, coupling with a ResidualNet
+conditioner] of one family (``spline=``, as the JAX kernel's ``_SPLINES_TR``
+names them): the rq, lrs, linear, quadratic or cubic spline with linear
+tails, or the affine (``scale_act`` "default" or "general") or additive
+coupling.
 
 Weights come in the layout ``nsf_fused._extract`` gives, which is the JAX
 package's: w0 [L, H, Tid], b0 [L, H, 1], wb [L, 2 nb, H, H] (out, in),
-bb [L, 2 nb, H, 1], wf [L, TM, H] with K-major rows, bf [L, TM, 1]. The
-softmax 1/sqrt(H) is either folded into the width and height rows of wf and
-bf (serving) or applied by the kernel to those rows of the conditioner's
-output (``wh_scale``; training, where the weights stay a pure transpose of
-the model's). :func:`pack_weights` re-lays them for the kernel: in-major
-[in, out] matrices, the initial layer's inputs and the final layer's outputs
+bb [L, 2 nb, H, 1], wf [L, TM, H] with K-major rows, bf [L, TM, 1], where
+TM = T M and M is the family's parameter count a feature
+(:func:`params_per_feature`). The softmax 1/sqrt(H) is either folded into
+the final layer's rows (serving) or applied by the kernel to the first
+min(2 K T, TM) rows of the conditioner's output (``wh_scale``; training,
+where the weights stay a pure transpose of the model's).
+:func:`pack_weights` re-lays them for the kernel: in-major [in, out]
+matrices, the initial layer's inputs and the final layer's outputs
 zero-padded to multiples of 4, and the per-layer index lists as one int32
 array.
 
 Samples are rows here: x is [N, D] and the result is (y [N, D], lad [N]).
-This slice covers the rq family in fp32 without context.
+This slice runs fp32 weights without context.
 
 :func:`nsf_flow_kernel_plain` computes the same chain step by step in
-PyTorch on the extracted weights. The CPU tests use it, and so does the
-chip smoke test as B2's reference on the card; a wrapper call with a CPU
+PyTorch on the extracted weights, with the port's plain splines
+(``ops/splines``) as each family's stage. The CPU tests use it, and so does
+the chip smoke test as B2's reference on the card; a wrapper call with a CPU
 tensor runs it, a CUDA tensor runs the kernel or raises.
 """
 
@@ -27,13 +36,28 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from nflows_tpu_torch.ops.cuda import _build
+from nflows_tpu_torch.ops.cuda.rq_spline import _edge_derivative
+from nflows_tpu_torch.ops.splines import cubic as cubic_ref
+from nflows_tpu_torch.ops.splines import linear as linear_ref
+from nflows_tpu_torch.ops.splines import linear_rational as lrs_ref
+from nflows_tpu_torch.ops.splines import quadratic as quadratic_ref
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 
 __all__ = ["nsf_flow_kernel_cuda", "nsf_flow_kernel_plain", "pack_weights",
-           "shared_memory_bytes", "launch_count"]
+           "shared_memory_bytes", "params_per_feature", "FAMILIES", "launch_count"]
+
+# the coupling families, in the order of csrc/coupling_stage.cuh's CouplingFamily
+FAMILIES = ("rq", "lrs", "linear", "quadratic", "cubic", "affine", "additive")
+# the affine scale activations, in the order of csrc/affine_coupling.cuh
+SCALE_ACTIVATIONS = ("default", "general", "none")
+# the families whose first min(2K, M) parameters a feature (widths and
+# heights; all of a quadratic spline's) carry the softmax 1/sqrt(hidden),
+# as the JAX package's _family_spline_config has it
+RESCALED_FAMILIES = ("rq", "lrs", "quadratic", "cubic")
 
 launch_count = 0  # kernel launches since the last reset
 
@@ -47,6 +71,16 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def params_per_feature(spline: str, num_bins: int = 0) -> int:
+    """M, the conditioner's outputs a transformed feature, by family."""
+    K = num_bins
+    table = {"rq": 3 * K - 1, "lrs": 4 * K - 1, "linear": K, "quadratic": 2 * K - 1,
+             "cubic": 2 * K + 2, "affine": 2, "additive": 1}
+    if spline not in table:
+        raise ValueError(f"spline must be one of {FAMILIES}, got {spline!r}")
+    return table[spline]
+
+
 def shared_memory_bytes(rows: int, D: int, H: int, Tid: int, T: int,
                         TM: int) -> int:
     """Dynamic shared memory of one block of ``rows`` samples."""
@@ -57,8 +91,7 @@ def shared_memory_bytes(rows: int, D: int, H: int, Tid: int, T: int,
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nsf_flow_launch.argtypes = (
-        [p, p, p, ctypes.c_int64] + [i] * 8 + [p] * 7 + [i, f, i] + [f] * 4
-        + [i, p])
+        [p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 7 + [i] * 4 + [f] * 8 + [i, p])
     lib.nsf_flow_launch.restype = i
 
 
@@ -93,19 +126,70 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
     return out
 
 
+def _affine_stage(x, shift, raw, inverse, scale_act):
+    """The affine or additive coupling on [n, T] (the JAX kernel's
+    ``_affine_TR``; the activations of transforms/coupling.py)."""
+    if scale_act == "none":
+        return (x - shift if inverse else x + shift), torch.zeros_like(x)
+    from nflows_tpu_torch.transforms.coupling import (
+        _default_scale_activation,
+        _general_scale_activation,
+    )
+    activation = {"default": _default_scale_activation,
+                  "general": _general_scale_activation}[scale_act]
+    scale = activation(raw)
+    log_scale = torch.log(scale)
+    if inverse:
+        return (x - shift) / scale, -log_scale
+    return x * scale + shift, log_scale
+
+
+def _stage(transform, P, inverse, spline, num_bins, tail_bound, min_bin_width,
+           min_bin_height, min_derivative, min_lambda, scale_act):
+    """One layer's coupling stage on the transformed features [n, T] with
+    the parameters P [n, T, M]: the family's plain spline, or the affine
+    stage."""
+    K = num_bins
+    if spline in ("affine", "additive"):
+        return _affine_stage(transform, P[..., 0], P[..., 1] if spline == "affine" else None,
+                             inverse, scale_act)
+    kw = dict(inverse=inverse, tail_bound=tail_bound)
+    if spline == "linear":
+        return linear_ref.unconstrained_linear_spline_plain(transform, P, **kw)
+    kw.update(min_bin_width=min_bin_width, min_bin_height=min_bin_height)
+    if spline == "quadratic":
+        return quadratic_ref.unconstrained_quadratic_spline_plain(
+            transform, P[..., :K], P[..., K:], **kw)
+    if spline == "cubic":
+        return cubic_ref.unconstrained_cubic_spline_plain(
+            transform, P[..., :K], P[..., K:2 * K], P[..., 2 * K:2 * K + 1],
+            P[..., 2 * K + 1:], **kw)
+    if spline == "lrs":
+        return lrs_ref.unconstrained_linear_rational_spline_plain(
+            transform, P[..., :K], P[..., K:2 * K], P[..., 3 * K:], P[..., 2 * K:3 * K],
+            min_derivative=min_derivative, min_lambda=min_lambda, **kw)
+    # rq: boundary derivatives exactly 1, as in the JAX kernel
+    one = torch.ones_like(P[..., :1])
+    derivs = torch.cat([one, min_derivative + rq_ref._softplus(P[..., 2 * K:]), one], dim=-1)
+    return rq_ref.linear_tails_spline(
+        transform, P[..., :K], P[..., K:2 * K], derivs, inverse, tail_bound,
+        min_bin_width, min_bin_height)
+
+
 def nsf_flow_kernel_plain(
     x: torch.Tensor, weights: Dict[str, torch.Tensor], layer_indices,
-    *, inverse: bool, num_blocks: int, num_bins: int, tail_bound: float,
-    min_bin_width: float, min_bin_height: float, min_derivative: float,
+    *, inverse: bool, num_blocks: int, spline: str = "rq", num_bins: int = 0,
+    tail_bound: float = None, min_bin_width: float = None, min_bin_height: float = None,
+    min_derivative: float = None, min_lambda: float = None, scale_act: str = None,
     wh_scale: float = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chain in plain PyTorch on the extracted weights, step by step as
-    the kernel runs it (boundary derivatives exactly 1). Computes in x's
-    dtype, so float64 inputs and weights give a high-precision reference.
-    ``wh_scale`` multiplies the width and height parameters before the
-    spline, for weights extracted without the softmax rescale folded in.
-    Differentiable: the training kernels' plain versions are autograd over
-    this function."""
+    the kernel runs it. Computes in x's dtype, so float64 inputs and
+    weights give a high-precision reference. ``wh_scale`` multiplies the
+    first 2K parameters of every feature (all of a quadratic spline's)
+    before the stage, for weights extracted without the softmax rescale
+    folded in. Differentiable: the training kernels' plain versions are
+    autograd over this function."""
     K = num_bins
     n = x.shape[0]
     lad = torch.zeros(n, dtype=x.dtype, device=x.device)
@@ -125,15 +209,11 @@ def nsf_flow_kernel_plain(
                  + weights["bb"][l, 2 * j + 1, :, 0])
             h = h + t
         P = h @ weights["wf"][l].T + weights["bf"][l, :, 0]       # [n, TM]
-        P = P.reshape(n, -1, T).transpose(1, 2)                   # [n, T, 3K-1]
+        P = P.reshape(n, -1, T).transpose(1, 2)                   # [n, T, M]
         if wh_scale is not None:
             P = torch.cat([P[..., :2 * K] * wh_scale, P[..., 2 * K:]], dim=-1)
-        one = torch.ones_like(P[..., :1])
-        derivs = torch.cat(
-            [one, min_derivative + rq_ref._softplus(P[..., 2 * K:]), one], dim=-1)
-        out, lad_el = rq_ref.linear_tails_spline(
-            transform, P[..., :K], P[..., K:2 * K], derivs, inverse,
-            tail_bound, min_bin_width, min_bin_height)
+        out, lad_el = _stage(transform, P, inverse, spline, K, tail_bound, min_bin_width,
+                             min_bin_height, min_derivative, min_lambda, scale_act)
         lad = lad + lad_el.sum(dim=1)
         x = torch.cat([identity, out], dim=1)[:, list(merge)]
     return x, lad
@@ -141,22 +221,29 @@ def nsf_flow_kernel_plain(
 
 def nsf_flow_kernel_cuda(
     x: torch.Tensor, weights: Dict[str, torch.Tensor], layer_indices,
-    *, inverse: bool, num_blocks: int, num_bins: int, tail_bound: float,
-    min_bin_width: float, min_bin_height: float, min_derivative: float,
+    *, inverse: bool, num_blocks: int, spline: str = "rq", num_bins: int = 0,
+    tail_bound: float = None, min_bin_width: float = None, min_bin_height: float = None,
+    min_derivative: float = None, min_lambda: float = None, scale_act: str = None,
     packed: Dict[str, torch.Tensor] = None, wh_scale: float = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the chain: x [N, D] -> (y [N, D], logabsdet [N]).
 
-    ``packed`` is :func:`pack_weights` of ``weights``, built here when not
-    given (callers that launch repeatedly keep it). ``wh_scale``: see
-    :func:`nsf_flow_kernel_plain`; None leaves the parameters as they are."""
+    The family's configuration is the ``static`` dict of
+    ``nsf_fused._extract``. ``packed`` is :func:`pack_weights` of
+    ``weights``, built here when not given (callers that launch repeatedly
+    keep it). ``wh_scale``: see :func:`nsf_flow_kernel_plain`; None leaves
+    the parameters as they are."""
     global launch_count
-    kw = dict(inverse=inverse, num_blocks=num_blocks, num_bins=num_bins,
+    kw = dict(inverse=inverse, num_blocks=num_blocks, spline=spline, num_bins=num_bins,
               tail_bound=tail_bound, min_bin_width=min_bin_width,
               min_bin_height=min_bin_height, min_derivative=min_derivative,
-              wh_scale=wh_scale)
+              min_lambda=min_lambda, scale_act=scale_act, wh_scale=wh_scale)
     if x.device.type == "cpu":
         return nsf_flow_kernel_plain(x, weights, layer_indices, **kw)
+    M = params_per_feature(spline, num_bins)
+    if spline == "affine" and scale_act not in ("default", "general"):
+        raise ValueError("spline='affine' takes scale_act 'default' or 'general', "
+                         f"got {scale_act!r}")
     if packed is None:
         packed = pack_weights(weights, layer_indices)
     if x.dtype != torch.float32 or not x.is_contiguous() or x.ndim != 2:
@@ -165,7 +252,7 @@ def nsf_flow_kernel_cuda(
     L = len(layer_indices)
     Tid = len(layer_indices[0].id_rows)
     T = D - Tid
-    TM = T * (3 * num_bins - 1)
+    TM = T * M
     H = packed["b0"].shape[1]
     expected = dict(w0=(L, _round4(Tid), H), b0=(L, H), wb=(L, 2 * num_blocks, H, H),
                     bb=(L, 2 * num_blocks, H), wf=(L, H, _round4(TM)),
@@ -186,6 +273,11 @@ def nsf_flow_kernel_cuda(
     if H % 4 or shared_memory_bytes(rows, D, H, Tid, T, TM) > MAX_SHARED_MEMORY:
         raise ValueError(f"nsf_flow_kernel_cuda: hidden width {H} does not fit "
                          "the kernel's shared-memory tile")
+    # a family ignores the values it has no use for
+    floats = [tail_bound, min_bin_width, min_bin_height, min_derivative, min_lambda]
+    floats = [0.0 if v is None else float(v) for v in floats]
+    edge = _edge_derivative(min_derivative) if spline == "lrs" else 1.0
+    log_inv_bins = float(np.log(1.0 / num_bins)) if spline == "linear" else 0.0
 
     lib = _build.load_library("nsf_flow_kernel", _declare)
     y = torch.empty_like(x)
@@ -194,13 +286,14 @@ def nsf_flow_kernel_cuda(
     with torch.cuda.device(x.device):
         code = lib.nsf_flow_launch(
             x.data_ptr(), y.data_ptr(), lad.data_ptr(), n, D, L, H, Tid,
-            _round4(Tid), T, _round4(TM), 2 * num_blocks,
+            _round4(Tid), T, TM, _round4(TM), 2 * num_blocks,
             packed["w0"].data_ptr(), packed["b0"].data_ptr(),
             packed["wb"].data_ptr(), packed["bb"].data_ptr(),
             packed["wf"].data_ptr(), packed["bf"].data_ptr(),
-            packed["idx"].data_ptr(), int(inverse),
-            1.0 if wh_scale is None else wh_scale, num_bins, tail_bound,
-            min_bin_width, min_bin_height, min_derivative, rows, stream)
+            packed["idx"].data_ptr(), int(inverse), FAMILIES.index(spline),
+            SCALE_ACTIVATIONS.index(scale_act or "none"), num_bins,
+            1.0 if wh_scale is None else wh_scale, *floats, edge, log_inv_bins, rows,
+            stream)
     launch_count += 1
     _build.check(code, "nsf_flow_launch")
     return y, lad

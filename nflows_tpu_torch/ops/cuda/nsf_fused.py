@@ -1,20 +1,21 @@
-"""Fused NSF inference path (counterpart of
-nflows_tpu/ops/pallas/nsf_fused.py): extract a tabular RQ-NSF flow into
-the whole-chain kernel B2 (nsf_flow_kernel.py) and serve sample /
-log_prob / sample_and_log_prob as one launch each.
+"""Fused inference path of tabular coupling flows (counterpart of
+nflows_tpu/ops/pallas/nsf_fused.py): extract a coupling chain into the
+whole-chain kernel B2 (nsf_flow_kernel.py) and serve sample / log_prob /
+sample_and_log_prob as one launch each.
 
 ``fuse_nsf(flow)`` validates the structure (homogeneous
-[Permutation?, RQ coupling(ResidualNet)] layers, tails='linear', relu, no
-dropout or batch norm, StandardNormal base, no context) and re-lays the
-weights out as the JAX package's ``_extract`` does: transposed, final
-layer rows permuted K-major, softmax 1/sqrt(hidden) folded in.
+[Permutation?, coupling(ResidualNet)] layers of one of the seven families
+B2 has a stage for: the rq, lrs, linear, quadratic and cubic splines with
+tails='linear', and the affine coupling with the DEFAULT or GENERAL scale
+activation, or the additive one; relu, no dropout or batch norm,
+StandardNormal base, no context) and re-lays the weights out as the JAX
+package's ``_extract`` does: transposed, the final layer's rows permuted
+K-major for the splines (the affine parameters are already param-major),
+each family's softmax 1/sqrt(hidden) folded in.
 
-B2 runs the rq family in fp32 without context so far; its stages for
-the other spline families (linear-rational, linear, quadratic, cubic) and
-the affine couplings, conditional flows and bf16 weights are still to
-port. A flow that does not qualify raises ``ValueError``; ``CompiledFlow``
-then serves it on the unfused chain, where each coupling of those families
-launches its elementwise kernel (B5-B8).
+B2 runs fp32 weights without context so far; conditional flows and bf16
+weights are still to port. A flow that does not qualify raises
+``ValueError``; ``CompiledFlow`` then serves it on the unfused chain.
 """
 
 from __future__ import annotations
@@ -83,20 +84,42 @@ def can_fuse_nsf(flow) -> bool:
         return False
 
 
+def _family(cpl):
+    """(family, scale activation) of a coupling, as the JAX ``_extract``
+    names them; raises for a coupling B2 has no stage for."""
+    from nflows_tpu_torch.transforms import coupling as c
+
+    families = ((c.PiecewiseRationalQuadraticCouplingTransform, "rq"),
+                (c.PiecewiseLinearRationalCouplingTransform, "lrs"),
+                (c.PiecewiseLinearCouplingTransform, "linear"),
+                (c.PiecewiseQuadraticCouplingTransform, "quadratic"),
+                (c.PiecewiseCubicCouplingTransform, "cubic"),
+                (c.AdditiveCouplingTransform, "additive"))  # before Affine, its base
+    for cls, family in families:
+        if isinstance(cpl, cls):
+            return family, ("none" if family == "additive" else None)
+    if isinstance(cpl, c.AffineCouplingTransform):
+        if cpl.scale_activation is c._default_scale_activation:
+            return "affine", "default"
+        if cpl.scale_activation is c._general_scale_activation:
+            return "affine", "general"
+        raise ValueError("only the DEFAULT/GENERAL scale activations are fused")
+    raise ValueError(
+        f"{type(cpl).__name__} is not fused: only spline (rq/lrs/linear/quadratic/"
+        "cubic) and affine/additive couplings are")
+
+
 def _extract(flow, dtype, fold_wh_scale=True):
     """Re-lay a qualifying flow's weights for B2, in the JAX package's
     layout. Returns (layer_indices, weights, static, features,
     context_features).
 
     ``fold_wh_scale=False`` leaves the softmax 1/sqrt(hidden) rescale out of
-    the final layer's width and height rows; the kernel then applies it
-    (``wh_scale``). Every weight is then a transpose or permutation of the
-    model's own, which is what the fused trainer optimises."""
+    the final layer's rows; the kernel then applies it (``wh_scale``). Every
+    weight is then a transpose or permutation of the model's own, which is
+    what the fused trainer optimises."""
     from nflows_tpu_torch.distributions.normal import StandardNormal
     from nflows_tpu_torch.nn.nets.resnet import ResidualNet
-    from nflows_tpu_torch.transforms.coupling import (
-        PiecewiseRationalQuadraticCouplingTransform,
-    )
     from nflows_tpu_torch.transforms.permutations import Permutation
 
     if not isinstance(flow.distribution, StandardNormal):
@@ -111,14 +134,8 @@ def _extract(flow, dtype, fold_wh_scale=True):
     for perm, cpl in pairs:
         if perm is not None and (not isinstance(perm, Permutation) or perm.dim != 1):
             raise ValueError("layer must start with a feature Permutation")
-        if not isinstance(cpl, PiecewiseRationalQuadraticCouplingTransform):
-            raise ValueError(
-                f"{type(cpl).__name__} has no stage in the whole-chain kernel B2 "
-                "yet (only the RQ family is fused so far): serve it with "
-                "use_fused=None or False, which runs the unfused chain and the "
-                "family's elementwise spline kernel, and train it with "
-                "training.make_train_step")
-        if cpl.tails != "linear":
+        spline, scale_act = _family(cpl)
+        if spline not in ("affine", "additive") and cpl.tails != "linear":
             raise ValueError("fused path requires tails='linear'")
         net = cpl.transform_net
         if not isinstance(net, ResidualNet):
@@ -134,10 +151,11 @@ def _extract(flow, dtype, fold_wh_scale=True):
         T = cpl.num_transform_features
         Tid = cpl.num_identity_features
         H = net.hidden_features
-        K = cpl.num_bins
-        M = 3 * K - 1
-        cfg = (K, T, Tid, H, len(net.blocks), cpl.tail_bound, cpl.min_bin_width,
-               cpl.min_bin_height, cpl.min_derivative)
+        K = 0 if spline in ("affine", "additive") else cpl.num_bins
+        M = nsf_flow_kernel.params_per_feature(spline, K)
+        spline_cfg = tuple(getattr(cpl, name, None) for name in (
+            "tail_bound", "min_bin_width", "min_bin_height", "min_derivative", "min_lambda"))
+        cfg = (spline, scale_act, K, T, Tid, H, len(net.blocks)) + spline_cfg
         if ref_cfg is None:
             ref_cfg = cfg
         elif cfg != ref_cfg:
@@ -166,38 +184,68 @@ def _extract(flow, dtype, fold_wh_scale=True):
         linears = [lin for blk in net.blocks for lin in (blk.linear_0, blk.linear_1)]
         wbs.append(torch.stack([lin.weight.detach().float() for lin in linears]))
         bbs.append(torch.stack([lin.bias.detach().float()[:, None] for lin in linears]))
-        # final layer: rows K-major (new row j*T+t = old t*M+j) and, when
-        # folding, the softmax 1/sqrt(H) on the width/height rows
+        # final layer: spline rows K-major (new row j*T+t = old t*M+j); the
+        # affine parameters are already param-major ([shift(T), scale(T)],
+        # coupling.py:178-181). When folding, each family's softmax
+        # 1/sqrt(H) goes on its first rows: rq, lrs and cubic rescale widths
+        # and heights, quadratic all its parameters (its _softmax_rescale
+        # covers both groups), linear, affine and additive nothing
         wf = net.final_layer.weight.detach().float()
-        order = torch.tensor([t * M + j for j in range(M) for t in range(T)],
-                             device=wf.device)
-        wf, bf = wf[order], net.final_layer.bias.detach().float()[order]
-        if fold_wh_scale:
+        bf = net.final_layer.bias.detach().float()
+        if spline not in ("affine", "additive"):
+            order = torch.tensor([t * M + j for j in range(M) for t in range(T)],
+                                 device=wf.device)
+            wf, bf = wf[order], bf[order]
+        n_scaled = _scaled_rows(spline, K, T)
+        if fold_wh_scale and n_scaled:
             scale = torch.ones(T * M, dtype=torch.float32, device=wf.device)
-            scale[:2 * K * T] = float(np.float32(1.0 / np.sqrt(H)))
+            scale[:n_scaled] = float(np.float32(1.0 / np.sqrt(H)))
             wf, bf = wf * scale[:, None], bf * scale
         wfs.append(wf)
         bfs.append(bf[:, None])
 
-    (K, T, Tid, H, num_blocks, tail_bound, mbw, mbh, md) = ref_cfg
+    (spline, scale_act, K, T, Tid, H, num_blocks, tail_bound, mbw, mbh, md, ml) = ref_cfg
     if dtype != torch.float32:
         raise NotImplementedError(
             f"the fused NSF kernel runs fp32 weights only so far, not {dtype}")
-    smem = nsf_flow_kernel.shared_memory_bytes(32, Tid + T, H, Tid, T, T * (3 * K - 1))
+    TM = T * nsf_flow_kernel.params_per_feature(spline, K)
+    smem = nsf_flow_kernel.shared_memory_bytes(32, Tid + T, H, Tid, T, TM)
     if H % 4 or smem > nsf_flow_kernel.MAX_SHARED_MEMORY:
         raise ValueError(
             f"hidden width {H} does not fit the fused kernel's shared-memory tile")
     weights = dict(w0=torch.stack(w0s), b0=torch.stack(b0s),
                    wb=torch.stack(wbs), bb=torch.stack(bbs),
                    wf=torch.stack(wfs), bf=torch.stack(bfs))
-    static = dict(num_bins=K, num_blocks=num_blocks, tail_bound=float(tail_bound),
-                  min_bin_width=float(mbw), min_bin_height=float(mbh),
-                  min_derivative=float(md))
+    # the static dicts of the JAX package's _extract, key for key
+    if spline in ("affine", "additive"):
+        static = dict(num_blocks=num_blocks, spline=spline, scale_act=scale_act)
+    elif spline == "linear":
+        static = dict(num_bins=K, num_blocks=num_blocks, spline=spline,
+                      tail_bound=float(tail_bound))
+    elif spline in ("quadratic", "cubic"):
+        static = dict(num_bins=K, num_blocks=num_blocks, spline=spline,
+                      tail_bound=float(tail_bound), min_bin_width=float(mbw),
+                      min_bin_height=float(mbh))
+    else:
+        static = dict(num_bins=K, num_blocks=num_blocks, tail_bound=float(tail_bound),
+                      min_bin_width=float(mbw), min_bin_height=float(mbh),
+                      min_derivative=float(md), spline=spline,
+                      min_lambda=None if ml is None else float(ml))
     return tuple(layer_indices), weights, static, Tid + T, None
 
 
+def _scaled_rows(spline, num_bins, T):
+    """Rows of a layer's K-major parameters that carry the softmax
+    1/sqrt(hidden): min(2K, M) T, as the kernels scale them (2KT for rq,
+    lrs and cubic, all (2K-1)T for quadratic), none for linear, affine and
+    additive."""
+    if spline not in nsf_flow_kernel.RESCALED_FAMILIES:
+        return 0
+    return T * min(2 * num_bins, nsf_flow_kernel.params_per_feature(spline, num_bins))
+
+
 class FusedNSF(FusedFlowView):
-    """B2-backed inference view of a tabular RQ coupling flow.
+    """B2-backed inference view of a tabular coupling flow.
 
     ``forward``/``inverse`` have the Transform contract; ``log_prob``,
     ``sample`` and ``sample_and_log_prob`` the Distribution contract. On a

@@ -1,6 +1,7 @@
-"""Fused training of tabular RQ-NSF coupling flows: kernels B3 and B4
-(counterpart of nflows_tpu/ops/pallas/nsf_train.py; source
-``csrc/nsf_train.cu``, spline adjoint in ``csrc/rq_spline_bwd.cuh``).
+"""Fused training of tabular coupling flows: kernels B3 and B4 (counterpart
+of nflows_tpu/ops/pallas/nsf_train.py; source ``csrc/nsf_train.cu``, the
+stages' adjoints in ``csrc/rq_spline_bwd.cuh`` and
+``csrc/affine_coupling.cuh``).
 
 - :func:`nsf_loss_grad_cuda` (B3): one launch gives the per-sample
   log_prob under the StandardNormal base and every weight gradient of
@@ -19,7 +20,12 @@
 Samples are rows, as for B2: x is [N, D]. The weights are the dict
 ``nsf_fused._extract(flow, fold_wh_scale=False)`` gives (w0, b0, wb, bb,
 wf, bf, fp32, the JAX package's layout); gradients come back in the same
-shapes. This slice covers the rq family in fp32 without context.
+shapes. The kernels run the rq spline and the affine and additive
+couplings in fp32 without context. The hand-written adjoints of the lrs,
+linear, quadratic and cubic stages are not ported yet: the kernels and
+:class:`FusedNSFTrainer` refuse those families, which train on the eager
+route (``training.make_train_step``); their plain versions below cover
+every family.
 
 The plain versions (:func:`nsf_loss_grad_plain`,
 :func:`nsf_train_bwd_plain`) are ``torch.autograd`` over
@@ -47,12 +53,14 @@ from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
     pack_weights,
 )
 
-__all__ = ["FusedNSFTrainer", "nsf_loss_grad_cuda", "nsf_loss_grad_plain",
+__all__ = ["FusedNSFTrainer", "family_wh_scale", "nsf_loss_grad_cuda", "nsf_loss_grad_plain",
            "nsf_train_bwd_cuda", "nsf_train_bwd_plain", "nsf_train_apply",
            "shared_memory_bytes", "tile_rows", "loss_grad_launch_count",
            "bwd_launch_count"]
 
 WEIGHT_KEYS = ("w0", "b0", "wb", "bb", "wf", "bf")
+# the families whose stage adjoint B3 and B4 have
+KERNEL_FAMILIES = ("rq", "affine", "additive")
 
 loss_grad_launch_count = 0  # B3 launches since the last reset
 bwd_launch_count = 0        # B4 launches since the last reset
@@ -61,16 +69,25 @@ bwd_launch_count = 0        # B4 launches since the last reset
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nsf_train_launch.argtypes = (
-        [i] + [p] * 5 + [ctypes.c_int64] + [i] * 9 + [p] * 17 + [i, f, f, i]
+        [i] + [p] * 5 + [ctypes.c_int64] + [i] * 9 + [p] * 17 + [i, f, f, i, i, i]
         + [f] * 4 + [i, p])
     lib.nsf_train_launch.restype = i
 
 
-def _dims(weights, layer_indices, num_blocks, num_bins):
+def _dims(weights, layer_indices, static):
     L, H, Tid = weights["w0"].shape
     T = len(layer_indices[0].tr_rows)
-    return dict(L=L, H=H, Tid=Tid, T=T, D=Tid + T, TM=T * (3 * num_bins - 1),
-                nb2=2 * num_blocks)
+    M = nsf_flow_kernel.params_per_feature(static["spline"], static.get("num_bins", 0))
+    return dict(L=L, H=H, Tid=Tid, T=T, D=Tid + T, TM=T * M, nb2=2 * static["num_blocks"])
+
+
+def family_wh_scale(static, hidden):
+    """The softmax 1/sqrt(hidden) the kernels apply to unfolded weights, by
+    family (the JAX package's ``_family_spline_config``): rq, lrs, cubic and
+    quadratic carry it, linear, affine and additive do not (None)."""
+    if static["spline"] in nsf_flow_kernel.RESCALED_FAMILIES:
+        return 1.0 / math.sqrt(hidden)
+    return None
 
 
 def shared_memory_bytes(rows: int, D: int, L: int, H: int, Tid: int, T: int,
@@ -121,8 +138,11 @@ def nsf_train_bwd_plain(x, gy, glad, weights, layer_indices, *, wh_scale, **stat
     with torch.enable_grad():
         y, lad = nsf_flow_kernel_plain(x, leaves, layer_indices, inverse=False,
                                        wh_scale=wh_scale, **static)
-        grads = torch.autograd.grad((y, lad), [x] + [leaves[k] for k in WEIGHT_KEYS],
-                                    (gy, glad))
+        # the additive coupling's logabsdet is a constant 0
+        outs = [(o, g) for o, g in ((y, gy), (lad, glad)) if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in outs],
+                                    [x] + [leaves[k] for k in WEIGHT_KEYS],
+                                    [g for _, g in outs])
     return grads[0], dict(zip(WEIGHT_KEYS, grads[1:]))
 
 
@@ -144,8 +164,11 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
     dev = x.device
     if x.ndim != 2:
         raise ValueError(f"{what}: x must be [N, D], got {tuple(x.shape)}")
+    if static["spline"] not in KERNEL_FAMILIES:
+        raise ValueError(f"{what}: the {static['spline']} stage's adjoint is not ported yet; "
+                         "train this flow with training.make_train_step")
     n, D = x.shape
-    d = _dims(weights, layer_indices, static["num_blocks"], static["num_bins"])
+    d = _dims(weights, layer_indices, static)
     if D != d["D"]:
         raise ValueError(f"{what}: x has {D} features, the weights {d['D']}")
     _check(f"{what}: x", x, (n, D), dev)
@@ -198,8 +221,12 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
             weights["wb"].data_ptr(), weights["bb"].data_ptr(), weights["wf"].data_ptr(),
             packed["idx"].data_ptr(), *(grads[k].data_ptr() for k in WEIGHT_KEYS),
             stash.data_ptr(), grid, 1.0 if wh_scale is None else wh_scale, inv_n,
-            static["num_bins"], static["tail_bound"], static["min_bin_width"],
-            static["min_bin_height"], static["min_derivative"], rows, stream)
+            nsf_flow_kernel.FAMILIES.index(static["spline"]),
+            nsf_flow_kernel.SCALE_ACTIVATIONS.index(static.get("scale_act") or "none"),
+            static.get("num_bins", 0),
+            *(float(static.get(k) or 0.0) for k in ("tail_bound", "min_bin_width",
+                                                     "min_bin_height", "min_derivative")),
+            rows, stream)
     if loss:
         loss_grad_launch_count += 1
     else:
@@ -274,7 +301,9 @@ def nsf_train_apply(weights, x, layer_indices, static, wh_scale, packed=None):
 
 
 class FusedNSFTrainer(FusedTrainerBase):
-    """Train a tabular NSF with the fused kernels.
+    """Train a tabular coupling flow with the fused kernels: an RQ NSF, a
+    SimpleRealNVP (affine or additive couplings) or a chain of affine
+    couplings with the GENERAL scale activation.
 
         trainer = FusedNSFTrainer(flow, batch_size=512)
         optimizer = trainer.init_opt(lambda p: torch.optim.Adam(p, lr=3e-4))
@@ -293,14 +322,18 @@ class FusedNSFTrainer(FusedTrainerBase):
 
         (self._indices, weights, self._static, self.features,
          self.context_features) = _extract(flow, torch.float32, fold_wh_scale=False)
+        if self._static["spline"] not in KERNEL_FAMILIES:
+            raise ValueError(
+                f"the {self._static['spline']} coupling's adjoint is not ported yet to the "
+                "training kernels B3 and B4: train this flow on the eager route "
+                "(training.make_train_step)")
         self.weights = {k: weights[k].clone().contiguous().requires_grad_(True)
                         for k in WEIGHT_KEYS}
         self.device = self.weights["w0"].device
         self._flow_template = flow
         self._has_ctx = self.context_features is not None
-        self._wh_scale = 1.0 / math.sqrt(self.weights["w0"].shape[1])
-        self._dims = _dims(self.weights, self._indices, self._static["num_blocks"],
-                           self._static["num_bins"])
+        self._wh_scale = family_wh_scale(self._static, self.weights["w0"].shape[1])
+        self._dims = _dims(self.weights, self._indices, self._static)
         self._packed = None   # kernel layout of the forward weights, re-packed a step
         self._grads = None    # the tensors B3 writes the gradients into
         self._init_batching(batch_size)
@@ -347,7 +380,8 @@ class FusedNSFTrainer(FusedTrainerBase):
 
     def to_flow(self, weights=None):
         """Write kernel-layout weights back into a copy of the flow (the
-        inverse of extraction: un-transpose and inverse K-major reorder)."""
+        inverse of extraction: un-transpose and, for the splines, the
+        inverse K-major reorder)."""
         from nflows_tpu_torch.ops.cuda.nsf_fused import _layer_groups
 
         w = self.weights if weights is None else weights
@@ -358,6 +392,8 @@ class FusedNSFTrainer(FusedTrainerBase):
                 T = cpl.num_transform_features
                 M = w["wf"].shape[1] // T
                 order = np.array([t * M + j for j in range(M) for t in range(T)])
+                if self._static["spline"] in ("affine", "additive"):
+                    order = np.arange(T * M)   # param-major already
                 inv_order = torch.as_tensor(np.argsort(order), device=w["wf"].device)
                 net.initial_layer.weight.copy_(w["w0"][l])
                 net.initial_layer.bias.copy_(w["b0"][l, :, 0])

@@ -10,16 +10,18 @@ so nothing is compiled here and the name is kept for the surface. Requests
 of another shape are refused, as there.
 
 Serving is the amortised-inference context, so a fused kernel is the
-default whenever the model qualifies (``use_fused=None``): B2 for RQ
-coupling chains (``fuse_nsf``), B9 for autoregressive chains
+default whenever the model qualifies (``use_fused=None``): B2 for coupling
+chains of any of its seven families, the rq, lrs, linear, quadratic and
+cubic splines and the affine and additive couplings (``fuse_nsf``: the
+NSF, SimpleRealNVP and NICE among them), B9 for autoregressive chains
 (``fuse_maf``), B11 for the log_prob of a MADEMoG or a bare
 MixtureOfGaussiansMADE (``fuse_mademog``; its sampling endpoints run the
 model's sequential sampler, as in the JAX package), probed in that order.
 Only a structural ``ValueError``/``AttributeError`` from every prober sends
 a flow to the unfused chain (where each spline launches its family's
 elementwise kernel on the card: B1 for RQ, B5-B8 for the linear-rational,
-linear, quadratic and cubic couplings, which B2 does not fuse yet); a
-kernel that fails to build or launch raises. ``use_fused=True``
+linear, quadratic and cubic couplings; ``use_fused=False`` serves any flow
+there); a kernel that fails to build or launch raises. ``use_fused=True``
 raises with each prober's reason when the flow does not qualify;
 ``use_fused=False`` serves the unfused chain.
 """

@@ -2,9 +2,12 @@
 nflows_tpu/training/fused.py).
 
 ``fused_trainer(flow, batch_size)`` probes the flow's structure and returns
-the matching trainer: :class:`FusedNSFTrainer` for RQ coupling chains
-(kernel B3, or B2 + B4 under autograd), :class:`FusedMAFTrainer` for
-unwrapped autoregressive chains, MAF and NSF-AR (kernels B9 + B10),
+the matching trainer: :class:`FusedNSFTrainer` for coupling chains of the
+rq, affine or additive family, the NSF and SimpleRealNVP among them
+(kernel B3, or B2 + B4 under autograd; the lrs, linear, quadratic and
+cubic couplings, whose adjoints B3 and B4 do not have yet, are refused),
+:class:`FusedMAFTrainer` for unwrapped autoregressive chains, MAF and
+NSF-AR (kernels B9 + B10),
 :class:`FusedMADEMoGTrainer` for a MADEMoG or a bare
 MixtureOfGaussiansMADE (kernels B11 + B12), probed in that order. A model
 that matches no kernel raises with every prober's reason (or gives ``None``
@@ -23,7 +26,10 @@ __all__ = ["fused_trainer", "MIN_AUTO_BATCH"]
 # - "nsf", the flagship NSF (features 6, hidden 256, 10 layers, 8 bins):
 #   fused 3.48, 3.54 and 3.66 ms against eager 70.6, 92.1 and 77.1 ms at
 #   batches 512, 2,048 and 4,096 (the eager step is host-bound, its device
-#   work 7.0 to 11.4 ms).
+#   work 7.0 to 11.4 ms). The same family key covers RealNVP and NICE (B3
+#   runs their affine and additive stages): SimpleRealNVP at the same widths
+#   (10 affine couplings, final-layer weights x 0.1) fused 3.26, 3.33 and
+#   3.37 ms against eager 30.6, 41.4 and 34.1 ms.
 # - "maf", the full-width MAF (features 10, hidden 256, 5 layers x 2 blocks):
 #   fused (B9 forward, B10 backward, mask fold, Adam) 2.27, 2.31 and 2.34 ms
 #   against eager 7.51, 8.21 and 7.57 ms at batches 512, 2,048 and 4,096;

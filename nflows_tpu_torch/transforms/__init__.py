@@ -13,6 +13,8 @@ from nflows_tpu_torch.transforms.base import (
     Transform,
 )
 from nflows_tpu_torch.transforms.coupling import (
+    AdditiveCouplingTransform,
+    AffineCouplingTransform,
     CouplingTransform,
     PiecewiseCouplingTransform,
     PiecewiseCubicCouplingTransform,
@@ -31,7 +33,8 @@ __all__ = [
     "Transform", "CompositeTransform", "InverseTransform",
     "InverseNotAvailable", "InputOutsideDomain",
     "Permutation", "RandomPermutation", "ReversePermutation",
-    "CouplingTransform", "PiecewiseCouplingTransform",
+    "CouplingTransform", "AffineCouplingTransform", "AdditiveCouplingTransform",
+    "PiecewiseCouplingTransform",
     "PiecewiseLinearCouplingTransform", "PiecewiseQuadraticCouplingTransform",
     "PiecewiseCubicCouplingTransform", "PiecewiseRationalQuadraticCouplingTransform",
     "PiecewiseLinearRationalCouplingTransform",

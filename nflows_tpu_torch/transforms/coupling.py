@@ -3,9 +3,9 @@ reference nflows/transforms/coupling.py).
 
 A coupling transform splits the features by a fixed binary mask: the
 identity half feeds a conditioner net whose output parameterises an
-elementwise bijection of the transform half. Ported: the spline couplings
-(linear, quadratic, cubic, rational-quadratic, linear-rational) on [N, D]
-inputs.
+elementwise bijection of the transform half. Ported: the affine (RealNVP)
+and additive (NICE) couplings and the spline couplings (linear, quadratic,
+cubic, rational-quadratic, linear-rational) on [N, D] inputs.
 
 The conditioner's output columns are feature-major (column ``t*M + j`` is
 parameter j of transformed feature t), as in the JAX package, so weights
@@ -23,7 +23,8 @@ from nflows_tpu_torch.ops import splines
 from nflows_tpu_torch.transforms.base import Transform
 from nflows_tpu_torch.utils import shapes as shapeutils
 
-__all__ = ["CouplingTransform", "PiecewiseCouplingTransform",
+__all__ = ["CouplingTransform", "AffineCouplingTransform",
+           "AdditiveCouplingTransform", "PiecewiseCouplingTransform",
            "PiecewiseLinearCouplingTransform",
            "PiecewiseQuadraticCouplingTransform",
            "PiecewiseCubicCouplingTransform",
@@ -108,6 +109,64 @@ class CouplingTransform(Transform):
 
     def _coupling_transform_inverse(self, inputs, transform_params):
         raise NotImplementedError()
+
+
+def _default_scale_activation(x):
+    """sigmoid(x + 2) + 1e-3, scales in (1e-3, 1.001) (reference coupling.py:224)."""
+    return torch.sigmoid(x + 2.0) + 1e-3
+
+
+def _general_scale_activation(x):
+    """Clamped softplus, scales in (1e-3, 3] (reference coupling.py:225).
+    ``torch.logaddexp(x, 0)`` is the JAX package's softplus; ``F.softplus``
+    turns linear above 20 and would depart from it."""
+    return torch.clamp(torch.logaddexp(x, torch.zeros_like(x)) + 1e-3, 0.0, 3.0)
+
+
+class AffineCouplingTransform(CouplingTransform):
+    """RealNVP scale-and-shift coupling (reference coupling.py:212-252): the
+    conditioner gives the shift first and the unconstrained scale second,
+    T columns each."""
+
+    DEFAULT_SCALE_ACTIVATION = staticmethod(_default_scale_activation)
+    GENERAL_SCALE_ACTIVATION = staticmethod(_general_scale_activation)
+
+    def __init__(self, mask, transform_net_create_fn, unconditional_transform=None,
+                 scale_activation=_default_scale_activation, device=None):
+        if unconditional_transform is not None:
+            raise NotImplementedError(
+                "an unconditional transform of the identity half is not ported yet")
+        self.scale_activation = scale_activation
+        super().__init__(mask, transform_net_create_fn, device=device)
+
+    def _transform_dim_multiplier(self):
+        return 2
+
+    def _scale_and_shift(self, transform_params):
+        unconstrained_scale = transform_params[:, self.num_transform_features:]
+        shift = transform_params[:, :self.num_transform_features]
+        return self.scale_activation(unconstrained_scale), shift
+
+    def _coupling_transform_forward(self, inputs, transform_params):
+        scale, shift = self._scale_and_shift(transform_params)
+        log_scale = torch.log(scale)
+        return inputs * scale + shift, shapeutils.sum_except_batch(log_scale)
+
+    def _coupling_transform_inverse(self, inputs, transform_params):
+        scale, shift = self._scale_and_shift(transform_params)
+        log_scale = torch.log(scale)
+        return (inputs - shift) / scale, -shapeutils.sum_except_batch(log_scale)
+
+
+class AdditiveCouplingTransform(AffineCouplingTransform):
+    """NICE additive coupling: shift only, logabsdet 0 (reference
+    coupling.py:255-269)."""
+
+    def _transform_dim_multiplier(self):
+        return 1
+
+    def _scale_and_shift(self, transform_params):
+        return torch.ones_like(transform_params), transform_params
 
 
 class PiecewiseCouplingTransform(CouplingTransform):

@@ -1,5 +1,7 @@
 """Kernels B1 to B12 on the card, each against its plain PyTorch version
-on the same CUDA tensors, and the serving and training paths through them.
+on the same CUDA tensors, and the serving and training paths through them:
+B2 for all seven coupling families, B3 and B4 for the rq, affine and
+additive ones.
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -9,8 +11,10 @@ here skips. On a machine with a Hopper card and nvcc (no JAX needed):
 Tolerances, as in chip_smoke.py: B1 1e-4 on outputs and 1e-3 on the
 per-element logabsdet (a log of ratios of small bin quantities, which
 loses more digits); B1 gradients 1e-4 absolute and relative; B2 1e-3 on
-outputs and logabsdet (fp32 GEMMs summed in another order than cuBLAS).
-B3 and B4: log_prob 1e-3 as B2; gradients 2e-4 of the plain version's plus
+outputs and logabsdet (fp32 GEMMs summed in another order than cuBLAS);
+its other families the same, or, where an inverse chain amplifies rounding
+(the affine one divides by scales down to 1e-3), within twice the fp32
+plain version's distance from float64. B3 and B4: log_prob 1e-3 as B2; gradients 2e-4 of the plain version's plus
 1e-3 of its size (the bar the JAX package holds its training kernels to,
 with a relative part because a weight gradient is a sum over the batch taken
 by atomics in another order than autograd's); two launches on the same
@@ -66,6 +70,17 @@ def _flow(device, features=6, **overrides):
 
 def _close(a, b, atol):
     torch.testing.assert_close(a, b, atol=atol, rtol=0)
+
+
+def _hold(kernel, plain, plain64, atol):
+    """A kernel result within ``atol`` of its plain version, or, where the
+    chain amplifies rounding (the affine inverse divides by scales down to
+    1e-3), no further from the float64 plain version than twice the fp32
+    plain version is (chip_smoke.hold)."""
+    gap = (kernel - plain).abs().max().item()
+    err = (kernel.double() - plain64).abs().max().item()
+    err_plain = (plain.double() - plain64).abs().max().item()
+    assert gap <= atol or err <= 2.0 * err_plain, (gap, err, err_plain)
 
 
 @pytest.mark.parametrize("K", [4, 8])
@@ -716,17 +731,174 @@ def _family_flow(device, family, features=6, hidden=32, layers=10, bins=8):
 
 @pytest.mark.parametrize("family", sorted(SPLINE_FAMILIES))
 def test_compiled_flow_launches_ten_family_kernels_a_request(cuda, family):
+    """Unfused (``use_fused=False``): one launch of the family's kernel in
+    each of the 10 couplings a request. Fused (the default): one B2."""
     module = SPLINE_FAMILIES[family][1]
     flow = _family_flow(cuda, family)
-    served = CompiledFlow(flow, batch_size=256, features=6)
-    assert not served.is_fused
-    with pytest.raises(ValueError):
-        CompiledFlow(flow, batch_size=256, features=6, use_fused=True)
+    served = CompiledFlow(flow, batch_size=256, features=6, use_fused=False)
+    fused = CompiledFlow(flow, batch_size=256, features=6)
+    assert fused.is_fused and not served.is_fused
     x = torch.randn(256, 6, generator=torch.Generator().manual_seed(3)).to(cuda)
-    before, b1 = module.launch_count, rq_spline.launch_count
+    before, b1, b2 = module.launch_count, rq_spline.launch_count, nsf_flow_kernel.launch_count
     lp = served.log_prob(x)
     assert module.launch_count == before + 10
     s, lp2 = served.sample_and_log_prob(torch.Generator(device=cuda).manual_seed(4))
     assert module.launch_count == before + 20 and rq_spline.launch_count == b1
+    assert nsf_flow_kernel.launch_count == b2
     assert torch.isfinite(lp).all() and torch.isfinite(lp2).all()
     _close(lp2, served.log_prob(s), 5e-3)
+    lp_fused = fused.log_prob(x)
+    assert nsf_flow_kernel.launch_count == b2 + 1 and module.launch_count == before + 30
+    _close(lp_fused, lp, 1e-3)
+
+
+# -- B2's other families, and B3 and B4 for the affine and additive couplings ---------
+#
+# Tolerances as for the rq family: B2 1e-3 on outputs and logabsdet, plus
+# 1e-5 relative (the affine inverse divides by scales down to 1e-3); B3 and
+# B4 as above.
+
+from nflows_tpu_torch import SimpleRealNVP  # noqa: E402
+from nflows_tpu_torch.transforms import AffineCouplingTransform  # noqa: E402
+
+
+def _affine_flow(device, kind, features=6, hidden=64, layers=4):
+    """SimpleRealNVP ("affine", "additive"), or its chain with the GENERAL
+    scale activation ("general")."""
+    gen = torch.Generator().manual_seed(features)
+    flow = SimpleRealNVP(features, hidden, layers, 2, use_volume_preserving=kind == "additive",
+                         generator=gen, device=device)
+    if kind == "general":
+        for t in flow.transform.transforms:
+            t.scale_activation = AffineCouplingTransform.GENERAL_SCALE_ACTIVATION
+    return flow.eval()
+
+
+def _any_family_flow(device, family):
+    if family in ("affine", "general", "additive"):
+        return _affine_flow(device, family)
+    return _family_flow(device, family)
+
+
+@pytest.mark.parametrize("family", ["lrs", "linear", "quadratic", "cubic", "affine", "general",
+                                    "additive"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b2_families_match_plain(cuda, family, inverse, n):
+    fused = fuse_nsf(_any_family_flow(cuda, family))
+    x = (1.5 * torch.randn(n, 6, generator=torch.Generator().manual_seed(n))).to(cuda)
+    kw = dict(inverse=inverse, **fused._static)
+    before = nsf_flow_kernel.launch_count
+    y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(
+        x, fused._weights, fused._indices, packed=fused._packed, **kw)
+    assert nsf_flow_kernel.launch_count == before + 1
+    p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, fused._weights, fused._indices, **kw)
+    w64 = {k: v.double() for k, v in fused._weights.items()}
+    d_y, d_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x.double(), w64, fused._indices, **kw)
+    for got, plain, exact in ((y, p_y, d_y), (lad, p_lad, d_lad)):
+        _hold(got, plain, exact, 1e-3)
+
+
+def test_b2_scales_only_the_rows_a_quadratic_chain_has(cuda):
+    """Unfolded weights with ``wh_scale`` on a narrow quadratic chain: T = 5
+    and K = 2 give 2KT = 20 rows, more than its TM = 15 and than the hidden
+    width 16; the kernel scales the 15 it has."""
+    gen = torch.Generator().manual_seed(0)
+    chain = [PiecewiseQuadraticCouplingTransform(
+        mask=create_alternating_binary_mask(10, even=bool(i % 2)),
+        transform_net_create_fn=lambda n_in, n_out: nets.ResidualNet(
+            n_in, n_out, hidden_features=16, num_blocks=2, generator=gen, device=cuda),
+        num_bins=2, tails="linear", tail_bound=B, device=cuda) for i in range(3)]
+    flow = Flow(CompositeTransform(chain), StandardNormal([10])).to(cuda)
+    from nflows_tpu_torch.ops.cuda.nsf_fused import _extract
+
+    idx, w, static, _, _ = _extract(flow, torch.float32, fold_wh_scale=False)
+    _, folded, _, _, _ = _extract(flow, torch.float32)
+    x = torch.randn(203, 10, generator=torch.Generator().manual_seed(1)).to(cuda)
+    for inverse in (False, True):
+        y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, w, idx, inverse=inverse,
+                                                      wh_scale=0.25, **static)
+        p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, w, idx, inverse=inverse,
+                                                           wh_scale=0.25, **static)
+        f_y, f_lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, folded, idx, inverse=inverse,
+                                                          **static)
+        _close(y, p_y, 1e-4)
+        _close(lad, p_lad, 1e-4)
+        assert torch.isfinite(f_y).all() and torch.isfinite(f_lad).all()
+
+
+@pytest.mark.parametrize("kind", ["affine", "general", "additive"])
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b3_b4_affine_match_plain(cuda, kind, n):
+    tr = nsf_train.FusedNSFTrainer(_affine_flow(cuda, kind), 128)
+    (w, idx), kw = _train_args(tr)
+    assert kw["wh_scale"] is None
+    g = torch.Generator().manual_seed(n + 2)
+    x = 1.5 * torch.randn(n, 6, generator=g).to(cuda)
+    before = nsf_train.loss_grad_launch_count
+    loss, lp, grads = nsf_train.nsf_loss_grad_cuda(x, w, idx, **kw)
+    assert nsf_train.loss_grad_launch_count == before + 1
+    p_loss, p_lp, p_grads = nsf_train.nsf_loss_grad_plain(x, w, idx, **kw)
+    _close(lp, p_lp, 1e-3)
+    _close(loss, p_loss, 1e-4)
+    _grads_close(grads, p_grads)
+    gy = torch.randn(n, 6, generator=g).to(cuda) / n
+    glad = torch.randn(n, generator=g).to(cuda) / n
+    before = nsf_train.bwd_launch_count
+    gx, grads = nsf_train.nsf_train_bwd_cuda(x, gy, glad, w, idx, **kw)
+    assert nsf_train.bwd_launch_count == before + 1
+    p_gx, p_grads = nsf_train.nsf_train_bwd_plain(x, gy, glad, w, idx, **kw)
+    torch.testing.assert_close(gx, p_gx, atol=2e-4 / n, rtol=1e-3)
+    _grads_close(grads, p_grads)
+
+
+def test_training_kernels_refuse_the_other_spline_families(cuda):
+    flow = _family_flow(cuda, "quadratic")
+    with pytest.raises(ValueError, match="make_train_step"):
+        nsf_train.FusedNSFTrainer(flow, 128)
+    from nflows_tpu_torch.ops.cuda.nsf_fused import _extract
+
+    idx, w, static, _, _ = _extract(flow, torch.float32, fold_wh_scale=False)
+    with pytest.raises(ValueError, match="not ported yet"):
+        nsf_train.nsf_loss_grad_cuda(torch.zeros(128, 6, device=cuda), w, idx,
+                                     wh_scale=None, **static)
+
+
+def test_realnvp_serves_and_trains_through_the_kernels(cuda):
+    """One B2 a fused request; one B3 a fused step, one B2 and one B4 an
+    autograd-route step; the three routes' first losses agree."""
+    import copy
+
+    flow = _affine_flow(cuda, "affine")
+    x = torch.randn(256, 6, generator=torch.Generator().manual_seed(3)).to(cuda)
+    served = CompiledFlow(flow, batch_size=256, features=6)
+    assert served.is_fused
+    b2 = nsf_flow_kernel.launch_count
+    lp = served.log_prob(x)
+    assert nsf_flow_kernel.launch_count == b2 + 1
+    _close(lp, flow.log_prob(x), 1e-3)
+    adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
+    fused = fused_trainer(copy.deepcopy(flow), 128)
+    split = fused_trainer(copy.deepcopy(flow), 128)
+    step_fused = fused.make_train_step(fused.init_opt(adam))
+    step_split = _autograd_step(split, split.init_opt(adam))
+    state = create_train_state(copy.deepcopy(flow).train(), adam)
+    step_eager = make_train_step()
+    g = torch.Generator().manual_seed(9)
+    for _ in range(3):
+        batch = (1.5 * torch.randn(128, 6, generator=g)).to(cuda)
+        counts = lambda: (nsf_flow_kernel.launch_count, nsf_train.loss_grad_launch_count,  # noqa: E731
+                          nsf_train.bwd_launch_count)
+        c0 = counts()
+        loss_fused = step_fused(batch)
+        c1 = counts()
+        loss_split = step_split(batch)
+        c2 = counts()
+        state, metrics = step_eager(state, batch)
+        c3 = counts()
+        assert tuple(b - a for a, b in zip(c0, c1)) == (0, 1, 0)
+        assert tuple(b - a for a, b in zip(c1, c2)) == (1, 0, 1)
+        assert c3 == c2
+        _close(loss_fused, loss_split, 2e-4)
+        _close(loss_fused, metrics["loss"], 2e-4)
+    _close(fused.to_flow().log_prob(x), state.flow.log_prob(x), 5e-3)

@@ -48,9 +48,11 @@ def test_scan_covers_the_port():
             "nflows_tpu_torch/ops/cuda/lrs_spline.py",
             "nflows_tpu_torch/ops/cuda/linear_spline.py",
             "nflows_tpu_torch/ops/cuda/quadratic_spline.py",
-            "nflows_tpu_torch/ops/cuda/cubic_spline.py"} <= names
+            "nflows_tpu_torch/ops/cuda/cubic_spline.py",
+            "nflows_tpu_torch/flows/realnvp.py", "nflows_tpu_torch/nn/nets/mlp.py"} <= names
     sources = {p.name for p in (ROOT / "nflows_tpu_torch" / "csrc").glob("*.cu*")}
-    assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh"} <= sources
+    assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh",
+            "affine_coupling.cuh", "coupling_stage.cuh"} <= sources
     for stem in ("lrs_spline", "linear_spline", "quadratic_spline", "cubic_spline"):
         assert {f"{stem}.cu", f"{stem}.cuh"} <= sources
 
@@ -102,6 +104,17 @@ def test_runtime_loads_no_jax():
         "    c = cls([1, -1, 1, -1, 1, -1], lambda i, o: ResidualNet(i, o, 8, device='cpu'),\n"
         "            num_bins=4, tails='linear', tail_bound=3.0, device='cpu')\n"
         "    c.inverse(c.forward(x)[0])\n"
+        "    nt.CompiledFlow(nt.Flow(nt.transforms.CompositeTransform([c]),\n"
+        "                            nt.distributions.StandardNormal([6])), 16, 6,\n"
+        "                    use_fused=True, device='cpu').log_prob(x)\n"
+        "for vp in (False, True):\n"
+        "    r = nt.SimpleRealNVP(6, 8, 2, 1, use_volume_preserving=vp, device='cpu')\n"
+        "    assert nt.CompiledFlow(r, 16, 6, device='cpu').is_fused\n"
+        "    nt.CompiledFlow(r, 16, 6, device='cpu').sample_and_log_prob(torch.Generator())\n"
+        "    tr = nt.fused_trainer(r, 128)\n"
+        "    tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 6))\n"
+        "    tr.to_flow()\n"
+        "nt.nn.nets.MLP((6,), (2,), [8])(x)\n"
         "for m, cf in ((nt.MixtureOfGaussiansMADE(5, 8, device='cpu'), None),\n"
         "              (nt.MADEMoG(5, 8, 3, num_mixture_components=2, device='cpu'), 3)):\n"
         "    y = torch.randn(16, 5)\n"

@@ -4,9 +4,9 @@ package on the CPU, after ``load_jax_params``: each coupling alone (with
 linear tails and without), each whole flow (log_prob, noise, and sampling
 as the inverse of the same numpy noise), a three-step Adam trajectory of
 the LRS NSF, and what serving and the fused trainer do with these families
-(B2 has no stage for them yet: ``CompiledFlow`` serves them on the unfused
-chain, where each coupling runs its elementwise kernel's plain version
-here).
+(``CompiledFlow`` serves them fused through B2, and its plain version
+here; ``use_fused=False`` runs the unfused chain, where each coupling runs
+its elementwise kernel's plain version; the fused trainer refuses them).
 
 Tolerances: 1e-4 absolute on outputs, logabsdet and log_prob (the fp32
 interop bar, MIGRATION.md); the cubic family's logabsdet and log_prob 5e-4,
@@ -217,17 +217,20 @@ def test_nsf_takes_rq_and_lrs_only():
 
 @pytest.mark.parametrize("family", sorted(COUPLINGS))
 def test_serving_runs_the_unfused_chain_and_training_the_eager_route(family):
-    """B2 has no stage for these families yet: use_fused=True raises with the
-    reason, use_fused=None serves the unfused chain, and fused_trainer
-    refuses, naming the eager route."""
+    """B2 has a stage for these families: ``CompiledFlow`` serves them fused
+    by default (``use_fused=True`` too), and the fused view agrees with the
+    unfused chain, which ``use_fused=False`` serves. B3 and B4 have no
+    adjoint for them yet: ``fused_trainer`` refuses, naming the eager route,
+    which trains them."""
     _, tflow = _flow_pair(family, 6, layers=2)
-    with pytest.raises(ValueError, match="no stage in the whole-chain kernel B2"):
-        CompiledFlow(tflow, batch_size=32, features=6, use_fused=True, device="cpu")
+    assert CompiledFlow(tflow, batch_size=32, features=6, use_fused=True, device="cpu").is_fused
     served = CompiledFlow(tflow, batch_size=32, features=6, device="cpu")
-    assert not served.is_fused
+    unfused = CompiledFlow(tflow, batch_size=32, features=6, use_fused=False, device="cpu")
+    assert served.is_fused and not unfused.is_fused
     x = torch.from_numpy(_x(6, n=32, seed=8))
     with torch.no_grad():
-        assert torch.equal(served.log_prob(x), tflow.log_prob(x))
+        assert torch.equal(unfused.log_prob(x), tflow.log_prob(x))
+        _close(served.log_prob(x), unfused.log_prob(x), _lad_atol(family))
     s, lp = served.sample_and_log_prob(torch.Generator().manual_seed(9))
     assert s.shape == (32, 6) and lp.shape == (32,) and torch.isfinite(lp).all()
     with pytest.raises(ValueError, match="make_train_step"):
