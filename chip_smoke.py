@@ -32,18 +32,19 @@ with linear, quadratic or cubic couplings: their elementwise kernels B5-B8
 against their plain versions, forward and inverse, with gradients through
 each wrapper; each flow served through ``CompiledFlow`` at 4,096 fused (B2,
 one launch a request) and unfused (one launch of the family's kernel in
-each of the 10 couplings a request) and trained for 20 eager Adam steps
-(B3 and B4 have no adjoint for these families yet). Then B2's stages for
-those four families and for the affine and additive couplings against its
-plain version, forward and inverse, on the four flows and on RealNVP at the
-flagship's widths (features 6, hidden 256, 10 layers x 2 blocks):
-``SimpleRealNVP``, its volume-preserving (NICE, additive) variant and the
-same chain with the GENERAL scale activation; B2 on a narrow quadratic
-chain with unfolded weights and ``wh_scale`` (2KT rows past the chain's
-parameters); B3 and B4 on the three RealNVP variants against their plain
-versions; the three served through ``CompiledFlow`` fused and unfused; and
-RealNVP trained for 20 Adam steps on the fused, fused-autograd and eager
-routes.
+each of the 10 couplings a request) and trained for 20 Adam steps on the
+fused (B3), fused-autograd (B2 + B4) and eager (10 launches of the family's
+kernel a forward) routes. Then B2's stages for those four families and for
+the affine and additive couplings against its plain version, forward and
+inverse, on the four flows and on RealNVP at the flagship's widths
+(features 6, hidden 256, 10 layers x 2 blocks): ``SimpleRealNVP``, its
+volume-preserving (NICE, additive) variant and the same chain with the
+GENERAL scale activation; B2 on a narrow quadratic chain with unfolded
+weights and ``wh_scale`` (2KT rows past the chain's parameters); B3 and B4
+on the four family flows and the three RealNVP variants against their plain
+versions; the three RealNVP variants served through ``CompiledFlow`` fused
+and unfused; and RealNVP trained for 20 Adam steps on the fused,
+fused-autograd and eager routes.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
@@ -53,8 +54,8 @@ line ``{"kernels": [...]}`` with each kernel's launches on the main path
 and B12),
 error against its plain version, device time (``ms_source`` says whether
 torch.profiler or CUDA events gave it), plain time, bound and library time at
-the main path's shape (B2's row carries the other families' numbers under
-``families``, B3's and B4's those of the affine and additive couplings);
+the main path's shape (B2's, B3's and B4's rows carry the other six
+families' numbers under ``families``);
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -1504,37 +1505,11 @@ def main() -> int:
         serve(f"{fam} couplings", flow_f, D, "B2", {kid: L}, {kid: L},
               ties=SERVE_BATCH // 1000 if fam == "linear" else 0)
 
-    # -- phase 19: eager training of the four families at full width ------------------
+    # -- phase 19: training the four families at full width on the three routes --------
+    # fused: one B3 a step; fused-autograd: one B2 and one B4; eager: one launch
+    # of the family's kernel in each of the 10 couplings
     for fam, flow_f in family_flows.items():
-        kid = families[fam][0]
-        state = create_train_state(copy.deepcopy(flow_f).train(), adam)
-        eager_step = make_train_step()
-        data = batches(TRAIN_BATCH, TRAIN_STEPS, seed=12)
-        reset_counts()
-        first = eager_step(state, data[0])[1]["loss"]
-        torch.cuda.synchronize()
-        counts = read_counts()
-        log(f"training {fam} (eager): launches a step {counts}")
-        expect_counts(f"one eager {fam} step", counts, **{kid: L})
-        losses = [float(v) for v in [first] + [eager_step(state, b)[1]["loss"]
-                                              for b in data[1:]]]
-        log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
-            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            raise AssertionError(f"{fam}: the loss is not finite and falling: {losses}")
-        step = lambda: eager_step(state, data[0])  # noqa: E731
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            step()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0) / 20
-        busy = device_ms(torch, step, 3)
-        family_stats[kid]["eager_step"] = (wall, busy)
-        log(f"  batch {TRAIN_BATCH} eager: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
-            f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
+        train_three_routes(f"{fam} couplings", flow_f, {families[fam][0]: L})
 
     # -- phase 20: B2's other families against their plain versions ---------------------
     # the six stages this port added to B2 (lrs, linear, quadratic, cubic on the
@@ -1602,11 +1577,13 @@ def main() -> int:
         hold(f"{tag} out", y, p_y, d_y, 1e-4)
         hold(f"{tag} lad", lad, p_lad, d_lad, 1e-4)
 
-    # -- phase 21: B3 and B4 for the affine and additive couplings (RealNVP) ------------
+    # -- phase 21: B3 and B4 for the other six stages ------------------------------------
+    # the lrs, linear, quadratic and cubic stages' adjoints on the four family
+    # flows, the affine and additive ones on RealNVP
     b3_families, b4_families = {}, {}
-    for variant, flow_f in realnvp_flows.items():
-        log(f"B3 and B4 on RealNVP ({variant}):")
-        b3_families[variant], b4_families[variant] = hold_training_kernels(
+    for fam, flow_f in {**family_flows, **realnvp_flows}.items():
+        log(f"B3 and B4 on the {fam} chain:")
+        b3_families[fam], b4_families[fam] = hold_training_kernels(
             fused_trainer(flow_f, TRAIN_BATCH), (TRAIN_BATCH, SERVE_BATCH))
 
     # -- phase 22: serving RealNVP, NICE and the GENERAL-activation chain ----------------

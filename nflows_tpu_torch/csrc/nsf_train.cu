@@ -1,5 +1,5 @@
-// B3 and B4: training kernels of the coupling chain (rq, affine and
-// additive families).
+// B3 and B4: training kernels of the coupling chain, all seven coupling
+// families.
 //
 // B3 (nsf_loss_grad_kernel) replaces the TPU kernel
 // nflows_tpu/ops/pallas/nsf_train.py:_loss_grad_kernel: one launch gives the
@@ -9,7 +9,8 @@
 // B4 (nsf_train_bwd_kernel) replaces nsf_train.py:_bwd_kernel: it recomputes
 // the chain from x and pulls given cotangents (gy, glad) back to gx and
 // every weight gradient; it is the backward of B2 (nsf_flow_kernel.cu).
-// Both run the rq spline and the affine and additive couplings, fp32, no
+// Both run every family B2 runs (the rq, lrs, linear, quadratic and cubic
+// splines with linear tails, the affine and additive couplings), fp32, no
 // context, and share all their device code.
 //
 // Bound on the H100: operations. One chain pass and its backward are three
@@ -20,10 +21,17 @@
 // Design.
 // - The TPU kernels differentiate each layer with jax.vjp traced inside the
 //   kernel. Here the adjoints are written out: the conditioner's backward as
-//   tile GEMMs (tile_gemm.cuh), the coupling stage's by rq_spline_bwd.cuh
-//   (rq) or affine_coupling.cuh (affine, additive). The forward runs the
-//   shared stage of coupling_stage.cuh; the other spline families' adjoints
-//   are not written yet, and the entry point refuses them.
+//   tile GEMMs (tile_gemm.cuh), the coupling stage's by the family's
+//   header: rq_spline_bwd.cuh, lrs_spline_bwd.cuh, linear_spline_bwd.cuh,
+//   quadratic_spline_bwd.cuh, cubic_spline_bwd.cuh, or affine_coupling.cuh
+//   (affine, additive). Each differentiates the forward branch only: the
+//   training kernels never run a stage's inverse. The forward runs the
+//   shared stage of coupling_stage.cuh.
+// - The family is a run-time switch (stage_adjoint_eval), uniform over the
+//   grid, where B2 instantiates its kernel once a family: the GEMMs set
+//   these kernels' registers, and on an H100 the rq and affine B3/B4 read
+//   within 1.3% of one instantiation a family, while this source built in
+//   112 s against 263 s for 24 instantiations (PERF.md §6).
 // - A block walks over tiles of ROWS samples (a persistent grid of at most
 //   one block an SM). Per tile: one forward pass of the chain that keeps
 //   what the backward needs, then the backward sweep over the layers.
@@ -57,6 +65,10 @@
 #include <stdint.h>
 
 #include "coupling_stage.cuh"
+#include "cubic_spline_bwd.cuh"
+#include "linear_spline_bwd.cuh"
+#include "lrs_spline_bwd.cuh"
+#include "quadratic_spline_bwd.cuh"
 #include "rq_spline_bwd.cuh"
 #include "tile_gemm.cuh"
 
@@ -117,6 +129,61 @@ __device__ __forceinline__ void restore(float* dst, const float* src, int rows, 
   }
 }
 
+// The adjoint of family FAMILY's forward stage for one element: P holds its
+// parameters and G receives their cotangents, both K-major with `stride`
+// (see coupling_stage.cuh for the rows); g_x the input's cotangent.
+template <int FAMILY>
+__device__ __forceinline__ void stage_adjoint(float x, const float* P, float* G, int stride,
+                                              const nflows::StageConfig& c, float g_out,
+                                              float g_lad, float wh_scale, float* g_x) {
+  const int K = c.rq.num_bins, ks = K * stride;
+  if constexpr (FAMILY == nflows::kRQ) {
+    nflows::rq_spline_forward_adjoint(x, P, P + ks, P + 2 * ks, stride, c.rq, g_out, g_lad,
+                                      wh_scale, g_x, G, G + ks, G + 2 * ks);
+  } else if constexpr (FAMILY == nflows::kLRS) {
+    nflows::lrs_spline_forward_adjoint(x, P, P + ks, P + 3 * ks, P + 2 * ks, stride, c.lrs,
+                                       g_out, g_lad, wh_scale, g_x, G, G + ks, G + 3 * ks,
+                                       G + 2 * ks);
+  } else if constexpr (FAMILY == nflows::kLinear) {
+    nflows::linear_spline_forward_adjoint(x, P, stride, c.linear, g_out, g_lad, wh_scale, g_x,
+                                          G);
+  } else if constexpr (FAMILY == nflows::kQuadratic) {
+    nflows::quadratic_spline_forward_adjoint(x, P, P + ks, stride, c.quadratic, g_out, g_lad,
+                                             wh_scale, g_x, G, G + ks);
+  } else if constexpr (FAMILY == nflows::kCubic) {
+    nflows::cubic_spline_forward_adjoint(x, P, P + ks, P[2 * ks], P[2 * ks + stride], stride,
+                                         c.cubic, g_out, g_lad, wh_scale, g_x, G, G + ks,
+                                         G + 2 * ks, G + 2 * ks + stride);
+  } else {  // kAffine, kAdditive (scale_act kScaleNone)
+    nflows::affine_coupling_forward_adjoint(x, P, stride, c.scale_act, g_out, g_lad, g_x, G);
+  }
+}
+
+// stage_adjoint of the family c.family, chosen at run time.
+__device__ __forceinline__ void stage_adjoint_eval(float x, const float* P, float* G, int stride,
+                                                   const nflows::StageConfig& c, float g_out,
+                                                   float g_lad, float wh_scale, float* g_x) {
+  switch (c.family) {
+    case nflows::kRQ:
+      stage_adjoint<nflows::kRQ>(x, P, G, stride, c, g_out, g_lad, wh_scale, g_x);
+      break;
+    case nflows::kLRS:
+      stage_adjoint<nflows::kLRS>(x, P, G, stride, c, g_out, g_lad, wh_scale, g_x);
+      break;
+    case nflows::kLinear:
+      stage_adjoint<nflows::kLinear>(x, P, G, stride, c, g_out, g_lad, wh_scale, g_x);
+      break;
+    case nflows::kQuadratic:
+      stage_adjoint<nflows::kQuadratic>(x, P, G, stride, c, g_out, g_lad, wh_scale, g_x);
+      break;
+    case nflows::kCubic:
+      stage_adjoint<nflows::kCubic>(x, P, G, stride, c, g_out, g_lad, wh_scale, g_x);
+      break;
+    default:
+      stage_adjoint<nflows::kAffine>(x, P, G, stride, c, g_out, g_lad, wh_scale, g_x);
+  }
+}
+
 template <int ROWS, bool LOSS>
 __device__ void train_block(const TrainArgs& a) {
   constexpr int NT = ROWS * 8, RS = ROWS + 4;
@@ -138,7 +205,6 @@ __device__ void train_block(const TrainArgs& a) {
   float* gladv = ladacc + ROWS;             // [ROWS] cotangent of the logabsdet
 
   const int tid = threadIdx.x;
-  const int KT = a.cfg.rq.num_bins * T;
   const int idx_stride = 2 * Tid + 2 * T + 2 * D;
   const size_t SR = (size_t)(nb2 + 1) * H + TMp;  // scratch rows a layer
   float* stash = a.stash + (size_t)blockIdx.x * L * SR * RS;
@@ -247,17 +313,9 @@ __device__ void train_block(const TrainArgs& a) {
       // stage adjoint: gP into Y, the transformed inputs' cotangents into ybuf
       for (int e = tid; e < T * ROWS; e += NT) {
         const int t = e / ROWS, s = e % ROWS;
-        const float* P = X + t * RS + s;
-        float* G = Y + t * RS + s;
-        const float x = xl[s * D + tr_src[t]];
-        if (a.cfg.family == nflows::kRQ)
-          nflows::rq_spline_forward_adjoint(
-              x, P, P + KT * RS, P + 2 * KT * RS, T * RS, a.cfg.rq, gcat[s * D + Tid + t],
-              gladv[s], a.wh_scale, ybuf + s * T + t, G, G + KT * RS, G + 2 * KT * RS);
-        else
-          nflows::affine_coupling_forward_adjoint(x, P, T * RS, a.cfg.scale_act,
-                                                  gcat[s * D + Tid + t], gladv[s],
-                                                  ybuf + s * T + t, G);
+        stage_adjoint_eval(xl[s * D + tr_src[t]], X + t * RS + s, Y + t * RS + s, T * RS,
+                           a.cfg, gcat[s * D + Tid + t], gladv[s], a.wh_scale,
+                           ybuf + s * T + t);
       }
       __syncthreads();
 
@@ -353,9 +411,10 @@ int launch(const TrainArgs& a, int grid, cudaStream_t stream) {
 
 // One entry point for both kernels: loss != 0 runs B3 (writes lp; gy, glad and
 // gx unused), loss == 0 runs B4 (reads gy and glad, writes gx; lp unused).
-// family: kRQ, kAffine or kAdditive (coupling_stage.cuh), scale_act a
+// family: a CouplingFamily (coupling_stage.cuh), scale_act a
 // ScaleActivation (affine only); num_bins is 0 for the affine and additive
-// couplings, which ignore the spline's floats.
+// couplings, and a family ignores the floats it has no use for (as B2's
+// nsf_flow_launch takes them).
 // grid: blocks to launch; stash holds grid x L x ((nb2 + 1) H + TMp) x
 // (rows_per_block + 4) floats. rows_per_block: 32 or 64. Returns a
 // cudaError_t value (0 on success).
@@ -367,10 +426,11 @@ extern "C" int nsf_train_launch(
     float* gw0, float* gb0, float* gwb, float* gbb, float* gwf, float* gbf, float* stash,
     int grid, float wh_scale, float inv_n, int family, int scale_act, int num_bins,
     float tail_bound, float min_bin_width, float min_bin_height, float min_derivative,
-    int rows_per_block, void* stream) {
+    float min_lambda, float edge_derivative, float log_inv_bins, int rows_per_block,
+    void* stream) {
   if (n == 0) return 0;
   if (H % 4 || I4 % 4 || TMp % 4 || nb2 % 2 || grid < 1 || TM > TMp ||
-      (family != nflows::kRQ && family != nflows::kAffine && family != nflows::kAdditive))
+      family < nflows::kRQ || family > nflows::kAdditive)
     return (int)cudaErrorInvalidValue;
   TrainArgs a;
   a.x = x; a.gy = gy; a.glad = glad; a.lp = lp; a.gx = gx; a.n = n;
@@ -387,7 +447,8 @@ extern "C" int nsf_train_launch(
   a.inv_n = inv_n;
   a.log_z = 0.5f * (float)D * logf(2.0f * 3.14159265358979323846f);
   a.cfg = nflows::make_stage_config(family, scale_act, num_bins, tail_bound, min_bin_width,
-                                    min_bin_height, min_derivative, 0.0f, 1.0f, 0.0f);
+                                    min_bin_height, min_derivative, min_lambda,
+                                    edge_derivative, log_inv_bins);
   cudaStream_t s = (cudaStream_t)stream;
   if (rows_per_block == 32) return loss ? launch<32, true>(a, grid, s) : launch<32, false>(a, grid, s);
   if (rows_per_block == 64) return loss ? launch<64, true>(a, grid, s) : launch<64, false>(a, grid, s);

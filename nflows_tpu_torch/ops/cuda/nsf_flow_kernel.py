@@ -48,7 +48,8 @@ from nflows_tpu_torch.ops.splines import quadratic as quadratic_ref
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 
 __all__ = ["nsf_flow_kernel_cuda", "nsf_flow_kernel_plain", "pack_weights",
-           "shared_memory_bytes", "params_per_feature", "FAMILIES", "launch_count"]
+           "shared_memory_bytes", "params_per_feature", "stage_floats", "FAMILIES",
+           "launch_count"]
 
 # the coupling families, in the order of csrc/coupling_stage.cuh's CouplingFamily
 FAMILIES = ("rq", "lrs", "linear", "quadratic", "cubic", "affine", "additive")
@@ -86,6 +87,23 @@ def shared_memory_bytes(rows: int, D: int, H: int, Tid: int, T: int,
     """Dynamic shared memory of one block of ``rows`` samples."""
     TB = max(H, _round4(TM), _round4(Tid))
     return 4 * (2 * _KC * _OC + rows * (H + TB + 2 * D + 2 * T + 1))
+
+
+def stage_floats(spline: str, num_bins: int = 0, tail_bound: float = None,
+                 min_bin_width: float = None, min_bin_height: float = None,
+                 min_derivative: float = None, min_lambda: float = None,
+                 **_) -> list:
+    """The seven floats of a coupling stage's config, in the order the
+    launchers of B2, B3 and B4 take them (csrc/coupling_stage.cuh
+    ``make_stage_config``): tail_bound, min_bin_width, min_bin_height,
+    min_derivative, min_lambda, the boundary slope of the rq and lrs splines
+    and the linear spline's log(1/K). A family ignores the values it has no
+    use for; the other keys of a ``static`` dict are ignored here."""
+    floats = [tail_bound, min_bin_width, min_bin_height, min_derivative, min_lambda]
+    floats = [0.0 if v is None else float(v) for v in floats]
+    edge = _edge_derivative(min_derivative) if spline == "lrs" else 1.0
+    log_inv_bins = float(np.log(1.0 / num_bins)) if spline == "linear" else 0.0
+    return floats + [edge, log_inv_bins]
 
 
 def _declare(lib):
@@ -273,12 +291,6 @@ def nsf_flow_kernel_cuda(
     if H % 4 or shared_memory_bytes(rows, D, H, Tid, T, TM) > MAX_SHARED_MEMORY:
         raise ValueError(f"nsf_flow_kernel_cuda: hidden width {H} does not fit "
                          "the kernel's shared-memory tile")
-    # a family ignores the values it has no use for
-    floats = [tail_bound, min_bin_width, min_bin_height, min_derivative, min_lambda]
-    floats = [0.0 if v is None else float(v) for v in floats]
-    edge = _edge_derivative(min_derivative) if spline == "lrs" else 1.0
-    log_inv_bins = float(np.log(1.0 / num_bins)) if spline == "linear" else 0.0
-
     lib = _build.load_library("nsf_flow_kernel", _declare)
     y = torch.empty_like(x)
     lad = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -292,8 +304,9 @@ def nsf_flow_kernel_cuda(
             packed["wf"].data_ptr(), packed["bf"].data_ptr(),
             packed["idx"].data_ptr(), int(inverse), FAMILIES.index(spline),
             SCALE_ACTIVATIONS.index(scale_act or "none"), num_bins,
-            1.0 if wh_scale is None else wh_scale, *floats, edge, log_inv_bins, rows,
-            stream)
+            1.0 if wh_scale is None else wh_scale,
+            *stage_floats(spline, num_bins, tail_bound, min_bin_width, min_bin_height,
+                          min_derivative, min_lambda), rows, stream)
     launch_count += 1
     _build.check(code, "nsf_flow_launch")
     return y, lad

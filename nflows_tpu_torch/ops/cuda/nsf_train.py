@@ -1,7 +1,7 @@
 """Fused training of tabular coupling flows: kernels B3 and B4 (counterpart
 of nflows_tpu/ops/pallas/nsf_train.py; source ``csrc/nsf_train.cu``, the
-stages' adjoints in ``csrc/rq_spline_bwd.cuh`` and
-``csrc/affine_coupling.cuh``).
+stages' adjoints in ``csrc/{rq,lrs,linear,quadratic,cubic}_spline_bwd.cuh``
+and ``csrc/affine_coupling.cuh``).
 
 - :func:`nsf_loss_grad_cuda` (B3): one launch gives the per-sample
   log_prob under the StandardNormal base and every weight gradient of
@@ -20,12 +20,10 @@ stages' adjoints in ``csrc/rq_spline_bwd.cuh`` and
 Samples are rows, as for B2: x is [N, D]. The weights are the dict
 ``nsf_fused._extract(flow, fold_wh_scale=False)`` gives (w0, b0, wb, bb,
 wf, bf, fp32, the JAX package's layout); gradients come back in the same
-shapes. The kernels run the rq spline and the affine and additive
-couplings in fp32 without context. The hand-written adjoints of the lrs,
-linear, quadratic and cubic stages are not ported yet: the kernels and
-:class:`FusedNSFTrainer` refuse those families, which train on the eager
-route (``training.make_train_step``); their plain versions below cover
-every family.
+shapes. The kernels run all seven coupling families of B2 (the rq, lrs,
+linear, quadratic and cubic splines, the affine and additive couplings) in
+fp32 without context; each stage's adjoint is written by hand for its
+forward branch, the only one training runs.
 
 The plain versions (:func:`nsf_loss_grad_plain`,
 :func:`nsf_train_bwd_plain`) are ``torch.autograd`` over
@@ -59,8 +57,6 @@ __all__ = ["FusedNSFTrainer", "family_wh_scale", "nsf_loss_grad_cuda", "nsf_loss
            "bwd_launch_count"]
 
 WEIGHT_KEYS = ("w0", "b0", "wb", "bb", "wf", "bf")
-# the families whose stage adjoint B3 and B4 have
-KERNEL_FAMILIES = ("rq", "affine", "additive")
 
 loss_grad_launch_count = 0  # B3 launches since the last reset
 bwd_launch_count = 0        # B4 launches since the last reset
@@ -70,7 +66,7 @@ def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nsf_train_launch.argtypes = (
         [i] + [p] * 5 + [ctypes.c_int64] + [i] * 9 + [p] * 17 + [i, f, f, i, i, i]
-        + [f] * 4 + [i, p])
+        + [f] * 7 + [i, p])
     lib.nsf_train_launch.restype = i
 
 
@@ -164,9 +160,6 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
     dev = x.device
     if x.ndim != 2:
         raise ValueError(f"{what}: x must be [N, D], got {tuple(x.shape)}")
-    if static["spline"] not in KERNEL_FAMILIES:
-        raise ValueError(f"{what}: the {static['spline']} stage's adjoint is not ported yet; "
-                         "train this flow with training.make_train_step")
     n, D = x.shape
     d = _dims(weights, layer_indices, static)
     if D != d["D"]:
@@ -223,10 +216,7 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
             stash.data_ptr(), grid, 1.0 if wh_scale is None else wh_scale, inv_n,
             nsf_flow_kernel.FAMILIES.index(static["spline"]),
             nsf_flow_kernel.SCALE_ACTIVATIONS.index(static.get("scale_act") or "none"),
-            static.get("num_bins", 0),
-            *(float(static.get(k) or 0.0) for k in ("tail_bound", "min_bin_width",
-                                                     "min_bin_height", "min_derivative")),
-            rows, stream)
+            static.get("num_bins", 0), *nsf_flow_kernel.stage_floats(**static), rows, stream)
     if loss:
         loss_grad_launch_count += 1
     else:
@@ -301,7 +291,8 @@ def nsf_train_apply(weights, x, layer_indices, static, wh_scale, packed=None):
 
 
 class FusedNSFTrainer(FusedTrainerBase):
-    """Train a tabular coupling flow with the fused kernels: an RQ NSF, a
+    """Train a tabular coupling flow with the fused kernels: an RQ or LRS
+    NSF, a chain of linear, quadratic or cubic spline couplings, a
     SimpleRealNVP (affine or additive couplings) or a chain of affine
     couplings with the GENERAL scale activation.
 
@@ -322,11 +313,6 @@ class FusedNSFTrainer(FusedTrainerBase):
 
         (self._indices, weights, self._static, self.features,
          self.context_features) = _extract(flow, torch.float32, fold_wh_scale=False)
-        if self._static["spline"] not in KERNEL_FAMILIES:
-            raise ValueError(
-                f"the {self._static['spline']} coupling's adjoint is not ported yet to the "
-                "training kernels B3 and B4: train this flow on the eager route "
-                "(training.make_train_step)")
         self.weights = {k: weights[k].clone().contiguous().requires_grad_(True)
                         for k in WEIGHT_KEYS}
         self.device = self.weights["w0"].device

@@ -9,7 +9,9 @@ boundary instead of raising.
 
 This is also the plain version of kernel B6: on a CUDA tensor
 :func:`unconstrained_linear_spline` hands the work to B6
-(``ops/cuda/linear_spline.py``).
+(``ops/cuda/linear_spline.py``). :func:`linear_spline_forward_adjoint_plain`
+is the plain version of the forward branch's adjoint that the training
+kernels B3 and B4 run (``csrc/linear_spline_bwd.cuh``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from nflows_tpu_torch.ops import binning
 
 __all__ = ["linear_spline", "unconstrained_linear_spline",
-           "unconstrained_linear_spline_plain"]
+           "unconstrained_linear_spline_plain", "linear_spline_forward_adjoint_plain"]
 
 
 def linear_spline(
@@ -107,3 +109,56 @@ def unconstrained_linear_spline(
                                   inverse=inverse, tail_bound=tail_bound)
     return unconstrained_linear_spline_plain(inputs, unnormalized_pdf,
                                              inverse=inverse, tail_bound=tail_bound)
+
+
+def linear_spline_forward_adjoint_plain(inputs, unnormalized_pdf, grad_outputs,
+                                        grad_logabsdet, tail_bound=1.0, wh_scale=1.0):
+    """Adjoint of the linear-tail linear spline's forward branch by explicit
+    formulas (no autograd): the plain version of
+    ``csrc/linear_spline_bwd.cuh``, which repeats this arithmetic line for
+    line.
+
+    inputs [...]; unnormalized_pdf [..., K]; the cotangents of the outputs
+    and of the per-element logabsdet [...]. ``wh_scale`` multiplies the
+    parameter cotangents: the factor the caller applied to the parameters
+    before the spline read them. Returns (g_inputs [...], g_pdf [..., K]).
+
+    The output is cdf_idx + alpha pdf_idx on the unit interval, clipped to
+    [0, 1] (a clipped output carries no gradient), with idx = floor(u K)
+    piecewise constant; the logabsdet is log(pdf_idx) - log(1/K). The
+    softmax sends the cotangents of the bins below idx (through the cdf)
+    and of bin idx to every parameter. Outside [-B, B] the layer is the
+    identity.
+    """
+    x_orig, up = inputs, unnormalized_pdf
+    K = up.shape[-1]
+    B = float(tail_bound)
+    inside = (x_orig >= -B) & (x_orig <= B)
+    x = (x_orig.clamp(-B, B) + B) / (2.0 * B)
+    e = torch.exp(up - up.max(dim=-1, keepdim=True).values)
+    pdf = e / e.sum(dim=-1, keepdim=True)           # softmax, [..., K]
+
+    bin_pos = x * K
+    idx = torch.floor(bin_pos).clamp(0.0, K - 1.0)
+    alpha = bin_pos - idx
+    idx = idx.long()
+    ks = torch.arange(K, device=x.device)
+    below = ks < idx[..., None]
+    cdf = torch.where(below, pdf, torch.zeros_like(pdf)).sum(dim=-1)
+    sel_pdf = binning.select_bin(pdf, idx)
+    raw = cdf + alpha * sel_pdf
+
+    zero = torch.zeros_like(x)
+    g_y = torch.where(inside, grad_outputs, zero)
+    g_l = torch.where(inside, grad_logabsdet, zero)
+    g_raw = torch.where((raw >= 0.0) & (raw <= 1.0), g_y * (2.0 * B), zero)
+    g_pdf = g_raw * alpha + g_l / sel_pdf           # cotangent of pdf_idx
+    g_x01 = g_raw * sel_pdf * K
+
+    # softmax adjoint: g_cdf = g_raw goes to every bin below idx
+    dot = g_raw * cdf + g_pdf * sel_pdf
+    g_soft = (torch.where(below, g_raw[..., None], zero[..., None])
+              + torch.where(ks == idx[..., None], g_pdf[..., None], zero[..., None]))
+    g_up = wh_scale * pdf * (g_soft - dot[..., None])
+    g_x = torch.where(inside, g_x01 / (2.0 * B), grad_outputs)
+    return g_x, g_up

@@ -12,7 +12,9 @@ gradient stays zero.
 This is also the plain version of kernel B5: on a CUDA tensor with K-1
 derivative parameters, :func:`unconstrained_linear_rational_spline` hands
 the work to B5 (``ops/cuda/lrs_spline.py``), as the JAX function hands it
-to its Pallas kernel.
+to its Pallas kernel. :func:`linear_rational_spline_forward_adjoint_plain`
+is the plain version of the forward branch's adjoint that the training
+kernels B3 and B4 run (``csrc/lrs_spline_bwd.cuh``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ __all__ = [
     "linear_rational_spline",
     "unconstrained_linear_rational_spline",
     "unconstrained_linear_rational_spline_plain",
+    "linear_rational_spline_forward_adjoint_plain",
     "DEFAULT_MIN_BIN_WIDTH",
     "DEFAULT_MIN_BIN_HEIGHT",
     "DEFAULT_MIN_DERIVATIVE",
@@ -183,3 +186,174 @@ def unconstrained_linear_rational_spline(
     return unconstrained_linear_rational_spline_plain(
         inputs, unnormalized_widths, unnormalized_heights,
         unnormalized_derivatives, unnormalized_lambdas, **kw)
+
+
+def linear_rational_spline_forward_adjoint_plain(
+    inputs, unnormalized_widths, unnormalized_heights, unnormalized_derivatives,
+    unnormalized_lambdas, grad_outputs, grad_logabsdet, tail_bound=1.0,
+    min_bin_width=DEFAULT_MIN_BIN_WIDTH, min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+    min_derivative=DEFAULT_MIN_DERIVATIVE, min_lambda=DEFAULT_MIN_LAMBDA,
+    edge_derivative=None, wh_scale=1.0,
+):
+    """Adjoint of the linear-tail LRS's forward branch by explicit formulas
+    (no autograd): the plain version of ``csrc/lrs_spline_bwd.cuh``, which
+    repeats this arithmetic line for line.
+
+    inputs [...]; widths, heights and lambdas [..., K]; interior
+    derivatives [..., K-1]; the cotangents of the outputs and of the
+    per-element logabsdet [...]. The slopes at +-B are ``edge_derivative``
+    (None: min_derivative + softplus of the padding constant, as
+    :func:`unconstrained_linear_rational_spline_plain` computes them).
+    ``wh_scale`` multiplies the width and height cotangents (the factor the
+    caller applied to those parameters). Returns (g_inputs [...],
+    g_widths [..., K], g_heights [..., K], g_derivatives [..., K-1],
+    g_lambdas [..., K]).
+
+    What flows where. theta = (x - x0) / w picks the Möbius piece at
+    lambda; the piece's output and its logabsdet (four or five log terms)
+    depend on y0, the height, lambda, and the weights wb = sqrt(d0 / d1)
+    and wm = d0 lambda w / (ym - y0) through the join ym. The bin's edges
+    and sizes carry their cotangents to the softmax as in the RQ spline's
+    adjoint; the two end slopes are softplus of an interior derivative or
+    the constant at +-B; lambda is a sigmoid. Outside [-B, B] the layer is
+    the identity.
+    """
+    x_orig = inputs
+    uw, uh, ud, ul = (unnormalized_widths, unnormalized_heights, unnormalized_derivatives,
+                      unnormalized_lambdas)
+    K = uw.shape[-1]
+    B = float(tail_bound)
+    if edge_derivative is None:
+        edge_derivative = min_derivative + float(binning.softplus(
+            torch.tensor(boundary_constant(min_derivative), dtype=torch.float64)))
+    inside = (x_orig >= -B) & (x_orig <= B)
+    x = x_orig.clamp(-B, B)
+    ew = torch.exp(uw - uw.max(dim=-1, keepdim=True).values)
+    eh = torch.exp(uh - uh.max(dim=-1, keepdim=True).values)
+    sw = ew / ew.sum(dim=-1, keepdim=True)          # softmax, [..., K]
+    sh = eh / eh.sum(dim=-1, keepdim=True)
+    wmix = 1.0 - min_bin_width * K
+    hmix = 1.0 - min_bin_height * K
+    two_b = 2.0 * B
+
+    # the forward's walk over the bins
+    zero = torch.zeros_like(x)
+    runw, runh = zero, zero
+    ew_lo, eh_lo = torch.full_like(x, -B), torch.full_like(x, -B)
+    sel = torch.zeros_like(x, dtype=torch.int64)
+    x0, y0, w, h = ew_lo, eh_lo, zero, zero
+    for k in range(K):
+        runw = runw + (min_bin_width + wmix * sw[..., k])
+        runh = runh + (min_bin_height + hmix * sh[..., k])
+        ew_hi = torch.full_like(x, B) if k == K - 1 else two_b * runw - B
+        eh_hi = torch.full_like(x, B) if k == K - 1 else two_b * runh - B
+        take = (x >= ew_lo) if k else torch.ones_like(inside)
+        sel = torch.where(take, torch.full_like(sel, k), sel)
+        x0 = torch.where(take, ew_lo, x0)
+        y0 = torch.where(take, eh_lo, y0)
+        w = torch.where(take, ew_hi - ew_lo, w)
+        h = torch.where(take, eh_hi - eh_lo, h)
+        ew_lo, eh_lo = ew_hi, eh_hi
+
+    first, last = sel == 0, sel == K - 1
+    edge = torch.full_like(x, edge_derivative)
+    ud_lo = torch.gather(ud, -1, (sel - 1).clamp_min(0)[..., None])[..., 0]
+    ud_hi = torch.gather(ud, -1, sel.clamp_max(K - 2)[..., None])[..., 0]
+    d0 = torch.where(first, edge, min_derivative + binning.softplus(ud_lo))
+    d1 = torch.where(last, edge, min_derivative + binning.softplus(ud_hi))
+    sig_l = torch.sigmoid(binning.select_bin(ul, sel))
+    lam = min_lambda + (1.0 - 2.0 * min_lambda) * sig_l
+
+    y1 = y0 + h
+    wb = torch.sqrt(d0 / d1)
+    q_num = (1.0 - lam) * y0 + lam * wb * y1
+    q_den = (1.0 - lam) + lam * wb
+    ym = q_num / q_den
+    r = ym - y0
+    wm = d0 * lam * w / r
+    theta = (x - x0) / w
+    use_a = theta <= lam
+
+    # the two pieces and their cotangents; theta is the clamped theta of
+    # the piece taken
+    g_y = torch.where(inside, grad_outputs, zero)
+    g_l = torch.where(inside, grad_logabsdet, zero)
+    den_a = (lam - theta) + wm * theta
+    num_a = y0 * (lam - theta) + wm * ym * theta
+    den_b = wm * (1.0 - theta) + wb * (theta - lam)
+    num_b = wm * ym * (1.0 - theta) + wb * y1 * (theta - lam)
+    den = torch.where(use_a, den_a, den_b)
+    y = torch.where(use_a, num_a, num_b) / den
+    g_num = g_y / den
+    g_den = -g_y * y / den - 2.0 * g_l / den
+    # the log terms common to both: log(wm) - log(w)
+    g_wm = g_l / wm
+    g_w = -g_l / w
+    # piece a: log(lam) + log(ym - y0); piece b: log(wb) + log1p(-lam) + log(y1 - ym)
+    g_lam = torch.where(use_a, g_l / lam, -g_l / (1.0 - lam))
+    g_ym = torch.where(use_a, g_l / r, -g_l / (y1 - ym))
+    g_y0 = torch.where(use_a, -g_l / r, zero)
+    g_y1 = torch.where(use_a, zero, g_l / (y1 - ym))
+    g_wb = torch.where(use_a, zero, g_l / wb)
+    # the numerators and denominators
+    g_y0 = g_y0 + torch.where(use_a, g_num * (lam - theta), zero)
+    g_lam = g_lam + torch.where(use_a, g_num * y0 + g_den,
+                                -g_num * wb * y1 - g_den * wb)
+    g_theta = torch.where(use_a, g_num * (wm * ym - y0) + g_den * (wm - 1.0),
+                          g_num * (wb * y1 - wm * ym) + g_den * (wb - wm))
+    g_wm = g_wm + torch.where(use_a, g_num * ym * theta + g_den * theta,
+                              g_num * ym * (1.0 - theta) + g_den * (1.0 - theta))
+    g_ym = g_ym + torch.where(use_a, g_num * wm * theta, g_num * wm * (1.0 - theta))
+    g_wb = g_wb + torch.where(use_a, zero, (g_num * y1 + g_den) * (theta - lam))
+    g_y1 = g_y1 + torch.where(use_a, zero, g_num * wb * (theta - lam))
+
+    # theta = (x - x0) / w
+    g_xin = g_theta / w
+    g_x0 = -g_xin
+    g_w = g_w - g_theta * theta / w
+    # wm = d0 lam w / r, r = ym - y0
+    g_d0 = g_wm * lam * w / r
+    g_lam = g_lam + g_wm * d0 * w / r
+    g_w = g_w + g_wm * d0 * lam / r
+    g_ym = g_ym - g_wm * wm / r
+    g_y0 = g_y0 + g_wm * wm / r
+    # ym = q_num / q_den
+    g_qn = g_ym / q_den
+    g_qd = -g_ym * ym / q_den
+    g_lam = g_lam + g_qn * (wb * y1 - y0) + g_qd * (wb - 1.0)
+    g_y0 = g_y0 + g_qn * (1.0 - lam)
+    g_wb = g_wb + g_qn * lam * y1 + g_qd * lam
+    g_y1 = g_y1 + g_qn * lam * wb
+    # wb = sqrt(d0 / d1); y1 = y0 + h
+    g_d0 = g_d0 + g_wb * wb / (2.0 * d0)
+    g_d1 = -g_wb * wb / (2.0 * d1)
+    g_y0 = g_y0 + g_y1
+    g_h = g_y1
+
+    # edges: edge[sel] carries g_x0 - g_w, edge[sel + 1] carries g_w (as the
+    # RQ spline's adjoint); the edges -B and +B are constants
+    def sizes_adjoint(g_c, g_size, soft, mix):
+        lo = torch.where(first, zero, g_c - g_size)  # to bins j < sel
+        hi = torch.where(last, zero, g_size)         # to bins j <= sel
+        ks = torch.arange(K, device=x.device)
+        g_soft = (two_b * mix) * (
+            torch.where(ks < sel[..., None], lo[..., None], zero[..., None])
+            + torch.where(ks <= sel[..., None], hi[..., None], zero[..., None]))
+        dot = (g_soft * soft).sum(dim=-1, keepdim=True)
+        return wh_scale * soft * (g_soft - dot)      # softmax adjoint
+
+    g_uw = sizes_adjoint(g_x0, g_w, sw, wmix)
+    g_uh = sizes_adjoint(g_y0, g_h, sh, hmix)
+
+    # interior derivatives: softplus' = sigmoid; lambda: a sigmoid
+    g_ud = torch.zeros_like(ud)
+    g_ud.scatter_add_(-1, (sel - 1).clamp_min(0)[..., None],
+                      torch.where(first, zero, g_d0 * torch.sigmoid(ud_lo))[..., None])
+    g_ud.scatter_add_(-1, sel.clamp_max(K - 2)[..., None],
+                      torch.where(last, zero, g_d1 * torch.sigmoid(ud_hi))[..., None])
+    g_ul = torch.zeros_like(ul)
+    g_ul.scatter_(-1, sel[..., None],
+                  (g_lam * (1.0 - 2.0 * min_lambda) * sig_l * (1.0 - sig_l))[..., None])
+
+    g_x = torch.where(inside, g_xin, grad_outputs)
+    return g_x, g_uw, g_uh, g_ud, g_ul

@@ -10,6 +10,9 @@ both ends. The inverse takes the stable root ``-2c / (b + sqrt(disc))``.
 This is also the plain version of kernel B7: on a CUDA tensor
 :func:`unconstrained_quadratic_spline` hands the work to B7
 (``ops/cuda/quadratic_spline.py``).
+:func:`quadratic_spline_forward_adjoint_plain` is the plain version of the
+forward branch's adjoint that the training kernels B3 and B4 run
+(``csrc/quadratic_spline_bwd.cuh``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ __all__ = [
     "quadratic_spline",
     "unconstrained_quadratic_spline",
     "unconstrained_quadratic_spline_plain",
+    "quadratic_spline_forward_adjoint_plain",
     "DEFAULT_MIN_BIN_WIDTH",
     "DEFAULT_MIN_BIN_HEIGHT",
 ]
@@ -168,3 +172,155 @@ def unconstrained_quadratic_spline(
                                      unnormalized_heights.contiguous(), **kw)
     return unconstrained_quadratic_spline_plain(
         inputs, unnormalized_widths, unnormalized_heights, **kw)
+
+
+def quadratic_spline_forward_adjoint_plain(
+    inputs, unnormalized_widths, unnormalized_heights, grad_outputs, grad_logabsdet,
+    tail_bound=1.0, min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+    min_bin_height=DEFAULT_MIN_BIN_HEIGHT, wh_scale=1.0,
+):
+    """Adjoint of the linear-tail quadratic spline's forward branch (K-1
+    heights) by explicit formulas (no autograd): the plain version of
+    ``csrc/quadratic_spline_bwd.cuh``, which repeats this arithmetic line
+    for line, one bin at a time.
+
+    inputs [...]; widths [..., K]; interior heights [..., K-1]; the
+    cotangents of the outputs and of the per-element logabsdet [...].
+    ``wh_scale`` multiplies every parameter cotangent (the factor the caller
+    applied to all of them). Returns (g_inputs [...], g_widths [..., K],
+    g_heights [..., K-1]).
+
+    What flows where. The selected bin's output a alpha^2 + b alpha + c
+    (clipped to [0, 1]; a clipped output carries no gradient) and
+    logabsdet log(alpha (h1 - h0) + h0) depend on its location (the widths
+    below it), width, cdf (the trapezoids below it) and two knot heights.
+    Every knot height is normalised by the area of all the trapezoids, and
+    the two boundary knots are solved from every width and interior height,
+    so one bin's cotangent reaches every parameter.
+    """
+    x_orig, uw, uh = inputs, unnormalized_widths, unnormalized_heights
+    K = uw.shape[-1]
+    B = float(tail_bound)
+    inside = (x_orig >= -B) & (x_orig <= B)
+    x = (x_orig.clamp(-B, B) + B) / (2.0 * B)
+    e = torch.exp(uw - uw.max(dim=-1, keepdim=True).values)
+    sw = e / e.sum(dim=-1, keepdim=True)            # softmax, [..., K]
+    wmix = 1.0 - min_bin_width * K
+    hmix = 1.0 - min_bin_height
+    w = [min_bin_width + wmix * sw[..., k] for k in range(K)]
+    interior = [binning.softplus(uh[..., k]) + 1e-3 for k in range(K - 1)]
+
+    # the forward: boundary heights, area, then the walk over the bins
+    first_w, last_w = 0.5 * w[0], 0.5 * w[K - 1]
+    inner = torch.zeros_like(x)
+    for k in range(1, K - 1):
+        inner = inner + ((interior[k - 1] + interior[k]) / 2.0) * w[k]
+    numerator = 0.5 * first_w * interior[0] + 0.5 * last_w * interior[K - 2] + inner
+    dd = 1.0 - 0.5 * first_w - 0.5 * last_w
+    edge = numerator / dd
+    knot = [edge] + interior + [edge]
+    area = torch.zeros_like(x)
+    for k in range(K):
+        area = area + ((knot[k] + knot[k + 1]) / 2.0) * w[k]
+    H = [min_bin_height + hmix * (u / area) for u in knot]
+
+    zero = torch.zeros_like(x)
+    cdf_lo, loc_lo, run_cdf, run_loc = zero, zero, zero, zero
+    sel = torch.zeros_like(x, dtype=torch.int64)
+    sel_loc, sel_w, sel_cdf, h0, h1 = zero, zero, zero, zero, zero
+    for k in range(K):
+        run_cdf = run_cdf + ((H[k] + H[k + 1]) / 2.0) * w[k]
+        run_loc = run_loc + w[k]
+        take = (x >= loc_lo) if k else torch.ones_like(inside)
+        sel = torch.where(take, torch.full_like(sel, k), sel)
+        sel_loc = torch.where(take, loc_lo, sel_loc)
+        sel_w = torch.where(take, w[k], sel_w)
+        sel_cdf = torch.where(take, cdf_lo, sel_cdf)
+        h0 = torch.where(take, H[k], h0)
+        h1 = torch.where(take, H[k + 1], h1)
+        cdf_lo = torch.ones_like(x) if k == K - 1 else run_cdf
+        loc_lo = torch.ones_like(x) if k == K - 1 else run_loc
+
+    alpha = (x - sel_loc) / sel_w
+    a = 0.5 * (h1 - h0) * sel_w
+    b = h0 * sel_w
+    raw = a * alpha * alpha + b * alpha + sel_cdf
+    ld = alpha * (h1 - h0) + h0
+
+    # cotangents of the selected bin's quantities
+    g_y = torch.where(inside, grad_outputs, zero)
+    g_l = torch.where(inside, grad_logabsdet, zero)
+    g_raw = torch.where((raw >= 0.0) & (raw <= 1.0), g_y * (2.0 * B), zero)
+    g_ld = g_l / ld
+    g_a = g_raw * alpha * alpha
+    g_b = g_raw * alpha
+    g_cdf = g_raw
+    g_alpha = g_raw * (2.0 * a * alpha + b) + g_ld * (h1 - h0)
+    g_h1 = g_a * 0.5 * sel_w + g_ld * alpha
+    g_h0 = -g_a * 0.5 * sel_w + g_b * sel_w + g_ld * (1.0 - alpha)
+    g_wsel = g_a * 0.5 * (h1 - h0) + g_b * h0 - g_alpha * alpha / sel_w
+    g_loc = -g_alpha / sel_w
+    g_x01 = g_alpha / sel_w
+
+    # knot heights: the selected bin's two, and the trapezoids below it
+    # (sel_cdf); each normalised by the area
+    def g_height(j):
+        g = torch.where(sel == j, g_h0, zero) + torch.where(sel == j - 1, g_h1, zero)
+        if j < K:
+            g = g + torch.where(sel > j, g_cdf * w[j] / 2.0, zero)
+        if j > 0:
+            g = g + torch.where(sel >= j, g_cdf * w[j - 1] / 2.0, zero)
+        return g
+
+    scale = hmix / area
+    g_area = zero
+    for j in range(K + 1):
+        g_area = g_area - g_height(j) * scale * (knot[j] / area)
+
+    def g_knot(j):
+        g = g_height(j) * scale
+        if j < K:
+            g = g + g_area * w[j] / 2.0
+        if j > 0:
+            g = g + g_area * w[j - 1] / 2.0
+        return g
+
+    # the boundary knots: edge = numerator / dd
+    g_edge = g_knot(0) + g_knot(K)
+    g_num = g_edge / dd
+    g_dd = -g_edge * edge / dd
+    g_first = g_num * 0.5 * interior[0] - 0.5 * g_dd
+    g_last = g_num * 0.5 * interior[K - 2] - 0.5 * g_dd
+
+    g_w = []
+    for k in range(K):
+        g = g_area * (knot[k] + knot[k + 1]) / 2.0
+        g = g + torch.where(sel > k, g_loc + g_cdf * (H[k] + H[k + 1]) / 2.0, zero)
+        g = g + torch.where(sel == k, g_wsel, zero)
+        if k == 0:
+            g = g + 0.5 * g_first
+        if k == K - 1:
+            g = g + 0.5 * g_last
+        if 0 < k < K - 1:
+            g = g + g_num * (interior[k - 1] + interior[k]) / 2.0
+        g_w.append(g)
+    g_uh = []
+    for i in range(K - 1):
+        g = g_knot(i + 1)
+        if i == 0:
+            g = g + g_num * 0.5 * first_w
+        if i == K - 2:
+            g = g + g_num * 0.5 * last_w
+        if i + 1 < K - 1:
+            g = g + g_num * w[i + 1] / 2.0
+        if i > 0:
+            g = g + g_num * w[i] / 2.0
+        g_uh.append(wh_scale * g * torch.sigmoid(uh[..., i]))
+
+    # softmax adjoint of the widths
+    dot = zero
+    for k in range(K):
+        dot = dot + sw[..., k] * (wmix * g_w[k])
+    g_uw = [wh_scale * sw[..., k] * (wmix * g_w[k] - dot) for k in range(K)]
+    g_x = torch.where(inside, g_x01 / (2.0 * B), grad_outputs)
+    return g_x, torch.stack(g_uw, dim=-1), torch.stack(g_uh, dim=-1)

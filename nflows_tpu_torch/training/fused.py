@@ -2,10 +2,10 @@
 nflows_tpu/training/fused.py).
 
 ``fused_trainer(flow, batch_size)`` probes the flow's structure and returns
-the matching trainer: :class:`FusedNSFTrainer` for coupling chains of the
-rq, affine or additive family, the NSF and SimpleRealNVP among them
-(kernel B3, or B2 + B4 under autograd; the lrs, linear, quadratic and
-cubic couplings, whose adjoints B3 and B4 do not have yet, are refused),
+the matching trainer: :class:`FusedNSFTrainer` for coupling chains of any
+of the seven families (the rq, lrs, linear, quadratic and cubic splines,
+the affine and additive couplings; the NSF and SimpleRealNVP among them;
+kernel B3, or B2 + B4 under autograd),
 :class:`FusedMAFTrainer` for unwrapped autoregressive chains, MAF and
 NSF-AR (kernels B9 + B10),
 :class:`FusedMADEMoGTrainer` for a MADEMoG or a bare
@@ -29,7 +29,10 @@ __all__ = ["fused_trainer", "MIN_AUTO_BATCH"]
 #   work 7.0 to 11.4 ms). The same family key covers RealNVP and NICE (B3
 #   runs their affine and additive stages): SimpleRealNVP at the same widths
 #   (10 affine couplings, final-layer weights x 0.1) fused 3.26, 3.33 and
-#   3.37 ms against eager 30.6, 41.4 and 34.1 ms.
+#   3.37 ms against eager 30.6, 41.4 and 34.1 ms; and the LRS NSF and the
+#   flagship's chain with linear, quadratic or cubic couplings: fused 3.35
+#   to 3.61, 3.43 to 3.68 and 3.49 to 3.83 ms against eager 67 to 154, 71
+#   to 165 and 78 to 153 ms.
 # - "maf", the full-width MAF (features 10, hidden 256, 5 layers x 2 blocks):
 #   fused (B9 forward, B10 backward, mask fold, Adam) 2.27, 2.31 and 2.34 ms
 #   against eager 7.51, 8.21 and 7.57 ms at batches 512, 2,048 and 4,096;

@@ -54,7 +54,7 @@ def test_scan_covers_the_port():
     assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh",
             "affine_coupling.cuh", "coupling_stage.cuh"} <= sources
     for stem in ("lrs_spline", "linear_spline", "quadratic_spline", "cubic_spline"):
-        assert {f"{stem}.cu", f"{stem}.cuh"} <= sources
+        assert {f"{stem}.cu", f"{stem}.cuh", f"{stem}_bwd.cuh"} <= sources
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -96,6 +96,8 @@ def test_runtime_loads_no_jax():
         "lrs = nt.NeuralSplineFlow(6, 8, num_layers=2, num_bins=4, spline='lrs', device='cpu')\n"
         "nt.CompiledFlow(lrs, 16, 6, device='cpu').sample_and_log_prob(torch.Generator())\n"
         "nt.make_train_step()(nt.create_train_state(lrs, adam), x)\n"
+        "tr = nt.fused_trainer(lrs, 128)\n"
+        "tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 6))\n"
         "from nflows_tpu_torch.transforms import (PiecewiseLinearCouplingTransform,\n"
         "    PiecewiseQuadraticCouplingTransform, PiecewiseCubicCouplingTransform)\n"
         "from nflows_tpu_torch.nn.nets import ResidualNet\n"

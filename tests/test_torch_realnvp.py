@@ -16,8 +16,8 @@ inverse, the JAX package's own band for its affine kernel
 (tests/ops/test_realnvp_fused.py: the inverse divides by scales down to
 1e-3, which amplifies a one-ulp difference of the sigmoid). Flows, chains
 and log_prob: 1e-4 absolute (the fp32 interop bar, MIGRATION.md); the cubic
-family's logabsdet 5e-4, the JAX package's bar for its cubic kernel
-(tests/ops/test_pallas_cubic.py). Unfolded weights with ``wh_scale``
+family's logabsdet and log_prob 5e-4, the JAX package's bar for its cubic
+kernel (tests/ops/test_pallas_cubic.py). Unfolded weights with ``wh_scale``
 against the folded ones: 2e-5 (tests/test_torch_nsf_train.py). Loss 1e-4,
 gradients 2e-4, three Adam steps 2e-4 on the losses and 5e-4 on the weights
 (tests/ops/test_nsf_train.py). ``to_flow()`` round trip 1e-5.
@@ -332,15 +332,16 @@ def test_wh_scale_equals_the_folded_weights(chains, family):
 # -- B3 and B4 for the affine and additive couplings -------------------------------------
 
 
-def _jax_chain_loss(static, layer_indices, features):
+def _jax_chain_loss(static, layer_indices, features, wh_scale=None):
     """The JAX package's training loss on kernel-layout weights, in XLA: its
     traced layer functions (nsf_train.py ``_make_layer_fn``, the math its
-    training kernels differentiate with jax.vjp) chained outside a kernel."""
+    training kernels differentiate with jax.vjp) chained outside a kernel,
+    with the family's softmax rescale ``wh_scale`` of unfolded weights."""
     from nflows_tpu.ops.pallas.nsf_train import _family_spline_config, _make_layer_fn
 
     spline_kw, _, name, _ = _family_spline_config(static)
     nb2 = 2 * static["num_blocks"]
-    fns = [_make_layer_fn(li, name, static.get("num_bins", 0), static["num_blocks"], None,
+    fns = [_make_layer_fn(li, name, static.get("num_bins", 0), static["num_blocks"], wh_scale,
                           spline_kw) for li in layer_indices]
 
     def loss(w, x_t):
@@ -355,28 +356,31 @@ def _jax_chain_loss(static, layer_indices, features):
     return loss
 
 
-@pytest.mark.parametrize("kind", sorted(AFFINE))
+@pytest.mark.parametrize("kind", sorted(AFFINE) + ["cubic", "linear", "lrs", "quadratic"])
 def test_plain_b3_b4_match_jax_grad(chains, kind):
     jflow, tflow = chains[kind]
     j_idx, j_w, j_static, _, _ = jax_fused._extract(jflow, jnp.float32, fold_wh_scale=False)
     ttr = nsf_train.FusedNSFTrainer(tflow, batch_size=128)
-    assert ttr._wh_scale is None and ttr._static["spline"] == (
-        "additive" if kind == "additive" else "affine")
+    assert ttr._static["spline"] == {"additive": "additive", "general": "affine"}.get(kind, kind)
+    assert (ttr._wh_scale is None) == (kind in ("linear",) + tuple(AFFINE))
     x = _x(n=128, seed=9)
     j_loss, (j_gw, j_gx_t) = jax.jit(jax.value_and_grad(
-        _jax_chain_loss(j_static, j_idx, 6), argnums=(0, 1)))(j_w, jnp.asarray(x.T))
+        _jax_chain_loss(j_static, j_idx, 6, ttr._wh_scale), argnums=(0, 1)))(
+            j_w, jnp.asarray(x.T))
     xt = torch.from_numpy(x)
     loss, lp, grads = nsf_train.nsf_loss_grad_cuda(xt, ttr.weights, ttr._indices,
-                                                   wh_scale=None, **ttr._static)
+                                                   wh_scale=ttr._wh_scale, **ttr._static)
     _close(loss, j_loss, 1e-4)
+    _close(lp, jflow.log_prob(x), 5e-4 if kind == "cubic" else ATOL)
     for k in KEYS:
         np.testing.assert_allclose(grads[k].numpy(), np.asarray(j_gw[k]), atol=2e-4,
                                    rtol=0, err_msg=k)
     n = x.shape[0]
     with torch.no_grad():
-        y, _ = nsf_train.nsf_train_apply(ttr.weights, xt, ttr._indices, ttr._static, None)
+        y, _ = nsf_train.nsf_train_apply(ttr.weights, xt, ttr._indices, ttr._static,
+                                         ttr._wh_scale)
     gx, grads = nsf_train.nsf_train_bwd_cuda(xt, y / n, torch.full((n,), -1.0 / n),
-                                             ttr.weights, ttr._indices, wh_scale=None,
+                                             ttr.weights, ttr._indices, wh_scale=ttr._wh_scale,
                                              **ttr._static)
     _close(gx, np.asarray(j_gx_t).T, 2e-4)
     for k in KEYS:
@@ -423,14 +427,26 @@ def test_to_flow_round_trip(chains, kind):
 
 @pytest.mark.parametrize("family", ["cubic", "linear", "lrs", "quadratic"])
 def test_training_kernels_refuse_the_spline_families(chains, family):
-    """Their adjoints are not in B3 and B4 yet: the trainer refuses on every
-    device, naming the eager route, and the kernels' wrappers refuse too."""
+    """B3 and B4 have these stages' adjoints: ``fused_trainer`` gives a
+    ``FusedNSFTrainer`` that runs them, with the family's softmax rescale.
+    What the training kernels still refuse is a conditional conditioner, on
+    every device, naming the eager route."""
     _, tflow = chains[family]
-    with pytest.raises(ValueError, match="adjoint is not ported yet.*make_train_step"):
-        nsf_train.FusedNSFTrainer(tflow, batch_size=128)
-    with pytest.raises(ValueError, match="make_train_step"):
-        fused_trainer(tflow, 128)
+    trainer = fused_trainer(tflow, 128)
+    assert isinstance(trainer, nsf_train.FusedNSFTrainer)
+    assert trainer._static["spline"] == family
+    assert (trainer._wh_scale is None) == (family == "linear")
     assert nsf_fused.can_fuse_nsf(tflow)
+    _, tcls, _, tkw = _coupling_kw(family)
+    conditional = Flow(CompositeTransform([
+        Permutation(np.arange(6)[::-1].copy(), device="cpu"),
+        tcls(mask=_mask(6), transform_net_create_fn=lambda i, o: nets.ResidualNet(
+            i, o, hidden_features=HIDDEN, context_features=2, num_blocks=2, device="cpu"),
+            device="cpu", **tkw)]), StandardNormal([6]))
+    with pytest.raises(ValueError, match="make_train_step(.|\\n)*conditional flows are not fused"):
+        fused_trainer(conditional, 128)
+    with pytest.raises(ValueError, match="conditional flows are not fused"):
+        nsf_train.FusedNSFTrainer(conditional, batch_size=128)
 
 
 def test_fused_method_and_what_fuse_nsf_refuses():

@@ -6,7 +6,9 @@ as the inverse of the same numpy noise), a three-step Adam trajectory of
 the LRS NSF, and what serving and the fused trainer do with these families
 (``CompiledFlow`` serves them fused through B2, and its plain version
 here; ``use_fused=False`` runs the unfused chain, where each coupling runs
-its elementwise kernel's plain version; the fused trainer refuses them).
+its elementwise kernel's plain version; ``fused_trainer`` trains them
+through B3, and its plain version here, and the eager route still trains
+them).
 
 Tolerances: 1e-4 absolute on outputs, logabsdet and log_prob (the fp32
 interop bar, MIGRATION.md); the cubic family's logabsdet and log_prob 5e-4,
@@ -45,6 +47,7 @@ from nflows_tpu_torch import (
 )
 from nflows_tpu_torch.distributions import StandardNormal
 from nflows_tpu_torch.nn import nets
+from nflows_tpu_torch.ops.cuda.nsf_train import FusedNSFTrainer
 from nflows_tpu_torch.transforms import (
     CompositeTransform,
     Permutation,
@@ -219,9 +222,9 @@ def test_nsf_takes_rq_and_lrs_only():
 def test_serving_runs_the_unfused_chain_and_training_the_eager_route(family):
     """B2 has a stage for these families: ``CompiledFlow`` serves them fused
     by default (``use_fused=True`` too), and the fused view agrees with the
-    unfused chain, which ``use_fused=False`` serves. B3 and B4 have no
-    adjoint for them yet: ``fused_trainer`` refuses, naming the eager route,
-    which trains them."""
+    unfused chain, which ``use_fused=False`` serves. B3 and B4 have their
+    adjoints: ``fused_trainer`` gives the fused trainer, and the eager route
+    trains them too."""
     _, tflow = _flow_pair(family, 6, layers=2)
     assert CompiledFlow(tflow, batch_size=32, features=6, use_fused=True, device="cpu").is_fused
     served = CompiledFlow(tflow, batch_size=32, features=6, device="cpu")
@@ -233,8 +236,7 @@ def test_serving_runs_the_unfused_chain_and_training_the_eager_route(family):
         _close(served.log_prob(x), unfused.log_prob(x), _lad_atol(family))
     s, lp = served.sample_and_log_prob(torch.Generator().manual_seed(9))
     assert s.shape == (32, 6) and lp.shape == (32,) and torch.isfinite(lp).all()
-    with pytest.raises(ValueError, match="make_train_step"):
-        fused_trainer(tflow, 128)
+    assert isinstance(fused_trainer(tflow, 128), FusedNSFTrainer)
     state = create_train_state(copy.deepcopy(tflow), lambda p: torch.optim.Adam(p, lr=1e-2))
     step = make_train_step()
     batch = torch.from_numpy(_x(6, n=128, seed=11))

@@ -1,6 +1,8 @@
 """A/B two checkouts of the port on one card: the whole-chain kernel B2
-(forward and inverse at N = 4,096) and the training kernel B3 (N = 512 and
-4,096) on the full-width flagship NSF (random weights from seed 0).
+(forward and inverse at N = 4,096) and the training kernels B3 (N = 512 and
+4,096) and B4 (N = 512) on the full-width flagship NSF, and B3 and B4 (N =
+512) on RealNVP at the same widths (``chip_smoke.realnvp_flow``; random
+weights from seed 0).
 
     python3 tools/checkout_ab.py OLD_CHECKOUT [NEW_CHECKOUT] [--rounds R]
 
@@ -27,7 +29,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # One turn, run with the checkout as its working directory and first on
-# sys.path; prints {"b2_forward": ms, "b2_inverse": ms, "b3_512": ms, "b3_4096": ms}.
+# sys.path; prints {"b2_forward": ms, "b2_inverse": ms, "b3_512": ms, "b3_4096": ms,
+# "b4_512": ms, "affine_b3_512": ms, "affine_b4_512": ms}.
 TURN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -52,16 +55,24 @@ for inverse in (False, True):
                                            packed=fused._packed, **kw)
     out["b2_inverse" if inverse else "b2_forward"] = cs.device_ms(torch, run, 20,
                                                                   kernel="nsf_flow_kernel")
-trainer = nsf_train.FusedNSFTrainer(flow, 512)
-w = {k: v.detach() for k, v in trainer.weights.items()}
-kw = dict(wh_scale=trainer._wh_scale, **trainer._static)
-packed = nfk.pack_weights(w, trainer._indices)
-grads = {k: torch.empty_like(v) for k, v in w.items()}
-for n in (512, 4096):
-    xb = (1.5 * torch.randn(n, D, generator=gen)).cuda()
-    run = lambda: nsf_train.nsf_loss_grad_cuda(xb, w, trainer._indices, packed=packed,
-                                               grads=grads, **kw)
-    out[f"b3_{n}"] = cs.device_ms(torch, run, 20, kernel="nsf_loss_grad_kernel")
+for tag, model, sizes in (("", flow, (512, 4096)),
+                          ("affine_", cs.realnvp_flow("affine", "cuda", seed=0), (512,))):
+    trainer = nsf_train.FusedNSFTrainer(model, 512)
+    w = {k: v.detach() for k, v in trainer.weights.items()}
+    kw = dict(wh_scale=trainer._wh_scale, **trainer._static)
+    packed = nfk.pack_weights(w, trainer._indices)
+    grads = {k: torch.empty_like(v) for k, v in w.items()}
+    for n in sizes:
+        xb = (1.5 * torch.randn(n, D, generator=gen)).cuda()
+        run = lambda: nsf_train.nsf_loss_grad_cuda(xb, w, trainer._indices, packed=packed,
+                                                   grads=grads, **kw)
+        out[f"{tag}b3_{n}"] = cs.device_ms(torch, run, 20, kernel="nsf_loss_grad_kernel")
+    gy = (torch.randn(512, D, generator=gen) / 512).cuda()
+    glad = (torch.randn(512, generator=gen) / 512).cuda()
+    xb = (1.5 * torch.randn(512, D, generator=gen)).cuda()
+    run = lambda: nsf_train.nsf_train_bwd_cuda(xb, gy, glad, w, trainer._indices,
+                                               packed=packed, grads=grads, **kw)
+    out[f"{tag}b4_512"] = cs.device_ms(torch, run, 20, kernel="nsf_train_bwd_kernel")
 print(json.dumps(out))
 """
 
