@@ -44,7 +44,16 @@ weights and ``wh_scale`` (2KT rows past the chain's parameters); B3 and B4
 on the four family flows and the three RealNVP variants against their plain
 versions; the three RealNVP variants served through ``CompiledFlow`` fused
 and unfused; and RealNVP trained for 20 Adam steps on the fused,
-fused-autograd and eager routes.
+fused-autograd and eager routes. Then the conditional coupling flows: the
+flagship made conditional (context 10, the MADEMoG twin's width), B2 with its
+context path against its plain version forward and inverse at N = 4,096 and
+a ragged N, B3 and B4 with the context adjoints (gradients of the context
+weights, and B4's cotangent of the context) at 512 and 4,096, then the same
+three kernels on a conditional affine chain at RealNVP's widths; the
+conditional flagship served through ``CompiledFlow`` fused (one B2 a
+request) and unfused (ten B1): log_prob of 4,096 samples with 4,096
+context rows and 256 samples for each of 16 context rows; and trained 20
+Adam steps on the fused, fused-autograd and eager routes with a context.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
@@ -55,7 +64,9 @@ and B12),
 error against its plain version, device time (``ms_source`` says whether
 torch.profiler or CUDA events gave it), plain time, bound and library time at
 the main path's shape (B2's, B3's and B4's rows carry the other six
-families' numbers under ``families``);
+families' numbers under ``families`` and the conditional flagship's, with
+the conditional affine chain's under ``context_families``, as
+``context_*``);
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -118,6 +129,14 @@ seeds, hence ten. B9 with 32- against
 64-sample tiles: 1e-5, a sample's arithmetic does not depend on its tile.
 B10: as B4 (gradient stacks
 2e-4, gx x N 5e-3). Masked weights after 20 Adam steps: bit-equal.
+B2, B3 and B4 with a context: the same bands as without (the context adds
+C-deep fp32 GEMMs and a sigmoid gate to the same chain); B4's cotangent of
+the context x N 5e-3 like gx x N. They are held on the conditional flagship
+with its blocks' second linear layers redrawn at the first's scale: as
+initialised those start near zero, which leaves the gate's gradients near
+1e-5, under the 2e-4 band. Conditional serving: fused against unfused within
+1e-3 on log_prob, samples and their log_prob (the same generator gives both
+paths the same noise).
 B11: 1e-3 on lp, as B2 (fp32 GEMMs in another order than cuBLAS, then a
 logsumexp a feature summed over 10 features). B12: as B10, and gctx x N
 5e-3 like gx x N. B5-B8 as B1: on the values the main path hands them
@@ -136,7 +155,9 @@ multiply the masked zeros too, and B9's inverse runs D + 1 full passes a
 layer; ``schedule_ms`` is that dense count at the same peak rate. B11 and
 B12 count the same way: two FLOP for every MADE weight the masks leave and
 every context weight, once a sample for B11 and three times for B12; their
-rows carry the conditional twin's numbers as ``context_*``. B5-B8 count
+rows carry the conditional twin's numbers as ``context_*``. B2 with a context
+counts F = 2 N L (Tid H + C H + 4 H^2 + nb C H + H TM) and the context's
+bytes, B3 and B4 3 F. B5-B8 count
 x, the parameters and two outputs an element (136, 44, 72 and 84 bytes at
 K = 8) and an estimate of their fp32 operations an element (B8's inverse
 with its 30 bisection halvings); their rows carry the inverse's numbers as
@@ -369,12 +390,14 @@ def family_flow(family, device, seed, **overrides):
     return Flow(CompositeTransform(chain), StandardNormal([cfg["features"]])).to(device).eval()
 
 
-def realnvp_flow(kind, device, seed):
+def realnvp_flow(kind, device, seed, context_features=None):
     """RealNVP at the flagship's widths (REALNVP): ``SimpleRealNVP`` with
     affine couplings ("affine") or volume-preserving additive ones
     ("additive"), or the same chain of ``AffineCouplingTransform`` with the
     GENERAL scale activation ("general", as tests/ops/test_realnvp_fused.py:77-98
-    builds it: flipping checkerboard masks, no permutations); random weights
+    builds it: flipping checkerboard masks, no permutations); with
+    ``context_features``, that chain with the DEFAULT activation and a
+    context in every conditioner (SimpleRealNVP takes none); random weights
     from ``seed``, each conditioner's final-layer weights scaled by 0.1. At
     the library's initialisation a full-width RealNVP's inverse is
     ill-conditioned, as the MAF's is (``tame``): a large feature drives the
@@ -390,7 +413,7 @@ def realnvp_flow(kind, device, seed):
     from nflows_tpu_torch.transforms import AffineCouplingTransform, CompositeTransform
 
     gen = torch.Generator().manual_seed(seed)
-    if kind != "general":
+    if kind != "general" and context_features is None:
         return tame_couplings(SimpleRealNVP(**REALNVP, use_volume_preserving=kind == "additive",
                                             generator=gen, device=device))
     mask = np.ones(REALNVP["features"], dtype=np.float32)
@@ -400,8 +423,12 @@ def realnvp_flow(kind, device, seed):
         layers.append(AffineCouplingTransform(
             mask=mask, transform_net_create_fn=lambda n_in, n_out: nets.ResidualNet(
                 n_in, n_out, hidden_features=REALNVP["hidden_features"],
-                num_blocks=REALNVP["num_blocks_per_layer"], generator=gen, device=device),
-            scale_activation=AffineCouplingTransform.GENERAL_SCALE_ACTIVATION, device=device))
+                num_blocks=REALNVP["num_blocks_per_layer"], context_features=context_features,
+                generator=gen, device=device),
+            scale_activation=(AffineCouplingTransform.GENERAL_SCALE_ACTIVATION
+                              if kind == "general"
+                              else AffineCouplingTransform.DEFAULT_SCALE_ACTIVATION),
+            device=device))
         mask = mask * -1
     return tame_couplings(Flow(CompositeTransform(layers),
                                StandardNormal([REALNVP["features"]])).to(device))
@@ -599,6 +626,7 @@ def main() -> int:
             raise AssertionError(f"{what} launched {counts}, expected {expected}")
 
     launches = {}
+    context_launches = {}  # launches a request or step on the conditional paths
 
     def serve(model, flow, features, fused_kernel, unfused_log_prob, unfused_sample,
               fused_sample=None, context_features=None, ties=0):
@@ -689,23 +717,27 @@ def main() -> int:
     # -- phase 6: B3 and B4 against their plain versions (full-width flagship) ----
     def hold_training_kernels(trainer, batches_n):
         """B3 and B4 on ``trainer``'s weights against their plain versions at
-        each batch size: errors, times and bounds by batch, for each kernel."""
+        each batch size (with a context of N(0, 1) rows where the trainer's
+        flow has one): errors, times and bounds by batch, for each kernel."""
         tw32 = {k: v.detach() for k, v in trainer.weights.items()}
         tw64 = {k: v.double() for k, v in tw32.items()}
         tidx = trainer._indices
-        tkw = dict(wh_scale=trainer._wh_scale, **trainer._static)
         d = trainer._dims
-        stacks = nsf_train.WEIGHT_KEYS
+        stacks = tuple(tw32)
         w_bytes = 4 * sum(v.numel() for v in tw32.values())
+        C = d["C"]
         out3, out4 = {}, {}
         for n in batches_n:
             x = (1.5 * torch.randn(n, d["D"], generator=gen)).to(dev)
-            nops = 3 * 2 * n * d["L"] * (d["Tid"] * d["H"] + d["nb2"] * d["H"] ** 2
-                                         + d["H"] * d["TM"])
-            log(f"B3 at N={n}:")
+            ctx = torch.randn(n, C, generator=gen).to(dev) if C else None
+            tkw = dict(wh_scale=trainer._wh_scale, context=ctx, **trainer._static)
+            dkw = dict(tkw, context=None if ctx is None else ctx.double())
+            nops = 3 * 2 * n * d["L"] * (d["Tid"] * d["H"] + C * d["H"] + d["nb2"] * d["H"] ** 2
+                                         + d["nb2"] // 2 * C * d["H"] + d["H"] * d["TM"])
+            log(f"B3 at N={n}" + (f", context {C}:" if C else ":"))
             loss, lp, grads = nsf_train.nsf_loss_grad_cuda(x, tw32, tidx, **tkw)
             p_loss, p_lp, p_grads = nsf_train.nsf_loss_grad_plain(x, tw32, tidx, **tkw)
-            d_loss, d_lp, d_grads = nsf_train.nsf_loss_grad_plain(x.double(), tw64, tidx, **tkw)
+            d_loss, d_lp, d_grads = nsf_train.nsf_loss_grad_plain(x.double(), tw64, tidx, **dkw)
             torch.cuda.synchronize()
             if not all(torch.isfinite(t).all() for t in (loss, lp, *grads.values())):
                 raise AssertionError("B3 produced non-finite values")
@@ -726,7 +758,7 @@ def main() -> int:
             ms = device_ms(torch, run, 10, kernel="nsf_loss_grad_kernel")
             ms_source = device_ms.source
             plain_ms = device_ms(torch, run_plain, 3)
-            nbytes = 2 * w_bytes + 4 * n * (d["D"] + 1)
+            nbytes = 2 * w_bytes + 4 * n * (d["D"] + 1 + C)
             bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
             bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
             log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
@@ -740,12 +772,15 @@ def main() -> int:
             gx, grads = nsf_train.nsf_train_bwd_cuda(x, gy, glad, tw32, tidx, **tkw)
             p_gx, p_grads = nsf_train.nsf_train_bwd_plain(x, gy, glad, tw32, tidx, **tkw)
             d_gx, d_grads = nsf_train.nsf_train_bwd_plain(
-                x.double(), gy.double(), glad.double(), tw64, tidx, **tkw)
+                x.double(), gy.double(), glad.double(), tw64, tidx, **dkw)
             torch.cuda.synchronize()
             if not all(torch.isfinite(t).all() for t in (gx, *grads.values())):
                 raise AssertionError("B4 produced non-finite values")
             log(f"  largest |gx * N|: {float((d_gx * n).abs().max()):.3f}")
             errs = [hold("gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)]
+            if C:
+                errs.append(hold("gctx * N", grads["ctx"] * n, p_grads["ctx"] * n,
+                                 d_grads["ctx"] * n, 5e-3))
             errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4) for k in stacks]
             run = lambda: nsf_train.nsf_train_bwd_cuda(  # noqa: E731
                 x, gy, glad, tw32, tidx, packed=packed, grads=grads, **tkw)
@@ -754,7 +789,7 @@ def main() -> int:
             ms = device_ms(torch, run, 10, kernel="nsf_train_bwd_kernel")
             ms_source = device_ms.source
             plain_ms = device_ms(torch, run_plain, 3)
-            nbytes = 2 * w_bytes + 4 * n * (3 * d["D"] + 1)
+            nbytes = 2 * w_bytes + 4 * n * (3 * d["D"] + 1 + 2 * C)
             bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
             bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
             log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
@@ -777,19 +812,27 @@ def main() -> int:
         return [1.5 * torch.randn(n, D, generator=g, device=dev) @ mix + 0.5
                 for _ in range(count)]
 
+    def contexts(n, count, seed, context_features):
+        """N(0, 1) context rows for ``batches`` (Nones without a context)."""
+        if context_features is None:
+            return [None] * count
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(n, context_features, generator=g, device=dev) for _ in range(count)]
+
     def routes(model_flow, n):
         """Fresh trainers of the three routes from ``model_flow``'s initial
-        weights: name -> step(batch) -> loss, and the objects behind them."""
+        weights: name -> step(batch, context) -> loss, and the objects behind
+        them."""
         fused_tr = fused_trainer(copy.deepcopy(model_flow), n)
         split_tr = fused_trainer(copy.deepcopy(model_flow), n)
         split_opt = split_tr.init_opt(adam)
         state = create_train_state(copy.deepcopy(model_flow).train(), adam)
         eager_step = make_train_step()
 
-        def autograd_step(batch):
+        def autograd_step(batch, context=None):
             # the composable route: loss_fn under autograd, B2 then B4
             split_opt.zero_grad(set_to_none=True)
-            loss = split_tr.loss_fn(split_tr.weights, batch)
+            loss = split_tr.loss_fn(split_tr.weights, batch, context)
             loss.backward()
             split_opt.step()
             return loss.detach()
@@ -797,30 +840,34 @@ def main() -> int:
         steps = {
             "fused": fused_tr.make_train_step(fused_tr.init_opt(adam)),
             "fused-autograd": autograd_step,
-            "eager": lambda batch: eager_step(state, batch)[1]["loss"],
+            "eager": lambda batch, context=None: eager_step(state, batch, context)[1]["loss"],
         }
         return steps, fused_tr, state
 
-    def train_three_routes(model, model_flow, eager_kernels):
+    def train_three_routes(model, model_flow, eager_kernels, context_features=None):
         """Train ``model_flow`` 20 Adam steps on the fused (B3), fused-autograd
         (B2 + B4) and eager routes, the eager one launching ``eager_kernels``
-        a step; check the launches, the first three losses and a falling loss,
-        serve the fused-trained flow, then time a step of each route at three
-        batch sizes."""
+        a step (with a context of ``context_features`` a sample where given);
+        check the launches, the first three losses and a falling loss, serve
+        the fused-trained flow, then time a step of each route at batches
+        512, 2,048 and 4,096."""
         steps, fused_tr, state = routes(model_flow, TRAIN_BATCH)
         data = batches(TRAIN_BATCH, TRAIN_STEPS, seed=3)
+        ctxs = contexts(TRAIN_BATCH, TRAIN_STEPS, 13, context_features)
         losses = {}
         for name, expected in (("fused", dict(B3=1)), ("fused-autograd", dict(B2=1, B4=1)),
                                ("eager", eager_kernels)):
             reset_counts()
-            first = steps[name](data[0])
+            first = steps[name](data[0], ctxs[0])
             torch.cuda.synchronize()
             counts = read_counts()
             log(f"training {model} ({name}): launches a step {counts}")
             expect_counts(f"one {name} step", counts, **expected)
             for kid in expected:
                 launches.setdefault(kid, counts[kid])
-            rest = [steps[name](batch) for batch in data[1:]]
+                if context_features is not None:
+                    context_launches.setdefault(kid, counts[kid])
+            rest = [steps[name](batch, c) for batch, c in zip(data[1:], ctxs[1:])]
             losses[name] = [float(v) for v in [first, *rest]]
             log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
                 f"{losses[name][0]:.4f} -> {losses[name][-1]:.4f}")
@@ -834,37 +881,41 @@ def main() -> int:
                 raise AssertionError(f"{model}: the fused and {name} routes disagree at the "
                                      "start")
         held = batches(TRAIN_BATCH, 1, seed=4)[0]
+        held_c = contexts(TRAIN_BATCH, 1, 14, context_features)[0]
         trained = fused_tr.to_flow().eval()
-        served_lp = CompiledFlow(trained, batch_size=TRAIN_BATCH, features=D).log_prob(held)
+        served_lp = CompiledFlow(trained, batch_size=TRAIN_BATCH, features=D,
+                                 context_features=context_features).log_prob(held, held_c)
         _, trainer_lp, _ = nsf_train.nsf_loss_grad_cuda(
             held, fused_tr.weights, fused_tr._indices, wh_scale=fused_tr._wh_scale,
-            **fused_tr._static)
+            context=held_c, **fused_tr._static)
         gap = max_err(served_lp, trainer_lp)
         log(f"  to_flow() served through CompiledFlow vs the trainer's log_prob: {gap:.3e} "
             "(limit 1e-3)")
         if gap > 1e-3:
             raise AssertionError(f"the trained {model} served disagrees with the trainer")
-        eager_gap = max_err(served_lp, state.flow.log_prob(held).detach())
+        eager_gap = max_err(served_lp, state.flow.log_prob(held, held_c).detach())
         log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
             f"{eager_gap:.3e}")
 
         log(f"{model} train step times (host clock over 20 steps ending in a synchronise; "
             "device busy from torch.profiler):")
         step_ms = {}
-        for n in (TRAIN_BATCH, 2048, SERVE_BATCH):
+        timed = (TRAIN_BATCH, 2048, SERVE_BATCH)
+        for n in timed:
             steps, fused_tr, _ = routes(model_flow, n)
             data = batches(n, 4, seed=5)
+            ctxs = contexts(n, 4, 15, context_features)
             for name, step in steps.items():
-                for batch in data[:3]:
-                    step(batch)
+                for batch, c in zip(data[:3], ctxs[:3]):
+                    step(batch, c)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for i in range(20):
-                    step(data[i % 4])
+                    step(data[i % 4], ctxs[i % 4])
                 torch.cuda.synchronize()
                 wall = 1e3 * (time.perf_counter() - t0) / 20
                 # an eager step is some thousand launches: three profiled steps
-                busy = device_ms(torch, lambda: step(data[0]),  # noqa: B023
+                busy = device_ms(torch, lambda: step(data[0], ctxs[0]),  # noqa: B023
                                  3 if name == "eager" else 10)
                 step_ms[(name, n)] = wall
                 log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
@@ -872,8 +923,7 @@ def main() -> int:
             repack = device_ms(torch, lambda: fused_tr._repack(fused_tr.weights), 20)  # noqa: B023
             log(f"  batch {n}: re-packing the weights for the forward GEMMs {repack:.4f} ms a "
                 "step")
-        faster = [n for n in (TRAIN_BATCH, 2048, SERVE_BATCH)
-                  if step_ms[("fused", n)] < step_ms[("eager", n)]]
+        faster = [n for n in timed if step_ms[("fused", n)] < step_ms[("eager", n)]]
         log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes "
             f"the fused route from batch {MIN_AUTO_BATCH['nsf']}")
 
@@ -1594,6 +1644,154 @@ def main() -> int:
     # -- phase 23: training RealNVP on the three routes ----------------------------------
     train_three_routes("RealNVP", realnvp_flows["affine"], {})
 
+    # -- phase 24: B2, B3 and B4 with a context against their plain versions -----------
+    # the flagship's conditional twin (context 10, MOG_CONTEXT) with its blocks'
+    # second linear layers redrawn (lively_gates), then the same three kernels
+    # on a conditional affine chain at RealNVP's widths (final weights x 0.1)
+    C = MOG_CONTEXT
+
+    def hold_b2_context(model, flow_c, sizes):
+        """B2 with a context against its plain version, forward and inverse,
+        at each batch size: errors, times and bounds at the first size."""
+        view = fuse_nsf(flow_c)
+        cw32, cidx, cstatic = view._weights, view._indices, view._static
+        cw64 = {k: v.double() for k, v in cw32.items()}
+        ctm = cw32["wf"].shape[1]
+        cbytes = 4 * sum(v.numel() for v in cw32.values())
+        stats, errs = {}, []
+        for n in sizes:
+            x = torch.randn(n, D, generator=gen).to(dev)
+            ctx = torch.randn(n, C, generator=gen).to(dev)
+            log(f"B2 ({model}, context {C}) at N={n}:")
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, **cstatic)
+                y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, cw32, cidx, packed=view._packed,
+                                                              context=ctx, **kw)
+                p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, cw32, cidx, context=ctx,
+                                                                   **kw)
+                d_y, d_lad = nsf_flow_kernel.nsf_flow_kernel_plain(
+                    x.double(), cw64, cidx, context=ctx.double(), **kw)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                    raise AssertionError(f"B2 ({model}, context) produced non-finite values")
+                tag = "inverse" if inverse else "forward"
+                err = max(hold(f"{tag} out", y, p_y, d_y, 1e-3),
+                          hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
+                errs.append(err)
+                if n != sizes[0]:
+                    continue
+                run = lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: E731
+                    x, cw32, cidx, packed=view._packed, context=ctx, **kw)  # noqa: B023
+                run_plain = lambda: nsf_flow_kernel.nsf_flow_kernel_plain(  # noqa: E731
+                    x, cw32, cidx, context=ctx, **kw)  # noqa: B023
+                ms = device_ms(torch, run, 10, kernel="nsf_flow_kernel")
+                ms_source = device_ms.source
+                plain_ms = device_ms(torch, run_plain, 3)
+                nops = 2 * n * L * (Tid * H + C * H + 2 * nb * H * H + nb * C * H + H * ctm)
+                bound_ms, bound_by = bound(nops, cbytes + 4 * n * (2 * D + 1 + C))
+                log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                    f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP)  "
+                    f"{nops / ms / 1e9:.1f} TFLOP/s")
+                pre = "inverse_" if inverse else ""
+                stats.update({pre + "err": err, pre + "ms": ms, pre + "ms_source": ms_source,
+                              pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
+                              pre + "bound_by": bound_by})
+        stats["err"] = max(errs)
+        return stats
+
+    def lively_gates(flow_c, seed):
+        """Redraw each block's second linear layer at the first's scale: as the
+        library initialises it (U(-1e-3, 1e-3), so that couplings start near the
+        identity) the context gate's gradients are near 1e-5 and a kernel fault
+        in them would hide under the 2e-4 band. A trained model's are not."""
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for t in flow_c.transform.transforms:
+                for blk in getattr(getattr(t, "transform_net", None), "blocks", ()):
+                    w = blk.linear_1.weight
+                    bound_w = 1.0 / w.shape[1] ** 0.5
+                    w.copy_(((torch.rand(w.shape, generator=g) * 2 - 1) * bound_w).to(dev))
+        return flow_c
+
+    cond_flow = NeuralSplineFlow(generator=torch.Generator().manual_seed(20),
+                                 rng=np.random.default_rng(20), device=dev,
+                                 context_features=C, **FLAGSHIP).eval()
+    lively = lively_gates(copy.deepcopy(cond_flow), seed=21)
+    b2_ctx = hold_b2_context("conditional NSF", lively, (SERVE_BATCH, RAGGED))
+    log(f"B3 and B4 on the conditional NSF (context {C}):")
+    b3_ctx, b4_ctx = hold_training_kernels(fused_trainer(lively, TRAIN_BATCH),
+                                           (TRAIN_BATCH, SERVE_BATCH))
+    cond_affine = lively_gates(realnvp_flow("affine", dev, seed=22, context_features=C), seed=23)
+    b2_ctx_affine = hold_b2_context("conditional affine chain", cond_affine, (SERVE_BATCH,))
+    log(f"B3 and B4 on the conditional affine chain (context {C}):")
+    b3_ctx_affine, b4_ctx_affine = hold_training_kernels(
+        fused_trainer(cond_affine, TRAIN_BATCH), (TRAIN_BATCH,))
+
+    # -- phase 25: serving the conditional NSF through CompiledFlow ----------------------
+    # log_prob of 4,096 samples with 4,096 context rows; sample 256 samples for
+    # each of 16 context rows; fused (one B2 a request) against unfused (ten B1)
+    def serve_conditional(model, flow_c, unfused_kernels):
+        x = torch.randn(SERVE_BATCH, D, generator=gen).to(dev)
+        ctx = torch.randn(SERVE_BATCH, C, generator=gen).to(dev)
+        few = torch.randn(16, C, generator=gen).to(dev)
+        out = {}
+        for name, use_fused in (("fused", True), ("unfused", False)):
+            lp_server = CompiledFlow(flow_c, batch_size=SERVE_BATCH, features=D,
+                                     context_features=C, use_fused=use_fused)
+            sampler = CompiledFlow(flow_c, batch_size=16, features=D, context_features=C,
+                                   num_samples=SERVE_BATCH // 16, use_fused=use_fused)
+            if lp_server.is_fused != use_fused or sampler.is_fused != use_fused:
+                raise AssertionError(f"{model}: CompiledFlow did not take the {name} path")
+            reset_counts()
+            lp = lp_server.log_prob(x, ctx)
+            torch.cuda.synchronize()
+            first = read_counts()
+            reset_counts()
+            s, slp = sampler.sample_and_log_prob(torch.Generator(device=dev).manual_seed(1), few)
+            torch.cuda.synchronize()
+            second = read_counts()
+            log(f"serving {model} ({name}): launches a log_prob request {first}, a sampling "
+                f"request {second}")
+            expected = dict(B2=1) if use_fused else unfused_kernels
+            expect_counts(f"one {name} {model} log_prob request", first, **expected)
+            expect_counts(f"one {name} {model} sampling request", second, **expected)
+            for kid in expected:
+                context_launches.setdefault(kid, first[kid])
+            if (tuple(lp.shape) != (SERVE_BATCH,) or tuple(s.shape) != (16, SERVE_BATCH // 16, D)
+                    or tuple(slp.shape) != (16, SERVE_BATCH // 16)
+                    or not all(torch.isfinite(t).all() for t in (lp, s, slp))):
+                raise AssertionError(f"{model} {name}: bad outputs")
+            gaps = (slp.reshape(-1).double() - flow_c.log_prob(
+                s.reshape(-1, D), few.repeat_interleave(SERVE_BATCH // 16, 0)).detach().double())
+            log(f"  sample_and_log_prob vs the flow's log_prob(samples): "
+                f"{float(gaps.abs().max()):.3e} (limit 5e-3)")
+            if float(gaps.abs().max()) > 5e-3:
+                raise AssertionError(f"{model} {name}: sample_and_log_prob disagrees")
+            out[name] = (lp, s, slp)
+            for endpoint, fn in (("log_prob", lambda: lp_server.log_prob(x, ctx)),  # noqa: B023
+                                 ("sample", lambda: sampler.sample(  # noqa: B023
+                                     torch.Generator(device=dev).manual_seed(2), few))):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / 10
+                busy = device_ms(torch, fn, 10 if use_fused else 3)
+                log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
+                    f"device busy {busy:.3f} ms")
+        for i, what in enumerate(("log_prob", "samples", "sample log_prob")):
+            gap = max_err(out["fused"][i], out["unfused"][i])
+            log(f"  unfused vs fused {what}: {gap:.3e} (limit 1e-3)")
+            if gap > 1e-3:
+                raise AssertionError(f"{model}: unfused and fused {what} disagree")
+
+    serve_conditional("conditional NSF", cond_flow, dict(B1=L))
+
+    # -- phase 26: training the conditional NSF on the three routes ---------------------
+    train_three_routes("conditional NSF", cond_flow, dict(B1=L), context_features=C)
+
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
              "B4": "nsf_train_bwd", "B5": "lrs_spline", "B6": "linear_spline",
@@ -1601,8 +1799,10 @@ def main() -> int:
              "B10": "maf_train_bwd", "B11": "mademog_log_prob", "B12": "mademog_train_bwd"}
 
     def with_context(stats, ctx_stats, **more):
-        """A MADEMoG row: the unconditional model's numbers, the conditional
-        twin's beside them."""
+        """A row of a kernel that runs with and without a context: the
+        unconditional model's numbers, the conditional twin's beside them
+        (B2-B4: the conditional flagship, and the conditional affine chain
+        under ``context_families``; B11, B12: the MADEMoG)."""
         return {**stats, **{f"context_{k}": v for k, v in ctx_stats.items()}, **more}
 
     def at_both_batches(per_kind):
@@ -1616,15 +1816,27 @@ def main() -> int:
     for kid, stats, source, replaces, tpu in (
             ("B1", b1[SERVE_BATCH * 3], "nflows_tpu_torch/csrc/rq_spline.cu",
              "nflows_tpu/ops/pallas/rq_spline.py:39", "ops/pallas/rq_spline.py:_kernel"),
-            ("B2", {**b2[SERVE_BATCH], "families": b2_families},
+            ("B2", with_context({**b2[SERVE_BATCH], "families": b2_families},
+                                {**b2_ctx, "families": {"affine": b2_ctx_affine}},
+                                context_launches=context_launches["B2"]),
              "nflows_tpu_torch/csrc/nsf_flow_kernel.cu",
              "nflows_tpu/ops/pallas/nsf_flow_kernel.py:1095",
              "ops/pallas/nsf_flow_kernel.py:_kernel"),
-            ("B3", {**b3[TRAIN_BATCH], "families": at_both_batches(b3_families)},
+            ("B3", with_context({**b3[TRAIN_BATCH], "families": at_both_batches(b3_families)},
+                                {**b3_ctx[TRAIN_BATCH],
+                                 f"ms_at_{SERVE_BATCH}": b3_ctx[SERVE_BATCH]["ms"],
+                                 f"bound_ms_at_{SERVE_BATCH}": b3_ctx[SERVE_BATCH]["bound_ms"],
+                                 "families": {"affine": b3_ctx_affine[TRAIN_BATCH]}},
+                                context_launches=context_launches["B3"]),
              "nflows_tpu_torch/csrc/nsf_train.cu",
              "nflows_tpu/ops/pallas/nsf_train.py:295",
              "ops/pallas/nsf_train.py:_loss_grad_kernel"),
-            ("B4", {**b4[TRAIN_BATCH], "families": at_both_batches(b4_families)},
+            ("B4", with_context({**b4[TRAIN_BATCH], "families": at_both_batches(b4_families)},
+                                {**b4_ctx[TRAIN_BATCH],
+                                 f"ms_at_{SERVE_BATCH}": b4_ctx[SERVE_BATCH]["ms"],
+                                 f"bound_ms_at_{SERVE_BATCH}": b4_ctx[SERVE_BATCH]["bound_ms"],
+                                 "families": {"affine": b4_ctx_affine[TRAIN_BATCH]}},
+                                context_launches=context_launches["B4"]),
              "nflows_tpu_torch/csrc/nsf_train.cu",
              "nflows_tpu/ops/pallas/nsf_train.py:163",
              "ops/pallas/nsf_train.py:_bwd_kernel"),

@@ -11,6 +11,11 @@ from nflows_tpu_torch.version import VERSION, __version__
 
 from nflows_tpu_torch import distributions, flows, models, training, transforms, utils
 from nflows_tpu_torch.distributions.mixture import MADEMoG
+from nflows_tpu_torch.distributions.normal import (
+    ConditionalDiagonalNormal,
+    DiagonalNormal,
+    StandardNormal,
+)
 from nflows_tpu_torch.flows.autoregressive import MaskedAutoregressiveFlow
 from nflows_tpu_torch.flows.base import Flow
 from nflows_tpu_torch.flows.realnvp import SimpleRealNVP
@@ -33,6 +38,7 @@ __all__ = ["VERSION", "__version__", "distributions", "flows", "models",
            "training", "transforms", "utils", "Flow", "NeuralSplineFlow",
            "NeuralSplineFlowAR", "MaskedAutoregressiveFlow",
            "InverseAutoregressiveFlow", "SimpleRealNVP", "MADEMoG", "MixtureOfGaussiansMADE",
+           "StandardNormal", "ConditionalDiagonalNormal", "DiagonalNormal",
            "CompiledFlow", "load_jax_params", "load_jax_trainer_weights",
            "TrainState", "create_train_state", "make_train_step", "nll_loss",
            "fused_trainer"]

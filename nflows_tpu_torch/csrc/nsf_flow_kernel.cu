@@ -1,9 +1,11 @@
 // B2: the whole L-layer coupling chain in one launch.
 //
 // Replaces the TPU kernel nflows_tpu/ops/pallas/nsf_flow_kernel.py:_kernel
-// (fp32, no context). For each layer: permutation and coupling split
-// (static index lists), the ResidualNet conditioner (initial layer,
-// num_blocks x [relu, linear, relu, linear, residual add], final layer),
+// (fp32, with and without a per-sample context). For each layer:
+// permutation and coupling split (static index lists), the ResidualNet
+// conditioner (initial layer, plus wc0 ctx under a context; num_blocks x
+// [relu, linear, relu, linear, times sigmoid(wcb ctx + bcb) under a
+// context, residual add]; final layer),
 // the coupling stage of the chain's family on the transformed features
 // (coupling_stage.cuh: the rq, lrs, linear, quadratic or cubic spline with
 // linear tails, or the affine or additive coupling), the merge, and the
@@ -42,9 +44,16 @@
 //   feature are fewer than 2K.
 // - Permutation, split and merge use the per-layer index lists of
 //   NSFLayerIndices, read from a small int array.
+// - A context [C][ROWS] stays resident in shared memory for the whole
+//   chain. Its projections are tile_gemms of the same routine, C deep: the
+//   initial layer's accumulates onto the tile's h, and each block's gate
+//   goes to a buffer [H][ROWS] that the second linear's epilogue multiplies
+//   in as sigmoid(gate) before the residual add (the pattern of
+//   mademog.cuh). The context path is a template flag, so the
+//   unconditional kernels hold no code of it.
 // - The ragged last tile computes on zero rows and skips their stores.
 // ROWS is 64 (512 threads) for large batches and 32 (256 threads) when
-// 64-row tiles would leave SMs idle.
+// 64-row tiles would leave SMs idle or, with a context, do not fit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,12 +80,17 @@ struct FlowArgs {
   const float* wf;  // [L][H][TMp]
   const float* bf;  // [L][TMp]
   const int* idx;   // [L][2 Tid + 2 T + 2 D]
+  const float* ctx;  // [n][C], null when C = 0
+  int C;             // context features (0: unconditional)
+  const float* wc0;  // [L][C][H]          (in-major)
+  const float* wcb;  // [L][nb2 / 2][C][H] (in-major)
+  const float* bcb;  // [L][nb2 / 2][H]
   int inverse;
   float wh_scale;   // multiplies the first scaled_rows rows of P (1: already folded)
   nflows::StageConfig cfg;
 };
 
-template <int ROWS, int FAMILY>
+template <int ROWS, int FAMILY, bool CTX>
 __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
   constexpr int NT = ROWS * 8;
   extern __shared__ __align__(16) float smem[];
@@ -89,6 +103,8 @@ __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
   float* ybuf = xn + ROWS * D;          // [ROWS][T] spline outputs
   float* lbuf = ybuf + ROWS * T;        // [ROWS][T] spline logabsdets
   float* ladacc = lbuf + ROWS * T;      // [ROWS]
+  float* gbuf = ladacc + ROWS;          // [H][ROWS] context gate (CTX)
+  float* cs = gbuf + H * ROWS;          // [C][ROWS] context (CTX)
 
   const int tid = threadIdx.x;
   const int64_t base = (int64_t)blockIdx.x * ROWS;
@@ -99,6 +115,12 @@ __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
     xs[e] = s < rows ? a.x[(base + s) * D + (e % D)] : 0.0f;
   }
   for (int s = tid; s < ROWS; s += NT) ladacc[s] = 0.0f;
+  if constexpr (CTX) {
+    for (int e = tid; e < a.C * ROWS; e += NT) {
+      const int c = e / ROWS, s = e % ROWS;
+      cs[e] = s < rows ? a.ctx[(base + s) * a.C + c] : 0.0f;
+    }
+  }
   __syncthreads();
 
   const int idx_stride = 2 * Tid + 2 * T + 2 * D;
@@ -118,12 +140,26 @@ __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
 
     tile_gemm<ROWS>(tbuf, I4, a.w0 + (size_t)l * I4 * H, a.b0 + (size_t)l * H, H, hbuf, false,
                     false, false, wst);
+    if constexpr (CTX) {
+      // h += Wc0 ctx
+      tile_gemm<ROWS>(cs, a.C, a.wc0 + (size_t)l * a.C * H, nullptr, H, hbuf, false, false, true,
+                      wst);
+    }
     for (int j = 0; j < a.nb2; j += 2) {
       // h += W1 relu(W0 relu(h) + b0) + b1; t is stored already relu'd
       const size_t m = (size_t)l * a.nb2 + j;
       tile_gemm<ROWS>(hbuf, H, a.wb + m * H * H, a.bb + m * H, H, tbuf, true, true, false, wst);
-      tile_gemm<ROWS>(tbuf, H, a.wb + (m + 1) * H * H, a.bb + (m + 1) * H, H, hbuf, false,
-                      false, true, wst);
+      if constexpr (CTX) {
+        // h += (W1 t + b1) sigmoid(Wcb ctx + bcb)
+        const size_t g = (size_t)l * (a.nb2 / 2) + j / 2;
+        tile_gemm<ROWS>(cs, a.C, a.wcb + g * a.C * H, a.bcb + g * H, H, gbuf, false, false, false,
+                        wst);
+        tile_gemm<ROWS, ROWS, true>(tbuf, H, a.wb + (m + 1) * H * H, a.bb + (m + 1) * H, H, hbuf,
+                                    false, false, true, wst, nullptr, nullptr, gbuf);
+      } else {
+        tile_gemm<ROWS>(tbuf, H, a.wb + (m + 1) * H * H, a.bb + (m + 1) * H, H, hbuf, false,
+                        false, true, wst);
+      }
     }
     tile_gemm<ROWS>(hbuf, H, a.wf + (size_t)l * H * TMp, a.bf + (size_t)l * TMp, TMp, tbuf,
                     false, false, false, wst);
@@ -161,38 +197,47 @@ __global__ void __launch_bounds__(ROWS * 8) nsf_flow_kernel(FlowArgs a) {
 }
 
 size_t smem_bytes(int rows, const FlowArgs& a) {
-  return sizeof(float) * ((size_t)2 * KC * OC + (size_t)rows * (a.H + a.TB + 2 * a.D + 2 * a.T + 1));
+  return sizeof(float) * ((size_t)2 * KC * OC + (size_t)rows * (a.H + a.TB + 2 * a.D + 2 * a.T + 1 +
+                                                                (a.C ? a.C + a.H : 0)));
 }
 
-template <int ROWS, int FAMILY>
+template <int ROWS, int FAMILY, bool CTX>
 int launch(const FlowArgs& a, cudaStream_t stream) {
   const size_t bytes = smem_bytes(ROWS, a);
-  cudaError_t err = cudaFuncSetAttribute(nsf_flow_kernel<ROWS, FAMILY>,
+  cudaError_t err = cudaFuncSetAttribute(nsf_flow_kernel<ROWS, FAMILY, CTX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (a.n + ROWS - 1) / ROWS;
-  nsf_flow_kernel<ROWS, FAMILY><<<(unsigned)blocks, ROWS * 8, bytes, stream>>>(a);
+  nsf_flow_kernel<ROWS, FAMILY, CTX><<<(unsigned)blocks, ROWS * 8, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// one instantiation of the kernel a family (see coupling_stage.cuh)
-template <int ROWS>
+// one instantiation of the kernel a family (see coupling_stage.cuh), with
+// and without the context path
+template <int ROWS, bool CTX>
 int launch_family(const FlowArgs& a, cudaStream_t stream) {
   switch (a.cfg.family) {
-    case nflows::kRQ: return launch<ROWS, nflows::kRQ>(a, stream);
-    case nflows::kLRS: return launch<ROWS, nflows::kLRS>(a, stream);
-    case nflows::kLinear: return launch<ROWS, nflows::kLinear>(a, stream);
-    case nflows::kQuadratic: return launch<ROWS, nflows::kQuadratic>(a, stream);
-    case nflows::kCubic: return launch<ROWS, nflows::kCubic>(a, stream);
-    default: return launch<ROWS, nflows::kAffine>(a, stream);  // kAffine, kAdditive
+    case nflows::kRQ: return launch<ROWS, nflows::kRQ, CTX>(a, stream);
+    case nflows::kLRS: return launch<ROWS, nflows::kLRS, CTX>(a, stream);
+    case nflows::kLinear: return launch<ROWS, nflows::kLinear, CTX>(a, stream);
+    case nflows::kQuadratic: return launch<ROWS, nflows::kQuadratic, CTX>(a, stream);
+    case nflows::kCubic: return launch<ROWS, nflows::kCubic, CTX>(a, stream);
+    default: return launch<ROWS, nflows::kAffine, CTX>(a, stream);  // kAffine, kAdditive
   }
+}
+
+template <int ROWS>
+int launch_context(const FlowArgs& a, cudaStream_t stream) {
+  return a.C ? launch_family<ROWS, true>(a, stream) : launch_family<ROWS, false>(a, stream);
 }
 
 }  // namespace
 
 // family: a CouplingFamily (coupling_stage.cuh), scale_act a ScaleActivation
 // (affine only); num_bins is 0 for the affine and additive couplings, and a
-// family ignores the floats it has no use for. rows_per_block: 32 or 64.
+// family ignores the floats it has no use for. ctx [n][C] and the context
+// weights (in-major, as nsf_flow_kernel.py:pack_weights lays them) with
+// C > 0, or null pointers and C = 0. rows_per_block: 32 or 64.
 // Returns a cudaError_t value (0 on success).
 extern "C" int nsf_flow_launch(const float* x, float* y, float* lad, int64_t n, int D, int L,
                                int H, int Tid, int I4, int T, int TM, int TMp, int nb2,
@@ -202,10 +247,11 @@ extern "C" int nsf_flow_launch(const float* x, float* y, float* lad, int64_t n, 
                                int num_bins, float wh_scale, float tail_bound,
                                float min_bin_width, float min_bin_height, float min_derivative,
                                float min_lambda, float edge_derivative, float log_inv_bins,
-                               int rows_per_block, void* stream) {
+                               const float* ctx, int C, const float* wc0, const float* wcb,
+                               const float* bcb, int rows_per_block, void* stream) {
   if (n == 0) return 0;
   if (H % 4 || I4 % 4 || TMp % 4 || nb2 % 2 || TM > TMp || family < nflows::kRQ ||
-      family > nflows::kAdditive)
+      family > nflows::kAdditive || C < 0 || (C && !(ctx && wc0 && wcb && bcb)))
     return (int)cudaErrorInvalidValue;
   FlowArgs a;
   a.x = x; a.y = y; a.lad = lad; a.n = n;
@@ -215,13 +261,14 @@ extern "C" int nsf_flow_launch(const float* x, float* y, float* lad, int64_t n, 
   a.nb2 = nb2;
   a.scaled_rows = 2 * num_bins * T < TM ? 2 * num_bins * T : TM;
   a.w0 = w0; a.b0 = b0; a.wb = wb; a.bb = bb; a.wf = wf; a.bf = bf; a.idx = idx;
+  a.ctx = ctx; a.C = C; a.wc0 = wc0; a.wcb = wcb; a.bcb = bcb;
   a.inverse = inverse;
   a.wh_scale = wh_scale;
   a.cfg = nflows::make_stage_config(family, scale_act, num_bins, tail_bound, min_bin_width,
                                     min_bin_height, min_derivative, min_lambda,
                                     edge_derivative, log_inv_bins);
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows_per_block == 32) return launch_family<32>(a, s);
-  if (rows_per_block == 64) return launch_family<64>(a, s);
+  if (rows_per_block == 32) return launch_context<32>(a, s);
+  if (rows_per_block == 64) return launch_context<64>(a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,8 +10,11 @@
 // the chain from x and pulls given cotangents (gy, glad) back to gx and
 // every weight gradient; it is the backward of B2 (nsf_flow_kernel.cu).
 // Both run every family B2 runs (the rq, lrs, linear, quadratic and cubic
-// splines with linear tails, the affine and additive couplings), fp32, no
-// context, and share all their device code.
+// splines with linear tails, the affine and additive couplings), fp32, with
+// and without a per-sample context, and share all their device code. With
+// a context, B3 also gives the gradients of the context weights (gwc0,
+// gwcb, gbcb) and B4 those and gctx, the cotangent of the context itself,
+// through which an embedding net outside the kernel trains.
 //
 // Bound on the H100: operations. One chain pass and its backward are three
 // forward-equivalents of fp32 GEMM work (forward, input cotangents, weight
@@ -37,7 +40,9 @@
 //   what the backward needs, then the backward sweep over the layers.
 // - What is kept: each layer's input ([D][ROWS], in shared memory) and, per
 //   layer, the hidden state before each residual block and after the last,
-//   the relu'd inner activation of each block, and the spline parameters P.
+//   the relu'd inner activation of each block, with a context the output
+//   u = W1 t + b1 of each block's second linear before its gate, and the
+//   spline parameters P.
 //   At the flagship that is (5 x 256 + 72) rows x 36 floats x 10 layers =
 //   1.9 MB a block, which shared memory (227 KB) cannot hold. It goes to a
 //   per-block scratch in global memory, written from the GEMM epilogues and
@@ -56,10 +61,26 @@
 //   changes from run to run, so gradients agree run to run only to fp32
 //   rounding of a sum over the batch. The sum does not depend on the tile
 //   size beyond that rounding.
+// - The context. Its tile [C][ROWS + 4] stays in shared memory for the
+//   whole tile, as in B2. A block's output is h' = h + u s with
+//   s = sigmoid(g), g = Wcb ctx + bcb; its adjoint, written out:
+//   du = dh' s, dg = dh' u s (1 - s), gWcb += dg ctx^T, gbcb += sum dg, and
+//   the initial layer's gWc0 += dh0 ctx^T. The forward keeps u (u from
+//   (h' - h) / s would lose it where s underflows); the backward recomputes
+//   g, a C-deep tile_gemm, about C / H of an H-deep one, rather than keep it
+//   too. B4 sums gctx = sum over layers of (Wc0^T dh0 + sum_j Wcb_j^T dg_j)
+//   in a shared-memory tile [C][ROWS]: one thread a (feature, sample), a
+//   loop over H, as for the identity half's cotangent; a tile_gemm C4 wide
+//   would run on one warp. The context path is a template flag, as in B2:
+//   with it in a run-time branch on C, the unconditional kernels' registers
+//   at 32 rows went from 214-246 to 254-255 and their spill loads at 64 rows
+//   doubled. So the source holds 8 kernels: {B3, B4} x {32, 64 rows} x
+//   {with, without a context}.
 // - The ragged last tile computes on zero rows with zero cotangents, so it
 //   adds nothing for them, and skips their stores.
 // Shared memory holds the weight staging buffers and three activation
-// matrices [max(H, TM)][ROWS + 4]; ROWS is 32, or 64 where that fits.
+// matrices [max(H, TM)][ROWS + 4], plus the context's two tiles; ROWS is 32,
+// or 64 where that fits.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -108,7 +129,20 @@ struct TrainArgs {
   float* gbb;
   float* gwf;
   float* gbf;
-  float* stash;  // [grid][L][(nb2 + 1) H + TMp][ROWS + 4]
+  float* stash;  // [grid][L][SRB H + TMp][ROWS + 4]
+  int SRB;       // kept H-row matrices a layer before P: nb2 + 1, and nb2 / 2 more with a context
+  // the context (C = 0: none)
+  int C;
+  const float* ctx;   // [n][C]
+  float* gctx;        // [n][C]  B4: cotangent of the context
+  const float* pwc0;  // [L][C][H]       forward, in-major
+  const float* pwcb;  // [L][nb][C][H]   forward, in-major
+  const float* bcb;   // [L][nb][H]
+  const float* wc0;   // [L][H][C]       the trained layout, [out][in]
+  const float* wcb;   // [L][nb][H][C]
+  float* gwc0;        // [L][H][C]
+  float* gwcb;        // [L][nb][H][C]
+  float* gbcb;        // [L][nb][H]
   float wh_scale, inv_n, log_z;
   nflows::StageConfig cfg;
 };
@@ -126,6 +160,22 @@ __device__ __forceinline__ void restore(float* dst, const float* src, int rows, 
       v.z = fmaxf(v.z, 0.0f); v.w = fmaxf(v.w, 0.0f);
     }
     reinterpret_cast<float4*>(dst)[e] = v;
+  }
+}
+
+// gcs[c][s] += sum_o w[o][c] G[o][s] for the tile's samples: the context's
+// cotangent through a projection w [H][C] ([out][in]) of it; G is [H][RS].
+// Thread e owns (c, s) = (e / ROWS, e % ROWS) in every call, so the sums
+// need no barrier between calls.
+template <int ROWS>
+__device__ __forceinline__ void add_context_cotangent(const float* G, const float* w, int H,
+                                                      int C, float* gcs) {
+  constexpr int NT = ROWS * 8, RS = ROWS + 4;
+  for (int e = threadIdx.x; e < C * ROWS; e += NT) {
+    const int c = e / ROWS, s = e % ROWS;
+    float sum = 0.0f;
+    for (int o = 0; o < H; ++o) sum += w[o * C + c] * G[o * RS + s];
+    gcs[e] += sum;
   }
 }
 
@@ -184,12 +234,13 @@ __device__ __forceinline__ void stage_adjoint_eval(float x, const float* P, floa
   }
 }
 
-template <int ROWS, bool LOSS>
+template <int ROWS, bool LOSS, bool CTX>
 __device__ void train_block(const TrainArgs& a) {
   constexpr int NT = ROWS * 8, RS = ROWS + 4;
   extern __shared__ __align__(16) float smem[];
   const int D = a.D, L = a.L, H = a.H, Tid = a.Tid, I4 = a.I4, T = a.T;
   const int TM = a.TM, TMp = a.TMp, nb2 = a.nb2, nb = a.nb2 / 2;
+  const int C = CTX ? a.C : 0;
   float* wst = smem;                        // [2][KC][OC]
   float* X = wst + 2 * KC * OC;             // [TB][RS]
   float* Y = X + a.TB * RS;                 // [TB][RS]
@@ -203,10 +254,12 @@ __device__ void train_block(const TrainArgs& a) {
   float* ga0 = lbuf + ROWS * T;             // [Tid][ROWS] cotangent of the identity split
   float* ladacc = ga0 + Tid * ROWS;         // [ROWS]
   float* gladv = ladacc + ROWS;             // [ROWS] cotangent of the logabsdet
+  float* cs = gladv + ROWS;                 // [C][RS] the context
+  float* gcs = cs + C * RS;                 // [C][ROWS] B4: the context's cotangent
 
   const int tid = threadIdx.x;
   const int idx_stride = 2 * Tid + 2 * T + 2 * D;
-  const size_t SR = (size_t)(nb2 + 1) * H + TMp;  // scratch rows a layer
+  const size_t SR = (size_t)a.SRB * H + TMp;  // scratch rows a layer
   float* stash = a.stash + (size_t)blockIdx.x * L * SR * RS;
   const int64_t ntiles = (a.n + ROWS - 1) / ROWS;
 
@@ -219,6 +272,13 @@ __device__ void train_block(const TrainArgs& a) {
       xs[e] = s < rows ? a.x[(base + s) * D + (e % D)] : 0.0f;
     }
     for (int s = tid; s < ROWS; s += NT) ladacc[s] = 0.0f;
+    if constexpr (CTX) {
+      for (int e = tid; e < C * ROWS; e += NT) {
+        const int c = e / ROWS, s = e % ROWS;
+        cs[c * RS + s] = s < rows ? a.ctx[(base + s) * C + c] : 0.0f;
+        if (!LOSS) gcs[e] = 0.0f;
+      }
+    }
     __syncthreads();
 
     // ---- forward pass, keeping what the backward needs ------------------------
@@ -236,22 +296,36 @@ __device__ void train_block(const TrainArgs& a) {
       }
       __syncthreads();
 
-      // h_0, then h_{j+1} = h_j + W1 relu(W0 relu(h_j) + b0) + b1
+      // h_0 (+ Wc0 ctx), then h_{j+1} = h_j + u_j (times sigmoid(Wcb_j ctx + bcb_j)),
+      // u_j = W1 relu(W0 relu(h_j) + b0) + b1; Z holds the gate
       tile_gemm<ROWS, RS>(Y, I4, a.pw0 + (size_t)l * I4 * H, a.b0 + (size_t)l * H, H, X, false,
-                          false, false, wst, nullptr, st);
+                          false, false, wst, nullptr, CTX ? nullptr : st);
+      if constexpr (CTX)
+        tile_gemm<ROWS, RS>(cs, C, a.pwc0 + (size_t)l * C * H, nullptr, H, X, false, false, true,
+                            wst, nullptr, st);
       for (int j = 0; j < nb; ++j) {
         const size_t m = (size_t)l * nb2 + 2 * j;
         tile_gemm<ROWS, RS>(X, H, a.pwb + m * H * H, a.bb + m * H, H, Y, true, true, false, wst,
                             nullptr, st + (size_t)(nb + 1 + j) * H * RS);
-        tile_gemm<ROWS, RS>(Y, H, a.pwb + (m + 1) * H * H, a.bb + (m + 1) * H, H, X, false,
-                            false, true, wst, nullptr, st + (size_t)(j + 1) * H * RS);
+        if constexpr (CTX) {
+          const size_t g = (size_t)l * nb + j;
+          tile_gemm<ROWS, RS>(cs, C, a.pwcb + g * C * H, a.bcb + g * H, H, Z, false, false, false,
+                              wst);
+          tile_gemm<ROWS, RS, true>(Y, H, a.pwb + (m + 1) * H * H, a.bb + (m + 1) * H, H, X,
+                                    false, false, true, wst, nullptr,
+                                    st + (size_t)(j + 1) * H * RS, Z,
+                                    st + (size_t)(nb2 + 1 + j) * H * RS);
+        } else {
+          tile_gemm<ROWS, RS>(Y, H, a.pwb + (m + 1) * H * H, a.bb + (m + 1) * H, H, X, false,
+                              false, true, wst, nullptr, st + (size_t)(j + 1) * H * RS);
+        }
       }
       tile_gemm<ROWS, RS>(X, H, a.pwf + (size_t)l * H * TMp, a.pbf + (size_t)l * TMp, TMp, Y,
                           false, false, false, wst);
 
       // P = Y is [TM][RS], K-major rows; the softmax 1/sqrt(H) goes on the
       // width and height rows here, and P is kept as the stage reads it
-      float* pst = st + (size_t)(nb2 + 1) * H * RS;
+      float* pst = st + (size_t)a.SRB * H * RS;
       for (int e = tid; e < TMp * ROWS; e += NT) {
         const int r = e / ROWS, at = r * RS + e % ROWS;
         const float v = r < a.scaled_rows ? Y[at] * a.wh_scale : Y[at];
@@ -306,7 +380,7 @@ __device__ void train_block(const TrainArgs& a) {
 
       // y[r] = concat(identity, spline)[merge[r]]
       for (int e = tid; e < ROWS * D; e += NT) gcat[(e / D) * D + merge[e % D]] = gcur[e];
-      restore<ROWS>(X, st + (size_t)(nb2 + 1) * H * RS, TMp, false);  // P
+      restore<ROWS>(X, st + (size_t)a.SRB * H * RS, TMp, false);  // P
       for (int e = tid; e < (TMp - TM) * RS; e += NT) Y[TM * RS + e] = 0.0f;
       __syncthreads();
 
@@ -330,13 +404,39 @@ __device__ void train_block(const TrainArgs& a) {
       // residual blocks, last first; Z holds g_h
       for (int j = nb - 1; j >= 0; --j) {
         const size_t m = (size_t)l * nb2 + 2 * j;
-        restore<ROWS>(X, st + (size_t)(nb + 1 + j) * H * RS, H, false);  // t = relu(W0 relu(h) + b0)
-        __syncthreads();
-        tile_wgrad<ROWS, RS>(Z, H, X, H, a.gwb + (m + 1) * H * H, H);
-        tile_bgrad<ROWS, RS>(Z, H, a.gbb + (m + 1) * H);
-        // g_t = (W1^T g_h) where t > 0
-        tile_gemm<ROWS, RS>(Z, H, a.wb + (m + 1) * H * H, nullptr, H, Y, false, false, false,
-                            wst, X);
+        if constexpr (CTX) {
+          // the gate: g = Wcb ctx + bcb into Y, u into X; then dg into Y, du into X
+          const size_t g = (size_t)l * nb + j;
+          restore<ROWS>(X, st + (size_t)(nb2 + 1 + j) * H * RS, H, false);  // u
+          tile_gemm<ROWS, RS>(cs, C, a.pwcb + g * C * H, a.bcb + g * H, H, Y, false, false,
+                              false, wst);
+          for (int e = tid; e < H * ROWS; e += NT) {
+            const int at = (e / ROWS) * RS + e % ROWS;
+            const float sg = nflows::gate_sigmoid(Y[at]), dh = Z[at];
+            Y[at] = dh * X[at] * sg * (1.0f - sg);
+            X[at] = dh * sg;
+          }
+          __syncthreads();
+          tile_wgrad<ROWS, RS>(Y, H, cs, C, a.gwcb + g * H * C, C);
+          tile_bgrad<ROWS, RS>(Y, H, a.gbcb + g * H);
+          if (!LOSS) add_context_cotangent<ROWS>(Y, a.wcb + g * H * C, H, C, gcs);
+          __syncthreads();
+          restore<ROWS>(Y, st + (size_t)(nb + 1 + j) * H * RS, H, false);  // t
+          __syncthreads();
+          tile_wgrad<ROWS, RS>(X, H, Y, H, a.gwb + (m + 1) * H * H, H);
+          tile_bgrad<ROWS, RS>(X, H, a.gbb + (m + 1) * H);
+          // g_t = (W1^T du) where t > 0, written over t
+          tile_gemm<ROWS, RS>(X, H, a.wb + (m + 1) * H * H, nullptr, H, Y, false, false, false,
+                              wst, Y);
+        } else {
+          restore<ROWS>(X, st + (size_t)(nb + 1 + j) * H * RS, H, false);  // t = relu(W0 relu(h) + b0)
+          __syncthreads();
+          tile_wgrad<ROWS, RS>(Z, H, X, H, a.gwb + (m + 1) * H * H, H);
+          tile_bgrad<ROWS, RS>(Z, H, a.gbb + (m + 1) * H);
+          // g_t = (W1^T g_h) where t > 0
+          tile_gemm<ROWS, RS>(Z, H, a.wb + (m + 1) * H * H, nullptr, H, Y, false, false, false,
+                              wst, X);
+        }
         restore<ROWS>(X, st + (size_t)j * H * RS, H, true);  // relu(h_j)
         __syncthreads();
         tile_wgrad<ROWS, RS>(Y, H, X, H, a.gwb + m * H * H, H);
@@ -360,6 +460,10 @@ __device__ void train_block(const TrainArgs& a) {
         for (int o = 0; o < H; ++o) sum += w0[o * Tid + i] * Z[o * RS + s];
         ga0[e] = sum;
       }
+      if constexpr (CTX) {  // gWc0 += g_h ctx^T, gctx += Wc0^T g_h
+        tile_wgrad<ROWS, RS>(Z, H, cs, C, a.gwc0 + (size_t)l * H * C, C);
+        if (!LOSS) add_context_cotangent<ROWS>(Z, a.wc0 + (size_t)l * H * C, H, C, gcs);
+      }
       __syncthreads();
 
       // the identity half feeds both the output and the conditioner
@@ -375,36 +479,47 @@ __device__ void train_block(const TrainArgs& a) {
       float* tmp = gcur; gcur = gnext; gnext = tmp;
     }
 
-    if (!LOSS)
+    if (!LOSS) {
       for (int e = tid; e < rows * D; e += NT) a.gx[base * D + e] = gcur[e];
+      if constexpr (CTX)
+        for (int e = tid; e < rows * C; e += NT)
+          a.gctx[base * C + e] = gcs[(e % C) * ROWS + e / C];
+    }
     __syncthreads();
   }
 }
 
-template <int ROWS>
+template <int ROWS, bool CTX>
 __global__ void __launch_bounds__(ROWS * 8) nsf_loss_grad_kernel(TrainArgs a) {
-  train_block<ROWS, true>(a);
+  train_block<ROWS, true, CTX>(a);
 }
 
-template <int ROWS>
+template <int ROWS, bool CTX>
 __global__ void __launch_bounds__(ROWS * 8) nsf_train_bwd_kernel(TrainArgs a) {
-  train_block<ROWS, false>(a);
+  train_block<ROWS, false, CTX>(a);
 }
 
 size_t smem_bytes(int rows, const TrainArgs& a) {
   return sizeof(float) * ((size_t)2 * KC * OC + (size_t)3 * a.TB * (rows + 4) +
-                          (size_t)rows * ((a.L + 4) * a.D + 2 * a.T + a.Tid + 2));
+                          (size_t)rows * ((a.L + 4) * a.D + 2 * a.T + a.Tid + 2) +
+                          (size_t)a.C * (2 * rows + 4));
 }
 
-template <int ROWS, bool LOSS>
+template <int ROWS, bool LOSS, bool CTX>
 int launch(const TrainArgs& a, int grid, cudaStream_t stream) {
   const size_t bytes = smem_bytes(ROWS, a);
-  auto kernel = LOSS ? nsf_loss_grad_kernel<ROWS> : nsf_train_bwd_kernel<ROWS>;
+  auto kernel = LOSS ? nsf_loss_grad_kernel<ROWS, CTX> : nsf_train_bwd_kernel<ROWS, CTX>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)grid, ROWS * 8, bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int ROWS, bool CTX>
+int launch_rows(const TrainArgs& a, int loss, int grid, cudaStream_t stream) {
+  return loss ? launch<ROWS, true, CTX>(a, grid, stream)
+              : launch<ROWS, false, CTX>(a, grid, stream);
 }
 
 }  // namespace
@@ -415,22 +530,29 @@ int launch(const TrainArgs& a, int grid, cudaStream_t stream) {
 // ScaleActivation (affine only); num_bins is 0 for the affine and additive
 // couplings, and a family ignores the floats it has no use for (as B2's
 // nsf_flow_launch takes them).
-// grid: blocks to launch; stash holds grid x L x ((nb2 + 1) H + TMp) x
-// (rows_per_block + 4) floats. rows_per_block: 32 or 64. Returns a
-// cudaError_t value (0 on success).
+// grid: blocks to launch; stash holds grid x L x (SRB H + TMp) x
+// (rows_per_block + 4) floats, SRB = nb2 + 1 + (C ? nb2 / 2 : 0). With a
+// context (C > 0): ctx [n][C], its weights in-major for the forward (pwc0,
+// pwcb, as nsf_flow_kernel.py:pack_weights lays them), bcb, the trained
+// layout wc0 [L][H][C] and wcb [L][nb][H][C], their gradients (zeroed by the
+// caller, as the others), and for B4 gctx [n][C]; C = 0 leaves them unread.
+// rows_per_block: 32 or 64. Returns a cudaError_t value (0 on success).
 extern "C" int nsf_train_launch(
     int loss, const float* x, const float* gy, const float* glad, float* lp, float* gx,
     int64_t n, int D, int L, int H, int Tid, int I4, int T, int TM, int TMp, int nb2,
     const float* pw0, const float* pwb, const float* pwf, const float* pbf, const float* w0,
     const float* b0, const float* wb, const float* bb, const float* wf, const int* idx,
-    float* gw0, float* gb0, float* gwb, float* gbb, float* gwf, float* gbf, float* stash,
-    int grid, float wh_scale, float inv_n, int family, int scale_act, int num_bins,
-    float tail_bound, float min_bin_width, float min_bin_height, float min_derivative,
-    float min_lambda, float edge_derivative, float log_inv_bins, int rows_per_block,
-    void* stream) {
+    float* gw0, float* gb0, float* gwb, float* gbb, float* gwf, float* gbf, float* stash, int C,
+    const float* ctx, float* gctx, const float* pwc0, const float* pwcb, const float* bcb,
+    const float* wc0, const float* wcb, float* gwc0, float* gwcb, float* gbcb, int grid,
+    float wh_scale, float inv_n, int family, int scale_act, int num_bins, float tail_bound,
+    float min_bin_width, float min_bin_height, float min_derivative, float min_lambda,
+    float edge_derivative, float log_inv_bins, int rows_per_block, void* stream) {
   if (n == 0) return 0;
   if (H % 4 || I4 % 4 || TMp % 4 || nb2 % 2 || grid < 1 || TM > TMp ||
-      family < nflows::kRQ || family > nflows::kAdditive)
+      family < nflows::kRQ || family > nflows::kAdditive || C < 0 ||
+      (C && !(ctx && pwc0 && pwcb && bcb && wc0 && wcb && gwc0 && gwcb && gbcb &&
+              (loss || gctx))))
     return (int)cudaErrorInvalidValue;
   TrainArgs a;
   a.x = x; a.gy = gy; a.glad = glad; a.lp = lp; a.gx = gx; a.n = n;
@@ -443,6 +565,9 @@ extern "C" int nsf_train_launch(
   a.w0 = w0; a.b0 = b0; a.wb = wb; a.bb = bb; a.wf = wf; a.idx = idx;
   a.gw0 = gw0; a.gb0 = gb0; a.gwb = gwb; a.gbb = gbb; a.gwf = gwf; a.gbf = gbf;
   a.stash = stash;
+  a.SRB = nb2 + 1 + (C ? nb2 / 2 : 0);
+  a.C = C; a.ctx = ctx; a.gctx = gctx; a.pwc0 = pwc0; a.pwcb = pwcb; a.bcb = bcb;
+  a.wc0 = wc0; a.wcb = wcb; a.gwc0 = gwc0; a.gwcb = gwcb; a.gbcb = gbcb;
   a.wh_scale = wh_scale;
   a.inv_n = inv_n;
   a.log_z = 0.5f * (float)D * logf(2.0f * 3.14159265358979323846f);
@@ -450,7 +575,9 @@ extern "C" int nsf_train_launch(
                                     min_bin_height, min_derivative, min_lambda,
                                     edge_derivative, log_inv_bins);
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows_per_block == 32) return loss ? launch<32, true>(a, grid, s) : launch<32, false>(a, grid, s);
-  if (rows_per_block == 64) return loss ? launch<64, true>(a, grid, s) : launch<64, false>(a, grid, s);
+  if (rows_per_block == 32) return C ? launch_rows<32, true>(a, loss, grid, s)
+                                     : launch_rows<32, false>(a, loss, grid, s);
+  if (rows_per_block == 64) return C ? launch_rows<64, true>(a, loss, grid, s)
+                                     : launch_rows<64, false>(a, loss, grid, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,6 +18,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace nflows {
@@ -48,7 +49,12 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // samples {4ls..4ls+3, 4ls+16..4ls+19} and columns {4lc..4lc+3} of its
 // warp's block, so every float4 it loads serves 8 (activations) or 4
 // (weights) lanes. A warp with no live columns in the pass skips its
-// FMAs. Ends with a barrier.
+// FMAs. With GATE (a residual block's context GLU), the product is
+// multiplied by sigmoid(gate[o][s]) (gate feature-major in shared memory,
+// [O][RS]) before it is added or stored, and the product before that
+// multiplication is written to pre[o][s] in global memory where pre is not
+// null. out may be mask or gate: each element is read before it is
+// written, by the same thread. Ends with a barrier.
 template <int ROWS, int RS, bool RELU>
 __device__ __forceinline__ void chunk_fma(const float* in_c, const float* ws, int kn,
                                           int s_off, int c_off, float (&acc)[8][4]) {
@@ -72,11 +78,15 @@ __device__ __forceinline__ void chunk_fma(const float* in_c, const float* ws, in
   }
 }
 
-template <int ROWS, int RS = ROWS>
+// the context GLU gate, 1 / (1 + exp(-v)) as the JAX kernel writes it
+__device__ __forceinline__ float gate_sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+template <int ROWS, int RS = ROWS, bool GATE = false>
 __device__ void tile_gemm(const float* in, int I, const float* __restrict__ W,
                           const float* __restrict__ bias, int O, float* out, bool relu_in,
                           bool relu_out, bool accumulate, float* wst,
-                          const float* mask = nullptr, float* stash = nullptr) {
+                          const float* mask = nullptr, float* stash = nullptr,
+                          const float* gate = nullptr, float* pre = nullptr) {
   constexpr int NT = ROWS * 8;
   constexpr int SW = ROWS / 32;  // warps along the samples
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -135,6 +145,12 @@ __device__ void tile_gemm(const float* in, int I, const float* __restrict__ W,
             const float4 m = *reinterpret_cast<const float4*>(mask + at);
             v.x = m.x > 0.0f ? v.x : 0.0f; v.y = m.y > 0.0f ? v.y : 0.0f;
             v.z = m.z > 0.0f ? v.z : 0.0f; v.w = m.w > 0.0f ? v.w : 0.0f;
+          }
+          if constexpr (GATE) {
+            if (pre) *reinterpret_cast<float4*>(pre + at) = v;
+            const float4 g = *reinterpret_cast<const float4*>(gate + at);
+            v.x *= gate_sigmoid(g.x); v.y *= gate_sigmoid(g.y);
+            v.z *= gate_sigmoid(g.z); v.w *= gate_sigmoid(g.w);
           }
           if (accumulate) {
             const float4 o = *dst;

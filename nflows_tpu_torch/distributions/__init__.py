@@ -2,6 +2,11 @@
 
 from nflows_tpu_torch.distributions.base import Distribution
 from nflows_tpu_torch.distributions.mixture import MADEMoG
-from nflows_tpu_torch.distributions.normal import StandardNormal
+from nflows_tpu_torch.distributions.normal import (
+    ConditionalDiagonalNormal,
+    DiagonalNormal,
+    StandardNormal,
+)
 
-__all__ = ["Distribution", "MADEMoG", "StandardNormal"]
+__all__ = ["ConditionalDiagonalNormal", "DiagonalNormal", "Distribution", "MADEMoG",
+           "StandardNormal"]

@@ -19,7 +19,11 @@ rule, so an incoming mask is only compared, and one that differs is
 refused (the two models would not be the same autoregressive function).
 
 A MixtureOfGaussiansMADE carries as a MADE does; a MADEMoG's keys start
-with ``.made.``, its attribute in both packages.
+with ``.made.``, its attribute in both packages. A conditional ResidualNet
+carries its context columns inside the initial layer's weight and its
+blocks' ``context_layer``s, and a ``ConditionalDiagonalNormal``'s encoder,
+a ``DiagonalNormal``'s ``mean_`` and ``log_std_`` and a flow's
+``embedding_net`` carry by the same rule.
 
 A ``StackedTransform`` (the JAX package's scan-stacked chain) has to be
 unstacked first: build the JAX flow with ``stacked=False``, or walk its
@@ -87,7 +91,8 @@ def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None
 
 def load_jax_trainer_weights(trainer, weights: Mapping[str, np.ndarray]) -> None:
     """Write a JAX fused trainer's kernel-layout weights as numpy arrays
-    (``w0``, ``b0``, ``wb``, ``bb``, ``wf``, ``bf`` of ``FusedNSFTrainer``;
+    (``w0``, ``b0``, ``wb``, ``bb``, ``wf``, ``bf`` of ``FusedNSFTrainer``,
+    and ``wc0``, ``wcb``, ``bcb`` under a context;
     the flat ``wi``, ``bi``, ``wb``, ``bb``, ``wf``, ``bf`` stacks of
     ``FusedMAFTrainer``, and of ``FusedMADEMoGTrainer`` with ``wci``,
     ``bci``, ``wcb``, ``bcb`` under a context) into the port's

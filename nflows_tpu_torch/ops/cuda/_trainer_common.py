@@ -7,10 +7,10 @@ the train steps. Subclasses set ``weights`` (a dict of leaf tensors that
 require grad), ``features``, ``context_features``, ``device`` and
 ``_has_ctx``, and provide:
 
-- ``_apply(weights, x) -> (y, logabsdet)``: the differentiable fused
-  forward (its backward is a kernel);
+- ``_apply(weights, x, context=None) -> (y, logabsdet)``: the
+  differentiable fused forward (its backward is a kernel);
 - ``_build_loss_grad()``: optionally, a one-kernel
-  ``(weights, x) -> (loss, grads)``;
+  ``(weights, x, context=None) -> (loss, grads)``;
 - ``_tile_rows(n)``: the kernels' tile size for a batch of n.
 
 Every step routes through ``loss_fn`` / ``_loss_from_apply``, so a subclass
@@ -50,11 +50,11 @@ class FusedTrainerBase:
     def _tile_rows(self, n):
         raise NotImplementedError
 
-    def _apply(self, weights, x):
+    def _apply(self, weights, x, context=None):
         raise NotImplementedError
 
     def _build_loss_grad(self):
-        """Optional one-kernel ``(weights, x) -> (loss, grads)``. It must
+        """Optional one-kernel ``(weights, x, context) -> (loss, grads)``. It must
         encode the objective of ``_loss_from_apply``; a subclass that
         overrides that loss is sent to autograd over its own loss by
         ``_value_and_grad`` even if it inherits this hook."""
@@ -62,9 +62,10 @@ class FusedTrainerBase:
 
     # -- loss --------------------------------------------------------------
 
-    def _guard_ctx(self, context):
+    def _guard_ctx(self, context, batch=None):
         """A conditional trainer must not run without its context, and an
-        unconditional one must not drop a context it was given."""
+        unconditional one must not drop a context it was given. Returns the
+        context as contiguous float32, checked against ``batch``'s rows."""
         if self._has_ctx and context is None:
             raise ValueError(
                 "this trainer wraps a conditional flow "
@@ -75,14 +76,21 @@ class FusedTrainerBase:
             raise ValueError(
                 "this trainer wraps an unconditional flow; got an unexpected "
                 "context")
+        if context is not None and batch is not None:
+            if tuple(context.shape) != (batch.shape[0], self.context_features):
+                raise ValueError(
+                    "expected a context of shape "
+                    f"{(batch.shape[0], self.context_features)}, got {tuple(context.shape)}")
+            context = context.to(torch.float32).contiguous()
+        return context
 
     def _loss_from_apply(self, apply):
         """-mean log_prob through a given fused apply."""
         log_z = 0.5 * self.features * math.log(2.0 * math.pi)
 
         def loss(weights, batch, context=None):
-            self._guard_ctx(context)
-            y, lad = apply(weights, batch)
+            context = self._guard_ctx(context, batch)
+            y, lad = apply(weights, batch, context)
             lp = -0.5 * (y * y).sum(dim=1) - log_z + lad
             return -lp.mean()
 
@@ -113,9 +121,9 @@ class FusedTrainerBase:
             return vag
 
         def vag(weights, batch, context=None):
-            self._guard_ctx(context)
+            context = self._guard_ctx(context, batch)
             with torch.no_grad():
-                return lg(weights, batch)
+                return lg(weights, batch, context)
 
         return vag
 

@@ -230,7 +230,8 @@ class FusedMAF(FusedFlowView):
             maf_flow_kernel.pack_weights(self._weights, self._static, self._num_blocks)
             if self.device.type == "cuda" else None)
 
-    def _run(self, x, inverse):
+    def _run(self, x, inverse, context=None):
+        # context is always None: _extract refuses a conditional flow
         return maf_flow_kernel.maf_flow_kernel_cuda(
             x, self._weights, self._static, inverse=inverse,
             num_blocks=self._num_blocks, transformer=self._transformer,

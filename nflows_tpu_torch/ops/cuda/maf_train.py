@@ -412,7 +412,8 @@ class FusedMAFTrainer(FusedTrainerBase):
                                     out=self._packed)
         return self._packed
 
-    def _apply(self, weights, x):
+    def _apply(self, weights, x, context=None):
+        # context is always None: _extract refuses a conditional flow
         folded = self._fold(weights)
         return maf_train_apply(folded, x, self._layers, self._static, self._wh_scale,
                                packed=self._repack(folded), rows=self._rows)

@@ -12,17 +12,22 @@ Weights come in the layout ``nsf_fused._extract`` gives, which is the JAX
 package's: w0 [L, H, Tid], b0 [L, H, 1], wb [L, 2 nb, H, H] (out, in),
 bb [L, 2 nb, H, 1], wf [L, TM, H] with K-major rows, bf [L, TM, 1], where
 TM = T M and M is the family's parameter count a feature
-(:func:`params_per_feature`). The softmax 1/sqrt(H) is either folded into
-the final layer's rows (serving) or applied by the kernel to the first
-min(2 K T, TM) rows of the conditioner's output (``wh_scale``; training,
-where the weights stay a pure transpose of the model's).
+(:func:`params_per_feature`); a conditional chain adds wc0 [L, H, C],
+wcb [L, nb, H, C] and bcb [L, nb, H, 1]. With a per-sample context
+[N, C], the initial layer adds wc0 ctx and each residual block gates its
+second linear's output with sigmoid(wcb ctx + bcb) before the residual add
+(the JAX kernel's ``_conditioner``, reference resnet.py:51). The softmax
+1/sqrt(H) is either folded into the final layer's rows (serving) or
+applied by the kernel to the first min(2 K T, TM) rows of the
+conditioner's output (``wh_scale``; training, where the weights stay a
+pure transpose of the model's).
 :func:`pack_weights` re-lays them for the kernel: in-major [in, out]
 matrices, the initial layer's inputs and the final layer's outputs
 zero-padded to multiples of 4, and the per-layer index lists as one int32
 array.
 
-Samples are rows here: x is [N, D] and the result is (y [N, D], lad [N]).
-This slice runs fp32 weights without context.
+Samples are rows here: x is [N, D], the context [N, C], and the result is
+(y [N, D], lad [N]). B2 runs fp32 weights, with or without a context.
 
 :func:`nsf_flow_kernel_plain` computes the same chain step by step in
 PyTorch on the extracted weights, with the port's plain splines
@@ -83,10 +88,11 @@ def params_per_feature(spline: str, num_bins: int = 0) -> int:
 
 
 def shared_memory_bytes(rows: int, D: int, H: int, Tid: int, T: int,
-                        TM: int) -> int:
-    """Dynamic shared memory of one block of ``rows`` samples."""
+                        TM: int, C: int = 0) -> int:
+    """Dynamic shared memory of one block of ``rows`` samples; a context of
+    C features adds its tile [C][rows] and the gate buffer [H][rows]."""
     TB = max(H, _round4(TM), _round4(Tid))
-    return 4 * (2 * _KC * _OC + rows * (H + TB + 2 * D + 2 * T + 1))
+    return 4 * (2 * _KC * _OC + rows * (H + TB + 2 * D + 2 * T + 1 + (C + H if C else 0)))
 
 
 def stage_floats(spline: str, num_bins: int = 0, tail_bound: float = None,
@@ -106,10 +112,16 @@ def stage_floats(spline: str, num_bins: int = 0, tail_bound: float = None,
     return floats + [edge, log_inv_bins]
 
 
+def _ptr(t) -> int:
+    """A tensor's device address, 0 for None."""
+    return 0 if t is None else t.data_ptr()
+
+
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nsf_flow_launch.argtypes = (
-        [p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 7 + [i] * 4 + [f] * 8 + [i, p])
+        [p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 7 + [i] * 4 + [f] * 8
+        + [p, i, p, p, p] + [i, p])
     lib.nsf_flow_launch.restype = i
 
 
@@ -118,7 +130,9 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
     """Kernel layout of the extracted weights (fp32, contiguous, on the
     weights' device). With ``out``, an earlier result for the same model,
     the matrices are copied into its tensors and the index array is kept:
-    the trainers re-pack this way after each optimizer step."""
+    the trainers re-pack this way after each optimizer step. The context
+    stacks, where there are any, go in-major too (wc0 [L, C, H], wcb
+    [L, nb, C, H], bcb [L, nb, H])."""
     w0, wf = weights["w0"], weights["wf"]
     L, H, Tid = w0.shape
     TM = wf.shape[1]
@@ -133,6 +147,9 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
                 [list(li.id_rows) + list(li.tr_rows) + list(li.merge_fwd)
                  + list(li.id_idx) + list(li.tr_idx) + list(li.merge_inv)
                  for li in layer_indices], dtype=torch.int32, device=dev))
+        if "wc0" in weights:
+            out["wc0"] = torch.empty(weights["wc0"].transpose(1, 2).shape, **f32)
+            out["wcb"] = torch.empty(weights["wcb"].transpose(2, 3).shape, **f32)
     with torch.no_grad():
         out["w0"][:, :Tid].copy_(w0.transpose(1, 2))
         out["wb"].copy_(weights["wb"].transpose(2, 3))
@@ -141,6 +158,10 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
         # the biases need no re-laying: views where the weights are fp32
         out["b0"] = weights["b0"][..., 0].detach().float().contiguous()
         out["bb"] = weights["bb"][..., 0].detach().float().contiguous()
+        if "wc0" in weights:
+            out["wc0"].copy_(weights["wc0"].transpose(1, 2))
+            out["wcb"].copy_(weights["wcb"].transpose(2, 3))
+            out["bcb"] = weights["bcb"][..., 0].detach().float().contiguous()
     return out
 
 
@@ -194,20 +215,35 @@ def _stage(transform, P, inverse, spline, num_bins, tail_bound, min_bin_width,
         min_bin_width, min_bin_height)
 
 
+def _check_context(what, x, weights, context):
+    """A context goes with the weights' context stacks, and only with them:
+    [N, C] for the N rows of x."""
+    if (context is None) != ("wc0" not in weights):
+        raise ValueError(f"{what}: a context must be given exactly when the weights have "
+                         "context stacks (wc0, wcb, bcb)")
+    if context is not None and (context.ndim != 2 or context.shape[0] != x.shape[0]
+                                or context.shape[1] != weights["wc0"].shape[2]):
+        raise ValueError(f"{what}: context must be [{x.shape[0]}, "
+                         f"{weights['wc0'].shape[2]}], got {tuple(context.shape)}")
+
+
 def nsf_flow_kernel_plain(
     x: torch.Tensor, weights: Dict[str, torch.Tensor], layer_indices,
     *, inverse: bool, num_blocks: int, spline: str = "rq", num_bins: int = 0,
     tail_bound: float = None, min_bin_width: float = None, min_bin_height: float = None,
     min_derivative: float = None, min_lambda: float = None, scale_act: str = None,
-    wh_scale: float = None,
+    wh_scale: float = None, context: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chain in plain PyTorch on the extracted weights, step by step as
-    the kernel runs it. Computes in x's dtype, so float64 inputs and
-    weights give a high-precision reference. ``wh_scale`` multiplies the
-    first 2K parameters of every feature (all of a quadratic spline's)
-    before the stage, for weights extracted without the softmax rescale
-    folded in. Differentiable: the training kernels' plain versions are
-    autograd over this function."""
+    the kernel runs it (the JAX kernel's ``_conditioner`` in each layer).
+    Computes in x's dtype, so float64 inputs and weights give a
+    high-precision reference. ``wh_scale`` multiplies the first 2K
+    parameters of every feature (all of a quadratic spline's) before the
+    stage, for weights extracted without the softmax rescale folded in.
+    ``context`` [N, C] goes with the weights' context stacks. Differentiable
+    (in the context too): the training kernels' plain versions are autograd
+    over this function."""
+    _check_context("nsf_flow_kernel_plain", x, weights, context)
     K = num_bins
     n = x.shape[0]
     lad = torch.zeros(n, dtype=x.dtype, device=x.device)
@@ -221,10 +257,15 @@ def nsf_flow_kernel_plain(
         transform = x[:, list(tr_src)]
         T = transform.shape[1]
         h = identity @ weights["w0"][l].T + weights["b0"][l, :, 0]
+        if context is not None:
+            h = h + context @ weights["wc0"][l].T
         for j in range(num_blocks):
             t = torch.relu(h) @ weights["wb"][l, 2 * j].T + weights["bb"][l, 2 * j, :, 0]
             t = (torch.relu(t) @ weights["wb"][l, 2 * j + 1].T
                  + weights["bb"][l, 2 * j + 1, :, 0])
+            if context is not None:
+                t = t * torch.sigmoid(context @ weights["wcb"][l, j].T
+                                      + weights["bcb"][l, j, :, 0])
             h = h + t
         P = h @ weights["wf"][l].T + weights["bf"][l, :, 0]       # [n, TM]
         P = P.reshape(n, -1, T).transpose(1, 2)                   # [n, T, M]
@@ -243,8 +284,10 @@ def nsf_flow_kernel_cuda(
     tail_bound: float = None, min_bin_width: float = None, min_bin_height: float = None,
     min_derivative: float = None, min_lambda: float = None, scale_act: str = None,
     packed: Dict[str, torch.Tensor] = None, wh_scale: float = None,
+    context: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the chain: x [N, D] -> (y [N, D], logabsdet [N]).
+    """Run the chain: x [N, D] (and the context [N, C] of a conditional
+    chain) -> (y [N, D], logabsdet [N]).
 
     The family's configuration is the ``static`` dict of
     ``nsf_fused._extract``. ``packed`` is :func:`pack_weights` of
@@ -257,7 +300,8 @@ def nsf_flow_kernel_cuda(
               min_bin_height=min_bin_height, min_derivative=min_derivative,
               min_lambda=min_lambda, scale_act=scale_act, wh_scale=wh_scale)
     if x.device.type == "cpu":
-        return nsf_flow_kernel_plain(x, weights, layer_indices, **kw)
+        return nsf_flow_kernel_plain(x, weights, layer_indices, context=context, **kw)
+    _check_context("nsf_flow_kernel_cuda", x, weights, context)
     M = params_per_feature(spline, num_bins)
     if spline == "affine" and scale_act not in ("default", "general"):
         raise ValueError("spline='affine' takes scale_act 'default' or 'general', "
@@ -272,11 +316,20 @@ def nsf_flow_kernel_cuda(
     T = D - Tid
     TM = T * M
     H = packed["b0"].shape[1]
+    C = 0 if context is None else context.shape[1]
     expected = dict(w0=(L, _round4(Tid), H), b0=(L, H), wb=(L, 2 * num_blocks, H, H),
                     bb=(L, 2 * num_blocks, H), wf=(L, H, _round4(TM)),
                     bf=(L, _round4(TM)), idx=(L, 2 * D + 2 * Tid + 2 * T))
+    if C:
+        expected.update(wc0=(L, C, H), wcb=(L, num_blocks, C, H), bcb=(L, num_blocks, H))
+        if (context.dtype != torch.float32 or not context.is_contiguous()
+                or context.device != x.device):
+            raise ValueError("nsf_flow_kernel_cuda: context must be a contiguous float32 "
+                             f"tensor on {x.device}")
     for name, shape in expected.items():
-        t = packed[name]
+        t = packed.get(name)
+        if t is None:
+            raise ValueError(f"nsf_flow_kernel_cuda: packed has no {name!r}")
         dtype = torch.int32 if name == "idx" else torch.float32
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device
                 or not t.is_contiguous()):
@@ -286,9 +339,9 @@ def nsf_flow_kernel_cuda(
     # 64-sample tiles unless they would leave SMs idle or not fit
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     rows = 64 if -(-n // 64) >= sms else 32
-    if shared_memory_bytes(rows, D, H, Tid, T, TM) > MAX_SHARED_MEMORY:
+    if shared_memory_bytes(rows, D, H, Tid, T, TM, C) > MAX_SHARED_MEMORY:
         rows = 32
-    if H % 4 or shared_memory_bytes(rows, D, H, Tid, T, TM) > MAX_SHARED_MEMORY:
+    if H % 4 or shared_memory_bytes(rows, D, H, Tid, T, TM, C) > MAX_SHARED_MEMORY:
         raise ValueError(f"nsf_flow_kernel_cuda: hidden width {H} does not fit "
                          "the kernel's shared-memory tile")
     lib = _build.load_library("nsf_flow_kernel", _declare)
@@ -306,7 +359,9 @@ def nsf_flow_kernel_cuda(
             SCALE_ACTIVATIONS.index(scale_act or "none"), num_bins,
             1.0 if wh_scale is None else wh_scale,
             *stage_floats(spline, num_bins, tail_bound, min_bin_width, min_bin_height,
-                          min_derivative, min_lambda), rows, stream)
+                          min_derivative, min_lambda),
+            _ptr(context), C, _ptr(packed.get("wc0")), _ptr(packed.get("wcb")),
+            _ptr(packed.get("bcb")), rows, stream)
     launch_count += 1
     _build.check(code, "nsf_flow_launch")
     return y, lad

@@ -8,14 +8,18 @@ sample_and_log_prob as one launch each.
 B2 has a stage for: the rq, lrs, linear, quadratic and cubic splines with
 tails='linear', and the affine coupling with the DEFAULT or GENERAL scale
 activation, or the additive one; relu, no dropout or batch norm,
-StandardNormal base, no context) and re-lays the weights out as the JAX
-package's ``_extract`` does: transposed, the final layer's rows permuted
-K-major for the splines (the affine parameters are already param-major),
-each family's softmax 1/sqrt(hidden) folded in.
+StandardNormal base, with or without a context) and re-lays the weights out
+as the JAX package's ``_extract`` does: transposed, the final layer's rows
+permuted K-major for the splines (the affine parameters are already
+param-major), each family's softmax 1/sqrt(hidden) folded in. A
+conditioner with a context adds three stacks: the initial layer's context
+columns ``wc0`` [L, H, C] and each block's GLU projection ``wcb``
+[L, num_blocks, H, C], ``bcb`` [L, num_blocks, H, 1]. The flow's
+``embedding_net`` runs outside the kernel (``_fused_view_common``).
 
-B2 runs fp32 weights without context so far; conditional flows and bf16
-weights are still to port. A flow that does not qualify raises
-``ValueError``; ``CompiledFlow`` then serves it on the unfused chain.
+B2 runs fp32 weights so far; bf16 is still to port. A flow that does not
+qualify raises ``ValueError``; ``CompiledFlow`` then serves it on the
+unfused chain.
 """
 
 from __future__ import annotations
@@ -130,6 +134,7 @@ def _extract(flow, dtype, fold_wh_scale=True):
 
     layer_indices = []
     w0s, b0s, wbs, bbs, wfs, bfs = [], [], [], [], [], []
+    wc0s, wcbs, bcbs = [], [], []
     ref_cfg = None
     for perm, cpl in pairs:
         if perm is not None and (not isinstance(perm, Permutation) or perm.dim != 1):
@@ -140,8 +145,6 @@ def _extract(flow, dtype, fold_wh_scale=True):
         net = cpl.transform_net
         if not isinstance(net, ResidualNet):
             raise ValueError("conditioner must be a ResidualNet")
-        if net.context_features is not None:
-            raise ValueError("conditional flows are not fused in this port yet")
         for blk in net.blocks:
             if blk.batch_norm_0 is not None or blk.dropout.rate != 0.0:
                 raise ValueError("batch-norm/dropout conditioners not fused")
@@ -155,7 +158,8 @@ def _extract(flow, dtype, fold_wh_scale=True):
         M = nsf_flow_kernel.params_per_feature(spline, K)
         spline_cfg = tuple(getattr(cpl, name, None) for name in (
             "tail_bound", "min_bin_width", "min_bin_height", "min_derivative", "min_lambda"))
-        cfg = (spline, scale_act, K, T, Tid, H, len(net.blocks)) + spline_cfg
+        cfg = (spline, scale_act, K, T, Tid, H, len(net.blocks)) + spline_cfg + (
+            net.context_features,)
         if ref_cfg is None:
             ref_cfg = cfg
         elif cfg != ref_cfg:
@@ -177,13 +181,20 @@ def _extract(flow, dtype, fold_wh_scale=True):
         ))
 
         # nn.Linear keeps [out, in], which is already the kernel's
-        # transposed [H, in] layout of the JAX package
+        # transposed [H, in] layout of the JAX package; the initial layer runs
+        # on [inputs || context], so its columns past Tid are the context's
         w_init = net.initial_layer.weight.detach().float()
         w0s.append(w_init[:, :Tid])
         b0s.append(net.initial_layer.bias.detach().float()[:, None])
         linears = [lin for blk in net.blocks for lin in (blk.linear_0, blk.linear_1)]
         wbs.append(torch.stack([lin.weight.detach().float() for lin in linears]))
         bbs.append(torch.stack([lin.bias.detach().float()[:, None] for lin in linears]))
+        if net.context_features is not None:
+            wc0s.append(w_init[:, Tid:])
+            wcbs.append(torch.stack([blk.context_layer.weight.detach().float()
+                                     for blk in net.blocks]))
+            bcbs.append(torch.stack([blk.context_layer.bias.detach().float()[:, None]
+                                     for blk in net.blocks]))
         # final layer: spline rows K-major (new row j*T+t = old t*M+j); the
         # affine parameters are already param-major ([shift(T), scale(T)],
         # coupling.py:178-181). When folding, each family's softmax
@@ -204,18 +215,22 @@ def _extract(flow, dtype, fold_wh_scale=True):
         wfs.append(wf)
         bfs.append(bf[:, None])
 
-    (spline, scale_act, K, T, Tid, H, num_blocks, tail_bound, mbw, mbh, md, ml) = ref_cfg
+    (spline, scale_act, K, T, Tid, H, num_blocks, tail_bound, mbw, mbh, md, ml,
+     context_features) = ref_cfg
     if dtype != torch.float32:
         raise NotImplementedError(
             f"the fused NSF kernel runs fp32 weights only so far, not {dtype}")
     TM = T * nsf_flow_kernel.params_per_feature(spline, K)
-    smem = nsf_flow_kernel.shared_memory_bytes(32, Tid + T, H, Tid, T, TM)
+    smem = nsf_flow_kernel.shared_memory_bytes(32, Tid + T, H, Tid, T, TM,
+                                               context_features or 0)
     if H % 4 or smem > nsf_flow_kernel.MAX_SHARED_MEMORY:
         raise ValueError(
             f"hidden width {H} does not fit the fused kernel's shared-memory tile")
     weights = dict(w0=torch.stack(w0s), b0=torch.stack(b0s),
                    wb=torch.stack(wbs), bb=torch.stack(bbs),
                    wf=torch.stack(wfs), bf=torch.stack(bfs))
+    if context_features is not None:
+        weights.update(wc0=torch.stack(wc0s), wcb=torch.stack(wcbs), bcb=torch.stack(bcbs))
     # the static dicts of the JAX package's _extract, key for key
     if spline in ("affine", "additive"):
         static = dict(num_blocks=num_blocks, spline=spline, scale_act=scale_act)
@@ -231,7 +246,7 @@ def _extract(flow, dtype, fold_wh_scale=True):
                       min_bin_width=float(mbw), min_bin_height=float(mbh),
                       min_derivative=float(md), spline=spline,
                       min_lambda=None if ml is None else float(ml))
-    return tuple(layer_indices), weights, static, Tid + T, None
+    return tuple(layer_indices), weights, static, Tid + T, context_features
 
 
 def _scaled_rows(spline, num_bins, T):
@@ -250,20 +265,23 @@ class FusedNSF(FusedFlowView):
     ``forward``/``inverse`` have the Transform contract; ``log_prob``,
     ``sample`` and ``sample_and_log_prob`` the Distribution contract. On a
     CUDA flow each call is one launch of B2; on a CPU flow it runs B2's
-    plain version. Build with :func:`fuse_nsf`.
+    plain version. A conditional flow takes a context in every call: its
+    embedding net runs first, outside the kernel, and the embedded context
+    enters each conditioner in the kernel. Build with :func:`fuse_nsf`.
     """
 
     def __init__(self, flow, dtype=torch.float32):
         (self._indices, self._weights, self._static,
          self.features, self.context_features) = _extract(flow, dtype)
+        self._embedding_net = getattr(flow, "embedding_net", None)
         self.device = self._weights["w0"].device
         self._packed = (nsf_flow_kernel.pack_weights(self._weights, self._indices)
                         if self.device.type == "cuda" else None)
 
-    def _run(self, x, inverse):
+    def _run(self, x, inverse, context=None):
         return nsf_flow_kernel.nsf_flow_kernel_cuda(
             x, self._weights, self._indices, inverse=inverse,
-            packed=self._packed, **self._static)
+            packed=self._packed, context=context, **self._static)
 
 
 def fuse_nsf(flow, dtype=torch.float32) -> FusedNSF:

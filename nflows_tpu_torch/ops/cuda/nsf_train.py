@@ -17,13 +17,17 @@ and ``csrc/affine_coupling.cuh``).
   trajectory as on the model, and :meth:`FusedNSFTrainer.to_flow` maps the
   trained weights back into a standard flow.
 
-Samples are rows, as for B2: x is [N, D]. The weights are the dict
-``nsf_fused._extract(flow, fold_wh_scale=False)`` gives (w0, b0, wb, bb,
-wf, bf, fp32, the JAX package's layout); gradients come back in the same
-shapes. The kernels run all seven coupling families of B2 (the rq, lrs,
-linear, quadratic and cubic splines, the affine and additive couplings) in
-fp32 without context; each stage's adjoint is written by hand for its
-forward branch, the only one training runs.
+Samples are rows, as for B2: x is [N, D], the context [N, C]. The weights
+are the dict ``nsf_fused._extract(flow, fold_wh_scale=False)`` gives (w0,
+b0, wb, bb, wf, bf, and wc0, wcb, bcb for a conditional chain; fp32, the
+JAX package's layout); gradients come back in the same shapes. The kernels
+run all seven coupling families of B2 (the rq, lrs, linear, quadratic and
+cubic splines, the affine and additive couplings) in fp32, with or without
+a context; each stage's adjoint is written by hand for its forward branch,
+the only one training runs, and so is the context's (the GLU gate and the
+initial layer's context columns). B4 also gives the context's cotangent,
+under the key ``"ctx"`` of its gradients, so that an embedding net
+composed outside :func:`nsf_train_apply` trains under autograd.
 
 The plain versions (:func:`nsf_loss_grad_plain`,
 :func:`nsf_train_bwd_plain`) are ``torch.autograd`` over
@@ -51,12 +55,14 @@ from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
     pack_weights,
 )
 
-__all__ = ["FusedNSFTrainer", "family_wh_scale", "nsf_loss_grad_cuda", "nsf_loss_grad_plain",
+__all__ = ["FusedNSFTrainer", "CONTEXT_KEYS", "family_wh_scale", "nsf_loss_grad_cuda",
+           "nsf_loss_grad_plain",
            "nsf_train_bwd_cuda", "nsf_train_bwd_plain", "nsf_train_apply",
            "shared_memory_bytes", "tile_rows", "loss_grad_launch_count",
            "bwd_launch_count"]
 
 WEIGHT_KEYS = ("w0", "b0", "wb", "bb", "wf", "bf")
+CONTEXT_KEYS = ("wc0", "wcb", "bcb")
 
 loss_grad_launch_count = 0  # B3 launches since the last reset
 bwd_launch_count = 0        # B4 launches since the last reset
@@ -65,16 +71,23 @@ bwd_launch_count = 0        # B4 launches since the last reset
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nsf_train_launch.argtypes = (
-        [i] + [p] * 5 + [ctypes.c_int64] + [i] * 9 + [p] * 17 + [i, f, f, i, i, i]
-        + [f] * 7 + [i, p])
+        [i] + [p] * 5 + [ctypes.c_int64] + [i] * 9 + [p] * 17 + [i] + [p] * 10
+        + [i, f, f, i, i, i] + [f] * 7 + [i, p])
     lib.nsf_train_launch.restype = i
+
+
+def _keys(weights):
+    """The weight stacks of a chain: WEIGHT_KEYS, and CONTEXT_KEYS where it
+    has a context."""
+    return WEIGHT_KEYS + (CONTEXT_KEYS if "wc0" in weights else ())
 
 
 def _dims(weights, layer_indices, static):
     L, H, Tid = weights["w0"].shape
     T = len(layer_indices[0].tr_rows)
     M = nsf_flow_kernel.params_per_feature(static["spline"], static.get("num_bins", 0))
-    return dict(L=L, H=H, Tid=Tid, T=T, D=Tid + T, TM=T * M, nb2=2 * static["num_blocks"])
+    C = weights["wc0"].shape[2] if "wc0" in weights else 0
+    return dict(L=L, H=H, Tid=Tid, T=T, D=Tid + T, TM=T * M, nb2=2 * static["num_blocks"], C=C)
 
 
 def family_wh_scale(static, hidden):
@@ -87,12 +100,13 @@ def family_wh_scale(static, hidden):
 
 
 def shared_memory_bytes(rows: int, D: int, L: int, H: int, Tid: int, T: int,
-                        TM: int) -> int:
+                        TM: int, C: int = 0) -> int:
     """Dynamic shared memory of one block of ``rows`` samples
-    (csrc/nsf_train.cu: smem_bytes)."""
+    (csrc/nsf_train.cu: smem_bytes); a context of C features adds its tile
+    [C][rows + 4] and its cotangent's [C][rows]."""
     TB = max(H, _round4(TM), _round4(Tid))
     return 4 * (2 * nsf_flow_kernel._KC * nsf_flow_kernel._OC + 3 * TB * (rows + 4)
-                + rows * ((L + 4) * D + 2 * T + Tid + 2))
+                + rows * ((L + 4) * D + 2 * T + Tid + 2) + C * (2 * rows + 4))
 
 
 def tile_rows(n: int, d: Dict[str, int], sms: int) -> int:
@@ -100,7 +114,7 @@ def tile_rows(n: int, d: Dict[str, int], sms: int) -> int:
     and still gives every SM a tile, else 32; 0 if neither fits."""
     def fits(rows):
         return shared_memory_bytes(rows, d["D"], d["L"], d["H"], d["Tid"], d["T"],
-                                   d["TM"]) <= MAX_SHARED_MEMORY
+                                   d["TM"], d.get("C", 0)) <= MAX_SHARED_MEMORY
     if fits(64) and -(-n // 64) >= sms:
         return 64
     return 32 if fits(32) else 0
@@ -113,33 +127,43 @@ def _log_z(features: int) -> float:
 # -- plain versions ---------------------------------------------------------
 
 
-def nsf_loss_grad_plain(x, weights, layer_indices, *, wh_scale, **static):
+def nsf_loss_grad_plain(x, weights, layer_indices, *, wh_scale, context=None, **static):
     """B3 in plain PyTorch: (loss, log_prob [N], gradients) by autograd over
-    the plain chain, in x's dtype."""
-    leaves = {k: weights[k].detach().clone().requires_grad_(True) for k in WEIGHT_KEYS}
+    the plain chain, in x's dtype; with ``context`` [N, C] the gradients
+    include the context stacks'."""
+    keys = _keys(weights)
+    leaves = {k: weights[k].detach().clone().requires_grad_(True) for k in keys}
+    context = None if context is None else context.detach()
     with torch.enable_grad():
         y, lad = nsf_flow_kernel_plain(x.detach(), leaves, layer_indices, inverse=False,
-                                       wh_scale=wh_scale, **static)
+                                       wh_scale=wh_scale, context=context, **static)
         lp = -0.5 * (y * y).sum(dim=1) - _log_z(x.shape[1]) + lad
         loss = -lp.mean()
-        grads = torch.autograd.grad(loss, [leaves[k] for k in WEIGHT_KEYS])
-    return loss.detach(), lp.detach(), dict(zip(WEIGHT_KEYS, grads))
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+    return loss.detach(), lp.detach(), dict(zip(keys, grads))
 
 
-def nsf_train_bwd_plain(x, gy, glad, weights, layer_indices, *, wh_scale, **static):
+def nsf_train_bwd_plain(x, gy, glad, weights, layer_indices, *, wh_scale, context=None,
+                        **static):
     """B4 in plain PyTorch: (gx [N, D], gradients) by autograd over the plain
-    chain with the cotangents (gy [N, D], glad [N]), in x's dtype."""
-    leaves = {k: weights[k].detach().clone().requires_grad_(True) for k in WEIGHT_KEYS}
+    chain with the cotangents (gy [N, D], glad [N]), in x's dtype; with
+    ``context`` [N, C] the gradients include the context stacks' and, under
+    ``"ctx"``, the context's cotangent [N, C]."""
+    keys = _keys(weights)
+    leaves = {k: weights[k].detach().clone().requires_grad_(True) for k in keys}
     x = x.detach().clone().requires_grad_(True)
+    inputs = [x] + [leaves[k] for k in keys]
+    if context is not None:
+        context = context.detach().clone().requires_grad_(True)
+        inputs.append(context)
+        keys = keys + ("ctx",)
     with torch.enable_grad():
         y, lad = nsf_flow_kernel_plain(x, leaves, layer_indices, inverse=False,
-                                       wh_scale=wh_scale, **static)
+                                       wh_scale=wh_scale, context=context, **static)
         # the additive coupling's logabsdet is a constant 0
         outs = [(o, g) for o, g in ((y, gy), (lad, glad)) if o.requires_grad]
-        grads = torch.autograd.grad([o for o, _ in outs],
-                                    [x] + [leaves[k] for k in WEIGHT_KEYS],
-                                    [g for _, g in outs])
-    return grads[0], dict(zip(WEIGHT_KEYS, grads[1:]))
+        grads = torch.autograd.grad([o for o, _ in outs], inputs, [g for _, g in outs])
+    return grads[0], dict(zip(keys, grads[1:]))
 
 
 # -- the kernels --------------------------------------------------------------
@@ -153,8 +177,10 @@ def _check(name, t, shape, device, dtype=torch.float32):
 
 
 def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
-            grads, rows, inv_n):
-    """Shared launch of B3 (``loss``) and B4. Returns (lp or gx, grads)."""
+            grads, rows, inv_n, context=None):
+    """Shared launch of B3 (``loss``) and B4. Returns (lp or gx, grads); B4's
+    grads hold the context's cotangent under "ctx" where there is a
+    context."""
     global loss_grad_launch_count, bwd_launch_count
     what = "nsf_loss_grad_cuda" if loss else "nsf_train_bwd_cuda"
     dev = x.device
@@ -168,16 +194,25 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
     if not loss:
         _check(f"{what}: gy", gy, (n, D), dev)
         _check(f"{what}: glad", glad, (n,), dev)
-    L, H, Tid, T, TM, nb2 = (d[k] for k in ("L", "H", "Tid", "T", "TM", "nb2"))
+    L, H, Tid, T, TM, nb2, C = (d[k] for k in ("L", "H", "Tid", "T", "TM", "nb2", "C"))
+    nsf_flow_kernel._check_context(what, x, weights, context)
+    keys = _keys(weights)
     shapes = dict(w0=(L, H, Tid), b0=(L, H, 1), wb=(L, nb2, H, H), bb=(L, nb2, H, 1),
-                  wf=(L, TM, H), bf=(L, TM, 1))
-    for k in WEIGHT_KEYS:
+                  wf=(L, TM, H), bf=(L, TM, 1), wc0=(L, H, C), wcb=(L, nb2 // 2, H, C),
+                  bcb=(L, nb2 // 2, H, 1))
+    for k in keys:
         _check(f"{what}: weights[{k!r}]", weights[k], shapes[k], dev)
+    if C:
+        _check(f"{what}: context", context, (n, C), dev)
     if packed is None:
         packed = pack_weights(weights, layer_indices)
     I4, TMp = _round4(Tid), _round4(TM)
     packed_shapes = dict(w0=(L, I4, H), wb=(L, nb2, H, H), wf=(L, H, TMp), bf=(L, TMp))
+    if C:
+        packed_shapes.update(wc0=(L, C, H), wcb=(L, nb2 // 2, C, H), bcb=(L, nb2 // 2, H))
     for k, shape in packed_shapes.items():
+        if k not in packed:
+            raise ValueError(f"{what}: packed has no {k!r}")
         _check(f"{what}: packed[{k!r}]", packed[k], shape, dev)
     _check(f"{what}: packed['idx']", packed["idx"], (L, 2 * D + 2 * Tid + 2 * T), dev,
            torch.int32)
@@ -185,23 +220,25 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
     if rows is None:
         rows = tile_rows(n, d, sms)
     if rows not in (32, 64) or H % 4 or (
-            shared_memory_bytes(rows, D, L, H, Tid, T, TM) > MAX_SHARED_MEMORY):
+            shared_memory_bytes(rows, D, L, H, Tid, T, TM, C) > MAX_SHARED_MEMORY):
         raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
                          f"shared-memory tile of {rows} samples")
     if grads is None:
-        grads = {k: torch.empty(shapes[k], dtype=torch.float32, device=dev)
-                 for k in WEIGHT_KEYS}
-    for k in WEIGHT_KEYS:
+        grads = {k: torch.empty(shapes[k], dtype=torch.float32, device=dev) for k in keys}
+    for k in keys:
         _check(f"{what}: grads[{k!r}]", grads[k], shapes[k], dev)
         grads[k].zero_()  # the kernel adds into them
 
     lib = _build.load_library("nsf_train", _declare)
     grid = max(1, min(-(-n // rows), sms))
     # per-block scratch for the kept activations (see csrc/nsf_train.cu)
-    stash = torch.empty(grid * L * ((nb2 + 1) * H + TMp) * (rows + 4),
+    kept = nb2 + 1 + (nb2 // 2 if C else 0)   # kept [H] matrices a layer before P
+    stash = torch.empty(grid * L * (kept * H + TMp) * (rows + 4),
                         dtype=torch.float32, device=dev)
     out = (torch.empty(n, dtype=torch.float32, device=dev) if loss
            else torch.empty_like(x))
+    gctx = torch.empty_like(context) if C and not loss else None
+    ptr = nsf_flow_kernel._ptr
     null = 0  # the pointers the other kernel reads or writes
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -213,10 +250,15 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
             packed["bf"].data_ptr(), weights["w0"].data_ptr(), weights["b0"].data_ptr(),
             weights["wb"].data_ptr(), weights["bb"].data_ptr(), weights["wf"].data_ptr(),
             packed["idx"].data_ptr(), *(grads[k].data_ptr() for k in WEIGHT_KEYS),
-            stash.data_ptr(), grid, 1.0 if wh_scale is None else wh_scale, inv_n,
+            stash.data_ptr(), C, ptr(context), ptr(gctx), ptr(packed.get("wc0")),
+            ptr(packed.get("wcb")), ptr(packed.get("bcb")), ptr(weights.get("wc0")),
+            ptr(weights.get("wcb")), ptr(grads.get("wc0")), ptr(grads.get("wcb")),
+            ptr(grads.get("bcb")), grid, 1.0 if wh_scale is None else wh_scale, inv_n,
             nsf_flow_kernel.FAMILIES.index(static["spline"]),
             nsf_flow_kernel.SCALE_ACTIVATIONS.index(static.get("scale_act") or "none"),
             static.get("num_bins", 0), *nsf_flow_kernel.stage_floats(**static), rows, stream)
+    if gctx is not None:
+        grads = {**grads, "ctx": gctx}
     if loss:
         loss_grad_launch_count += 1
     else:
@@ -226,65 +268,74 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
 
 
 def nsf_loss_grad_cuda(x, weights, layer_indices, *, wh_scale, packed=None, grads=None,
-                       rows=None, **static):
-    """B3: x [N, D] -> (loss, log_prob [N], gradients of the loss).
+                       rows=None, context=None, **static):
+    """B3: x [N, D] (and the context [N, C] of a conditional chain) ->
+    (loss, log_prob [N], gradients of the loss).
 
     ``packed`` is ``pack_weights(weights, layer_indices)``, built here when
     not given. ``grads``, when given, are the tensors the gradients are
     written into (zeroed here first). ``rows`` forces the tile size (32 or
     64); None chooses by shared memory and SM count."""
     if x.device.type == "cpu":
-        return nsf_loss_grad_plain(x, weights, layer_indices, wh_scale=wh_scale, **static)
+        return nsf_loss_grad_plain(x, weights, layer_indices, wh_scale=wh_scale,
+                                   context=context, **static)
     lp, grads = _launch(True, x, None, None, weights, layer_indices, static, wh_scale,
-                        packed, grads, rows, 1.0 / max(x.shape[0], 1))
+                        packed, grads, rows, 1.0 / max(x.shape[0], 1), context)
     return -lp.mean(), lp, grads
 
 
 def nsf_train_bwd_cuda(x, gy, glad, weights, layer_indices, *, wh_scale, packed=None,
-                       grads=None, rows=None, **static):
-    """B4: (x [N, D], gy [N, D], glad [N]) -> (gx [N, D], weight gradients),
-    the pull-back of the cotangents through the chain."""
+                       grads=None, rows=None, context=None, **static):
+    """B4: (x [N, D], gy [N, D], glad [N], and the context [N, C] of a
+    conditional chain) -> (gx [N, D], gradients), the pull-back of the
+    cotangents through the chain; with a context the gradients also hold
+    the context's cotangent [N, C] under ``"ctx"``."""
     if x.device.type == "cpu":
         return nsf_train_bwd_plain(x, gy, glad, weights, layer_indices,
-                                   wh_scale=wh_scale, **static)
+                                   wh_scale=wh_scale, context=context, **static)
     return _launch(False, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
-                   grads, rows, 0.0)
+                   grads, rows, 0.0, context)
 
 
 class _NSFTrainApply(torch.autograd.Function):
     """forward: B2 with ``wh_scale``; backward: B4."""
 
     @staticmethod
-    def forward(ctx, x, meta, *ws):
-        layer_indices, static, wh_scale, packed = meta
-        weights = dict(zip(WEIGHT_KEYS, ws))
+    def forward(ctx, x, context, meta, *ws):
+        layer_indices, static, wh_scale, packed, keys = meta
+        weights = dict(zip(keys, ws))
         if packed is None:
             packed = pack_weights(weights, layer_indices)
-        ctx.save_for_backward(x, *ws)
-        ctx.meta = (layer_indices, static, wh_scale, packed)
+        ctx.save_for_backward(x, context, *ws)
+        ctx.meta = (layer_indices, static, wh_scale, packed, keys)
         return nsf_flow_kernel.nsf_flow_kernel_cuda(
             x, weights, layer_indices, inverse=False, packed=packed, wh_scale=wh_scale,
-            **static)
+            context=context, **static)
 
     @staticmethod
     def backward(ctx, gy, glad):
-        x, *ws = ctx.saved_tensors
-        layer_indices, static, wh_scale, packed = ctx.meta
+        x, context, *ws = ctx.saved_tensors
+        layer_indices, static, wh_scale, packed, keys = ctx.meta
         gx, grads = nsf_train_bwd_cuda(
-            x, gy.contiguous(), glad.contiguous(), dict(zip(WEIGHT_KEYS, ws)),
-            layer_indices, wh_scale=wh_scale, packed=packed, **static)
-        return (gx, None) + tuple(grads[k] for k in WEIGHT_KEYS)
+            x, gy.contiguous(), glad.contiguous(), dict(zip(keys, ws)),
+            layer_indices, wh_scale=wh_scale, packed=packed, context=context, **static)
+        return (gx, grads.get("ctx"), None) + tuple(grads[k] for k in keys)
 
 
-def nsf_train_apply(weights, x, layer_indices, static, wh_scale, packed=None):
+def nsf_train_apply(weights, x, layer_indices, static, wh_scale, packed=None, context=None):
     """The differentiable fused forward: (y [N, D], logabsdet [N]) whose
-    gradients with respect to ``x`` and ``weights`` come from B4. On a CPU
-    tensor it is the plain chain under autograd."""
+    gradients with respect to ``x``, ``weights`` and the ``context`` [N, C]
+    of a conditional chain come from B4, so that a module computing the
+    context (an embedding net) trains through it. On a CPU tensor it is the
+    plain chain under autograd."""
     if x.device.type == "cpu":
         return nsf_flow_kernel_plain(x, weights, layer_indices, inverse=False,
-                                     wh_scale=wh_scale, **static)
-    return _NSFTrainApply.apply(x, (layer_indices, static, wh_scale, packed),
-                                *(weights[k] for k in WEIGHT_KEYS))
+                                     wh_scale=wh_scale, context=context, **static)
+    if context is not None:
+        context = context.float().contiguous()
+    keys = _keys(weights)
+    return _NSFTrainApply.apply(x, context, (layer_indices, static, wh_scale, packed, keys),
+                                *(weights[k] for k in keys))
 
 
 # -- the trainer ----------------------------------------------------------------
@@ -294,13 +345,19 @@ class FusedNSFTrainer(FusedTrainerBase):
     """Train a tabular coupling flow with the fused kernels: an RQ or LRS
     NSF, a chain of linear, quadratic or cubic spline couplings, a
     SimpleRealNVP (affine or additive couplings) or a chain of affine
-    couplings with the GENERAL scale activation.
+    couplings with the GENERAL scale activation, each with or without a
+    context.
 
         trainer = FusedNSFTrainer(flow, batch_size=512)
         optimizer = trainer.init_opt(lambda p: torch.optim.Adam(p, lr=3e-4))
         step = trainer.make_train_step(optimizer)
-        loss = step(batch)                      # batch [N, D]; one B3 launch
+        loss = step(batch)            # batch [N, D]; step(batch, context) if conditional
         trained_flow = trainer.to_flow()
+
+    The kernels take the context as the conditioners see it: a conditional
+    flow with an ``embedding_net`` is refused, and trains on the eager route
+    or through :func:`nsf_train_apply` composed with the embedding net under
+    autograd (B4 gives the context's cotangent).
 
     ``trainer.weights`` are the fp32 kernel-layout tensors (leaf tensors that
     require grad, on the flow's device) and are updated in place by the
@@ -313,8 +370,16 @@ class FusedNSFTrainer(FusedTrainerBase):
 
         (self._indices, weights, self._static, self.features,
          self.context_features) = _extract(flow, torch.float32, fold_wh_scale=False)
+        if (self.context_features is not None
+                and getattr(flow, "embedding_net", None) is not None):
+            raise ValueError(
+                "fused training takes the RAW context (identity embedding "
+                "only); flows with an embedding_net train on the eager "
+                "route (training.make_train_step), or compose nsf_train_apply "
+                "with the embedding net under autograd -- B4 gives the "
+                "context's gradient")
         self.weights = {k: weights[k].clone().contiguous().requires_grad_(True)
-                        for k in WEIGHT_KEYS}
+                        for k in _keys(weights)}
         self.device = self.weights["w0"].device
         self._flow_template = flow
         self._has_ctx = self.context_features is not None
@@ -343,22 +408,23 @@ class FusedNSFTrainer(FusedTrainerBase):
         self._packed = pack_weights(weights, self._indices, out=self._packed)
         return self._packed
 
-    def _apply(self, weights, x):
+    def _apply(self, weights, x, context=None):
         return nsf_train_apply(weights, x, self._indices, self._static, self._wh_scale,
-                               packed=self._repack(weights))
+                               packed=self._repack(weights), context=context)
 
     def _build_loss_grad(self):
-        def loss_and_grad(weights, x):
+        def loss_and_grad(weights, x, context=None):
+            keys = _keys(weights)
             if self._grads is None and self.device.type == "cuda":
                 flat = torch.empty(sum(w.numel() for w in weights.values()),
                                    dtype=torch.float32, device=self.device)
-                sizes = [weights[k].numel() for k in WEIGHT_KEYS]
+                sizes = [weights[k].numel() for k in keys]
                 self._grads = {k: g.view(weights[k].shape)
-                               for k, g in zip(WEIGHT_KEYS, flat.split(sizes))}
+                               for k, g in zip(keys, flat.split(sizes))}
             loss, _, grads = nsf_loss_grad_cuda(
                 x, weights, self._indices, wh_scale=self._wh_scale,
                 packed=self._repack(weights), grads=self._grads, rows=self._rows,
-                **self._static)
+                context=context, **self._static)
             return loss, grads
         return loss_and_grad
 
@@ -367,7 +433,8 @@ class FusedNSFTrainer(FusedTrainerBase):
     def to_flow(self, weights=None):
         """Write kernel-layout weights back into a copy of the flow (the
         inverse of extraction: un-transpose and, for the splines, the
-        inverse K-major reorder)."""
+        inverse K-major reorder; the context stacks into the initial layer's
+        columns past the identity features and each block's context layer)."""
         from nflows_tpu_torch.ops.cuda.nsf_fused import _layer_groups
 
         w = self.weights if weights is None else weights
@@ -381,7 +448,8 @@ class FusedNSFTrainer(FusedTrainerBase):
                 if self._static["spline"] in ("affine", "additive"):
                     order = np.arange(T * M)   # param-major already
                 inv_order = torch.as_tensor(np.argsort(order), device=w["wf"].device)
-                net.initial_layer.weight.copy_(w["w0"][l])
+                Tid = w["w0"].shape[2]
+                net.initial_layer.weight[:, :Tid].copy_(w["w0"][l])
                 net.initial_layer.bias.copy_(w["b0"][l, :, 0])
                 for j, blk in enumerate(net.blocks):
                     blk.linear_0.weight.copy_(w["wb"][l, 2 * j])
@@ -390,4 +458,9 @@ class FusedNSFTrainer(FusedTrainerBase):
                     blk.linear_1.bias.copy_(w["bb"][l, 2 * j + 1, :, 0])
                 net.final_layer.weight.copy_(w["wf"][l][inv_order])
                 net.final_layer.bias.copy_(w["bf"][l, :, 0][inv_order])
+                if self._has_ctx:
+                    net.initial_layer.weight[:, Tid:].copy_(w["wc0"][l])
+                    for j, blk in enumerate(net.blocks):
+                        blk.context_layer.weight.copy_(w["wcb"][l, j])
+                        blk.context_layer.bias.copy_(w["bcb"][l, j, :, 0])
         return flow

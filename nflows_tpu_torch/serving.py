@@ -17,6 +17,9 @@ NSF, SimpleRealNVP and NICE among them), B9 for autoregressive chains
 (``fuse_maf``), B11 for the log_prob of a MADEMoG or a bare
 MixtureOfGaussiansMADE (``fuse_mademog``; its sampling endpoints run the
 model's sequential sampler, as in the JAX package), probed in that order.
+A conditional coupling chain serves fused too: its embedding net runs
+outside B2, and the embedded context enters every conditioner in the
+kernel.
 Only a structural ``ValueError``/``AttributeError`` from every prober sends
 a flow to the unfused chain (where each spline launches its family's
 elementwise kernel on the card: B1 for RQ, B5-B8 for the linear-rational,
@@ -85,9 +88,14 @@ class CompiledFlow:
             except (ValueError, AttributeError) as e:
                 errors.append(f"{fuse.__name__}: {e}")
                 continue
-            if (fused.context_features is None) != (self.context_features is None):
+            # the kernel sees the embedded context, so only a flow without an
+            # embedding net must match the width as well
+            embeds = getattr(flow, "embedding_net", None) is not None
+            if ((fused.context_features is None) != (self.context_features is None)
+                    or (not embeds and fused.context_features != self.context_features)):
                 msg = ("flow conditionality does not match CompiledFlow's "
-                       f"context_features={self.context_features}")
+                       f"context_features={self.context_features} (the fused model "
+                       f"takes context_features={fused.context_features})")
                 if required:
                     raise ValueError(msg)
                 errors.append(f"{fuse.__name__}: {msg}")

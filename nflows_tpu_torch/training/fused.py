@@ -5,7 +5,8 @@ nflows_tpu/training/fused.py).
 the matching trainer: :class:`FusedNSFTrainer` for coupling chains of any
 of the seven families (the rq, lrs, linear, quadratic and cubic splines,
 the affine and additive couplings; the NSF and SimpleRealNVP among them;
-kernel B3, or B2 + B4 under autograd),
+with or without a context, but no embedding net; kernel B3, or B2 + B4
+under autograd),
 :class:`FusedMAFTrainer` for unwrapped autoregressive chains, MAF and
 NSF-AR (kernels B9 + B10),
 :class:`FusedMADEMoGTrainer` for a MADEMoG or a bare

@@ -914,7 +914,8 @@ def test_b3_b4_spline_families_match_plain(cuda, family, n):
 def test_training_kernels_refuse_the_other_spline_families(cuda):
     """The four spline families train through the kernels: one B3 a fused
     step, one B2 and one B4 an autograd-route step, the routes' losses
-    equal to the eager one's. A conditional flow is still refused."""
+    equal to the eager one's; so does a conditional flow, given its context.
+    A conditional flow with an embedding net is still refused."""
     import copy
 
     adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
@@ -947,8 +948,32 @@ def test_training_kernels_refuse_the_other_spline_families(cuda):
         nets.ResidualNet(i, o, hidden_features=32, context_features=2, num_blocks=2,
                          generator=gen, device=cuda),
         num_bins=8, tails="linear", tail_bound=B, device=cuda)]), StandardNormal([6]))
+    fused = fused_trainer(copy.deepcopy(conditional), 128)
+    assert isinstance(fused, nsf_train.FusedNSFTrainer)
+    split = fused_trainer(copy.deepcopy(conditional), 128)
+    step_fused = fused.make_train_step(fused.init_opt(adam))
+    split_opt = split.init_opt(adam)
+    state = create_train_state(copy.deepcopy(conditional).train(), adam)
+    step_eager = make_train_step()
+    batch = (1.5 * torch.randn(128, 6, generator=g)).to(cuda)
+    context = torch.randn(128, 2, generator=g).to(cuda)
+    c0 = counts()
+    loss_fused = step_fused(batch, context)
+    c1 = counts()
+    split_opt.zero_grad(set_to_none=True)
+    loss_split = split.loss_fn(split.weights, batch, context)
+    loss_split.backward()
+    split_opt.step()
+    c2 = counts()
+    state, metrics = step_eager(state, batch, context)
+    assert tuple(b - a for a, b in zip(c0, c1)) == (0, 1, 0)
+    assert tuple(b - a for a, b in zip(c1, c2)) == (1, 0, 1)
+    _close(loss_fused, loss_split, 2e-4)
+    _close(loss_fused, metrics["loss"], 2e-4)
+    embedded = Flow(conditional.transform, conditional.distribution,
+                    embedding_net=torch.nn.Linear(4, 2).to(cuda))
     with pytest.raises(ValueError, match="make_train_step"):
-        fused_trainer(conditional, 128)
+        fused_trainer(embedded, 128)
 
 
 def test_realnvp_serves_and_trains_through_the_kernels(cuda):
@@ -989,3 +1014,242 @@ def test_realnvp_serves_and_trains_through_the_kernels(cuda):
         _close(loss_fused, loss_split, 2e-4)
         _close(loss_fused, metrics["loss"], 2e-4)
     _close(fused.to_flow().log_prob(x), state.flow.log_prob(x), 5e-3)
+
+
+# -- B2, B3 and B4 with a context ------------------------------------------------------
+
+CONTEXT_FAMILIES = ["rq", "lrs", "linear", "quadratic", "cubic", "affine", "additive"]
+
+
+def _context_flow(device, family, features=6, hidden=32, layers=4, context=3, seed=0):
+    """``layers`` x [random permutation, conditional coupling of ``family``
+    with a 2-block ResidualNet]. The blocks' second linear layers are redrawn
+    at the first's scale: as initialised they start near zero, which leaves
+    the context gate with gradients near 1e-5, under the 2e-4 band; the
+    affine couplings' final weights are scaled by 0.1
+    (chip_smoke.tame_couplings)."""
+    from nflows_tpu_torch.transforms import (
+        AdditiveCouplingTransform,
+        PiecewiseLinearRationalCouplingTransform,
+        PiecewiseRationalQuadraticCouplingTransform,
+    )
+
+    cls = {"rq": PiecewiseRationalQuadraticCouplingTransform,
+           "lrs": PiecewiseLinearRationalCouplingTransform,
+           "linear": PiecewiseLinearCouplingTransform,
+           "quadratic": PiecewiseQuadraticCouplingTransform,
+           "cubic": PiecewiseCubicCouplingTransform, "affine": AffineCouplingTransform,
+           "additive": AdditiveCouplingTransform}[family]
+    kw = ({} if family in ("affine", "additive")
+          else dict(num_bins=8, tails="linear", tail_bound=B))
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    chain = []
+    for i in range(layers):
+        chain.append(RandomPermutation(features, rng=rng, device=device))
+        chain.append(cls(mask=create_alternating_binary_mask(features, even=bool(i % 2)),
+                         transform_net_create_fn=lambda n_in, n_out: nets.ResidualNet(
+                             n_in, n_out, hidden_features=hidden, num_blocks=2,
+                             context_features=context, generator=gen, device=device),
+                         device=device, **kw))
+    flow = Flow(CompositeTransform(chain), StandardNormal([features])).to(device)
+    with torch.no_grad():
+        for t in flow.transform.transforms[1::2]:
+            net = t.transform_net
+            for blk in net.blocks:
+                bound = 1.0 / hidden ** 0.5
+                blk.linear_1.weight.copy_((torch.rand(blk.linear_1.weight.shape, generator=gen)
+                                           * 2 - 1).to(device) * bound)
+            if family in ("affine", "additive"):
+                net.final_layer.weight.mul_(0.1)
+    return flow.eval()
+
+
+def _hold_all(got, ref, ref64, atol=2e-4, rtol=1e-3):
+    """``_grads_hold`` over every key of ``ref`` (the context stacks too)."""
+    for k in ref:
+        if not torch.allclose(got[k], ref[k], atol=atol, rtol=rtol):
+            _hold(got[k], ref[k], ref64[k], atol)
+
+
+def _past_band(got, plain, exact, atol=2e-4, rtol=1e-3):
+    """Per sample (rows of [m, k] cotangents x N): further from the fp32
+    plain version than ``atol`` + ``rtol`` |plain| somewhere, and from the
+    float64 one than twice the fp32 plain version is (``_hold``, per
+    sample)."""
+    gap = ((got - plain).abs() > atol + rtol * plain.abs()).any(1)
+    err = (got.double() - exact).abs().amax(1)
+    return gap & (err > 2.0 * (plain.double() - exact).abs().amax(1))
+
+
+def _kink_jumps(x, gy, glad, w64, idx, ctx, kw, n, step=1e-6):
+    """For float64 samples x [m, D], the largest second difference
+    |G(x + step e) + G(x - step e) - 2 G(x)| over the features e of the
+    float64 plain B4's cotangents x n (gx, and gctx where there is a
+    context): near 0 where they are smooth, the size of the jump where a
+    kink (a relu's zero, a knot, a tail bound) lies within ``step``."""
+    m, D = x.shape
+    offsets = torch.zeros(2 * D + 1, D, dtype=x.dtype, device=x.device)
+    for e in range(D):
+        offsets[2 * e + 1, e], offsets[2 * e + 2, e] = step, -step
+    rep = lambda t: t.repeat_interleave(2 * D + 1, 0)  # noqa: E731
+    gx, grads = nsf_train.nsf_train_bwd_plain(
+        rep(x) + offsets.repeat(m, 1), rep(gy), rep(glad), w64, idx,
+        context=None if ctx is None else rep(ctx), **kw)
+    G = (gx if ctx is None else torch.cat([gx, grads["ctx"]], 1)).reshape(m, 2 * D + 1, -1) * n
+    return (G[:, 1::2] + G[:, 2::2] - 2 * G[:, :1]).abs().amax((1, 2))
+
+
+def _hold_context_kernels(flow, n, context_features, seed):
+    """B2 (both ways), B3 and B4 with a context against their plain
+    versions, at chip_smoke.py's bands for B2 and the weight gradients, and
+    at 2e-4 + 1e-3 relative (the band of B4's gx in
+    test_b3_b4_spline_families_match_plain) for gx x N and gctx x N, per
+    sample.
+
+    Ties are left out, at most 0.1% of the batch: a sample whose path
+    passes within fp32 rounding of a kink takes either side of it in fp32.
+    A sample past the band counts as a tie only where the float64 plain
+    version's own cotangents jump by at least half its error under a move of
+    1e-6 (``_kink_jumps``). On the cubic flow at 4,096 (flow seed 0) one
+    sample is one: a relu of layer 2's second block sits 2.4e-8 from its
+    zero, and gx x N and gctx x N jump by 4.1e-4 there
+    (tools/tie_probe.py)."""
+    dev = next(flow.parameters()).device
+    g = torch.Generator().manual_seed(seed)
+    x = (1.5 * torch.randn(n, 6, generator=g)).to(dev)
+    ctx = torch.randn(n, context_features, generator=g).to(dev)
+    fused = fuse_nsf(flow)
+    assert fused.context_features == context_features
+    w64 = {k: v.double() for k, v in fused._weights.items()}
+    for inverse in (False, True):
+        kw = dict(inverse=inverse, **fused._static)
+        before = nsf_flow_kernel.launch_count
+        y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, fused._weights, fused._indices,
+                                                      packed=fused._packed, context=ctx, **kw)
+        assert nsf_flow_kernel.launch_count == before + 1
+        p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, fused._weights, fused._indices,
+                                                           context=ctx, **kw)
+        d_y, d_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x.double(), w64, fused._indices,
+                                                           context=ctx.double(), **kw)
+        for got, plain, exact in ((y, p_y, d_y), (lad, p_lad, d_lad)):
+            _hold(got, plain, exact, 1e-3)
+
+    tr = nsf_train.FusedNSFTrainer(flow, 128)
+    (w, idx), kw = _train_args(tr)
+    w64 = {k: v.detach().double() for k, v in w.items()}
+    gy = torch.randn(n, 6, generator=g).to(dev) / n
+    glad = torch.randn(n, generator=g).to(dev) / n
+
+    def cotangents(gx, grads):  # [n, D + C] x n
+        return torch.cat([gx, grads["ctx"]], 1) * gx.shape[0]
+
+    args = (x, gy, glad)
+    got = cotangents(*nsf_train.nsf_train_bwd_cuda(*args, w, idx, context=ctx, **kw))
+    plain = cotangents(*nsf_train.nsf_train_bwd_plain(*args, w, idx, context=ctx, **kw))
+    exact = cotangents(*nsf_train.nsf_train_bwd_plain(*(a.double() for a in args), w64, idx,
+                                                      context=ctx.double(), **kw))
+    past = _past_band(got, plain, exact)
+    ties = past.nonzero()[:, 0]
+    assert len(ties) <= n // 1000, len(ties)
+    if len(ties):
+        err = (got[ties].double() - exact[ties]).abs().amax(1)
+        jumps = _kink_jumps(*(a[ties].double() for a in (x, gy, glad)), w64, idx,
+                            ctx[ties].double(), kw, n)
+        assert (jumps >= 0.5 * err).all(), (err, jumps)
+    keep = ~past
+    x, ctx = x[keep].contiguous(), ctx[keep].contiguous()
+    gy, glad = gy[keep].contiguous(), glad[keep].contiguous()
+    before = nsf_train.loss_grad_launch_count
+    loss, lp, grads = nsf_train.nsf_loss_grad_cuda(x, w, idx, context=ctx, **kw)
+    assert nsf_train.loss_grad_launch_count == before + 1
+    assert sorted(grads) == sorted(nsf_train.WEIGHT_KEYS + nsf_train.CONTEXT_KEYS)
+    p_loss, p_lp, p_grads = nsf_train.nsf_loss_grad_plain(x, w, idx, context=ctx, **kw)
+    _, _, d_grads = nsf_train.nsf_loss_grad_plain(x.double(), w64, idx, context=ctx.double(),
+                                                  **kw)
+    _close(lp, p_lp, 1e-3)
+    _close(loss, p_loss, 1e-4)
+    _hold_all(grads, p_grads, d_grads)
+    before = nsf_train.bwd_launch_count
+    gx, grads = nsf_train.nsf_train_bwd_cuda(x, gy, glad, w, idx, context=ctx, **kw)
+    assert nsf_train.bwd_launch_count == before + 1
+    p_gx, p_grads = nsf_train.nsf_train_bwd_plain(x, gy, glad, w, idx, context=ctx, **kw)
+    d_gx, d_grads = nsf_train.nsf_train_bwd_plain(x.double(), gy.double(), glad.double(), w64,
+                                                  idx, context=ctx.double(), **kw)
+    assert not _past_band(cotangents(gx, grads), cotangents(p_gx, p_grads),
+                          cotangents(d_gx, d_grads)).any()
+    for g in (grads, p_grads, d_grads):
+        g.pop("ctx")
+    _hold_all(grads, p_grads, d_grads)
+
+
+@pytest.mark.parametrize("family", CONTEXT_FAMILIES)
+@pytest.mark.parametrize("n", [203, 4096])
+def test_b2_b3_b4_with_context_match_plain(cuda, family, n):
+    _hold_context_kernels(_context_flow(cuda, family), n, 3, seed=n + 5)
+
+
+def test_b2_b3_b4_on_the_conditional_flagship(cuda):
+    """The flagship's conditional twin at full width: features 6, hidden 256,
+    10 layers x 2 blocks, 8 bins, context 10."""
+    flow = NeuralSplineFlow(6, 256, num_layers=10, num_bins=8, tail_bound=B,
+                            context_features=10, generator=torch.Generator().manual_seed(7),
+                            rng=np.random.default_rng(7), device=cuda).eval()
+    _hold_context_kernels(flow, 512, 10, seed=8)
+
+
+def test_conditional_serving_and_training_run_the_kernels(cuda):
+    """One B2 a conditional request, equal to the unfused chain's; one B3 a
+    fused step and one B2 and one B4 an autograd step, whose losses equal
+    the eager step's; an embedding net outside nsf_train_apply gets the eager
+    route's gradients."""
+    import copy
+
+    flow = _context_flow(cuda, "rq")
+    x = torch.randn(256, 6, generator=torch.Generator().manual_seed(3)).to(cuda)
+    c = torch.randn(256, 3, generator=torch.Generator().manual_seed(4)).to(cuda)
+    served = CompiledFlow(flow, batch_size=256, features=6, context_features=3)
+    assert served.is_fused
+    b2 = nsf_flow_kernel.launch_count
+    lp = served.log_prob(x, c)
+    assert nsf_flow_kernel.launch_count == b2 + 1
+    _close(lp, CompiledFlow(flow, batch_size=256, features=6, context_features=3,
+                            use_fused=False).log_prob(x, c), 1e-3)
+    adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
+    fused = fused_trainer(copy.deepcopy(flow), 128)
+    split = fused_trainer(copy.deepcopy(flow), 128)
+    step_fused = fused.make_train_step(fused.init_opt(adam))
+    split_opt = split.init_opt(adam)
+    state = create_train_state(copy.deepcopy(flow).train(), adam)
+    step_eager = make_train_step()
+    counts = lambda: (nsf_flow_kernel.launch_count, nsf_train.loss_grad_launch_count,  # noqa: E731
+                      nsf_train.bwd_launch_count)
+    for i in range(3):
+        batch, ctx = x[:128] + 0.1 * i, c[:128]
+        c0 = counts()
+        loss_fused = step_fused(batch, ctx)
+        c1 = counts()
+        split_opt.zero_grad(set_to_none=True)
+        loss_split = split.loss_fn(split.weights, batch, ctx)
+        loss_split.backward()
+        split_opt.step()
+        c2 = counts()
+        state, metrics = step_eager(state, batch, ctx)
+        assert tuple(b - a for a, b in zip(c0, c1)) == (0, 1, 0)
+        assert tuple(b - a for a, b in zip(c1, c2)) == (1, 0, 1)
+        _close(loss_fused, loss_split.detach(), 2e-4)
+        _close(loss_fused, metrics["loss"], 2e-4)
+    emb = torch.nn.Linear(2, 3).to(cuda)
+    raw = torch.randn(128, 2, generator=torch.Generator().manual_seed(5)).to(cuda)
+    w = {k: v.detach().clone().requires_grad_(True) for k, v in split.weights.items()}
+    y, lad = nsf_train.nsf_train_apply(w, x[:128], split._indices, split._static,
+                                       split._wh_scale, context=emb(raw))
+    loss = -(-0.5 * (y * y).sum(1) + lad).mean()
+    g_kernel = torch.autograd.grad(loss, list(emb.parameters()))
+    y, lad = nsf_flow_kernel.nsf_flow_kernel_plain(x[:128], w, split._indices, inverse=False,
+                                                   wh_scale=split._wh_scale,
+                                                   context=emb(raw), **split._static)
+    g_plain = torch.autograd.grad(-(-0.5 * (y * y).sum(1) + lad).mean(),
+                                  list(emb.parameters()))
+    for a, b in zip(g_kernel, g_plain):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3)

@@ -176,16 +176,24 @@ def test_conditional_context_errors_match_jax():
 
 
 def test_conditional_flow_is_served_unfused():
-    _, tflow = _pair(seed=12, context_features=3, num_layers=2)
-    with pytest.raises(ValueError):
-        fuse_nsf(tflow)
-    assert not can_fuse_nsf(tflow)
+    """A conditional flow is served fused now (B2's context path, its plain
+    version here), as by default, and its log_prob equals the unfused
+    chain's and the JAX flow's; a CompiledFlow without the flow's
+    context_features is still refused the fused path."""
+    jflow, tflow = _pair(seed=12, context_features=3, num_layers=2)
+    assert can_fuse_nsf(tflow)
+    assert fuse_nsf(tflow).context_features == 3
     served = CompiledFlow(tflow, batch_size=BATCH, features=6, context_features=3,
                           device="cpu")
-    assert not served.is_fused
-    with pytest.raises(ValueError):
-        CompiledFlow(tflow, batch_size=BATCH, features=6, context_features=3,
-                     use_fused=True, device="cpu")
+    assert served.is_fused
+    unfused = CompiledFlow(tflow, batch_size=BATCH, features=6, context_features=3,
+                           use_fused=False, device="cpu")
+    x, c = _x(seed=13), _x(seed=14)[:, :3].copy()
+    lp = served.log_prob(torch.from_numpy(x), torch.from_numpy(c))
+    _close(lp, unfused.log_prob(torch.from_numpy(x), torch.from_numpy(c)))
+    _close(lp, jflow.log_prob(x, c))
+    with pytest.raises(ValueError, match="conditionality"):
+        CompiledFlow(tflow, batch_size=BATCH, features=6, use_fused=True, device="cpu")
 
 
 def test_bf16_is_not_ported_yet(flows):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``nflows_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, statically or at run
-time."""
+time (building, serving and training each family, a conditional NSF and the
+two diagonal Normal bases included)."""
 
 import ast
 import pathlib
@@ -49,10 +50,16 @@ def test_scan_covers_the_port():
             "nflows_tpu_torch/ops/cuda/linear_spline.py",
             "nflows_tpu_torch/ops/cuda/quadratic_spline.py",
             "nflows_tpu_torch/ops/cuda/cubic_spline.py",
-            "nflows_tpu_torch/flows/realnvp.py", "nflows_tpu_torch/nn/nets/mlp.py"} <= names
+            "nflows_tpu_torch/flows/realnvp.py", "nflows_tpu_torch/nn/nets/mlp.py",
+            "nflows_tpu_torch/distributions/normal.py",
+            "nflows_tpu_torch/ops/cuda/_fused_view_common.py",
+            "nflows_tpu_torch/ops/cuda/_trainer_common.py",
+            "nflows_tpu_torch/ops/cuda/nsf_fused.py", "nflows_tpu_torch/ops/cuda/nsf_train.py",
+            "nflows_tpu_torch/ops/cuda/nsf_flow_kernel.py", "nflows_tpu_torch/serving.py"} <= names
     sources = {p.name for p in (ROOT / "nflows_tpu_torch" / "csrc").glob("*.cu*")}
     assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh",
-            "affine_coupling.cuh", "coupling_stage.cuh"} <= sources
+            "affine_coupling.cuh", "coupling_stage.cuh", "nsf_flow_kernel.cu", "nsf_train.cu",
+            "tile_gemm.cuh"} <= sources
     for stem in ("lrs_spline", "linear_spline", "quadratic_spline", "cubic_spline"):
         assert {f"{stem}.cu", f"{stem}.cuh", f"{stem}_bwd.cuh"} <= sources
 
@@ -130,6 +137,19 @@ def test_runtime_loads_no_jax():
         "    tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 5), c)\n"
         "    tr.to_dist()\n"
         "    nt.make_train_step()(nt.create_train_state(m, adam), torch.randn(128, 5), c)\n"
+        "cnsf = nt.NeuralSplineFlow(6, 8, num_layers=2, num_bins=4, context_features=3,\n"
+        "                           device='cpu')\n"
+        "c = torch.randn(16, 3)\n"
+        "served = nt.CompiledFlow(cnsf, 16, 6, context_features=3, device='cpu')\n"
+        "assert served.is_fused\n"
+        "served.log_prob(x, c)\n"
+        "served.sample_and_log_prob(torch.Generator().manual_seed(0), c)\n"
+        "tr = nt.fused_trainer(cnsf, 128)\n"
+        "tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 6), torch.randn(128, 3))\n"
+        "tr.to_flow()\n"
+        "base = nt.ConditionalDiagonalNormal([6], context_encoder=torch.nn.Linear(3, 12))\n"
+        "nt.Flow(cnsf.transform, base).log_prob(x, c)\n"
+        "nt.DiagonalNormal([6]).log_prob(x)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'nflows_tpu')]\n"
         "print(bad)\n"

@@ -25,6 +25,7 @@ from nflows_tpu.ops.pallas import nsf_fused as jax_fused
 from nflows_tpu.ops.pallas.nsf_train import FusedNSFTrainer as JaxTrainer
 from nflows_tpu.ops.pallas.nsf_train import nsf_loss_grad_call
 from nflows_tpu_torch import (
+    Flow,
     NeuralSplineFlow,
     fused_trainer,
     load_jax_params,
@@ -282,14 +283,20 @@ def test_guards(flows):
 
 
 def test_flows_that_do_not_qualify():
+    """A conditional NSF trains fused now; what no fused trainer takes is a
+    conditional flow with an embedding net, and the refusal names the
+    eager route and the autograd one through nsf_train_apply."""
     conditional = NeuralSplineFlow(6, 16, num_layers=2, num_bins=4, context_features=3,
                                    device="cpu")
-    with pytest.raises(ValueError, match="conditional flows are not fused"):
-        fused_trainer(conditional, 128)
-    assert fused_trainer(conditional, 128, required=False) is None
-    assert fused_trainer(conditional, 128, auto=True) is None
+    assert isinstance(fused_trainer(conditional, 128), nsf_train.FusedNSFTrainer)
+    embedded = Flow(conditional.transform, conditional.distribution,
+                    embedding_net=torch.nn.Linear(5, 3))
+    with pytest.raises(ValueError, match="make_train_step(.|\\n)*nsf_train_apply"):
+        fused_trainer(embedded, 128)
+    assert fused_trainer(embedded, 128, required=False) is None
+    assert fused_trainer(embedded, 128, auto=True) is None
     with pytest.raises(ValueError, match="no fused training kernel"):
-        fused_trainer(conditional, 128, auto=True, required=True)
+        fused_trainer(embedded, 128, auto=True, required=True)
 
 
 def test_auto_uses_the_measured_floor(flows, monkeypatch):

@@ -428,9 +428,10 @@ def test_to_flow_round_trip(chains, kind):
 @pytest.mark.parametrize("family", ["cubic", "linear", "lrs", "quadratic"])
 def test_training_kernels_refuse_the_spline_families(chains, family):
     """B3 and B4 have these stages' adjoints: ``fused_trainer`` gives a
-    ``FusedNSFTrainer`` that runs them, with the family's softmax rescale.
-    What the training kernels still refuse is a conditional conditioner, on
-    every device, naming the eager route."""
+    ``FusedNSFTrainer`` that runs them, with the family's softmax rescale,
+    and so it does for the conditional twin, whose context it demands. What
+    the fused trainers still refuse is a conditional flow with an embedding
+    net, on every device, naming the eager route."""
     _, tflow = chains[family]
     trainer = fused_trainer(tflow, 128)
     assert isinstance(trainer, nsf_train.FusedNSFTrainer)
@@ -443,10 +444,16 @@ def test_training_kernels_refuse_the_spline_families(chains, family):
         tcls(mask=_mask(6), transform_net_create_fn=lambda i, o: nets.ResidualNet(
             i, o, hidden_features=HIDDEN, context_features=2, num_blocks=2, device="cpu"),
             device="cpu", **tkw)]), StandardNormal([6]))
-    with pytest.raises(ValueError, match="make_train_step(.|\\n)*conditional flows are not fused"):
-        fused_trainer(conditional, 128)
-    with pytest.raises(ValueError, match="conditional flows are not fused"):
-        nsf_train.FusedNSFTrainer(conditional, batch_size=128)
+    trainer = fused_trainer(conditional, 128)
+    assert isinstance(trainer, nsf_train.FusedNSFTrainer) and trainer.context_features == 2
+    with pytest.raises(ValueError, match="pass the context"):
+        trainer.loss_fn(trainer.weights, torch.from_numpy(_x(n=128)))
+    embedded = Flow(conditional.transform, conditional.distribution,
+                    embedding_net=torch.nn.Linear(4, 2))
+    with pytest.raises(ValueError, match="make_train_step(.|\\n)*embedding_net"):
+        fused_trainer(embedded, 128)
+    with pytest.raises(ValueError, match="embedding_net"):
+        nsf_train.FusedNSFTrainer(embedded, batch_size=128)
 
 
 def test_fused_method_and_what_fuse_nsf_refuses():

@@ -1,8 +1,10 @@
 """A/B two checkouts of the port on one card: the whole-chain kernel B2
 (forward and inverse at N = 4,096) and the training kernels B3 (N = 512 and
-4,096) and B4 (N = 512) on the full-width flagship NSF, and B3 and B4 (N =
-512) on RealNVP at the same widths (``chip_smoke.realnvp_flow``; random
-weights from seed 0).
+4,096) and B4 (N = 512) on the full-width flagship NSF, and B2 (forward at
+N = 4,096), B3 and B4 (N = 512) on RealNVP at the same widths
+(``chip_smoke.realnvp_flow``; random weights from seed 0), and B3 and B4 at
+N = 16,384 on the flagship at hidden 128, where they take 64-sample tiles.
+All without a context, the paths both sides have.
 
     python3 tools/checkout_ab.py OLD_CHECKOUT [NEW_CHECKOUT] [--rounds R]
 
@@ -30,7 +32,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # One turn, run with the checkout as its working directory and first on
 # sys.path; prints {"b2_forward": ms, "b2_inverse": ms, "b3_512": ms, "b3_4096": ms,
-# "b4_512": ms, "affine_b3_512": ms, "affine_b4_512": ms}.
+# "b4_512": ms, "affine_b2_forward": ms, "affine_b3_512": ms, "affine_b4_512": ms,
+# "narrow_b3_16384": ms, "narrow_b4_16384": ms}.
 TURN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -55,8 +58,16 @@ for inverse in (False, True):
                                            packed=fused._packed, **kw)
     out["b2_inverse" if inverse else "b2_forward"] = cs.device_ms(torch, run, 20,
                                                                   kernel="nsf_flow_kernel")
-for tag, model, sizes in (("", flow, (512, 4096)),
-                          ("affine_", cs.realnvp_flow("affine", "cuda", seed=0), (512,))):
+affine = cs.realnvp_flow("affine", "cuda", seed=0)
+fused = fuse_nsf(affine)
+run = lambda: nfk.nsf_flow_kernel_cuda(x, fused._weights, fused._indices, packed=fused._packed,
+                                       inverse=False, **fused._static)
+out["affine_b2_forward"] = cs.device_ms(torch, run, 20, kernel="nsf_flow_kernel")
+narrow = NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
+                          rng=np.random.default_rng(0), device="cuda",
+                          **dict(cs.FLAGSHIP, hidden_features=128))
+for tag, model, sizes in (("", flow, (512, 4096)), ("affine_", affine, (512,)),
+                          ("narrow_", narrow, (16384,))):
     trainer = nsf_train.FusedNSFTrainer(model, 512)
     w = {k: v.detach() for k, v in trainer.weights.items()}
     kw = dict(wh_scale=trainer._wh_scale, **trainer._static)
@@ -67,12 +78,13 @@ for tag, model, sizes in (("", flow, (512, 4096)),
         run = lambda: nsf_train.nsf_loss_grad_cuda(xb, w, trainer._indices, packed=packed,
                                                    grads=grads, **kw)
         out[f"{tag}b3_{n}"] = cs.device_ms(torch, run, 20, kernel="nsf_loss_grad_kernel")
-    gy = (torch.randn(512, D, generator=gen) / 512).cuda()
-    glad = (torch.randn(512, generator=gen) / 512).cuda()
-    xb = (1.5 * torch.randn(512, D, generator=gen)).cuda()
+    n = sizes[0]
+    gy = (torch.randn(n, D, generator=gen) / n).cuda()
+    glad = (torch.randn(n, generator=gen) / n).cuda()
+    xb = (1.5 * torch.randn(n, D, generator=gen)).cuda()
     run = lambda: nsf_train.nsf_train_bwd_cuda(xb, gy, glad, w, trainer._indices,
                                                packed=packed, grads=grads, **kw)
-    out[f"{tag}b4_512"] = cs.device_ms(torch, run, 20, kernel="nsf_train_bwd_kernel")
+    out[f"{tag}b4_{n}"] = cs.device_ms(torch, run, 20, kernel="nsf_train_bwd_kernel")
 print(json.dumps(out))
 """
 
