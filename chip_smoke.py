@@ -54,13 +54,28 @@ conditional flagship served through ``CompiledFlow`` fused (one B2 a
 request) and unfused (ten B1): log_prob of 4,096 samples with 4,096
 context rows and 256 samples for each of 16 context rows; and trained 20
 Adam steps on the fused, fused-autograd and eager routes with a context.
+Then the conditional autoregressive flows at the MAF's widths (context 10):
+B9 with its context path against its plain version forward and inverse at
+N = 4,096 and a ragged N on a conditional MAF (final MADE weights x 0.1; an
+untamed one's inverse held by relative error) and a conditional NSF-AR; B10
+with the context adjoint (the four context stacks' gradients and the
+context's cotangent) at 512 and 4,096, and B10's inverse direction (the
+backward of an IAF's sampling pass) on ``InverseAutoregressiveFlow`` at
+those widths and on a conditional IAF; both conditional flows served through
+``CompiledFlow`` fused (one B9 a request) and unfused; the conditional MAF
+trained as the MAF is; and the
+IAF trained by reverse KL against a seeded 10-D correlated Gaussian, 20
+steps fused (``FusedIAFTrainer.make_vi_train_step``: one B9 and one B10 a
+step) and eager (autograd through the unfused ``transform.inverse``), 400
+more fused steps checked by the samples' moments, and the conditional IAF's
+step; each route's step timed at 512, 2,048 and 4,096.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
 (a serving request for B1, B2, B5-B9 and B11, a train step for B3, B4, B10
-and B12),
+and B12; B10's row also counts a reverse-KL step as ``inverse_launches``),
 error against its plain version, device time (``ms_source`` says whether
 torch.profiler or CUDA events gave it), plain time, bound and library time at
 the main path's shape (B2's, B3's and B4's rows carry the other six
@@ -137,6 +152,17 @@ initialised those start near zero, which leaves the gate's gradients near
 1e-5, under the 2e-4 band. Conditional serving: fused against unfused within
 1e-3 on log_prob, samples and their log_prob (the same generator gives both
 paths the same noise).
+B9 and B10 with a context, and B10's inverse direction: the bands above
+(the context adds C-deep fp32 GEMMs to the same passes); B10's cotangent of
+the context x N 5e-3 like gx x N. There B10's gradient stacks must also lie
+within 1e-3 of their largest float64 entry (or twice the fp32 plain
+version's distance), and the flows held have their blocks' second linears
+redrawn as above: as initialised, the context projections' and first
+linears' gradients of a MADE block are near 1e-5, where a kernel writing
+zeros would pass 2e-4. The conditional MAF trains with the MAF's checks
+(first three losses 2e-3 apart; the last loss under the first and the mean
+of the last five under that of the first five), the IAF with the first
+three losses 2e-3 apart and the mean of the last five under the first five.
 B11: 1e-3 on lp, as B2 (fp32 GEMMs in another order than cuBLAS, then a
 logsumexp a feature summed over 10 features). B12: as B10, and gctx x N
 5e-3 like gx x N. B5-B8 as B1: on the values the main path hands them
@@ -152,7 +178,9 @@ for every weight a mask leaves, once a sample for B9 in either direction
 (the autoregressive inverse needs each hidden unit and each parameter once,
 when the features before it are known), three times for B10. The kernels
 multiply the masked zeros too, and B9's inverse runs D + 1 full passes a
-layer; ``schedule_ms`` is that dense count at the same peak rate. B11 and
+layer; ``schedule_ms`` is that dense count at the same peak rate. With a
+context both counts add the projections, 2 N L (1 + nb) C H a pass (three
+times for B10), and the bytes the context and its cotangent. B11 and
 B12 count the same way: two FLOP for every MADE weight the masks leave and
 every context weight, once a sample for B11 and three times for B12; their
 rows carry the conditional twin's numbers as ``context_*``. B2 with a context
@@ -282,15 +310,23 @@ def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def hold(name, kernel, plain32, plain64, tol):
-    """Hold a kernel result to its plain version (see the module doc).
+def hold(name, kernel, plain32, plain64, tol, rel=None):
+    """Hold a kernel result to its plain version (see the module doc). With
+    ``rel``, the kernel must also lie within ``rel`` times the largest
+    |float64| entry of float64 (or within twice the fp32 plain version's
+    distance): a band wider than the values it holds passes zeros.
     Returns max |kernel - plain|."""
     err_kp = max_err(kernel, plain32)
     err_k64 = max_err(kernel, plain64)
     err_p64 = max_err(plain32, plain64)
     ok = err_kp <= tol or err_k64 <= 2.0 * err_p64
+    largest = float(plain64.abs().max())
+    if rel is not None:
+        ok = ok and (err_k64 <= rel * largest or err_k64 <= 2.0 * err_p64)
     log(f"  {name}: |kernel-plain| {err_kp:.3e}  |kernel-f64| {err_k64:.3e}  "
-        f"|plain-f64| {err_p64:.3e}  tol {tol:.0e}  {'ok' if ok else 'FAIL'}")
+        f"|plain-f64| {err_p64:.3e}  tol {tol:.0e}"
+        + ("" if rel is None else f", {rel:.0e} of the largest |f64| {largest:.3e}")
+        + f"  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err_kp
@@ -629,57 +665,69 @@ def main() -> int:
     context_launches = {}  # launches a request or step on the conditional paths
 
     def serve(model, flow, features, fused_kernel, unfused_log_prob, unfused_sample,
-              fused_sample=None, context_features=None, ties=0):
+              fused_sample=None, context_features=None, context_rows=None, ties=0):
         """Serve ``flow`` through CompiledFlow on both paths: a log_prob
         request, then the two sampling requests, with the launches of each
         counted from zero; ``fused_kernel`` must run once a fused log_prob
         request and ``fused_sample`` (default: twice) in the two sampling
         requests, and the unfused path must launch exactly
         ``unfused_log_prob`` / ``unfused_sample`` a request. A conditional
-        model is served one sample a context row. ``ties``: samples that may
-        miss the consistency limit, for a density that is piecewise constant
-        (the linear spline's): a sample whose inverse lands within rounding
-        of a bin edge takes the neighbouring bin's density on the way back."""
+        model's log_prob takes a context row a sample; it is sampled one
+        sample a context row, or, with ``context_rows``, SERVE_BATCH /
+        context_rows samples for each of that many rows, and then the two
+        paths' samples must agree too (one generator gives both the same
+        noise). ``ties``: samples that may miss the consistency limit, for a
+        density that is piecewise constant (the linear spline's): a sample
+        whose inverse lands within rounding of a bin edge takes the
+        neighbouring bin's density on the way back."""
         x = torch.randn(SERVE_BATCH, features, generator=gen).to(dev)
         ctx = (None if context_features is None
                else torch.randn(SERVE_BATCH, context_features, generator=gen).to(dev))
-        kw = dict(batch_size=SERVE_BATCH, features=features, context_features=context_features,
-                  num_samples=None if ctx is None else 1)
-        served = CompiledFlow(flow, **kw)
-        if not served.is_fused:
-            raise AssertionError(f"{model}: CompiledFlow did not select the fused kernel")
-        unfused = CompiledFlow(flow, use_fused=False, **kw)
-        lp_fused = None
-        for name, server in (("fused", served), ("unfused", unfused)):
+        rows = context_rows or SERVE_BATCH
+        few = ctx if context_rows is None else torch.randn(rows, context_features,
+                                                           generator=gen).to(dev)
+        rep = ctx if context_rows is None else few.repeat_interleave(SERVE_BATCH // rows, 0)
+        kw = dict(features=features, context_features=context_features)
+        lp_kw = dict(batch_size=SERVE_BATCH, num_samples=None if ctx is None else 1)
+        out = {}
+        book = launches if context_features is None else context_launches
+        for name, use_fused in (("fused", True), ("unfused", False)):
+            # the fused path as a user gets it: CompiledFlow's own choice
+            kw["use_fused"] = None if use_fused else False
+            server = CompiledFlow(flow, **kw, **lp_kw)
+            sampler = server if context_rows is None else CompiledFlow(
+                flow, batch_size=rows, num_samples=SERVE_BATCH // rows, **kw)
+            if server.is_fused != use_fused or sampler.is_fused != use_fused:
+                raise AssertionError(f"{model}: CompiledFlow did not take the {name} path")
             g = torch.Generator(device=dev).manual_seed(1)
             reset_counts()
             lp = server.log_prob(x, ctx)
             torch.cuda.synchronize()
             first = read_counts()
             reset_counts()
-            s = server.sample(g, ctx).reshape(SERVE_BATCH, features)
-            s2, lp2 = server.sample_and_log_prob(g, ctx)
+            s = sampler.sample(g, few).reshape(SERVE_BATCH, features)
+            s2, lp2 = sampler.sample_and_log_prob(g, few)
             s2, lp2 = s2.reshape(SERVE_BATCH, features), lp2.reshape(SERVE_BATCH)
             torch.cuda.synchronize()
             rest = read_counts()
             log(f"serving {model} ({name}): launches a request {first}, two more requests "
                 f"{rest}")
-            if name == "fused":
+            if use_fused:
                 expect_counts(f"one fused {model} request", first, **{fused_kernel: 1})
                 expect_counts(f"two fused {model} requests", rest,
                               **(fused_sample or {fused_kernel: 2}))
-                launches.setdefault(fused_kernel, first[fused_kernel])
+                book.setdefault(fused_kernel, first[fused_kernel])
             else:
                 expect_counts(f"one unfused {model} request", first, **unfused_log_prob)
                 expect_counts(f"two unfused {model} requests", rest,
                               **{k: 2 * v for k, v in unfused_sample.items()})
                 for kid in unfused_log_prob:
-                    launches.setdefault(kid, first[kid])
+                    book.setdefault(kid, first[kid])
             for t, shape in ((lp, (SERVE_BATCH,)), (s, (SERVE_BATCH, features)),
                              (s2, (SERVE_BATCH, features)), (lp2, (SERVE_BATCH,))):
                 if tuple(t.shape) != shape or not torch.isfinite(t).all():
                     raise AssertionError(f"{model} {name}: bad output {tuple(t.shape)}")
-            gaps = (lp2.double() - server.log_prob(s2, ctx).double()).abs().flatten()
+            gaps = (lp2.double() - server.log_prob(s2, rep).double()).abs().flatten()
             consistency = float(gaps.max())
             over = int((gaps > 5e-3).sum())
             rest_max = float(gaps.sort().values[-1 - ties]) if ties else consistency
@@ -689,16 +737,10 @@ def main() -> int:
             if over > ties:
                 raise AssertionError(
                     f"{model} {name}: sample_and_log_prob disagrees with log_prob")
-            if name == "fused":
-                lp_fused = lp
-            else:
-                gap = max_err(lp, lp_fused)
-                log(f"  unfused vs fused log_prob: {gap:.3e} (limit 1e-3)")
-                if gap > 1e-3:
-                    raise AssertionError(f"{model}: unfused and fused log_prob disagree")
+            out[name] = (lp, s, s2, lp2)
             for endpoint, fn in (("log_prob", lambda: server.log_prob(x, ctx)),  # noqa: B023
-                                 ("sample", lambda: server.sample(  # noqa: B023
-                                     torch.Generator(device=dev).manual_seed(2), ctx))):
+                                 ("sample", lambda: sampler.sample(  # noqa: B023
+                                     torch.Generator(device=dev).manual_seed(2), few))):
                 fn()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -708,9 +750,15 @@ def main() -> int:
                 wall = 1e3 * (time.perf_counter() - t0) / 10
                 # the unfused path's profile holds thousands of launches a call:
                 # fewer calls keep its cost to the run down
-                busy = device_ms(torch, fn, 10 if name == "fused" else 3)
+                busy = device_ms(torch, fn, 10 if use_fused else 3)
                 log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
                     f"device busy {busy:.3f} ms")
+        compared = ("log_prob", "samples", "more samples", "their log_prob")
+        for i, what in enumerate(compared[:1] if context_rows is None else compared):
+            gap = max_err(out["fused"][i], out["unfused"][i])
+            log(f"  unfused vs fused {what}: {gap:.3e} (limit 1e-3)")
+            if gap > 1e-3:
+                raise AssertionError(f"{model}: unfused and fused {what} disagree")
 
     serve("NSF", flow, D, "B2", dict(B1=L), dict(B1=L))
 
@@ -844,6 +892,42 @@ def main() -> int:
         }
         return steps, fused_tr, state
 
+    def time_steps(title, make_routes, family, extra):
+        """Time a step of each route at batches 512, 2,048 and 4,096: the wall
+        time over 20 steps ending in a synchronise, after 3 warm-up steps,
+        and the device busy time of one (torch.profiler; three profiled
+        steps on the eager route, some thousand launches each).
+        ``make_routes(n)`` gives (name -> step, four argument tuples, the
+        fused trainer); ``extra(n, trainer, steps, args)`` measures more at
+        each size. Logs the batches the fused route wins at beside the
+        floor ``fused_trainer(auto=True)`` keeps for ``family``; returns
+        the wall times by (route, batch)."""
+        log(f"{title} step times (host clock over 20 steps ending in a synchronise; device "
+            "busy from torch.profiler):")
+        sizes = (TRAIN_BATCH, 2048, SERVE_BATCH)
+        times = {}
+        for n in sizes:
+            steps, args, trainer = make_routes(n)
+            for name, step in steps.items():
+                for a in args[:3]:
+                    step(*a)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(20):
+                    step(*args[i % 4])
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / 20
+                busy = device_ms(torch, lambda: step(*args[0]),  # noqa: B023
+                                 3 if name == "eager" else 10)
+                times[(name, n)] = wall
+                log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
+                    f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
+            extra(n, trainer, steps, args)
+        faster = [n for n in sizes if times[("fused", n)] < times[("eager", n)]]
+        log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes "
+            f"the fused route from batch {MIN_AUTO_BATCH[family]}")
+        return times
+
     def train_three_routes(model, model_flow, eager_kernels, context_features=None):
         """Train ``model_flow`` 20 Adam steps on the fused (B3), fused-autograd
         (B2 + B4) and eager routes, the eager one launching ``eager_kernels``
@@ -897,35 +981,16 @@ def main() -> int:
         log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
             f"{eager_gap:.3e}")
 
-        log(f"{model} train step times (host clock over 20 steps ending in a synchronise; "
-            "device busy from torch.profiler):")
-        step_ms = {}
-        timed = (TRAIN_BATCH, 2048, SERVE_BATCH)
-        for n in timed:
+        def timed_routes(n):
             steps, fused_tr, _ = routes(model_flow, n)
-            data = batches(n, 4, seed=5)
-            ctxs = contexts(n, 4, 15, context_features)
-            for name, step in steps.items():
-                for batch, c in zip(data[:3], ctxs[:3]):
-                    step(batch, c)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for i in range(20):
-                    step(data[i % 4], ctxs[i % 4])
-                torch.cuda.synchronize()
-                wall = 1e3 * (time.perf_counter() - t0) / 20
-                # an eager step is some thousand launches: three profiled steps
-                busy = device_ms(torch, lambda: step(data[0], ctxs[0]),  # noqa: B023
-                                 3 if name == "eager" else 10)
-                step_ms[(name, n)] = wall
-                log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
-                    f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
-            repack = device_ms(torch, lambda: fused_tr._repack(fused_tr.weights), 20)  # noqa: B023
-            log(f"  batch {n}: re-packing the weights for the forward GEMMs {repack:.4f} ms a "
-                "step")
-        faster = [n for n in timed if step_ms[("fused", n)] < step_ms[("eager", n)]]
-        log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes "
-            f"the fused route from batch {MIN_AUTO_BATCH['nsf']}")
+            return (steps, list(zip(batches(n, 4, seed=5), contexts(n, 4, 15, context_features))),
+                    fused_tr)
+
+        def repack(n, fused_tr, steps, args):
+            ms = device_ms(torch, lambda: fused_tr._repack(fused_tr.weights), 20)
+            log(f"  batch {n}: re-packing the weights for the forward GEMMs {ms:.4f} ms a step")
+
+        time_steps(f"{model} train", timed_routes, "nsf", extra=repack)
 
     train_three_routes("NSF", flow, dict(B1=L))
 
@@ -1160,95 +1225,104 @@ def main() -> int:
 
     # -- phase 12: training the MAF on the card ----------------------------------------
     mix_a = torch.randn(DA, DA, generator=gen).to(dev) / DA ** 0.5
+    mix_c = torch.randn(MOG_CONTEXT, DA, generator=gen).to(dev) / MOG_CONTEXT ** 0.5
 
-    def maf_batches(n, count, seed):
-        """Seeded synthetic data: correlated Gaussian features in 10 dimensions."""
+    def ar_batches(n, count, seed, context_features=None):
+        """Seeded synthetic (batch, context) pairs: correlated Gaussian
+        features in 10 dimensions, shifted by a linear function of an N(0, 1)
+        context where the model has one (None where it has not)."""
         g = torch.Generator(device=dev).manual_seed(seed)
-        return [1.5 * torch.randn(n, DA, generator=g, device=dev) @ mix_a + 0.5
-                for _ in range(count)]
+        out = []
+        for _ in range(count):
+            x = 1.5 * torch.randn(n, DA, generator=g, device=dev) @ mix_a + 0.5
+            if context_features is None:
+                out.append((x, None))
+                continue
+            c = torch.randn(n, context_features, generator=g, device=dev)
+            out.append((x + c @ mix_c, c))
+        return out
 
-    def maf_routes(n):
-        fused_tr = fused_trainer(copy.deepcopy(maf), n)
-        state = create_train_state(copy.deepcopy(maf).train(), adam)
-        eager_step = make_train_step()
-        steps = {"fused": fused_tr.make_train_step(fused_tr.init_opt(adam)),
-                 "eager": lambda batch: eager_step(state, batch)[1]["loss"]}
-        return steps, fused_tr, state
+    def train_ar(model, model_flow, context_features=None):
+        """Train ``model_flow`` (an affine autoregressive flow) 20 Adam steps
+        fused (one B9 and one B10 a step) and eager; check the launches, the
+        first three losses, a falling loss (the last under the first, and
+        the mean of the last five under that of the first five), that the
+        masked entries stay bit-equal while the others and the context
+        stacks move, and the fused-trained flow served through CompiledFlow
+        against the trainer; then time a step of each route."""
+        def routes(n):
+            fused_tr = fused_trainer(copy.deepcopy(model_flow), n)
+            state = create_train_state(copy.deepcopy(model_flow).train(), adam)
+            eager_step = make_train_step()
+            steps = {"fused": fused_tr.make_train_step(fused_tr.init_opt(adam)),
+                     "eager": lambda batch, c=None: eager_step(state, batch, c)[1]["loss"]}
+            return steps, fused_tr, state
 
-    steps, fused_tr, state = maf_routes(TRAIN_BATCH)
-    start = {k: v.detach().clone() for k, v in fused_tr.weights.items()}
-    data = maf_batches(TRAIN_BATCH, TRAIN_STEPS, seed=6)
-    losses = {}
-    for name, expected in (("fused", dict(B9=1, B10=1)), ("eager", {})):
-        reset_counts()
-        first = steps[name](data[0])
-        torch.cuda.synchronize()
-        counts = read_counts()
-        log(f"training MAF ({name}): launches a step {counts}")
-        expect_counts(f"one {name} MAF step", counts, **expected)
-        if name == "fused":
-            launches["B10"] = counts["B10"]
-        rest = [steps[name](batch) for batch in data[1:]]
-        losses[name] = [float(v) for v in [first, *rest]]
-        log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
-            f"{losses[name][0]:.4f} -> {losses[name][-1]:.4f}")
-        if not all(np.isfinite(losses[name])) or not losses[name][-1] < losses[name][0]:
-            raise AssertionError(f"MAF {name}: the loss is not finite and falling: "
-                                 f"{losses[name]}")
-    gap = max(abs(a - b) for a, b in zip(losses["fused"][:3], losses["eager"][:3]))
-    log(f"  first three losses, fused vs eager: {gap:.3e} apart (limit 2e-3)")
-    if gap > 2e-3:
-        raise AssertionError("the fused and eager MAF routes disagree at the start")
-    for k in maf_train.MASKED_KEYS:
-        dead = fused_tr._masks[k] == 0
-        moved = not torch.equal(fused_tr.weights[k].detach()[dead], start[k][dead])
-        live = not torch.equal(fused_tr.weights[k].detach()[~dead], start[k][~dead])
-        log(f"  {k}: {int(dead.sum())} masked entries bit-equal after {TRAIN_STEPS} steps: "
-            f"{not moved}; the others moved: {live}")
-        if moved or not live:
-            raise AssertionError(f"MAF {k}: masked entries moved, or nothing trained")
-    held = maf_batches(TRAIN_BATCH, 1, seed=7)[0]
-    trained = fused_tr.to_flow().eval()
-    served_lp = CompiledFlow(trained, batch_size=TRAIN_BATCH, features=DA).log_prob(held)
-    with torch.no_grad():
-        y, lad = fused_tr._apply(fused_tr.weights, held)
-        trainer_lp = -0.5 * (y * y).sum(dim=1) - 0.5 * DA * np.log(2 * np.pi) + lad
-    gap = max_err(served_lp, trainer_lp)
-    log(f"  to_flow() served through CompiledFlow vs the trainer's log_prob: {gap:.3e} "
-        "(limit 1e-3)")
-    if gap > 1e-3:
-        raise AssertionError("the trained MAF served disagrees with the trainer")
-    log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
-        f"{max_err(served_lp, state.flow.log_prob(held).detach()):.3e}")
-
-    log("MAF train step times (host clock over 20 steps ending in a synchronise; device "
-        "busy from torch.profiler):")
-    maf_step_ms = {}
-    for n in (TRAIN_BATCH, 2048, SERVE_BATCH):
-        steps, fused_tr, _ = maf_routes(n)
-        data = maf_batches(n, 4, seed=8)
-        for name, step in steps.items():
-            for batch in data[:3]:
-                step(batch)
+        steps, fused_tr, state = routes(TRAIN_BATCH)
+        start = {k: v.detach().clone() for k, v in fused_tr.weights.items()}
+        data = ar_batches(TRAIN_BATCH, TRAIN_STEPS, 6, context_features)
+        losses = {}
+        for name, expected in (("fused", dict(B9=1, B10=1)), ("eager", {})):
+            reset_counts()
+            first = steps[name](*data[0])
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(20):
-                step(data[i % 4])
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0) / 20
-            busy = device_ms(torch, lambda: step(data[0]),  # noqa: B023
-                             3 if name == "eager" else 10)
-            maf_step_ms[(name, n)] = wall
-            log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
-                f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
-        fold = device_ms(torch, lambda: fused_tr._repack(  # noqa: B023
-            fused_tr._fold(fused_tr.weights)), 20)
-        log(f"  batch {n}: folding the masks and re-packing the weights {fold:.4f} ms a step")
-    faster = [n for n in (TRAIN_BATCH, 2048, SERVE_BATCH)
-              if maf_step_ms[("fused", n)] < maf_step_ms[("eager", n)]]
-    log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes the "
-        f"fused route from batch {MIN_AUTO_BATCH['maf']}")
+            counts = read_counts()
+            log(f"training {model} ({name}): launches a step {counts}")
+            expect_counts(f"one {name} {model} step", counts, **expected)
+            if name == "fused":
+                (launches if context_features is None else context_launches)["B10"] = \
+                    counts["B10"]
+            rest = [steps[name](*batch) for batch in data[1:]]
+            curve = losses[name] = [float(v) for v in [first, *rest]]
+            log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
+                f"{curve[0]:.4f} -> {curve[-1]:.4f}")
+            if (not all(np.isfinite(curve)) or not curve[-1] < curve[0]
+                    or not np.mean(curve[-5:]) < np.mean(curve[:5])):
+                raise AssertionError(f"{model} {name}: the loss is not finite and falling: "
+                                     f"{curve}")
+        gap = max(abs(a - b) for a, b in zip(losses["fused"][:3], losses["eager"][:3]))
+        log(f"  first three losses, fused vs eager: {gap:.3e} apart (limit 2e-3)")
+        if gap > 2e-3:
+            raise AssertionError(f"the fused and eager {model} routes disagree at the start")
+        for k in maf_train.MASKED_KEYS:
+            dead = fused_tr._masks[k] == 0
+            moved = not torch.equal(fused_tr.weights[k].detach()[dead], start[k][dead])
+            live = not torch.equal(fused_tr.weights[k].detach()[~dead], start[k][~dead])
+            log(f"  {k}: {int(dead.sum())} masked entries bit-equal after {TRAIN_STEPS} "
+                f"steps: {not moved}; the others moved: {live}")
+            if moved or not live:
+                raise AssertionError(f"{model} {k}: masked entries moved, or nothing trained")
+        for k in maf_flow_kernel.CONTEXT_KEYS if context_features else ():
+            if torch.equal(fused_tr.weights[k].detach(), start[k]):
+                raise AssertionError(f"{model} {k}: the context weights did not train")
+        held, held_c = ar_batches(TRAIN_BATCH, 1, 7, context_features)[0]
+        served_lp = CompiledFlow(fused_tr.to_flow().eval(), batch_size=TRAIN_BATCH, features=DA,
+                                 context_features=context_features).log_prob(held, held_c)
+        with torch.no_grad():
+            y, lad = fused_tr._apply(fused_tr.weights, held, held_c)
+            trainer_lp = -0.5 * (y * y).sum(dim=1) - 0.5 * DA * np.log(2 * np.pi) + lad
+        gap = max_err(served_lp, trainer_lp)
+        log(f"  to_flow() served through CompiledFlow vs the trainer's log_prob: {gap:.3e} "
+            "(limit 1e-3)")
+        if gap > 1e-3:
+            raise AssertionError(f"the trained {model} served disagrees with the trainer")
+        log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
+            f"{max_err(served_lp, state.flow.log_prob(held, held_c).detach()):.3e}")
 
+        def timed_routes(n):
+            steps, fused_tr, _ = routes(n)
+            return steps, ar_batches(n, 4, 8, context_features), fused_tr
+
+        def fold(n, fused_tr, steps, args):
+            ms = device_ms(torch, lambda: fused_tr._repack(fused_tr._fold(fused_tr.weights)), 20)
+            log(f"  batch {n}: folding the masks and re-packing the weights {ms:.4f} ms a step")
+            if n == TRAIN_BATCH:
+                log(f"{model}'s fused step at batch {n}:")
+                host_ops(lambda: steps["fused"](*args[0]))
+
+        time_steps(f"{model} train", timed_routes, "maf", extra=fold)
+
+    train_ar("MAF", maf)
 
     # -- phase 13: B11 against its plain version (full-width MADEMoG) ------------------
     mog = MixtureOfGaussiansMADE(**MOG, **seeded(0)).eval()
@@ -1369,43 +1443,29 @@ def main() -> int:
                                    schedule_ms=bound(dense, io_bytes)[0])
 
     # -- phase 16: training the mixture-density models on the card --------------------
-    mix_c = torch.randn(MOG_CONTEXT, DM, generator=gen).to(dev) / MOG_CONTEXT ** 0.5
-
-    def mog_batches(n, count, seed, cf):
-        """Seeded synthetic data: the MAF's correlated features, shifted by a
-        linear function of a N(0, 1) context where the model has one."""
-        g = torch.Generator(device=dev).manual_seed(seed)
-        out = []
-        for x in maf_batches(n, count, seed):
-            c = None if cf is None else torch.randn(n, cf, generator=g, device=dev)
-            out.append((x if c is None else x + c @ mix_c, c))
-        return out
-
     def mog_routes(dist, n):
         fused_tr = fused_trainer(copy.deepcopy(dist), n)
         state = create_train_state(copy.deepcopy(dist).train(), adam)
         eager_step = make_train_step()
-        fused_step = fused_tr.make_train_step(fused_tr.init_opt(adam))
-        steps = {"fused": lambda batch: fused_step(*batch),
-                 "eager": lambda batch: eager_step(state, *batch)[1]["loss"]}
+        steps = {"fused": fused_tr.make_train_step(fused_tr.init_opt(adam)),
+                 "eager": lambda batch, c=None: eager_step(state, batch, c)[1]["loss"]}
         return steps, fused_tr, state
 
-    mog_step_ms = {}
     for model, dist, cf in mog_models:
         steps, fused_tr, state = mog_routes(dist, TRAIN_BATCH)
         start = {k: v.detach().clone() for k, v in fused_tr.weights.items()}
-        data = mog_batches(TRAIN_BATCH, TRAIN_STEPS, 9, cf)
+        data = ar_batches(TRAIN_BATCH, TRAIN_STEPS, 9, cf)
         losses = {}
         for name, expected in (("fused", dict(B11=1, B12=1)), ("eager", {})):
             reset_counts()
-            first = steps[name](data[0])
+            first = steps[name](*data[0])
             torch.cuda.synchronize()
             counts = read_counts()
             log(f"training the {model} ({name}): launches a step {counts}")
             expect_counts(f"one {name} {model} step", counts, **expected)
             if name == "fused":
                 launches.setdefault("B12", counts["B12"])
-            rest = [steps[name](batch) for batch in data[1:]]
+            rest = [steps[name](*batch) for batch in data[1:]]
             losses[name] = [float(v) for v in [first, *rest]]
             log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
                 f"{losses[name][0]:.4f} -> {losses[name][-1]:.4f}")
@@ -1424,7 +1484,7 @@ def main() -> int:
                 f"steps: {not moved}; the others moved: {live}")
             if moved or not live:
                 raise AssertionError(f"{model} {k}: masked entries moved, or nothing trained")
-        held, held_c = mog_batches(TRAIN_BATCH, 1, 10, cf)[0]
+        held, held_c = ar_batches(TRAIN_BATCH, 1, 10, cf)[0]
         trained = fused_tr.to_dist().eval()
         served_lp = CompiledFlow(trained, batch_size=TRAIN_BATCH, features=DM,
                                  context_features=cf).log_prob(held, held_c)
@@ -1438,34 +1498,17 @@ def main() -> int:
         log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
             f"{max_err(served_lp, state.flow.log_prob(held, held_c).detach()):.3e}")
 
-        log(f"{model} train step times (host clock over 20 steps ending in a synchronise; "
-            "device busy from torch.profiler):")
-        for n in (TRAIN_BATCH, 2048, SERVE_BATCH):
+        def timed_routes(n, dist=dist, cf=cf):
             steps, fused_tr, _ = mog_routes(dist, n)
-            data = mog_batches(n, 4, 11, cf)
-            for name, step in steps.items():
-                for batch in data[:3]:
-                    step(batch)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for i in range(20):
-                    step(data[i % 4])
-                torch.cuda.synchronize()
-                wall = 1e3 * (time.perf_counter() - t0) / 20
-                busy = device_ms(torch, lambda: step(data[0]), 10)  # noqa: B023
-                mog_step_ms[(model, name, n)] = wall
-                log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
-                    f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
-            fold = device_ms(torch, lambda: fused_tr._repack(  # noqa: B023
-                fused_tr._fold(fused_tr.weights)), 20)
-            log(f"  batch {n}: folding the masks and re-packing the weights {fold:.4f} ms a "
-                "step")
+            return steps, ar_batches(n, 4, 11, cf), fused_tr
+
+        def fold(n, fused_tr, steps, args, cf=cf):
+            ms = device_ms(torch, lambda: fused_tr._repack(fused_tr._fold(fused_tr.weights)), 20)
+            log(f"  batch {n}: folding the masks and re-packing the weights {ms:.4f} ms a step")
             if n == TRAIN_BATCH and cf is None:
-                host_ops(lambda: steps["fused"](data[0]))  # noqa: B023
-        faster = [n for n in (TRAIN_BATCH, 2048, SERVE_BATCH)
-                  if mog_step_ms[(model, "fused", n)] < mog_step_ms[(model, "eager", n)]]
-        log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes "
-            f"the fused route from batch {MIN_AUTO_BATCH['mademog']}")
+                host_ops(lambda: steps["fused"](*args[0]))
+
+        time_steps(f"{model} train", timed_routes, "mademog", extra=fold)
 
     # -- phase 17: B5-B8 against their plain versions (the other spline families) ----
     # family -> (kernel id, wrapper module, wrapper, plain version, kernel name,
@@ -1646,7 +1689,7 @@ def main() -> int:
 
     # -- phase 24: B2, B3 and B4 with a context against their plain versions -----------
     # the flagship's conditional twin (context 10, MOG_CONTEXT) with its blocks'
-    # second linear layers redrawn (lively_gates), then the same three kernels
+    # second linear layers redrawn (lively_blocks), then the same three kernels
     # on a conditional affine chain at RealNVP's widths (final weights x 0.1)
     C = MOG_CONTEXT
 
@@ -1699,15 +1742,20 @@ def main() -> int:
         stats["err"] = max(errs)
         return stats
 
-    def lively_gates(flow_c, seed):
-        """Redraw each block's second linear layer at the first's scale: as the
-        library initialises it (U(-1e-3, 1e-3), so that couplings start near the
-        identity) the context gate's gradients are near 1e-5 and a kernel fault
-        in them would hide under the 2e-4 band. A trained model's are not."""
+    def lively_blocks(flow_c, seed):
+        """Redraw each residual block's second linear layer (a coupling's
+        ResidualNet, an autoregressive layer's MADE, wrapped or not) at the
+        first's scale: as the library initialises it (U(-1e-3, 1e-3), so
+        that a layer starts near the identity) the gradients of the block's
+        context gate or projection and of its first linear are near 1e-5,
+        and a kernel fault in them would hide under the 2e-4 band. A trained
+        model's are not."""
         g = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             for t in flow_c.transform.transforms:
-                for blk in getattr(getattr(t, "transform_net", None), "blocks", ()):
+                t = getattr(t, "transform", t)
+                net = getattr(t, "transform_net", getattr(t, "autoregressive_net", None))
+                for blk in getattr(net, "blocks", ()):
                     w = blk.linear_1.weight
                     bound_w = 1.0 / w.shape[1] ** 0.5
                     w.copy_(((torch.rand(w.shape, generator=g) * 2 - 1) * bound_w).to(dev))
@@ -1716,12 +1764,12 @@ def main() -> int:
     cond_flow = NeuralSplineFlow(generator=torch.Generator().manual_seed(20),
                                  rng=np.random.default_rng(20), device=dev,
                                  context_features=C, **FLAGSHIP).eval()
-    lively = lively_gates(copy.deepcopy(cond_flow), seed=21)
+    lively = lively_blocks(copy.deepcopy(cond_flow), seed=21)
     b2_ctx = hold_b2_context("conditional NSF", lively, (SERVE_BATCH, RAGGED))
     log(f"B3 and B4 on the conditional NSF (context {C}):")
     b3_ctx, b4_ctx = hold_training_kernels(fused_trainer(lively, TRAIN_BATCH),
                                            (TRAIN_BATCH, SERVE_BATCH))
-    cond_affine = lively_gates(realnvp_flow("affine", dev, seed=22, context_features=C), seed=23)
+    cond_affine = lively_blocks(realnvp_flow("affine", dev, seed=22, context_features=C), seed=23)
     b2_ctx_affine = hold_b2_context("conditional affine chain", cond_affine, (SERVE_BATCH,))
     log(f"B3 and B4 on the conditional affine chain (context {C}):")
     b3_ctx_affine, b4_ctx_affine = hold_training_kernels(
@@ -1730,67 +1778,338 @@ def main() -> int:
     # -- phase 25: serving the conditional NSF through CompiledFlow ----------------------
     # log_prob of 4,096 samples with 4,096 context rows; sample 256 samples for
     # each of 16 context rows; fused (one B2 a request) against unfused (ten B1)
-    def serve_conditional(model, flow_c, unfused_kernels):
-        x = torch.randn(SERVE_BATCH, D, generator=gen).to(dev)
-        ctx = torch.randn(SERVE_BATCH, C, generator=gen).to(dev)
-        few = torch.randn(16, C, generator=gen).to(dev)
-        out = {}
-        for name, use_fused in (("fused", True), ("unfused", False)):
-            lp_server = CompiledFlow(flow_c, batch_size=SERVE_BATCH, features=D,
-                                     context_features=C, use_fused=use_fused)
-            sampler = CompiledFlow(flow_c, batch_size=16, features=D, context_features=C,
-                                   num_samples=SERVE_BATCH // 16, use_fused=use_fused)
-            if lp_server.is_fused != use_fused or sampler.is_fused != use_fused:
-                raise AssertionError(f"{model}: CompiledFlow did not take the {name} path")
-            reset_counts()
-            lp = lp_server.log_prob(x, ctx)
-            torch.cuda.synchronize()
-            first = read_counts()
-            reset_counts()
-            s, slp = sampler.sample_and_log_prob(torch.Generator(device=dev).manual_seed(1), few)
-            torch.cuda.synchronize()
-            second = read_counts()
-            log(f"serving {model} ({name}): launches a log_prob request {first}, a sampling "
-                f"request {second}")
-            expected = dict(B2=1) if use_fused else unfused_kernels
-            expect_counts(f"one {name} {model} log_prob request", first, **expected)
-            expect_counts(f"one {name} {model} sampling request", second, **expected)
-            for kid in expected:
-                context_launches.setdefault(kid, first[kid])
-            if (tuple(lp.shape) != (SERVE_BATCH,) or tuple(s.shape) != (16, SERVE_BATCH // 16, D)
-                    or tuple(slp.shape) != (16, SERVE_BATCH // 16)
-                    or not all(torch.isfinite(t).all() for t in (lp, s, slp))):
-                raise AssertionError(f"{model} {name}: bad outputs")
-            gaps = (slp.reshape(-1).double() - flow_c.log_prob(
-                s.reshape(-1, D), few.repeat_interleave(SERVE_BATCH // 16, 0)).detach().double())
-            log(f"  sample_and_log_prob vs the flow's log_prob(samples): "
-                f"{float(gaps.abs().max()):.3e} (limit 5e-3)")
-            if float(gaps.abs().max()) > 5e-3:
-                raise AssertionError(f"{model} {name}: sample_and_log_prob disagrees")
-            out[name] = (lp, s, slp)
-            for endpoint, fn in (("log_prob", lambda: lp_server.log_prob(x, ctx)),  # noqa: B023
-                                 ("sample", lambda: sampler.sample(  # noqa: B023
-                                     torch.Generator(device=dev).manual_seed(2), few))):
-                fn()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(10):
-                    fn()
-                torch.cuda.synchronize()
-                wall = 1e3 * (time.perf_counter() - t0) / 10
-                busy = device_ms(torch, fn, 10 if use_fused else 3)
-                log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
-                    f"device busy {busy:.3f} ms")
-        for i, what in enumerate(("log_prob", "samples", "sample log_prob")):
-            gap = max_err(out["fused"][i], out["unfused"][i])
-            log(f"  unfused vs fused {what}: {gap:.3e} (limit 1e-3)")
-            if gap > 1e-3:
-                raise AssertionError(f"{model}: unfused and fused {what} disagree")
-
-    serve_conditional("conditional NSF", cond_flow, dict(B1=L))
+    serve("conditional NSF", cond_flow, D, "B2", dict(B1=L), dict(B1=L), context_features=C,
+          context_rows=16)
 
     # -- phase 26: training the conditional NSF on the three routes ---------------------
     train_three_routes("conditional NSF", cond_flow, dict(B1=L), context_features=C)
+
+    # -- phase 27: B9 and B10 with a context, and B10's inverse direction -----------
+    # the full-width MAF and NSF-AR (MAF's and NSF_AR's widths) with a context of
+    # MOG_CONTEXT features; the MAF's final MADE weights x 0.1, as phase 9's, and
+    # an untamed one held by relative error; the IAF at the same widths,
+    # unconditional (models.InverseAutoregressiveFlow) and with the context
+    from nflows_tpu_torch import Flow
+    from nflows_tpu_torch.distributions import StandardNormal
+    from nflows_tpu_torch.transforms import (
+        CompositeTransform,
+        InverseTransform,
+        MaskedAffineAutoregressiveTransform,
+        ReversePermutation,
+    )
+
+    def ar_chain(seed, wrapped=False):
+        """MAF's widths with a context: LA x [ReversePermutation, residual
+        affine MADE with a context of C features], wrapped in InverseTransform
+        for an IAF; random weights from ``seed``."""
+        g = torch.Generator().manual_seed(seed)
+        chain = []
+        for _ in range(LA):
+            layer = MaskedAffineAutoregressiveTransform(DA, HA, context_features=C,
+                                                        num_blocks=nba, generator=g, device=dev)
+            chain += [ReversePermutation(DA, device=dev),
+                      InverseTransform(layer) if wrapped else layer]
+        return Flow(CompositeTransform(chain), StandardNormal([DA])).to(dev).eval()
+
+    # the flows whose kernels are held have their blocks redrawn (lively_blocks);
+    # the untamed conditional MAF is held as the library initialises it
+    raw_cmaf = ar_chain(30)
+    cmaf = tame(lively_blocks(ar_chain(30), seed=34))
+    cnsf_ar = lively_blocks(NeuralSplineFlowAR(**NSF_AR, context_features=C, **seeded(31)),
+                            seed=35).eval()
+    ciaf = tame(lively_blocks(ar_chain(32, wrapped=True), seed=36))
+    iaf_full = tame(lively_blocks(InverseAutoregressiveFlow(**MAF, **seeded(33)), seed=37))
+
+    def context_ops(n):
+        """fp32 FLOP of the context projections of one MADE pass a layer."""
+        return 2 * n * LA * (1 + nba) * C * HA
+
+    view = fuse_maf(raw_cmaf)
+    x = torch.randn(SERVE_BATCH, DA, generator=gen).to(dev)
+    ctx = torch.randn(SERVE_BATCH, C, generator=gen).to(dev)
+    kw = dict(inverse=True, context=ctx, num_blocks=view._num_blocks,
+              transformer=view._transformer, spline_kw=view._spline_kw)
+    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+        x, view._weights, view._static, packed=view._packed, **kw)
+    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, view._weights, view._static, **kw)
+    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+        x.double(), {k: v.double() for k, v in view._weights.items()}, view._static,
+        **{**kw, "context": ctx.double()})
+    torch.cuda.synchronize()
+    log(f"B9 with context {C} on the conditional MAF as initialised, inverse at "
+        f"N={SERVE_BATCH}: largest |sample| {float(d_y.abs().max()):.3e}")
+    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+        raise AssertionError("B9 with context produced non-finite values")
+    hold_relative(torch, "inverse out", y, p_y, d_y)
+    hold_relative(torch, "inverse lad", lad, p_lad, d_lad)
+
+    b9_ctx = {}
+    for model, ar_flow in (("conditional MAF", cmaf), ("conditional NSF-AR", cnsf_ar)):
+        view = fuse_maf(ar_flow)
+        w32 = view._weights
+        w64 = {k: v.double() for k, v in w32.items()}
+        skw = dict(num_blocks=view._num_blocks, transformer=view._transformer,
+                   spline_kw=view._spline_kw)
+        P = w32["wf"].shape[0] // LA
+        ar_bytes = 4 * sum(v.numel() for v in w32.values())
+        need = masked_ops(1, ar_flow) + context_ops(1)
+        stats = {}
+        for n in (SERVE_BATCH, RAGGED):
+            x = torch.randn(n, DA, generator=gen).to(dev)
+            ctx = torch.randn(n, C, generator=gen).to(dev)
+            log(f"B9 on the {model} (context {C}) at N={n}:")
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, context=ctx, **skw)
+                y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+                    x, w32, view._static, packed=view._packed, **kw)
+                p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w32, view._static, **kw)
+                d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+                    x.double(), w64, view._static, **{**kw, "context": ctx.double()})
+                torch.cuda.synchronize()
+                if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                    raise AssertionError("B9 with context produced non-finite values")
+                tag = "inverse" if inverse else "forward"
+                tol = 5e-3 if inverse else 1e-3
+                err = max(hold(f"{tag} out", y, p_y, d_y, tol),
+                          hold(f"{tag} lad", lad, p_lad, d_lad, tol))
+                back, lad_back = maf_flow_kernel.maf_flow_kernel_cuda(
+                    y, w32, view._static, packed=view._packed, **{**kw, "inverse": not inverse})
+                trip = max(max_err(back, x), max_err(lad_back, -lad))
+                log(f"  {tag} then back: {trip:.3e} from the input (limit 5e-3)")
+                if trip > 5e-3:
+                    raise AssertionError(f"B9 {model}: the round trip does not close")
+                if n != SERVE_BATCH:
+                    continue
+                run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+                    x, w32, view._static, packed=view._packed, **kw)  # noqa: B023
+                run_plain = lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: E731
+                    x, w32, view._static, **kw)  # noqa: B023
+                ms = device_ms(torch, run, 10, kernel="maf_flow_kernel")
+                ms_source = device_ms.source
+                plain_ms = device_ms(torch, run_plain, 3)
+                nops = n * need
+                run_ops = (dense_ops(n, P) + context_ops(n)) * ((DA + 1) if inverse else 1)
+                io_bytes = ar_bytes + 4 * n * (2 * DA + 1 + C)
+                bound_ms, bound_by = bound(nops, io_bytes)
+                log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                    f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
+                    f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
+                    f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
+                    f"{run_ops / ms / 1e9:.1f} TFLOP/s")
+                pre = "inverse_" if inverse else ""
+                stats.update({pre + "err": err, pre + "ms": ms, pre + "ms_source": ms_source,
+                              pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
+                              pre + "bound_by": bound_by,
+                              pre + "schedule_ms": bound(run_ops, io_bytes)[0]})
+        b9_ctx[model] = stats
+
+    def hold_b10(model, trainer, n, context_features):
+        """B10 on ``trainer``'s folded weights against its plain version at
+        batch n (with N(0, 1) context rows where the trainer is
+        conditional): errors, time, bound."""
+        f32 = {k: v.detach().contiguous() for k, v in trainer._fold(trainer.weights).items()}
+        f64 = {k: v.double() for k, v in f32.items()}
+        mkw = dict(wh_scale=trainer._wh_scale, direction=trainer._direction, **trainer._static)
+        x = (1.5 * torch.randn(n, DA, generator=gen)).to(dev)
+        gy = (torch.randn(n, DA, generator=gen) / n).to(dev)
+        glad = (torch.randn(n, generator=gen) / n).to(dev)
+        ctx = (None if context_features is None
+               else torch.randn(n, context_features, generator=gen).to(dev))
+        log(f"B10 ({trainer._direction}) on the {model} at N={n}:")
+        gx, grads = maf_train.maf_train_bwd_cuda(x, gy, glad, f32, trainer._layers,
+                                                 context=ctx, **mkw)
+        p_gx, p_grads = maf_train.maf_train_bwd_plain(x, gy, glad, f32, trainer._layers,
+                                                      context=ctx, **mkw)
+        d_gx, d_grads = maf_train.maf_train_bwd_plain(
+            x.double(), gy.double(), glad.double(), f64, trainer._layers,
+            context=None if ctx is None else ctx.double(), **mkw)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (gx, *grads.values())):
+            raise AssertionError("B10 produced non-finite values")
+        log(f"  largest |gx * N|: {float((d_gx * n).abs().max()):.3f}")
+        errs = [hold("gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)]
+        if ctx is not None:
+            errs.append(hold("gctx * N", grads["ctx"] * n, p_grads["ctx"] * n,
+                             d_grads["ctx"] * n, 5e-3))
+        errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4, rel=1e-3)
+                 for k in grads if k != "ctx"]
+        packed = maf_flow_kernel.pack_weights(f32, trainer._layers, nba)
+        out = {k: v for k, v in grads.items() if k != "ctx"}
+        run = lambda: maf_train.maf_train_bwd_cuda(  # noqa: E731
+            x, gy, glad, f32, trainer._layers, context=ctx, packed=packed, grads=out, **mkw)
+        run_plain = lambda: maf_train.maf_train_bwd_plain(  # noqa: E731
+            x, gy, glad, f32, trainer._layers, context=ctx, **mkw)
+        ms = device_ms(torch, run, 10, kernel="maf_train_bwd_kernel")
+        ms_source = device_ms.source
+        plain_ms = device_ms(torch, run_plain, 3)
+        P = trainer._dims["P"]
+        w_bytes = 4 * sum(v.numel() for v in f32.values())
+        cops = 0 if ctx is None else context_ops(n)
+        nops = 3 * (n * masked_ops(1, trainer._flow_template) + cops)
+        run_ops = 3 * (dense_ops(n, P) + cops)
+        io_bytes = 2 * w_bytes + 4 * n * (3 * DA + 1 + (0 if ctx is None else 2 * C))
+        bound_ms, bound_by = bound(nops, io_bytes)
+        log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({bound_by}, {nops / 1e9:.2f} GFLOP needed); the kernel's schedule multiplies "
+            f"{run_ops / 1e9:.1f} GFLOP ({bound(run_ops, io_bytes)[0]:.4f} ms at the peak "
+            f"rate), {run_ops / ms / 1e9:.1f} TFLOP/s")
+        return dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    schedule_ms=bound(run_ops, io_bytes)[0])
+
+    b10_ctx, b10_inv = {}, {}
+    for model, ar_flow, cf, sizes in (
+            ("conditional MAF", cmaf, C, (TRAIN_BATCH, SERVE_BATCH)),
+            ("conditional NSF-AR", cnsf_ar, C, (TRAIN_BATCH,)),
+            ("IAF", iaf_full, None, (TRAIN_BATCH, SERVE_BATCH)),
+            ("conditional IAF", ciaf, C, (TRAIN_BATCH,))):
+        trainer = fused_trainer(ar_flow, TRAIN_BATCH)
+        want = maf_train.FusedIAFTrainer if "IAF" in model else maf_train.FusedMAFTrainer
+        if type(trainer) is not want:
+            raise AssertionError(f"fused_trainer gave {type(trainer).__name__} for {model}")
+        for n in sizes:
+            stats = hold_b10(model, trainer, n, cf)
+            (b10_inv if "IAF" in model else b10_ctx)[(model, n)] = stats
+
+    # -- phase 28: serving the conditional MAF and NSF-AR through CompiledFlow ----------
+    serve("conditional MAF", cmaf, DA, "B9", {}, {}, context_features=C, context_rows=16)
+    serve("conditional NSF-AR", cnsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA),
+          context_features=C, context_rows=16)
+
+    # -- phase 29: training the conditional MAF on the card ----------------------------
+    train_ar("conditional MAF", cmaf, context_features=C)
+
+    # -- phase 30: training the IAF by reverse KL on the card ---------------------------
+    # target: a correlated Gaussian N(mu, Sigma) in 10 dimensions, mu and Sigma
+    # fixed from a seed; its unnormalised log-density is the objective's
+    g_t = torch.Generator().manual_seed(40)
+    mu = torch.randn(DA, generator=g_t).to(dev)
+    root = torch.randn(DA, DA, generator=g_t) / DA ** 0.5
+    sigma = (root @ root.T + 0.5 * torch.eye(DA)).double()
+    prec = torch.linalg.inv(sigma).float().to(dev)
+    # the reverse KL's floor: E_q[log q - log p~] >= -log Z
+    kl_floor = float(-0.5 * DA * np.log(2 * np.pi) - 0.5 * torch.logdet(sigma))
+
+    def target_log_prob(v):
+        d = v - mu
+        return -0.5 * ((d @ prec) * d).sum(dim=1)
+
+    vi_adam = lambda params: torch.optim.Adam(params, lr=1e-3)  # noqa: E731
+
+    def eager_vi(model_flow, n, optimizer=vi_adam):
+        """The eager reverse-KL step: noise from the generator, autograd
+        through the unfused ``transform.inverse``, Adam on the flow's
+        parameters."""
+        f = copy.deepcopy(model_flow).train()
+        opt = optimizer(list(f.parameters()))
+
+        def step(generator, c=None):
+            z = torch.randn(n, DA, generator=generator, device=dev)
+            x, lad = f.transform.inverse(z, c)
+            lq = -0.5 * (z * z).sum(dim=1) - 0.5 * DA * np.log(2 * np.pi) - lad
+            loss = (lq - target_log_prob(x)).mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return step, f
+
+    def iaf_routes(model_flow, n):
+        tr = fused_trainer(copy.deepcopy(model_flow), n)
+        if not isinstance(tr, maf_train.FusedIAFTrainer):
+            raise AssertionError(f"fused_trainer gave {type(tr).__name__} for the IAF")
+        eager_step, _ = eager_vi(model_flow, n)
+        return {"fused": tr.make_vi_train_step(tr.init_opt(vi_adam), target_log_prob),
+                "eager": eager_step}, tr
+
+    def moments(tr, weights=None, c=None):
+        z = torch.randn(1 << 16, DA, generator=torch.Generator(device=dev).manual_seed(41),
+                        device=dev)
+        with torch.no_grad():
+            x, _ = tr.sample_and_log_prob_fn(tr.weights if weights is None else weights, z, c)
+        cov = torch.cov(x.double().T)
+        return (float((x.double().mean(0) - mu.double()).abs().max()),
+                float((cov - sigma.to(dev)).abs().max()))
+
+    steps, iaf_tr = iaf_routes(iaf_full, TRAIN_BATCH)
+    start_moments = moments(iaf_tr)
+    vi_losses = {}
+    for name, expected in (("fused", dict(B9=1, B10=1)), ("eager", {})):
+        gens = [torch.Generator(device=dev).manual_seed(50 + i) for i in range(TRAIN_STEPS)]
+        reset_counts()
+        first = steps[name](gens[0])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"training the IAF by reverse KL ({name}): launches a step {counts}")
+        expect_counts(f"one {name} IAF step", counts, **expected)
+        if name == "fused":
+            vi_launches = counts["B10"]
+        rest = [steps[name](g) for g in gens[1:]]
+        vi_losses[name] = [float(v) for v in [first, *rest]]
+        log(f"  {TRAIN_STEPS} Adam steps (lr 1e-3, batch {TRAIN_BATCH}): loss "
+            f"{vi_losses[name][0]:.4f} -> {vi_losses[name][-1]:.4f} (floor {kl_floor:.4f})")
+        if (not all(np.isfinite(vi_losses[name]))
+                or not np.mean(vi_losses[name][-5:]) < np.mean(vi_losses[name][:5])):
+            raise AssertionError(f"IAF {name}: the loss is not finite and falling: "
+                                 f"{vi_losses[name]}")
+    gap = max(abs(a - b) for a, b in zip(vi_losses["fused"][:3], vi_losses["eager"][:3]))
+    log(f"  first three losses, fused vs eager: {gap:.3e} apart (limit 2e-3)")
+    if gap > 2e-3:
+        raise AssertionError("the fused and eager IAF routes disagree")
+    for k in maf_train.MASKED_KEYS:
+        if iaf_tr.weights[k].grad[iaf_tr._masks[k] == 0].any():
+            raise AssertionError(f"IAF {k}: a masked entry has a gradient")
+    # fit the target: 400 more fused steps, then compare the moments
+    fit_gen = torch.Generator(device=dev).manual_seed(60)
+    t0 = time.perf_counter()
+    fit = [float(steps["fused"](fit_gen)) for _ in range(400)]
+    fit_s = time.perf_counter() - t0
+    end_moments = moments(iaf_tr)
+    log(f"  400 more fused steps in {fit_s:.2f} s: loss {np.mean(fit[:20]):.4f} -> "
+        f"{np.mean(fit[-20:]):.4f} (floor {kl_floor:.4f}); over 65,536 samples, largest "
+        f"|mean - mu| {start_moments[0]:.3f} -> {end_moments[0]:.3f}, largest "
+        f"|cov - Sigma| {start_moments[1]:.3f} -> {end_moments[1]:.3f}")
+    if not (np.mean(fit[-20:]) < np.mean(fit[:20]) and end_moments[0] < 0.5 * start_moments[0]
+            and end_moments[1] < start_moments[1]):
+        raise AssertionError("the IAF's reverse-KL fit did not move toward the target")
+    trained_iaf = iaf_tr.to_flow().eval()
+    zs = torch.randn(TRAIN_BATCH, DA, generator=gen).to(dev)
+    with torch.no_grad():
+        fx, flq = iaf_tr.sample_and_log_prob_fn(iaf_tr.weights, zs)
+        ux, ulad = trained_iaf.transform.inverse(zs)
+    gap = max(max_err(fx, ux),
+              max_err(flq, -0.5 * (zs * zs).sum(1) - 0.5 * DA * np.log(2 * np.pi) - ulad))
+    log(f"  to_flow() samples and log q vs the trainer's: {gap:.3e} (limit 1e-3)")
+    if gap > 1e-3:
+        raise AssertionError("the trained IAF's to_flow() disagrees with the trainer")
+
+    # the conditional IAF: one B9 and one B10 a step, the loss falling
+    ctr = fused_trainer(copy.deepcopy(ciaf), TRAIN_BATCH)
+    cstep = ctr.make_vi_train_step(ctr.init_opt(vi_adam), target_log_prob)
+    cgen = torch.Generator(device=dev).manual_seed(70)
+    cctx = torch.randn(TRAIN_BATCH, C, generator=cgen, device=dev)
+    reset_counts()
+    first = cstep(cgen, cctx)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("one conditional IAF step", counts, B9=1, B10=1)
+    closs = [float(first)] + [float(cstep(cgen, cctx)) for _ in range(TRAIN_STEPS - 1)]
+    log(f"training the conditional IAF (context {C}) by reverse KL: launches a step {counts}; "
+        f"loss {closs[0]:.4f} -> {closs[-1]:.4f}")
+    if not all(np.isfinite(closs)) or not np.mean(closs[-5:]) < np.mean(closs[:5]):
+        raise AssertionError(f"conditional IAF: the loss is not finite and falling: {closs}")
+
+    def timed_vi_routes(n):
+        steps, tr = iaf_routes(iaf_full, n)
+        return steps, [(torch.Generator(device=dev).manual_seed(80 + i),) for i in range(4)], tr
+
+    def vi_host_ops(n, tr, steps, args):
+        if n == TRAIN_BATCH:
+            log(f"the IAF's fused reverse-KL step at batch {n}:")
+            host_ops(lambda: steps["fused"](*args[0]))
+
+    time_steps("IAF reverse-KL", timed_vi_routes, "iaf", extra=vi_host_ops)
 
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
@@ -1802,7 +2121,9 @@ def main() -> int:
         """A row of a kernel that runs with and without a context: the
         unconditional model's numbers, the conditional twin's beside them
         (B2-B4: the conditional flagship, and the conditional affine chain
-        under ``context_families``; B11, B12: the MADEMoG)."""
+        under ``context_families``; B9, B10: the conditional MAF, and the
+        conditional NSF-AR and IAF under ``context_families``; B11, B12: the
+        MADEMoG)."""
         return {**stats, **{f"context_{k}": v for k, v in ctx_stats.items()}, **more}
 
     def at_both_batches(per_kind):
@@ -1840,10 +2161,23 @@ def main() -> int:
              "nflows_tpu_torch/csrc/nsf_train.cu",
              "nflows_tpu/ops/pallas/nsf_train.py:163",
              "ops/pallas/nsf_train.py:_bwd_kernel"),
-            ("B9", b9["MAF"], "nflows_tpu_torch/csrc/maf_flow_kernel.cu",
+            ("B9", with_context(b9["MAF"], b9_ctx["conditional MAF"],
+                                context_launches=context_launches["B9"],
+                                context_families={"NSF-AR": b9_ctx["conditional NSF-AR"]}),
+             "nflows_tpu_torch/csrc/maf_flow_kernel.cu",
              "nflows_tpu/ops/pallas/maf_flow_kernel.py:99",
              "ops/pallas/maf_flow_kernel.py:_kernel"),
-            ("B10", b10[("MAF", TRAIN_BATCH)], "nflows_tpu_torch/csrc/maf_train.cu",
+            ("B10", with_context(
+                {**b10[("MAF", TRAIN_BATCH)],
+                 **{f"inverse_{k}": v for k, v in b10_inv[("IAF", TRAIN_BATCH)].items()},
+                 f"inverse_ms_at_{SERVE_BATCH}": b10_inv[("IAF", SERVE_BATCH)]["ms"],
+                 "inverse_launches": vi_launches},
+                {**b10_ctx[("conditional MAF", TRAIN_BATCH)],
+                 f"ms_at_{SERVE_BATCH}": b10_ctx[("conditional MAF", SERVE_BATCH)]["ms"]},
+                context_launches=context_launches["B10"],
+                context_families={"NSF-AR": b10_ctx[("conditional NSF-AR", TRAIN_BATCH)],
+                                  "IAF": b10_inv[("conditional IAF", TRAIN_BATCH)]}),
+             "nflows_tpu_torch/csrc/maf_train.cu",
              "nflows_tpu/ops/pallas/maf_train.py:161",
              "ops/pallas/maf_train.py:_bwd_kernel"),
             ("B11", with_context(b11[(uncond, SERVE_BATCH)], b11[(cond, SERVE_BATCH)],

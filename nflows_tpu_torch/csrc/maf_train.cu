@@ -1,26 +1,34 @@
-// B10: backward of the autoregressive chain's log_prob direction.
+// B10: backward of the autoregressive chain's one-pass direction.
 //
 // Replaces the TPU kernel nflows_tpu/ops/pallas/maf_train.py:_bwd_kernel
-// (direction "forward", affine and rq transformers, fp32, no context). It
-// recomputes the chain of unwrapped [permutation, MADE + transformer]
-// layers from x and pulls given cotangents (gy, glad) back to gx and every
-// weight gradient; it is the backward of B9 (maf_flow_kernel.cu) going
-// forward. The kernel reads mask-folded weights and returns dense
-// gradients: the caller multiplies gwi, gwb and gwf by the masks (the chain
-// rule of the fold), so a masked entry's gradient is exactly zero.
+// (directions "forward" and "inverse", affine and rq transformers, fp32,
+// with or without a context). It recomputes the chain from x and pulls
+// given cotangents (gy, glad) back to gx, gctx and every weight gradient;
+// it is the backward of B9 (maf_flow_kernel.cu) where B9 runs one MADE
+// pass a layer: going forward through unwrapped [permutation, MADE +
+// transformer] layers (the MAF's log_prob), or coming back through wrapped
+// ones (the IAF's sampling pass: layers L-1 ... 0, the MADE and transformer
+// on the layer's input as it is, then the inverse permutation). The
+// direction is a run-time flag: it only moves the permutation, from a
+// gather of the layer's input (whose backward scatters the input's
+// cotangent) to a scatter of its output (whose backward gathers the
+// output's cotangent before the layer's adjoint). The kernel reads
+// mask-folded weights and returns dense gradients: the caller multiplies
+// gwi, gwb and gwf by the masks (the chain rule of the fold), so a masked
+// entry's gradient is exactly zero.
 //
 // Bound on the H100: operations. One chain pass and its backward are three
 // forward-equivalents of fp32 GEMM work (forward, input cotangents, weight
 // gradients), 8.1 MFLOP a sample at features 10, hidden 256, 5 layers, 2
 // blocks (dense count, masked zeros included), against 84 bytes a sample
-// and 5.4 MB of weights read and as much of gradients written.
+// and 5.4 MB of weights read and as much of gradients written. A context
+// of C features adds 3 x 2 (1 + nb) C H FLOP and 8 C bytes a sample.
 //
 // Design: B4's (nsf_train.cu), whose device code it shares.
 // - The TPU kernel differentiates each layer with jax.vjp traced inside the
 //   kernel. Here the adjoint is written out. The layer's input enters twice,
 //   as the MADE's input and as the transformer's operand:
-//   g_x = g_y * dy/dx (elementwise) + Wi^T g_h (through the MADE), then the
-//   scatter that undoes the permutation. Affine: s = softplus(u) + 1e-3,
+//   g_x = g_y * dy/dx (elementwise) + Wi^T g_h (through the MADE). Affine: s = softplus(u) + 1e-3,
 //   y = s x + t, lad = log s, so g_u = (g_y x + g_lad / s) sigmoid(u),
 //   g_t = g_y, g_x = g_y s. RQ: rq_spline_forward_adjoint
 //   (rq_spline_bwd.cuh), which also carries wh_scale to the width and
@@ -37,6 +45,15 @@
 //   tile_wgrad, added into the global buffers with fp32 atomics because
 //   blocks run in no order. The wrapper zeroes the buffers before each
 //   launch; gradients agree run to run only to fp32 rounding.
+// - Context (a template flag, CTX, so the unconditional kernels carry none
+//   of its code): the context tile [C4][RS] stays in shared memory. The
+//   forward recompute adds relu(Wci c + bci) to h and Wcb_j c + bcb_j to
+//   block j's first linear, as B9 does. Block j's pre-relu cotangent g_t
+//   gives gWcb_j, gbcb_j and Wcb_j^T g_t into gctx; the initial layer's
+//   cotangent where Wci c + bci > 0 gives gWci, gbci and Wci^T of it into
+//   gctx. Wci c + bci is recomputed for that mask, not kept: the scratch is
+//   already about 1 MB a block. gctx builds up over the layers in a [C4][RS]
+//   tile and is written once a tile.
 // - The ragged last tile computes on zero rows with zero cotangents, so it
 //   adds nothing for them, and skips their stores.
 #include <cuda_runtime.h>
@@ -59,22 +76,32 @@ constexpr float kAffineEpsilon = 1e-3f;
 
 struct MafTrainArgs {
   const float* x;     // [n][D]
+  const float* ctx;   // [n][C], null when C = 0
   const float* gy;    // [n][D]  cotangent of the chain's output
   const float* glad;  // [n]     cotangent of the logabsdet
   float* gx;          // [n][D]  cotangent of x
+  float* gctx;        // [n][C]  cotangent of the context
   int64_t n;
   int D, L, H, D4, P, Pp, TB, nb2;
+  int C, C4;          // context features, and rounded up to a multiple of 4
+  int inverse;        // 0: forward through unwrapped layers; 1: back through wrapped ones
   // forward weights, in-major and padded (maf_flow_kernel.py:pack_weights)
   const float* pwi;  // [L][D4][H]
   const float* pwb;  // [L][nb2][H][H]
   const float* pwf;  // [L][H][Pp]
   const float* pbf;  // [L][Pp]
+  const float* pwci;  // [L][C4][H]
+  const float* pwcb;  // [L][nb][C4][H]
   // the extracted layout, [out][in], mask folded
   const float* wi;   // [L][H][D]
   const float* bi;   // [L][H]
   const float* wb;   // [L][nb2][H][H]
   const float* bb;   // [L][nb2][H]
   const float* wf;   // [L][P][H]
+  const float* wci;  // [L][H][C]
+  const float* bci;  // [L][H]
+  const float* wcb;  // [L][nb][H][C]
+  const float* bcb;  // [L][nb][H]
   const int* idx;    // [L][2 D + 1]: perm_rows, inv_perm_rows, wrapped
   // gradients, in the extracted layout, zeroed by the caller
   float* gwi;
@@ -83,6 +110,10 @@ struct MafTrainArgs {
   float* gbb;
   float* gwf;
   float* gbf;
+  float* gwci;
+  float* gbci;
+  float* gwcb;
+  float* gbcb;
   float* stash;  // [grid][L][(nb2 + 1) H + Pp][ROWS + 4]
   int rq;        // 0: affine transformer, 1: RQ spline
   float wh_scale;
@@ -105,7 +136,22 @@ __device__ __forceinline__ void restore(float* dst, const float* src, int rows, 
   }
 }
 
+// gc[c][s] += sum_o W[o][c] g[o][s]: the cotangent of the C context
+// features through a projection W [H][C]. Each (c, s) belongs to one thread
+// in every call, so gc needs no barrier of its own.
 template <int ROWS>
+__device__ __forceinline__ void context_cotangent(const float* W, const float* g, int H, int C,
+                                                  float* gc) {
+  constexpr int NT = ROWS * 8, RS = ROWS + 4;
+  for (int e = threadIdx.x; e < C * ROWS; e += NT) {
+    const int c = e / ROWS, s = e % ROWS;
+    float sum = 0.0f;
+    for (int o = 0; o < H; ++o) sum += W[o * C + c] * g[o * RS + s];
+    gc[c * RS + s] += sum;
+  }
+}
+
+template <int ROWS, bool CTX>
 __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a) {
   constexpr int NT = ROWS * 8, RS = ROWS + 4;
   extern __shared__ __align__(16) float smem[];
@@ -121,6 +167,9 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
   float* ybuf = gnext + ROWS * D;           // [ROWS][D] cotangent through the transformer
   float* ga0 = ybuf + ROWS * D;             // [D][ROWS] cotangent through the MADE
   float* gladv = ga0 + D * ROWS;            // [ROWS] cotangent of the logabsdet
+  float* cs = gladv + ROWS;                 // [C4][RS] context (CTX only)
+  float* gcs = cs + a.C4 * RS;              // [C4][RS] its cotangent (CTX only)
+  const bool inv = a.inverse != 0;
 
   const int tid = threadIdx.x;
   const int KD = a.cfg.num_bins * D;
@@ -137,27 +186,48 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
       const int s = e / D;
       xs[e] = s < rows ? a.x[(base + s) * D + (e % D)] : 0.0f;
     }
+    if constexpr (CTX) {
+      for (int e = tid; e < a.C4 * ROWS; e += NT) {
+        const int i = e / ROWS, s = e % ROWS;
+        cs[i * RS + s] = (i < a.C && s < rows) ? a.ctx[(base + s) * a.C + i] : 0.0f;
+        gcs[i * RS + s] = 0.0f;
+      }
+    }
     __syncthreads();
 
     // ---- forward pass, keeping what the backward needs ------------------------
-    for (int l = 0; l < L; ++l) {
-      const float* xl = xs + l * ROWS * D;
-      float* xn = xs + (l + 1) * ROWS * D;
+    // step k runs layer l: k going forward, L - 1 - k coming back; xs holds
+    // each step's input. Going forward the layer's input is gathered by the
+    // permutation; coming back its output is scattered by it.
+    for (int step = 0; step < L; ++step) {
+      const int l = inv ? L - 1 - step : step;
+      const float* xl = xs + step * ROWS * D;
+      float* xn = xs + (step + 1) * ROWS * D;
       const int* perm = a.idx + l * idx_stride;
       float* st = stash + (size_t)l * SR * RS;
 
       for (int e = tid; e < D4 * ROWS; e += NT) {
         const int i = e / ROWS, s = e % ROWS;
-        Y[i * RS + s] = i < D ? xl[s * D + perm[i]] : 0.0f;
+        Y[i * RS + s] = i < D ? xl[s * D + (inv ? i : perm[i])] : 0.0f;
       }
       __syncthreads();
 
-      // h_0, then h_{j+1} = h_j + W1 relu(W0 relu(h_j) + b0) + b1
+      // h_0 [+ relu(Wci c + bci)], then
+      // h_{j+1} = h_j + W1 relu(W0 relu(h_j) + b0 [+ Wcb_j c + bcb_j]) + b1
+      if constexpr (CTX) {
+        tile_gemm<ROWS, RS>(cs, a.C4, a.pwci + (size_t)l * a.C4 * H, a.bci + (size_t)l * H, H, X,
+                            false, true, false, wst);
+      }
       tile_gemm<ROWS, RS>(Y, D4, a.pwi + (size_t)l * D4 * H, a.bi + (size_t)l * H, H, X, false,
-                          false, false, wst, nullptr, st);
+                          false, CTX, wst, nullptr, st);
       for (int j = 0; j < nb; ++j) {
         const size_t m = (size_t)l * nb2 + 2 * j;
-        tile_gemm<ROWS, RS>(X, H, a.pwb + m * H * H, a.bb + m * H, H, Y, true, true, false, wst,
+        if constexpr (CTX) {
+          const size_t mc = (size_t)l * nb + j;
+          tile_gemm<ROWS, RS>(cs, a.C4, a.pwcb + mc * a.C4 * H, a.bcb + mc * H, H, Y, false,
+                              false, false, wst);
+        }
+        tile_gemm<ROWS, RS>(X, H, a.pwb + m * H * H, a.bb + m * H, H, Y, true, true, CTX, wst,
                             nullptr, st + (size_t)(nb + 1 + j) * H * RS);
         tile_gemm<ROWS, RS>(Y, H, a.pwb + (m + 1) * H * H, a.bb + (m + 1) * H, H, X, false,
                             false, true, wst, nullptr, st + (size_t)(j + 1) * H * RS);
@@ -178,7 +248,7 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
 
       for (int e = tid; e < D * ROWS; e += NT) {
         const int t = e / ROWS, s = e % ROWS;
-        const float xv = xl[s * D + perm[t]];
+        const float xv = xl[s * D + (inv ? t : perm[t])];
         const float* Pt = Y + t * RS + s;
         float o;
         if (a.rq) {
@@ -188,7 +258,7 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
         } else {
           o = (nflows::softplus(Pt[0]) + kAffineEpsilon) * xv + Pt[D * RS];
         }
-        xn[s * D + t] = o;
+        xn[s * D + (inv ? perm[t] : t)] = o;
       }
       __syncthreads();
     }
@@ -199,8 +269,9 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
     __syncthreads();
 
     // ---- backward sweep ----------------------------------------------------------
-    for (int l = L - 1; l >= 0; --l) {
-      const float* xl = xs + l * ROWS * D;
+    for (int step = L - 1; step >= 0; --step) {
+      const int l = inv ? L - 1 - step : step;
+      const float* xl = xs + step * ROWS * D;
       const int* perm = a.idx + l * idx_stride;
       const float* st = stash + (size_t)l * SR * RS;
 
@@ -211,8 +282,8 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
       // transformer adjoint: gP into Y, the operand's cotangent into ybuf
       for (int e = tid; e < D * ROWS; e += NT) {
         const int t = e / ROWS, s = e % ROWS;
-        const float xv = xl[s * D + perm[t]];
-        const float g = gcur[s * D + t], gl = gladv[s];
+        const float xv = xl[s * D + (inv ? t : perm[t])];
+        const float g = gcur[s * D + (inv ? perm[t] : t)], gl = gladv[s];
         const float* Pt = X + t * RS + s;
         float* G = Y + t * RS + s;
         if (a.rq) {
@@ -247,6 +318,13 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
         // g_t = (W1^T g_h) where t > 0
         tile_gemm<ROWS, RS>(Z, H, a.wb + (m + 1) * H * H, nullptr, H, Y, false, false, false,
                             wst, X);
+        if constexpr (CTX) {
+          // g_t is the cotangent of Wcb_j c + bcb_j too
+          const size_t mc = (size_t)l * nb + j;
+          tile_wgrad<ROWS, RS>(Y, H, cs, a.C, a.gwcb + mc * H * a.C, a.C);
+          tile_bgrad<ROWS, RS>(Y, H, a.gbcb + mc * H);
+          context_cotangent<ROWS>(a.wcb + mc * H * a.C, Y, H, a.C, gcs);
+        }
         restore<ROWS>(X, st + (size_t)j * H * RS, H, true);  // relu(h_j)
         __syncthreads();
         tile_wgrad<ROWS, RS>(Y, H, X, H, a.gwb + m * H * H, H);
@@ -255,10 +333,24 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
         tile_gemm<ROWS, RS>(Y, H, a.wb + m * H * H, nullptr, H, Z, false, false, true, wst, X);
       }
 
+      if constexpr (CTX) {
+        // the initial layer's context term: Y = g_h where Wci c + bci > 0
+        tile_gemm<ROWS, RS>(cs, a.C4, a.pwci + (size_t)l * a.C4 * H, a.bci + (size_t)l * H, H, X,
+                            false, false, false, wst);
+        for (int e = tid; e < H * ROWS; e += NT) {
+          const int o = e / ROWS, s = e % ROWS;
+          Y[o * RS + s] = X[o * RS + s] > 0.0f ? Z[o * RS + s] : 0.0f;
+        }
+        __syncthreads();
+        tile_wgrad<ROWS, RS>(Y, H, cs, a.C, a.gwci + (size_t)l * H * a.C, a.C);
+        tile_bgrad<ROWS, RS>(Y, H, a.gbci + (size_t)l * H);
+        context_cotangent<ROWS>(a.wci + (size_t)l * H * a.C, Y, H, a.C, gcs);
+      }
+
       // initial layer: gWi += g_h xp^T, gbi += g_h 1, and Wi^T g_h
       const float* wi = a.wi + (size_t)l * H * D;
       for (int e = tid; e < H * D; e += NT) {
-        const int o = e / D, src = perm[e % D];
+        const int o = e / D, src = inv ? e % D : perm[e % D];
         float sum = 0.0f;
         for (int s = 0; s < ROWS; ++s) sum += Z[o * RS + s] * xl[s * D + src];
         atomicAdd(a.gwi + (size_t)l * H * D + e, sum);
@@ -272,57 +364,75 @@ __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a)
       }
       __syncthreads();
 
-      // the permuted input fed both the transformer and the MADE; the
-      // scatter undoes the gather xp[i] = x[perm[i]]
+      // the layer's input fed both the transformer and the MADE; going
+      // forward the scatter undoes the gather xp[i] = x[perm[i]]
       for (int e = tid; e < ROWS * D; e += NT) {
         const int s = e / D, i = e % D;
-        gnext[s * D + perm[i]] = ybuf[e] + ga0[i * ROWS + s];
+        gnext[s * D + (inv ? i : perm[i])] = ybuf[e] + ga0[i * ROWS + s];
       }
       __syncthreads();
       float* tmp = gcur; gcur = gnext; gnext = tmp;
     }
 
     for (int e = tid; e < rows * D; e += NT) a.gx[base * D + e] = gcur[e];
+    if constexpr (CTX) {
+      for (int e = tid; e < a.C * ROWS; e += NT) {
+        const int c = e / ROWS, s = e % ROWS;
+        if (s < rows) a.gctx[(base + s) * a.C + c] = gcs[c * RS + s];
+      }
+    }
     __syncthreads();
   }
 }
 
 size_t smem_bytes(int rows, const MafTrainArgs& a) {
-  return sizeof(float) * ((size_t)2 * KC * OC + (size_t)3 * a.TB * (rows + 4) +
+  return sizeof(float) * ((size_t)2 * KC * OC + (size_t)(3 * a.TB + 2 * a.C4) * (rows + 4) +
                           (size_t)rows * ((a.L + 5) * a.D + 1));
 }
 
-template <int ROWS>
+template <int ROWS, bool CTX>
 int launch(const MafTrainArgs& a, int grid, cudaStream_t stream) {
   const size_t bytes = smem_bytes(ROWS, a);
-  cudaError_t err = cudaFuncSetAttribute(maf_train_bwd_kernel<ROWS>,
+  cudaError_t err = cudaFuncSetAttribute(maf_train_bwd_kernel<ROWS, CTX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  maf_train_bwd_kernel<ROWS><<<(unsigned)grid, ROWS * 8, bytes, stream>>>(a);
+  maf_train_bwd_kernel<ROWS, CTX><<<(unsigned)grid, ROWS * 8, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// transformer: 0 affine (P = 2 D), 1 rq (P = (3 K - 1) D). grid: blocks to
-// launch; stash holds grid x L x ((nb2 + 1) H + Pp) x (rows_per_block + 4)
-// floats. rows_per_block: 32 or 64. Returns a cudaError_t value (0 on
-// success).
+// transformer: 0 affine (P = 2 D), 1 rq (P = (3 K - 1) D). inverse: 0 the
+// forward direction (unwrapped layers), 1 the inverse (wrapped layers). C =
+// 0: no context (ctx, gctx and the context stacks and gradients may be
+// null). grid: blocks to launch; stash holds grid x L x ((nb2 + 1) H + Pp) x
+// (rows_per_block + 4) floats. rows_per_block: 32 or 64. Returns a
+// cudaError_t value (0 on success).
 extern "C" int maf_train_launch(
-    const float* x, const float* gy, const float* glad, float* gx, int64_t n, int D, int L, int H,
-    int D4, int P, int Pp, int nb2, const float* pwi, const float* pwb, const float* pwf,
-    const float* pbf, const float* wi, const float* bi, const float* wb, const float* bb,
-    const float* wf, const int* idx, float* gwi, float* gbi, float* gwb, float* gbb, float* gwf,
-    float* gbf, float* stash, int grid, int transformer, float wh_scale, int num_bins,
-    float tail_bound, float min_bin_width, float min_bin_height, float min_derivative,
-    int rows_per_block, void* stream) {
+    const float* x, const float* ctx, const float* gy, const float* glad, float* gx, float* gctx,
+    int64_t n, int D, int L, int H, int D4, int P, int Pp, int nb2, int C, int C4,
+    const float* pwi, const float* pwb, const float* pwf, const float* pbf, const float* pwci,
+    const float* pwcb, const float* wi, const float* bi, const float* wb, const float* bb,
+    const float* wf, const float* wci, const float* bci, const float* wcb, const float* bcb,
+    const int* idx, float* gwi, float* gbi, float* gwb, float* gbb, float* gwf, float* gbf,
+    float* gwci, float* gbci, float* gwcb, float* gbcb, float* stash, int grid, int inverse,
+    int transformer, float wh_scale, int num_bins, float tail_bound, float min_bin_width,
+    float min_bin_height, float min_derivative, int rows_per_block, void* stream) {
   if (n == 0) return 0;
   if (H % 4 || D4 % 4 || Pp % 4 || nb2 % 2 || D4 < D || Pp < P || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  if (C < 0 || C4 % 4 || C4 < C || (C == 0 && C4 != 0) || (inverse != 0 && inverse != 1))
+    return (int)cudaErrorInvalidValue;
+  if (C > 0 && !(ctx && gctx && pwci && pwcb && wci && bci && wcb && bcb && gwci && gbci &&
+                 gwcb && gbcb))
     return (int)cudaErrorInvalidValue;
   if (transformer != 0 && transformer != 1) return (int)cudaErrorInvalidValue;
   if (P != (transformer ? (3 * num_bins - 1) * D : 2 * D)) return (int)cudaErrorInvalidValue;
   MafTrainArgs a;
-  a.x = x; a.gy = gy; a.glad = glad; a.gx = gx; a.n = n;
+  a.x = x; a.ctx = ctx; a.gy = gy; a.glad = glad; a.gx = gx; a.gctx = gctx; a.n = n;
+  a.C = C; a.C4 = C4; a.inverse = inverse;
+  a.pwci = pwci; a.pwcb = pwcb; a.wci = wci; a.bci = bci; a.wcb = wcb; a.bcb = bcb;
+  a.gwci = gwci; a.gbci = gbci; a.gwcb = gwcb; a.gbcb = gbcb;
   a.D = D; a.L = L; a.H = H; a.D4 = D4; a.P = P; a.Pp = Pp;
   a.TB = H > Pp ? H : Pp;
   if (D4 > a.TB) a.TB = D4;
@@ -336,7 +446,12 @@ extern "C" int maf_train_launch(
   a.cfg = nflows::RQConfig{num_bins, tail_bound, min_bin_width, min_bin_height, min_derivative,
                            1.0f};
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows_per_block == 32) return launch<32>(a, grid, s);
-  if (rows_per_block == 64) return launch<64>(a, grid, s);
+  if (C > 0) {
+    if (rows_per_block == 32) return launch<32, true>(a, grid, s);
+    if (rows_per_block == 64) return launch<64, true>(a, grid, s);
+  } else {
+    if (rows_per_block == 32) return launch<32, false>(a, grid, s);
+    if (rows_per_block == 64) return launch<64, false>(a, grid, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

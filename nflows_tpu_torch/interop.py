@@ -94,8 +94,9 @@ def load_jax_trainer_weights(trainer, weights: Mapping[str, np.ndarray]) -> None
     (``w0``, ``b0``, ``wb``, ``bb``, ``wf``, ``bf`` of ``FusedNSFTrainer``,
     and ``wc0``, ``wcb``, ``bcb`` under a context;
     the flat ``wi``, ``bi``, ``wb``, ``bb``, ``wf``, ``bf`` stacks of
-    ``FusedMAFTrainer``, and of ``FusedMADEMoGTrainer`` with ``wci``,
-    ``bci``, ``wcb``, ``bcb`` under a context) into the port's
+    ``FusedMAFTrainer`` (and ``FusedIAFTrainer``) and of
+    ``FusedMADEMoGTrainer``, with ``wci``, ``bci``, ``wcb``, ``bcb`` under
+    a context) into the port's
     ``trainer.weights``, in place. The two layouts are equal by
     construction, so nothing is transposed; the MADE trainers' masks stay
     the port's own. Raises on a missing key, an

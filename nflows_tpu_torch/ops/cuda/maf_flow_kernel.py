@@ -15,17 +15,22 @@ package's: flat 2-D stacks ``wi [L*H, D]``, ``bi [L*H, 1]``,
 ``wb [L*2nb*H, H]`` (out, in), ``bb [L*2nb*H, 1]``, ``wf [L*P, H]`` with
 param-major rows (row ``j*D + t`` is parameter j of feature t) and
 ``bf [L*P, 1]``; P is 2 D for the affine transformer and (3K-1) D for the
-RQ one. The masks are folded into the weights before they get here: a
-masked dense is a dense with zeros. For the RQ transformer the softmax
-1/sqrt(H) is either folded into the width and height rows of wf and bf
-(serving) or applied by the kernel (``wh_scale``; training).
+RQ one. A conditional flow adds the MADE's context projections (plain
+denses, no mask): ``wci [L*H, C]``, ``bci [L*H, 1]`` of the initial layer
+(h gets ``relu(Wci ctx + bci)``) and ``wcb [L*nb*H, C]``, ``bcb
+[L*nb*H, 1]`` of each residual block (its first linear gets
+``Wcb_j ctx + bcb_j`` before the inner relu). The masks are folded into
+the weights before they get here: a masked dense is a dense with zeros.
+For the RQ transformer the softmax 1/sqrt(H) is either folded into the
+width and height rows of wf and bf (serving) or applied by the kernel
+(``wh_scale``; training).
 :func:`pack_weights` re-lays the stacks for the kernel: in-major [in, out]
 matrices, the initial layer's inputs and the final layer's outputs
 zero-padded to multiples of 4, and the per-layer permutations as one int32
-array.
+array; the context stacks in-major as well, their C inputs padded to C4.
 
-Samples are rows here: x is [N, D] and the result is (y [N, D], lad [N]).
-Ported so far: fp32 without context.
+Samples are rows here: x is [N, D], the context [N, C], and the result is
+(y [N, D], lad [N]). Ported so far: fp32, with or without a context.
 
 :func:`maf_flow_kernel_plain` computes the same chain step by step in
 PyTorch on the same stacks, with the same iteration count. The CPU tests
@@ -50,13 +55,14 @@ from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
 )
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 
-__all__ = ["MAFLayerStatic", "maf_flow_kernel_cuda", "maf_flow_kernel_plain",
+__all__ = ["CONTEXT_KEYS", "MAFLayerStatic", "maf_flow_kernel_cuda", "maf_flow_kernel_plain",
            "pack_weights", "shared_memory_bytes", "tile_rows", "launch_count"]
 
 launch_count = 0  # kernel launches since the last reset
 
 _EPSILON = 1e-3  # MaskedAffineAutoregressiveTransform._EPSILON
 TRANSFORMERS = ("affine", "rq")
+CONTEXT_KEYS = ("wci", "bci", "wcb", "bcb")  # the MADE's context projections
 
 
 class MAFLayerStatic(NamedTuple):
@@ -80,25 +86,37 @@ def _check_transformer(transformer, spline_kw, wh_scale):
 def _dims(weights, layer_static, num_blocks):
     L = len(layer_static)
     H, D = weights["wi"].shape[0] // L, weights["wi"].shape[1]
-    return dict(L=L, H=H, D=D, P=weights["wf"].shape[0] // L, nb2=2 * num_blocks)
+    C = weights["wci"].shape[1] if "wci" in weights else 0
+    return dict(L=L, H=H, D=D, P=weights["wf"].shape[0] // L, nb2=2 * num_blocks, C=C)
 
 
-def shared_memory_bytes(rows: int, D: int, H: int, P: int) -> int:
+def _check_context(what, weights, context):
+    """A conditional chain needs its context and an unconditional one takes
+    none: nothing is dropped quietly."""
+    if ("wci" in weights) != (context is not None):
+        raise ValueError(
+            f"{what}: " + ("the weights hold context projections; pass the context"
+                           if context is None else
+                           "got a context for weights without context projections"))
+
+
+def shared_memory_bytes(rows: int, D: int, H: int, P: int, C: int = 0) -> int:
     """Dynamic shared memory of one block of ``rows`` samples
-    (csrc/maf_flow_kernel.cu: smem_bytes)."""
+    (csrc/maf_flow_kernel.cu: smem_bytes); C context features add a
+    [C4][rows] tile."""
     D4 = _round4(D)
     TB = max(H, _round4(P), D4)
-    return 4 * (2 * _KC * _OC + rows * (H + TB + 3 * D4 + D + 1))
+    return 4 * (2 * _KC * _OC + rows * (H + TB + 3 * D4 + D + 1 + _round4(C)))
 
 
-def tile_rows(n: int, D: int, H: int, P: int, sms: int) -> int:
+def tile_rows(n: int, D: int, H: int, P: int, sms: int, C: int = 0) -> int:
     """Samples a block holds: 64 where that fits and still gives every SM a
     tile, else 32; 0 if neither fits. At features 10, hidden 256, 5 layers
     on an NVIDIA H100 80GB HBM3 (700 W, 132 SMs; chip_smoke.py) 64-sample
     tiles take 7.995 ms against 5.024 ms for a 4,096-sample inverse, where
     they fill 64 SMs, and 64.55 ms against 81.20 ms for 65,536 samples."""
     def fits(rows):
-        return shared_memory_bytes(rows, D, H, P) <= MAX_SHARED_MEMORY
+        return shared_memory_bytes(rows, D, H, P, C) <= MAX_SHARED_MEMORY
     if fits(64) and -(-n // 64) >= sms:
         return 64
     return 32 if fits(32) else 0
@@ -107,7 +125,7 @@ def tile_rows(n: int, D: int, H: int, P: int, sms: int) -> int:
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.maf_flow_launch.argtypes = (
-        [p, p, p, ctypes.c_int64] + [i] * 7 + [p] * 7 + [i, i, f, i] + [f] * 4
+        [p, p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 11 + [i, i, f, i] + [f] * 4
         + [i, p])
     lib.maf_flow_launch.restype = i
 
@@ -118,10 +136,12 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_static: Sequence,
     """Kernel layout of the (mask-folded) stacks: fp32, contiguous, on the
     weights' device. With ``out``, an earlier result for the same model, the
     matrices are copied into its tensors and the index array is kept: the
-    trainer re-packs this way each step."""
+    trainer re-packs this way each step. The context stacks, where there
+    are any, go in-major with their inputs padded to C4 (wci [L, C4, H],
+    wcb [L, nb, C4, H], bci [L, H], bcb [L, nb, H])."""
     d = _dims(weights, layer_static, num_blocks)
-    L, H, D, P, nb2 = (d[k] for k in ("L", "H", "D", "P", "nb2"))
-    D4, Pp = _round4(D), _round4(P)
+    L, H, D, P, nb2, C = (d[k] for k in ("L", "H", "D", "P", "nb2", "C"))
+    D4, Pp, C4, nb = _round4(D), _round4(P), _round4(C), nb2 // 2
     dev = weights["wi"].device
     if out is None:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -131,6 +151,9 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_static: Sequence,
             idx=torch.tensor(
                 [list(ls.perm_rows) + list(ls.inv_perm_rows) + [int(ls.wrapped)]
                  for ls in layer_static], dtype=torch.int32, device=dev))
+        if C:
+            out["wci"] = torch.zeros(L, C4, H, **f32)
+            out["wcb"] = torch.zeros(L, nb, C4, H, **f32)
     with torch.no_grad():
         out["wi"][:, :D].copy_(weights["wi"].view(L, H, D).transpose(1, 2))
         out["wb"].copy_(weights["wb"].view(L, nb2, H, H).transpose(2, 3))
@@ -139,33 +162,49 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_static: Sequence,
         # the biases need no re-laying: views where the weights are fp32
         out["bi"] = weights["bi"].detach().float().view(L, H).contiguous()
         out["bb"] = weights["bb"].detach().float().view(L, nb2, H).contiguous()
+        if C:
+            out["wci"][:, :C].copy_(weights["wci"].view(L, H, C).transpose(1, 2))
+            out["wcb"][:, :, :C].copy_(weights["wcb"].view(L, nb, H, C).transpose(2, 3))
+            out["bci"] = weights["bci"].detach().float().view(L, H).contiguous()
+            out["bcb"] = weights["bcb"].detach().float().view(L, nb, H).contiguous()
     return out
 
 
 def maf_flow_kernel_plain(
     x: torch.Tensor, weights: Dict[str, torch.Tensor], layer_static,
     *, inverse: bool, num_blocks: int, transformer: str = "affine",
-    spline_kw: dict = None, wh_scale: float = None,
+    spline_kw: dict = None, wh_scale: float = None, context: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chain in plain PyTorch on the extracted stacks, step by step as
     the kernel runs it (D + 1 MADE passes for a layer's fixed point, RQ
     boundary derivatives exactly 1). Computes in x's dtype, so float64
     inputs and weights give a high-precision reference. ``wh_scale``
     multiplies the RQ width and height parameters before the spline, for
-    weights extracted without the rescale folded in. Differentiable."""
+    weights extracted without the rescale folded in. ``context`` [N, C] is
+    required exactly when the weights hold context projections; like the
+    kernel, every MADE pass recomputes them. Differentiable."""
     _check_transformer(transformer, spline_kw, wh_scale)
+    _check_context("maf_flow_kernel_plain", weights, context)
     d = _dims(weights, layer_static, num_blocks)
-    L, H, D, P, nb2 = (d[k] for k in ("L", "H", "D", "P", "nb2"))
+    L, H, D, P, nb2, C = (d[k] for k in ("L", "H", "D", "P", "nb2", "C"))
+    nb = nb2 // 2
     n = x.shape[0]
     wi, bi = weights["wi"].view(L, H, D), weights["bi"].view(L, H)
     wb, bb = weights["wb"].view(L, nb2, H, H), weights["bb"].view(L, nb2, H)
     wf, bf = weights["wf"].view(L, P, H), weights["bf"].view(L, P)
+    if C:
+        wci, bci = weights["wci"].view(L, H, C), weights["bci"].view(L, H)
+        wcb, bcb = weights["wcb"].view(L, nb, H, C), weights["bcb"].view(L, nb, H)
     K = spline_kw["num_bins"] if transformer == "rq" else 0
 
     def conditioner(l, xin):
         h = xin @ wi[l].T + bi[l]
+        if C:
+            h = h + torch.relu(context @ wci[l].T + bci[l])
         for j in range(num_blocks):
             t = torch.relu(h) @ wb[l, 2 * j].T + bb[l, 2 * j]
+            if C:
+                t = t + context @ wcb[l, j].T + bcb[l, j]
             t = torch.relu(t) @ wb[l, 2 * j + 1].T + bb[l, 2 * j + 1]
             h = h + t
         params = h @ wf[l].T + bf[l]                       # [n, P], column j*D + t
@@ -216,10 +255,11 @@ def maf_flow_kernel_plain(
 def maf_flow_kernel_cuda(
     x: torch.Tensor, weights: Dict[str, torch.Tensor], layer_static,
     *, inverse: bool, num_blocks: int, transformer: str = "affine",
-    spline_kw: dict = None, wh_scale: float = None,
+    spline_kw: dict = None, wh_scale: float = None, context: torch.Tensor = None,
     packed: Dict[str, torch.Tensor] = None, rows: int = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the chain: x [N, D] -> (y [N, D], logabsdet [N]).
+    """Run the chain: x [N, D] (and context [N, C] for a conditional flow)
+    -> (y [N, D], logabsdet [N]).
 
     ``packed`` is :func:`pack_weights` of ``weights``, built here when not
     given (callers that launch repeatedly keep it). ``wh_scale``: see
@@ -227,10 +267,11 @@ def maf_flow_kernel_cuda(
     None chooses by shared memory and SM count."""
     global launch_count
     kw = dict(inverse=inverse, num_blocks=num_blocks, transformer=transformer,
-              spline_kw=spline_kw, wh_scale=wh_scale)
+              spline_kw=spline_kw, wh_scale=wh_scale, context=context)
     if x.device.type == "cpu":
         return maf_flow_kernel_plain(x, weights, layer_static, **kw)
     _check_transformer(transformer, spline_kw, wh_scale)
+    _check_context("maf_flow_kernel_cuda", weights, context)
     if packed is None:
         packed = pack_weights(weights, layer_static, num_blocks)
     if x.dtype != torch.float32 or not x.is_contiguous() or x.ndim != 2:
@@ -240,10 +281,22 @@ def maf_flow_kernel_cuda(
     H = packed["bi"].shape[1]
     K = spline_kw["num_bins"] if transformer == "rq" else 0
     P = 2 * D if transformer == "affine" else (3 * K - 1) * D
-    D4, Pp = _round4(D), _round4(P)
+    C = 0 if context is None else weights["wci"].shape[1]
+    D4, Pp, C4 = _round4(D), _round4(P), _round4(C)
     expected = dict(wi=(L, D4, H), bi=(L, H), wb=(L, nb2, H, H), bb=(L, nb2, H),
                     wf=(L, H, Pp), bf=(L, Pp), idx=(L, 2 * D + 1))
+    if C:
+        if (context.dtype != torch.float32 or not context.is_contiguous()
+                or tuple(context.shape) != (n, C) or context.device != x.device):
+            raise ValueError(f"maf_flow_kernel_cuda: the context must be a contiguous "
+                             f"({n}, {C}) float32 tensor on {x.device}, got "
+                             f"{tuple(context.shape)} {context.dtype} on {context.device}")
+        expected.update(wci=(L, C4, H), bci=(L, H), wcb=(L, num_blocks, C4, H),
+                        bcb=(L, num_blocks, H))
     for name, shape in expected.items():
+        if name not in packed:
+            raise ValueError(f"maf_flow_kernel_cuda: packed has no {name}: pack the "
+                             "conditional weights with pack_weights")
         t = packed[name]
         dtype = torch.int32 if name == "idx" else torch.float32
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device
@@ -253,9 +306,9 @@ def maf_flow_kernel_cuda(
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if rows is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        rows = tile_rows(n, D, H, P, sms)
+        rows = tile_rows(n, D, H, P, sms, C)
     if rows not in (32, 64) or H % 4 or (
-            shared_memory_bytes(rows, D, H, P) > MAX_SHARED_MEMORY):
+            shared_memory_bytes(rows, D, H, P, C) > MAX_SHARED_MEMORY):
         raise ValueError(f"maf_flow_kernel_cuda: hidden width {H} does not fit "
                          f"the kernel's shared-memory tile of {rows} samples")
 
@@ -267,10 +320,12 @@ def maf_flow_kernel_cuda(
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.maf_flow_launch(
-            x.data_ptr(), y.data_ptr(), lad.data_ptr(), n, D, L, H, D4, P, Pp, nb2,
+            x.data_ptr(), 0 if C == 0 else context.data_ptr(), y.data_ptr(), lad.data_ptr(),
+            n, D, L, H, D4, P, Pp, nb2, C, C4,
             packed["wi"].data_ptr(), packed["bi"].data_ptr(),
             packed["wb"].data_ptr(), packed["bb"].data_ptr(),
             packed["wf"].data_ptr(), packed["bf"].data_ptr(),
+            *(0 if C == 0 else packed[k].data_ptr() for k in CONTEXT_KEYS),
             packed["idx"].data_ptr(), int(inverse), TRANSFORMERS.index(transformer),
             1.0 if wh_scale is None else wh_scale, skw["num_bins"], skw["tail_bound"],
             skw["min_bin_width"], skw["min_bin_height"], skw["min_derivative"],

@@ -8,15 +8,18 @@ over a StandardNormal base, where the AR layer is a
 MaskedAffineAutoregressiveTransform (MAF), a
 MaskedPiecewiseRationalQuadraticAutoregressiveTransform with linear tails
 (NSF-AR), or either wrapped in InverseTransform (IAF), each with a
-residual-block relu MADE without dropout or batch norm. Masks are folded
-into the weights, the final layer is reordered param-major (with the RQ
-width and height rescale folded in), and the result is a :class:`FusedMAF`.
+residual-block relu MADE without dropout or batch norm, with or without a
+context. Masks are folded into the weights, the final layer is reordered
+param-major (with the RQ width and height rescale folded in), the MADE's
+context projections (the initial layer's and each block's ``context_layer``)
+become the stacks ``wci``, ``bci``, ``wcb``, ``bcb``, and the result is a
+:class:`FusedMAF`.
 
 The same extraction serves fused training (maf_train.py) through
 ``fold_masks`` / ``fold_wh_scale`` / ``return_masks``.
 
-So far only fp32 without context is fused; a conditional flow raises
-``ValueError`` here, so ``CompiledFlow`` serves it on the unfused chain.
+So far only fp32 is fused. A conditional flow's embedding net runs outside
+the kernel, once a call (``_fused_view_common``).
 """
 
 from __future__ import annotations
@@ -97,6 +100,7 @@ def _extract(flow, dtype, fold_masks=True, fold_wh_scale=True,
 
     layer_static = []
     wis, bis, wbs, bbs, wfs, bfs = [], [], [], [], [], []
+    wcis, bcis, wcbs, bcbs = [], [], [], []
     mis, mbs, mfs = [], [], []
     ref_cfg = None
     for i in range(0, len(ts), 2):
@@ -130,12 +134,13 @@ def _extract(flow, dtype, fold_masks=True, fold_wh_scale=True,
                 raise ValueError("batch-norm MADE not fused")
             if not _is_relu(blk.activation):
                 raise ValueError("fused MADE requires relu activation")
-        if made.context_layer is not None:
-            raise ValueError("conditional flows are not fused in this port yet")
 
         D = made.features
         H = made.hidden_features
-        cfg = (transformer, mult, D, H, len(made.blocks), spline_cfg, None)
+        # nn.Linear keeps [out, in]: the context layer's weight is [H, C]
+        Cf = (None if made.context_layer is None
+              else made.context_layer.weight.shape[1])
+        cfg = (transformer, mult, D, H, len(made.blocks), spline_cfg, Cf)
         if ref_cfg is None:
             ref_cfg = cfg
         elif cfg != ref_cfg:
@@ -166,12 +171,22 @@ def _extract(flow, dtype, fold_masks=True, fold_wh_scale=True,
         bis.append(column(made.initial_layer))
         if return_masks:
             mis.append(made.initial_layer.mask)
+        if Cf is not None:
+            # the additive context projections are plain denses, already
+            # [H, C] (the JAX package transposes its [C, H] Dense here)
+            wcis.append(made.context_layer.weight.detach().float())
+            bcis.append(column(made.context_layer))
         for blk in made.blocks:
             for lin in (blk.linear_0, blk.linear_1):
                 wbs.append(w_out_in(lin))                         # [H, H]
                 bbs.append(column(lin))
                 if return_masks:
                     mbs.append(lin.mask)
+            if Cf is not None:
+                if blk.context_layer is None:
+                    raise ValueError("mixed context/context-free MADE blocks")
+                wcbs.append(blk.context_layer.weight.detach().float())
+                bcbs.append(column(blk.context_layer))
         # final layer [mult*D, H]: the model packs parameters feature-major
         # (row t*mult + j is parameter j of feature t); reorder param-major
         # (row j*D + t) for the kernel. For the RQ transformer also fold the
@@ -194,11 +209,14 @@ def _extract(flow, dtype, fold_masks=True, fold_wh_scale=True,
     if dtype != torch.float32:
         raise NotImplementedError(
             f"the fused AR kernel runs fp32 weights only so far, not {dtype}")
-    if H % 4 or not maf_flow_kernel.tile_rows(1, D, H, mult * D, sms=1):
+    if H % 4 or not maf_flow_kernel.tile_rows(1, D, H, mult * D, sms=1, C=Cf or 0):
         raise ValueError(
             f"hidden width {H} does not fit the fused kernel's shared-memory tile")
     weights = dict(wi=torch.cat(wis), bi=torch.cat(bis), wb=torch.cat(wbs),
                    bb=torch.cat(bbs), wf=torch.cat(wfs), bf=torch.cat(bfs))
+    if Cf is not None:
+        weights.update(wci=torch.cat(wcis), bci=torch.cat(bcis), wcb=torch.cat(wcbs),
+                       bcb=torch.cat(bcbs))
     spline_kw = None
     if transformer == "rq":
         K, tb, mbw, mbh, md = spline_cfg
@@ -218,24 +236,26 @@ class FusedMAF(FusedFlowView):
     ``forward``/``inverse`` have the Transform contract; ``log_prob``,
     ``sample`` and ``sample_and_log_prob`` the Distribution contract. On a
     CUDA flow each call is one launch of B9; on a CPU flow it runs B9's
-    plain version. Build with :func:`fuse_maf`.
+    plain version. A conditional flow takes a context in every call: its
+    embedding net runs first, outside the kernel, and the embedded context
+    enters each MADE. Build with :func:`fuse_maf`.
     """
 
     def __init__(self, flow, dtype=torch.float32):
         (self._static, self._weights, self._num_blocks, self.features,
          self._transformer, self._spline_kw,
          self.context_features) = _extract(flow, dtype)
+        self._embedding_net = getattr(flow, "embedding_net", None)
         self.device = self._weights["wi"].device
         self._packed = (
             maf_flow_kernel.pack_weights(self._weights, self._static, self._num_blocks)
             if self.device.type == "cuda" else None)
 
     def _run(self, x, inverse, context=None):
-        # context is always None: _extract refuses a conditional flow
         return maf_flow_kernel.maf_flow_kernel_cuda(
             x, self._weights, self._static, inverse=inverse,
             num_blocks=self._num_blocks, transformer=self._transformer,
-            spline_kw=self._spline_kw, packed=self._packed)
+            spline_kw=self._spline_kw, context=context, packed=self._packed)
 
 
 def fuse_maf(flow, dtype=torch.float32) -> FusedMAF:

@@ -8,7 +8,9 @@ the affine and additive couplings; the NSF and SimpleRealNVP among them;
 with or without a context, but no embedding net; kernel B3, or B2 + B4
 under autograd),
 :class:`FusedMAFTrainer` for unwrapped autoregressive chains, MAF and
-NSF-AR (kernels B9 + B10),
+NSF-AR, with or without a context (kernels B9 + B10),
+:class:`FusedIAFTrainer` for all-wrapped ones, an IAF, trained by reverse
+KL in its sampling direction (B9 + B10, ``make_vi_train_step``),
 :class:`FusedMADEMoGTrainer` for a MADEMoG or a bare
 MixtureOfGaussiansMADE (kernels B11 + B12), probed in that order. A model
 that matches no kernel raises with every prober's reason (or gives ``None``
@@ -40,17 +42,25 @@ __all__ = ["fused_trainer", "MIN_AUTO_BATCH"]
 #   three other runs read the eager step at 15.4 to 22.9 ms (it is
 #   host-bound, its device work 1.5 to 2.3 ms) and the fused one at 2.30 to
 #   2.89 ms.
+# - "iaf", the full-width IAF (features 10, hidden 256, 5 layers x 2
+#   blocks) trained by reverse KL against a 10-D correlated Gaussian: fused
+#   (B9 sampling pass, B10 its backward, mask fold, Adam) 4.08, 3.88 and
+#   5.35 ms against eager (autograd through the unfused sampling pass)
+#   23.1, 24.6 and 22.2 ms at batches 512, 2,048 and 4,096; a second run
+#   read fused 2.81, 2.85 and 2.77 ms against eager 15.5, 15.1 and 15.3 ms.
+#   Both are host-bound (2.2-2.4 ms of device work fused, 1.6-2.4 eager).
 # - "mademog", the full-width MixtureOfGaussiansMADE (features 10, hidden
 #   256, 2 blocks, 10 components): fused (B11 forward, B12 backward, mask
 #   fold, Adam) 1.90, 1.86 and 2.00 ms against eager 4.33, 3.68 and 4.06 ms
 #   at batches 512, 2,048 and 4,096; its conditional twin (context 10) 2.59,
 #   2.68 and 2.32 against 5.02, 5.07 and 5.14 ms. Both routes are host-bound
 #   here (0.67 to 0.83 ms of device work fused, 0.42 to 0.76 eager).
-# The fused step won at every measured batch in all three families, so each
+# The fused step won at every measured batch in all four families, so each
 # floor is the smallest batch the trainers take.
 MIN_AUTO_BATCH = {
     "nsf": 128,
     "maf": 128,
+    "iaf": 128,
     "mademog": 128,
 }
 
@@ -70,7 +80,7 @@ def fused_trainer(flow, batch_size, required=None, auto=False):
             batch size.
     """
     from nflows_tpu_torch.ops.cuda.mademog_train import FusedMADEMoGTrainer
-    from nflows_tpu_torch.ops.cuda.maf_train import FusedMAFTrainer
+    from nflows_tpu_torch.ops.cuda.maf_train import FusedIAFTrainer, FusedMAFTrainer
     from nflows_tpu_torch.ops.cuda.nsf_train import FusedNSFTrainer
 
     if required is None:
@@ -82,7 +92,7 @@ def fused_trainer(flow, batch_size, required=None, auto=False):
             "the same in both)")
     errors = []
     for cls, family in ((FusedNSFTrainer, "nsf"), (FusedMAFTrainer, "maf"),
-                        (FusedMADEMoGTrainer, "mademog")):
+                        (FusedIAFTrainer, "iaf"), (FusedMADEMoGTrainer, "mademog")):
         try:
             trainer = cls(flow, batch_size=batch_size)
         except (ValueError, AttributeError) as e:

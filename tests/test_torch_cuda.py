@@ -1,6 +1,7 @@
 """Kernels B1 to B12 on the card, each against its plain PyTorch version
 on the same CUDA tensors, and the serving and training paths through them:
-B2, B3 and B4 for all seven coupling families.
+B2, B3 and B4 for all seven coupling families; B9 and B10 with a context,
+and B10's inverse direction (an IAF trained by reverse KL).
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -471,6 +472,203 @@ def test_maf_train_steps_launch_the_kernels_and_keep_masked_entries(cuda):
         assert not torch.equal(fused.weights[k].detach()[~dead], start[k][~dead])
     x = torch.randn(128, 5, generator=g).to(cuda)
     _close(fused.to_flow().log_prob(x), state.flow.log_prob(x), 5e-3)
+
+
+# -- B9 and B10 with a context, and B10's inverse direction -------------------------
+#
+# Tolerances as above; B10's cotangent of the context as gx (2e-4 / N plus
+# 1e-3 relative: its cotangents come at scale 1/N).
+
+
+def _cond_ar_flow(device, kind, features=5, layers=3, context=3):
+    """A conditional AR chain at hidden 64: layers x [random permutation,
+    residual MADE (2 blocks) with a context]; affine (MAF), RQ (NSF-AR, 8
+    bins) or wrapped affine (IAF); context=None gives the IAF without one.
+    The blocks' second linears are redrawn at the first's scale: as
+    initialised (U(-1e-3, 1e-3)) they leave the context projections' and
+    first linears' gradients near 1e-5, under the 2e-4 band."""
+    from nflows_tpu_torch import Flow, NeuralSplineFlowAR
+    from nflows_tpu_torch.distributions import StandardNormal
+    from nflows_tpu_torch.transforms import (
+        CompositeTransform,
+        InverseTransform,
+        MaskedAffineAutoregressiveTransform,
+        RandomPermutation,
+    )
+
+    gen = torch.Generator().manual_seed(features + 40)
+    rng = np.random.default_rng(features + 40)
+    if kind == "rq":
+        flow = NeuralSplineFlowAR(features, 64, num_layers=layers, num_blocks_per_layer=2,
+                                  num_bins=8, tail_bound=B, context_features=context,
+                                  generator=gen, rng=rng, device=device)
+    else:
+        chain = []
+        for _ in range(layers):
+            layer = MaskedAffineAutoregressiveTransform(features, 64, context_features=context,
+                                                        num_blocks=2, generator=gen,
+                                                        device=device)
+            chain += [RandomPermutation(features, rng=rng, device=device),
+                      InverseTransform(layer) if kind == "iaf" else layer]
+        flow = Flow(CompositeTransform(chain), StandardNormal([features])).to(device)
+    with torch.no_grad():
+        for t in flow.transform.transforms:
+            net = getattr(getattr(t, "transform", t), "autoregressive_net", None)
+            for blk in getattr(net, "blocks", ()):
+                w = blk.linear_1.weight
+                w.copy_((torch.rand(w.shape, generator=gen) * 2 - 1).to(device) / 64 ** 0.5)
+    return flow.eval()
+
+
+@pytest.mark.parametrize("kind", ["affine", "rq", "iaf"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b9_with_context_matches_plain(cuda, kind, inverse, n):
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+    from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
+
+    fused = fuse_maf(_cond_ar_flow(cuda, kind))
+    g = torch.Generator().manual_seed(n + 2)
+    x = torch.randn(n, 5, generator=g).to(cuda)
+    ctx = torch.randn(n, 3, generator=g).to(cuda)
+    kw = dict(inverse=inverse, context=ctx, **_maf_kw(fused))
+    before = maf_flow_kernel.launch_count
+    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+        x, fused._weights, fused._static, packed=fused._packed, **kw)
+    assert maf_flow_kernel.launch_count == before + 1
+    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, fused._weights, fused._static, **kw)
+    fixed_point = inverse != (kind == "iaf")
+    # as initialised the conditional fixed point sends a few samples past
+    # 1e4, where fp32 rounding alone exceeds the band: there the kernel may
+    # be no further from float64 than twice the plain fp32 version
+    w64 = {k: v.double() for k, v in fused._weights.items()}
+    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+        x.double(), w64, fused._static, **{**kw, "context": ctx.double()})
+    _hold(y, p_y, d_y, 5e-3 if fixed_point else 1e-3)
+    _hold(lad, p_lad, d_lad, 5e-3 if fixed_point else 1e-3)
+    back, lad_back = maf_flow_kernel.maf_flow_kernel_cuda(
+        y, fused._weights, fused._static, packed=fused._packed,
+        **{**kw, "inverse": not inverse})
+    _close(back, x, 5e-3)
+    _close(lad_back, -lad, 5e-3)
+    with pytest.raises(ValueError, match="pass the context"):
+        maf_flow_kernel.maf_flow_kernel_cuda(x, fused._weights, fused._static,
+                                             packed=fused._packed, **{**kw, "context": None})
+
+
+def _b10_case(device, kind, context, n):
+    from nflows_tpu_torch.ops.cuda import maf_train
+
+    flow = _cond_ar_flow(device, kind, context=context)
+    cls = maf_train.FusedIAFTrainer if kind == "iaf" else maf_train.FusedMAFTrainer
+    tr = cls(flow, 128)
+    folded = {k: v.detach().contiguous() for k, v in tr._fold(tr.weights).items()}
+    g = torch.Generator().manual_seed(n + 3)
+    x = (1.5 * torch.randn(n, 5, generator=g)).to(device)
+    gy = torch.randn(n, 5, generator=g).to(device) / n
+    glad = torch.randn(n, generator=g).to(device) / n
+    ctx = None if context is None else torch.randn(n, context, generator=g).to(device)
+    kw = dict(wh_scale=tr._wh_scale, context=ctx, direction=tr._direction, **tr._static)
+    return tr, folded, (x, gy, glad), kw
+
+
+@pytest.mark.parametrize("kind,context", [("affine", 3), ("rq", 3), ("iaf", 3), ("iaf", None)])
+@pytest.mark.parametrize("n", [203, 16384])
+def test_b10_with_context_and_inverse_direction_matches_plain(cuda, kind, context, n):
+    """The context adjoint (gctx and the four context stacks) on MAF and
+    NSF-AR chains, and the inverse direction on IAF chains with and without
+    a context."""
+    from nflows_tpu_torch.ops.cuda import maf_train
+
+    tr, folded, args, kw = _b10_case(cuda, kind, context, n)
+    before = maf_train.bwd_launch_count
+    gx, grads = maf_train.maf_train_bwd_cuda(*args, folded, tr._layers, **kw)
+    assert maf_train.bwd_launch_count == before + 1
+    p_gx, p_grads = maf_train.maf_train_bwd_plain(*args, folded, tr._layers, **kw)
+    torch.testing.assert_close(gx, p_gx, atol=2e-4 / n, rtol=1e-3)
+    _maf_grads_close(grads, p_grads)
+    if context is not None:
+        torch.testing.assert_close(grads["ctx"], p_grads["ctx"], atol=2e-4 / n, rtol=1e-3)
+        for k in ("wci", "bci", "wcb", "bcb"):
+            # the band is at most half the largest entry: a stack of zeros fails
+            assert p_grads[k].abs().max() >= 2 * 2e-4, (k, float(p_grads[k].abs().max()))
+            torch.testing.assert_close(grads[k], p_grads[k], atol=2e-4, rtol=1e-3,
+                                       msg=lambda m: f"{k}: {m}")  # noqa: B023
+    if n == 16384:
+        _, g32 = maf_train.maf_train_bwd_cuda(*args, folded, tr._layers, rows=32, **kw)
+        _maf_grads_close(g32, grads, atol=1e-5, rtol=1e-4)
+
+
+def test_conditional_maf_serves_and_trains_through_the_kernels(cuda):
+    """One B9 a conditional request; one B9 and one B10 a conditional fused
+    step, whose first three losses agree with the eager route's."""
+    import copy
+
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel, maf_train
+
+    flow = _cond_ar_flow(cuda, "affine")
+    g = torch.Generator().manual_seed(11)
+    x, ctx = torch.randn(256, 5, generator=g).to(cuda), torch.randn(256, 3, generator=g).to(cuda)
+    served = CompiledFlow(flow, batch_size=256, features=5, context_features=3)
+    unfused = CompiledFlow(flow, batch_size=256, features=5, context_features=3,
+                           use_fused=False)
+    assert served.is_fused and not unfused.is_fused
+    b9 = maf_flow_kernel.launch_count
+    lp = served.log_prob(x, ctx)
+    assert maf_flow_kernel.launch_count == b9 + 1
+    _close(lp, unfused.log_prob(x, ctx), 1e-3)
+    adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
+    fused = fused_trainer(copy.deepcopy(flow), 128)
+    step_fused = fused.make_train_step(fused.init_opt(adam))
+    state = create_train_state(copy.deepcopy(flow).train(), adam)
+    step_eager = make_train_step()
+    for _ in range(3):
+        batch = (1.5 * torch.randn(128, 5, generator=g)).to(cuda)
+        c = torch.randn(128, 3, generator=g).to(cuda)
+        c0 = (maf_flow_kernel.launch_count, maf_train.bwd_launch_count)
+        loss_fused = step_fused(batch, c)
+        c1 = (maf_flow_kernel.launch_count, maf_train.bwd_launch_count)
+        assert tuple(b - a for a, b in zip(c0, c1)) == (1, 1)
+        state, metrics = step_eager(state, batch, c)
+        _close(loss_fused, metrics["loss"], 2e-4)
+
+
+@pytest.mark.parametrize("context", [None, 3])
+def test_iaf_vi_step_runs_b9_and_b10_and_agrees_with_autograd(cuda, context):
+    """One B9 and one B10 a reverse-KL step; its loss and gradients agree
+    with autograd through the unfused chain on the same noise."""
+    import copy
+
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel, maf_train
+    from nflows_tpu_torch.ops.cuda.maf_fused import _extract
+
+    flow = _cond_ar_flow(cuda, "iaf", context=context)
+    tr = fused_trainer(flow, 128)
+    assert isinstance(tr, maf_train.FusedIAFTrainer)
+    target = lambda v: -0.5 * ((v - 1.0) ** 2).sum(dim=1)  # noqa: E731
+    g = torch.Generator().manual_seed(5)
+    z = torch.randn(128, 5, generator=g).to(cuda)
+    ctx = None if context is None else torch.randn(128, context, generator=g).to(cuda)
+    x, lq = tr.sample_and_log_prob_fn(tr.weights, z, ctx)
+    loss = (lq - target(x)).mean()
+    grads = dict(zip(tr.weights, torch.autograd.grad(loss, list(tr.weights.values()))))
+    xe, lad = flow.transform.inverse(z, ctx)
+    loss_e = ((-0.5 * (z * z).sum(dim=1) - 2.5 * np.log(2 * np.pi) - lad) - target(xe)).mean()
+    _close(loss, loss_e, 1e-4)
+    g_flow = copy.deepcopy(flow)
+    with torch.no_grad():
+        for p, ge in zip(g_flow.parameters(), torch.autograd.grad(loss_e, list(flow.parameters()))):
+            p.copy_(ge)
+    want = _extract(g_flow, torch.float32, fold_masks=False, fold_wh_scale=False,
+                    return_masks=True)[1]
+    for k, got in grads.items():
+        torch.testing.assert_close(got, want[k], atol=2e-4, rtol=1e-3,
+                                   msg=lambda m: f"{k}: {m}")  # noqa: B023
+    step = tr.make_vi_train_step(tr.init_opt(lambda p: torch.optim.Adam(p, lr=1e-3)), target)
+    c0 = (maf_flow_kernel.launch_count, maf_train.bwd_launch_count)
+    first = step(torch.Generator(device=cuda).manual_seed(6), ctx)
+    c1 = (maf_flow_kernel.launch_count, maf_train.bwd_launch_count)
+    assert tuple(b - a for a, b in zip(c0, c1)) == (1, 1) and torch.isfinite(first)
 
 
 # -- the mixture-density family: B11 and B12 ----------------------------------------

@@ -217,9 +217,6 @@ REFUSALS = {
                          "fused path requires residual-block MADE"),
     "tanh": (lambda: _ar(activation=torch.tanh), "fused MADE requires relu activation"),
     "dropout": (lambda: _ar(dropout_probability=0.1), "dropout MADE not fused"),
-    "context": (lambda: NeuralSplineFlowAR(5, 16, num_layers=2, num_bins=4,
-                                           context_features=3, device="cpu"),
-                "conditional flows are not fused in this port yet"),
     "coupling_flow": (lambda: NeuralSplineFlow(6, 16, num_layers=2, num_bins=4, device="cpu"),
                       "only affine / RQ-spline autoregressive layers are fused"),
     "no_tails": (lambda: _set_layer(
@@ -244,7 +241,7 @@ def test_refusals(case):
     with pytest.raises(ValueError, match=message):
         maf_fused.fuse_maf(flow)
     served = CompiledFlow(flow, 16, flow.transform.transforms[0].permutation.numel(),
-                          context_features=3 if case == "context" else None, device="cpu")
+                          device="cpu")
     assert served.is_fused == (case == "coupling_flow")      # that one is B2's
 
 

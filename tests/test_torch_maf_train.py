@@ -293,8 +293,9 @@ def test_refusals():
         maf_train.FusedMAFTrainer(embedded, batch_size=128)
     conditional = NeuralSplineFlowAR(5, 16, num_layers=2, num_bins=4, context_features=3,
                                      device="cpu")
-    with pytest.raises(ValueError, match="conditional flows are not fused"):
-        maf_train.FusedMAFTrainer(conditional, batch_size=128)
+    ctr = maf_train.FusedMAFTrainer(conditional, batch_size=128)    # fused with its context
+    with pytest.raises(ValueError, match="conditional flow"):
+        ctr.loss_fn(ctr.weights, torch.zeros(128, 5))
     with pytest.raises(ValueError, match="multiple of 128"):
         maf_train.FusedMAFTrainer(maf, batch_size=100)
     ttr = maf_train.FusedMAFTrainer(maf, batch_size=128)
@@ -323,14 +324,18 @@ def test_fused_trainer_probes_nsf_then_maf():
     assert isinstance(fused_trainer(maf, 128), maf_train.FusedMAFTrainer)
     assert isinstance(fused_trainer(nsf, 128), FusedNSFTrainer)
     iaf = InverseAutoregressiveFlow(5, 16, 2, 1, device="cpu")
+    assert isinstance(fused_trainer(iaf, 128), maf_train.FusedIAFTrainer)   # by reverse KL
+    feedforward = MaskedAutoregressiveFlow(5, 16, 2, 1, use_residual_blocks=False,
+                                           device="cpu")
     with pytest.raises(ValueError) as err:
-        fused_trainer(iaf, 128)
+        fused_trainer(feedforward, 128)
     text = str(err.value)
     assert "no fused training kernel" in text and "eager route" in text
-    assert "FusedNSFTrainer: " in text and "FusedMAFTrainer: InverseTransform-wrapped" in text
+    assert "FusedNSFTrainer: " in text
+    assert "FusedMAFTrainer: fused path requires residual-block MADE" in text
     assert text.index("FusedNSFTrainer") < text.index("FusedMAFTrainer")
-    assert fused_trainer(iaf, 128, required=False) is None
-    assert fused_trainer(iaf, 128, auto=True) is None
+    assert fused_trainer(feedforward, 128, required=False) is None
+    assert fused_trainer(feedforward, 128, auto=True) is None
     with pytest.raises(ValueError, match="multiple of 128"):
         fused_trainer(maf, 100)
 
@@ -340,7 +345,7 @@ def test_auto_uses_the_measured_floor_of_each_family(monkeypatch):
 
     maf = MaskedAutoregressiveFlow(5, 16, 2, 1, device="cpu")
     nsf = NeuralSplineFlow(6, 16, num_layers=2, num_bins=4, device="cpu")
-    assert set(fused.MIN_AUTO_BATCH) == {"nsf", "maf", "mademog"}
+    assert set(fused.MIN_AUTO_BATCH) == {"nsf", "maf", "iaf", "mademog"}
     floor = fused.MIN_AUTO_BATCH["maf"]
     assert floor is None or (isinstance(floor, int) and floor % 128 == 0)
     monkeypatch.setitem(fused.MIN_AUTO_BATCH, "maf", 1024)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``nflows_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, statically or at run
-time (building, serving and training each family, a conditional NSF and the
-two diagonal Normal bases included)."""
+time (building, serving and training each family, a conditional NSF, a
+conditional NSF-AR, an IAF's variational step and the two diagonal Normal
+bases included)."""
 
 import ast
 import pathlib
@@ -147,6 +148,17 @@ def test_runtime_loads_no_jax():
         "tr = nt.fused_trainer(cnsf, 128)\n"
         "tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 6), torch.randn(128, 3))\n"
         "tr.to_flow()\n"
+        "car = nt.NeuralSplineFlowAR(5, 8, num_layers=2, num_bins=4, context_features=3,\n"
+        "                            device='cpu')\n"
+        "served = nt.CompiledFlow(car, 16, 5, context_features=3, device='cpu')\n"
+        "assert served.is_fused\n"
+        "served.log_prob(torch.randn(16, 5), c)\n"
+        "tr = nt.fused_trainer(car, 128)\n"
+        "tr.make_train_step(tr.init_opt(adam))(torch.randn(128, 5), torch.randn(128, 3))\n"
+        "tr.to_flow()\n"
+        "tr = nt.fused_trainer(nt.InverseAutoregressiveFlow(5, 8, 2, 1, device='cpu'), 128)\n"
+        "tr.make_vi_train_step(tr.init_opt(adam), lambda v: -(v * v).sum(dim=1))(\n"
+        "    torch.Generator().manual_seed(0))\n"
         "base = nt.ConditionalDiagonalNormal([6], context_encoder=torch.nn.Linear(3, 12))\n"
         "nt.Flow(cnsf.transform, base).log_prob(x, c)\n"
         "nt.DiagonalNormal([6]).log_prob(x)\n"

@@ -4,9 +4,13 @@
 N = 4,096), B3 and B4 (N = 512) on RealNVP at the same widths
 (``chip_smoke.realnvp_flow``; random weights from seed 0), and B3 and B4 at
 N = 16,384 on the flagship at hidden 128, where they take 64-sample tiles.
-All without a context, the paths both sides have.
+All without a context, the paths both sides have. With ``--family maf``
+it times the autoregressive kernels instead: B9 forward and inverse at
+N = 4,096 and B10 at N = 512 and 4,096 on the full-width MAF
+(``chip_smoke.MAF``), and B9 forward and inverse and B10 at 512 on the
+NSF-AR (``chip_smoke.NSF_AR``), unconditional, random weights from seed 0.
 
-    python3 tools/checkout_ab.py OLD_CHECKOUT [NEW_CHECKOUT] [--rounds R]
+    python3 tools/checkout_ab.py OLD_CHECKOUT [NEW_CHECKOUT] [--rounds R] [--family maf]
 
 Where ``tools/kernel_ab.py`` swaps one kernel library inside one process
 (and needs the same C interface on both sides), this runs each side in a
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -88,28 +93,85 @@ for tag, model, sizes in (("", flow, (512, 4096)), ("affine_", affine, (512,)),
 print(json.dumps(out))
 """
 
+# The same for the autoregressive kernels; prints {"maf_b9_forward": ms,
+# "maf_b9_inverse": ms, "maf_b10_512": ms, "maf_b10_4096": ms,
+# "nsf_ar_b9_forward": ms, "nsf_ar_b9_inverse": ms, "nsf_ar_b10_512": ms}.
+TURN_MAF = r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from nflows_tpu_torch import MaskedAutoregressiveFlow, NeuralSplineFlowAR
+from nflows_tpu_torch.ops.cuda import _build, maf_flow_kernel as mfk, maf_train
+from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
+cs.log = lambda *args: None
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build_all()
+gen = torch.Generator().manual_seed(1)
+D = cs.MAF["features"]
+out = {}
+for tag, cls, cfg, sizes in (("maf_", MaskedAutoregressiveFlow, cs.MAF, (512, 4096)),
+                             ("nsf_ar_", NeuralSplineFlowAR, cs.NSF_AR, (512,))):
+    flow = cls(generator=torch.Generator().manual_seed(0), device="cuda", **cfg).eval()
+    view = fuse_maf(flow)
+    kw = dict(num_blocks=view._num_blocks, transformer=view._transformer,
+              spline_kw=view._spline_kw)
+    x = torch.randn(4096, D, generator=gen).cuda()
+    for inverse in (False, True):
+        run = lambda: mfk.maf_flow_kernel_cuda(x, view._weights, view._static,
+                                               packed=view._packed, inverse=inverse, **kw)
+        out[tag + ("b9_inverse" if inverse else "b9_forward")] = cs.device_ms(
+            torch, run, 10 if inverse else 20, kernel="maf_flow_kernel")
+    trainer = maf_train.FusedMAFTrainer(flow, 512)
+    w = {k: v.detach().contiguous() for k, v in trainer._fold(trainer.weights).items()}
+    mkw = dict(wh_scale=trainer._wh_scale, **trainer._static)
+    packed = mfk.pack_weights(w, trainer._layers, trainer._static["num_blocks"])
+    grads = {k: torch.empty_like(v) for k, v in w.items()}
+    for n in sizes:
+        xb = (1.5 * torch.randn(n, D, generator=gen)).cuda()
+        gy = (torch.randn(n, D, generator=gen) / n).cuda()
+        glad = (torch.randn(n, generator=gen) / n).cuda()
+        run = lambda: maf_train.maf_train_bwd_cuda(xb, gy, glad, w, trainer._layers,
+                                                   packed=packed, grads=grads, **mkw)
+        out[f"{tag}b10_{n}"] = cs.device_ms(torch, run, 20, kernel="maf_train_bwd_kernel")
+print(json.dumps(out))
+"""
 
-def turn(checkout: str) -> dict:
-    done = subprocess.run([sys.executable, "-c", TURN], cwd=checkout, check=True,
+
+def turn(checkout: str, code: str) -> dict:
+    done = subprocess.run([sys.executable, "-c", code], cwd=checkout, check=True,
                           capture_output=True, text=True)
     return json.loads(done.stdout.strip().splitlines()[-1])
 
 
+def _option(argv, name, default):
+    if name not in argv:
+        return argv, default
+    i = argv.index(name)
+    return argv[:i] + argv[i + 2:], argv[i + 1]
+
+
 def main(argv) -> int:
-    rounds = 2
-    if "--rounds" in argv:
-        i = argv.index("--rounds")
-        rounds = int(argv[i + 1])
-        argv = argv[:i] + argv[i + 2:]
-    if not 1 <= len(argv) <= 2:
+    argv, rounds = _option(argv, "--rounds", "2")
+    argv, family = _option(argv, "--family", "coupling")
+    if not 1 <= len(argv) <= 2 or family not in ("coupling", "maf"):
         sys.exit(__doc__)
+    code = TURN_MAF if family == "maf" else TURN
     old = os.path.abspath(argv[0])
     new = os.path.abspath(argv[1]) if len(argv) == 2 else ROOT
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
-    for r in range(rounds):
+    seen = {"old": [], "new": []}
+    for r in range(int(rounds)):
         for tag, checkout in (("old", old), ("new", new), ("new", new), ("old", old)):
-            print(json.dumps({"round": r, "side": tag, **turn(checkout)}), flush=True)
+            times = turn(checkout, code)
+            seen[tag].append(times)
+            print(json.dumps({"round": r, "side": tag, **times}), flush=True)
+    # medians of each side's turns, and the new side's change
+    for key in seen["old"][0]:
+        med = {tag: statistics.median(t[key] for t in turns) for tag, turns in seen.items()}
+        print(json.dumps({"key": key, "old_ms": med["old"], "new_ms": med["new"],
+                          "change_percent": 100.0 * (med["new"] / med["old"] - 1.0)}))
     return 0
 
 
