@@ -69,13 +69,24 @@ steps fused (``FusedIAFTrainer.make_vi_train_step``: one B9 and one B10 a
 step) and eager (autograd through the unfused ``transform.inverse``), 400
 more fused steps checked by the samples' moments, and the conditional IAF's
 step; each route's step timed at 512, 2,048 and 4,096.
+Then serving in bf16, the JAX package's default deployment: the bf16-weight
+instantiations of B2 (the flagship at 4,096 and 65,536, RealNVP, the
+conditional flagship), B9 (the MAF, the NSF-AR, the conditional MAF) and
+B11 (the MoG-MADE, the conditional MADEMoG), forward and inverse, each
+against its bf16 plain version (every GEMM operand rounded to bf16, fp32
+sums) and timed beside its fp32 instantiation; then ``CompiledFlow(dtype=
+torch.bfloat16)`` serving the flagship, the MAF and the MoG-MADE at 4,096
+on bf16 requests, one launch of the bf16 kernel a log_prob.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
 (a serving request for B1, B2, B5-B9 and B11, a train step for B3, B4, B10
-and B12; B10's row also counts a reverse-KL step as ``inverse_launches``),
+and B12; B10's row also counts a reverse-KL step as ``inverse_launches``;
+the rows ``B2_bf16``, ``B9_bf16`` and ``B11_bf16``, the bf16-weight
+instantiations, count a bf16 request through ``CompiledFlow`` and carry
+the fp32 instantiation's time beside theirs as ``fp32_ms``),
 error against its plain version, device time (``ms_source`` says whether
 torch.profiler or CUDA events gave it), plain time, bound and library time at
 the main path's shape (B2's, B3's and B4's rows carry the other six
@@ -171,8 +182,16 @@ N(0, 1) parameters 1e-2, or within twice the plain fp32 version's own
 distance from float64; their gradients, kernel forward and plain backward,
 1e-4 from the plain version's.
 
+bf16 kernels: max |kernel - bf16 plain| within the bands of
+benchmarks/hw_numerics.py:68-123 (5e-3 on outputs, 2e-2 on logabsdet and
+log_prob), and mean |kernel - bf16 plain| at most a quarter of mean
+|kernel - fp32 plain|: the kernel rounds where the plain version, and the
+JAX kernel, round. The plain versions' own gap is logged as bf16's price.
+
 Bounds. ``bound_ms`` is the larger of the bytes a function must move over
-3.35 TB/s and the fp32 operations it needs over 67 TFLOP/s. For B9 and B10
+3.35 TB/s and the fp32 operations it needs over 67 TFLOP/s; for the bf16
+rows, the same operation count over the dense bf16 tensor-core rate, 989
+TFLOP/s, and the bf16 matrices' bytes. For B9 and B10
 the operations are counted from the MADE masks of the model in the run: two
 for every weight a mask leaves, once a sample for B9 in either direction
 (the autoregressive inverse needs each hidden unit and each parameter once,
@@ -204,6 +223,7 @@ import numpy as np
 
 # H100 SXM data sheet, dense, at the 700 W limit
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 
 SERVE_BATCH = 4096
@@ -647,6 +667,8 @@ def main() -> int:
         mademog_train.bwd_launch_count = 0
         for module in (lrs_spline, linear_spline, quadratic_spline, cubic_spline):
             module.launch_count = 0
+        for module in (nsf_flow_kernel, maf_flow_kernel, mademog_fused):
+            module.bf16_launch_count = 0
 
     def read_counts():
         return {"B1": rq_spline.launch_count, "B2": nsf_flow_kernel.launch_count,
@@ -654,7 +676,10 @@ def main() -> int:
                 "B9": maf_flow_kernel.launch_count, "B10": maf_train.bwd_launch_count,
                 "B11": mademog_fused.launch_count, "B12": mademog_train.bwd_launch_count,
                 "B5": lrs_spline.launch_count, "B6": linear_spline.launch_count,
-                "B7": quadratic_spline.launch_count, "B8": cubic_spline.launch_count}
+                "B7": quadratic_spline.launch_count, "B8": cubic_spline.launch_count,
+                "B2_bf16": nsf_flow_kernel.bf16_launch_count,
+                "B9_bf16": maf_flow_kernel.bf16_launch_count,
+                "B11_bf16": mademog_fused.bf16_launch_count}
 
     def expect_counts(what, counts, **expected):
         expected = {**{k: 0 for k in counts}, **expected}
@@ -2111,6 +2136,221 @@ def main() -> int:
 
     time_steps("IAF reverse-KL", timed_vi_routes, "iaf", extra=vi_host_ops)
 
+    # -- phase 31: bf16 weights: B2, B9 and B11 against their bf16 plain versions ----
+    # the JAX package's default deployment (fuse_*(dtype=bfloat16)) on the
+    # flagship (N = 4,096 and 65,536), RealNVP and the conditional flagship
+    # (B2), the MAF, the NSF-AR and the conditional MAF (B9), the MoG-MADE and
+    # the conditional MADEMoG (B11), forward and inverse at 4,096
+    BF16 = torch.bfloat16
+    BF16_OUT, BF16_LAD = 5e-3, 2e-2   # benchmarks/hw_numerics.py:68-123
+
+    def hold_bf16(name, kernel, plain16, plain32, band):
+        """A bf16 kernel against its bf16 plain version: max |delta| within
+        ``band``, and mean |delta| at most a quarter of its mean |delta| to
+        the fp32 plain version (it rounds where the JAX kernel rounds). The
+        plain versions' own gap is logged: the price of bf16, not a gate."""
+        diff16 = (kernel.double() - plain16.double()).abs()
+        mean32 = float((kernel.double() - plain32.double()).abs().mean())
+        err, mean16 = float(diff16.max()), float(diff16.mean())
+        ok = bool(torch.isfinite(kernel).all()) and err <= band and mean16 <= 0.25 * mean32
+        log(f"  {name}: |kernel-plain16| max {err:.3e} (band {band:.0e}), mean {mean16:.3e}; "
+            f"|kernel-plain32| mean {mean32:.3e} (ratio {mean16 / max(mean32, 1e-30):.4f}, "
+            f"limit 0.25); bf16's price |plain16-plain32| max {max_err(plain16, plain32):.3e}"
+            f"  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: the bf16 kernel disagrees with its bf16 plain version")
+        return err
+
+    def bound_bf16(nops, weights, n_io):
+        """The card's least time for the same work with bf16 operands: the
+        operations over the dense bf16 tensor-core rate, or the bytes (bf16
+        matrices, fp32 biases, fp32 inputs and outputs) over the memory rate."""
+        nbytes = sum(v.numel() * v.element_size() for v in weights.values()) + 4 * n_io
+        by_ops = nops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+        return (1e3 * max(nops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES),
+                "operations" if by_ops else "bytes")
+
+    def time_pair(run16, run32, runp, kernel, iters=10):
+        """Device ms of the bf16 kernel, the fp32 one and the bf16 plain version."""
+        ms16 = device_ms(torch, run16, iters, kernel=kernel)
+        source = device_ms.source
+        ms32 = device_ms(torch, run32, iters, kernel=kernel)
+        return dict(ms=ms16, ms_source=source, fp32_ms=ms32, plain_ms=device_ms(torch, runp, 3))
+
+    def b2_bf16(model, flow_b, sizes, context_features=None):
+        v16, v32 = fuse_nsf(flow_b, dtype=BF16), fuse_nsf(flow_b)
+        w16, idx16, st = v16._weights, v16._indices, v16._static
+        Tid_b, T_b = len(idx16[0].id_idx), len(idx16[0].tr_idx)
+        H_b, TM_b = w16["w0"].shape[1], w16["wf"].shape[1]
+        nb_b, L_b, C_b = st["num_blocks"], len(idx16), context_features or 0
+        stats = {}
+        for n in sizes:
+            x = torch.randn(n, Tid_b + T_b, generator=gen).to(dev)
+            ctx = None if not C_b else torch.randn(n, C_b, generator=gen).to(dev)
+            log(f"B2 in bf16 ({model}) at N={n}:")
+            errs = []
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, context=ctx, **st)
+                y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, w16, idx16, packed=v16._packed,
+                                                              **kw)
+                p16 = nsf_flow_kernel.nsf_flow_kernel_plain(x, w16, idx16, **kw)
+                p32 = nsf_flow_kernel.nsf_flow_kernel_plain(x, v32._weights, idx16, **kw)
+                torch.cuda.synchronize()
+                tag = "inverse" if inverse else "forward"
+                errs.append(hold_bf16(f"{tag} out", y, p16[0], p32[0], BF16_OUT))
+                errs.append(hold_bf16(f"{tag} lad", lad, p16[1], p32[1], BF16_LAD))
+            out = {}
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, context=ctx, **st)
+                t = time_pair(
+                    lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: B023
+                        x, w16, idx16, packed=v16._packed, **kw),  # noqa: B023
+                    lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: B023
+                        x, v32._weights, idx16, packed=v32._packed, **kw),  # noqa: B023
+                    lambda: nsf_flow_kernel.nsf_flow_kernel_plain(  # noqa: B023
+                        x, w16, idx16, **kw),  # noqa: B023
+                    "nsf_flow_kernel")
+                out.update(t if not inverse else {f"inverse_{k}": v for k, v in t.items()})
+            nops = 2 * n * L_b * (Tid_b * H_b + C_b * H_b + 2 * nb_b * H_b * H_b
+                                  + nb_b * C_b * H_b + H_b * TM_b)
+            bound_ms, bound_by = bound_bf16(nops, w16, n * (2 * (Tid_b + T_b) + 1 + C_b))
+            log(f"  time (forward / inverse): bf16 kernel {out['ms']:.4f} / "
+                f"{out['inverse_ms']:.4f} ms, fp32 kernel {out['fp32_ms']:.4f} / "
+                f"{out['inverse_fp32_ms']:.4f} ms, bf16 plain {out['plain_ms']:.4f} / "
+                f"{out['inverse_plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{nops / 1e9:.2f} GFLOP at 989 TFLOP/s): {100 * bound_ms / out['ms']:.2f}% "
+                "of it")
+            stats[n] = dict(err=max(errs), bound_ms=bound_ms, bound_by=bound_by, **out)
+        return stats
+
+    b2_bf16_stats = b2_bf16("flagship", flow, (SERVE_BATCH, 1 << 16))
+    b2_bf16_affine = b2_bf16("RealNVP", realnvp_flows["affine"], (SERVE_BATCH,))[SERVE_BATCH]
+    b2_bf16_ctx = b2_bf16("conditional flagship", cond_flow, (SERVE_BATCH,),
+                          context_features=C)[SERVE_BATCH]
+
+    def b9_bf16(model, ar_flow, context_features=None):
+        v16, v32 = fuse_maf(ar_flow, dtype=BF16), fuse_maf(ar_flow)
+        st = v16._static
+        x = torch.randn(SERVE_BATCH, DA, generator=gen).to(dev)
+        ctx = (None if context_features is None
+               else torch.randn(SERVE_BATCH, context_features, generator=gen).to(dev))
+        log(f"B9 in bf16 ({model}) at N={SERVE_BATCH}:")
+        errs, out = [], {}
+        for inverse in (False, True):
+            kw = dict(inverse=inverse, context=ctx, num_blocks=v16._num_blocks,
+                      transformer=v16._transformer, spline_kw=v16._spline_kw)
+            y, lad = maf_flow_kernel.maf_flow_kernel_cuda(x, v16._weights, st,
+                                                          packed=v16._packed, **kw)
+            p16 = maf_flow_kernel.maf_flow_kernel_plain(x, v16._weights, st, **kw)
+            p32 = maf_flow_kernel.maf_flow_kernel_plain(x, v32._weights, st, **kw)
+            torch.cuda.synchronize()
+            tag = "inverse" if inverse else "forward"
+            errs.append(hold_bf16(f"{tag} out", y, p16[0], p32[0], BF16_OUT))
+            errs.append(hold_bf16(f"{tag} lad", lad, p16[1], p32[1], BF16_LAD))
+            t = time_pair(
+                lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: B023
+                    x, v16._weights, st, packed=v16._packed, **kw),  # noqa: B023
+                lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: B023
+                    x, v32._weights, st, packed=v32._packed, **kw),  # noqa: B023
+                lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: B023
+                    x, v16._weights, st, **kw),  # noqa: B023
+                "maf_flow_kernel", iters=5 if inverse else 10)
+            out.update(t if not inverse else {f"inverse_{k}": v for k, v in t.items()})
+        nops = masked_ops(SERVE_BATCH, ar_flow) + (context_ops(SERVE_BATCH)
+                                                   if context_features else 0)
+        bound_ms, bound_by = bound_bf16(nops, v16._weights,
+                                        SERVE_BATCH * (2 * DA + 1 + (context_features or 0)))
+        log(f"  time (forward / inverse): bf16 kernel {out['ms']:.4f} / {out['inverse_ms']:.4f} "
+            f"ms, fp32 kernel {out['fp32_ms']:.4f} / {out['inverse_fp32_ms']:.4f} ms, bf16 "
+            f"plain {out['plain_ms']:.4f} / {out['inverse_plain_ms']:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP the masks leave, at 989 "
+            f"TFLOP/s): {100 * bound_ms / out['ms']:.2f}% of it forward")
+        return dict(err=max(errs), bound_ms=bound_ms, bound_by=bound_by, **out)
+
+    b9_bf16_stats = {"MAF": b9_bf16("MAF", maf), "NSF-AR": b9_bf16("NSF-AR", nsf_ar),
+                     "conditional MAF": b9_bf16("conditional MAF", cmaf, C)}
+
+    b11_bf16_stats = {}
+    for model, dist, cf in mog_models:
+        v16, v32 = mademog_fused.fuse_mademog(dist, dtype=BF16), mademog_fused.fuse_mademog(dist)
+        x = (1.5 * torch.randn(SERVE_BATCH, DM, generator=gen)).to(dev)
+        c = None if cf is None else torch.randn(SERVE_BATCH, cf, generator=gen).to(dev)
+        log(f"B11 in bf16 ({model}) at N={SERVE_BATCH}:")
+        lp = mademog_fused.mademog_log_prob_cuda(x, v16._weights, v16._static, c,
+                                                 packed=v16._packed)
+        p16 = mademog_fused.mademog_log_prob_plain(x, v16._weights, v16._static, c)
+        p32 = mademog_fused.mademog_log_prob_plain(x, v32._weights, v32._static, c)
+        torch.cuda.synchronize()
+        err = hold_bf16("lp", lp, p16, p32, BF16_LAD)
+        t = time_pair(
+            lambda: mademog_fused.mademog_log_prob_cuda(  # noqa: B023
+                x, v16._weights, v16._static, c, packed=v16._packed),  # noqa: B023
+            lambda: mademog_fused.mademog_log_prob_cuda(  # noqa: B023
+                x, v32._weights, v32._static, c, packed=v32._packed),  # noqa: B023
+            lambda: mademog_fused.mademog_log_prob_plain(  # noqa: B023
+                x, v16._weights, v16._static, c),  # noqa: B023
+            "mademog_log_prob_kernel")
+        need, _ = mog_ops(dist, SERVE_BATCH)
+        bound_ms, bound_by = bound_bf16(need, v16._weights, SERVE_BATCH * (DM + (cf or 0) + 1))
+        log(f"  time: bf16 kernel {t['ms']:.4f} ms, fp32 kernel {t['fp32_ms']:.4f} ms, bf16 "
+            f"plain {t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{need / 1e9:.2f} GFLOP the masks leave, at 989 TFLOP/s): "
+            f"{100 * bound_ms / t['ms']:.2f}% of it")
+        b11_bf16_stats[model] = dict(err=err, bound_ms=bound_ms, bound_by=bound_by, **t)
+
+    # -- phase 32: serving in bf16 through CompiledFlow(dtype=torch.bfloat16) -------
+    # the flagship, the MAF and the MoG-MADE at 4,096, bf16 requests: a log_prob
+    # is one launch of the bf16 kernel (and none of the fp32 one), a sample one
+    # more (B2, B9) or the sequential sampler (MoG-MADE); every count set to 0
+    # just before each request and read just after
+    bf16_launches = {}
+    for model, dist, features, kid, sample_kernel in (
+            ("NSF", flow, D, "B2_bf16", True), ("MAF", maf, DA, "B9_bf16", True),
+            ("MoG-MADE", mog, DM, "B11_bf16", False)):
+        server = CompiledFlow(dist, batch_size=SERVE_BATCH, features=features, dtype=BF16)
+        if not server.is_fused:
+            raise AssertionError(f"CompiledFlow(dtype=bfloat16) did not fuse the {model}")
+        x = torch.randn(SERVE_BATCH, features, generator=gen).to(dev).to(BF16)
+        g = torch.Generator(device=dev).manual_seed(3)
+        reset_counts()
+        lp = server.log_prob(x)
+        torch.cuda.synchronize()
+        first = read_counts()
+        reset_counts()
+        s = server.sample(g)
+        torch.cuda.synchronize()
+        rest = read_counts()
+        log(f"serving the {model} in bf16: launches a log_prob {first}, a sample {rest}")
+        expect_counts(f"a bf16 {model} log_prob request", first, **{kid: 1})
+        expect_counts(f"a bf16 {model} sample request", rest,
+                      **({kid: 1} if sample_kernel else {}))
+        bf16_launches[kid] = first[kid]
+        if (tuple(lp.shape) != (SERVE_BATCH,) or lp.dtype != torch.float32
+                or not torch.isfinite(lp).all() or tuple(s.shape) != (SERVE_BATCH, features)
+                or not torch.isfinite(s).all()):
+            raise AssertionError(f"bf16 {model}: bad output")
+        with torch.no_grad():
+            lp32 = CompiledFlow(dist, batch_size=SERVE_BATCH, features=features).log_prob(
+                x.float())
+        gap = max_err(lp, lp32)
+        log(f"  log_prob against the fp32 server on the same bf16 inputs: max |delta| "
+            f"{gap:.3e} (bf16's price; limit 0.5)")
+        if gap > 0.5:
+            raise AssertionError(f"bf16 {model}: log_prob is far from the fp32 server's")
+        for endpoint, fn in (("log_prob", lambda: server.log_prob(x)),  # noqa: B023
+                             ("sample", lambda: server.sample(  # noqa: B023
+                                 torch.Generator(device=dev).manual_seed(4)))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 10
+            busy = device_ms(torch, fn, 10)
+            log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
+                f"device busy {busy:.3f} ms")
+
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
              "B4": "nsf_train_bwd", "B5": "lrs_spline", "B6": "linear_spline",
@@ -2212,7 +2452,33 @@ def main() -> int:
                if k.startswith(("inverse_", "forward_", "schedule_", "context_", "ms_at_",
                                 "families"))},
         })
-    rows.sort(key=lambda row: int(row["id"][1:]))
+    for kid, stats, more, stem, replaces, tpu in (
+            ("B2", b2_bf16_stats[SERVE_BATCH],
+             dict(ms_at_65536=b2_bf16_stats[1 << 16]["ms"],
+                  fp32_ms_at_65536=b2_bf16_stats[1 << 16]["fp32_ms"],
+                  families={"affine": b2_bf16_affine},
+                  **{f"context_{k}": v for k, v in b2_bf16_ctx.items()}),
+             "nsf_flow_kernel_bf16", "nflows_tpu/ops/pallas/nsf_flow_kernel.py:1095",
+             "ops/pallas/nsf_flow_kernel.py:_kernel"),
+            ("B9", b9_bf16_stats["MAF"],
+             dict(families={"NSF-AR": b9_bf16_stats["NSF-AR"]},
+                  **{f"context_{k}": v for k, v in b9_bf16_stats["conditional MAF"].items()}),
+             "maf_flow_kernel_bf16", "nflows_tpu/ops/pallas/maf_flow_kernel.py:99",
+             "ops/pallas/maf_flow_kernel.py:_kernel"),
+            ("B11", b11_bf16_stats["MoG-MADE"],
+             {f"context_{k}": v for k, v in b11_bf16_stats["MADEMoG, context"].items()},
+             "mademog_fused", "nflows_tpu/ops/pallas/mademog_fused.py:169",
+             "ops/pallas/mademog_fused.py:_kernel")):
+        rows.append({
+            "name": f"{names[kid]}_bf16", "id": f"{kid}_bf16", "dtype": "bfloat16",
+            "route": "cuda", "source": f"nflows_tpu_torch/csrc/{stem}.cu", "replaces": replaces,
+            "tpu": tpu, "launches": bf16_launches[f"{kid}_bf16"], "max_abs_err": stats["err"],
+            "max_err": stats["err"], "ms": stats["ms"], "kernel_ms": stats["ms"],
+            "ms_source": stats["ms_source"], "plain_ms": stats["plain_ms"],
+            "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"], "library_ms": None,
+            **{k: v for k, v in stats.items() if k.startswith(("inverse_", "fp32_"))}, **more,
+        })
+    rows.sort(key=lambda row: (int(row["id"].split("_")[0][1:]), row["id"]))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

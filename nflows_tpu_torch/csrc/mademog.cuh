@@ -28,19 +28,23 @@ struct MogDims {
   float eps;  // added to the softplus stds
 };
 
-// In-major [in][out] weights, masks folded (mademog_fused.py:pack_weights).
-struct MogWeights {
-  const float* wi;   // [D][H]
+// In-major [in][out] weights, masks folded (mademog_fused.py:pack_weights);
+// the matrices are WT (float, or __nv_bfloat16 for B11's bf16 path), the
+// biases fp32.
+template <typename WT>
+struct MogWeightsT {
+  const WT* wi;      // [D][H]
   const float* bi;   // [H]
-  const float* wb;   // [2 nb][H][H]
+  const WT* wb;      // [2 nb][H][H]
   const float* bb;   // [2 nb][H]
-  const float* wf;   // [H][Pp]
+  const WT* wf;      // [H][Pp]
   const float* bf;   // [Pp]
-  const float* wci;  // [C][H]
+  const WT* wci;     // [C][H]
   const float* bci;  // [H]
-  const float* wcb;  // [nb][C][H]
+  const WT* wcb;     // [nb][C][H]
   const float* bcb;  // [nb][H]
 };
+using MogWeights = MogWeightsT<float>;
 
 // The MADE pass of a tile: hb = h after the last block, tb = P ([Pp][RS]);
 // xs [D][RS] and cs [C][RS] are the inputs and the context. With a context
@@ -49,11 +53,14 @@ struct MogWeights {
 // tile_gemm, computed just before the GEMM it feeds. With st (global
 // memory, [2 + 2 nb][H][RS]), the pass also keeps c_init at block 0, h_j at
 // block 1 + j (j = 0..nb) and the relu'd inner activation t_j at block
-// 2 + nb + j, for the backward. Ends with a barrier.
-template <int ROWS, int RS>
-__device__ void mog_made_forward(const MogDims& d, const MogWeights& w, const float* xs,
-                                 const float* cs, float* hb, float* tb, float* wst,
-                                 float* st) {
+// 2 + nb + j, for the backward. With bf16 weights every GEMM rounds its
+// activation operand to bf16 (tile_gemm.cuh), the context included, as the
+// TPU kernel's dots cast it: t where the block's first GEMM stores it, the
+// others where they are loaded. Ends with a barrier.
+template <int ROWS, int RS, typename WT>
+__device__ void mog_made_forward(const MogDims& d, const MogWeightsT<WT>& w,
+                                 const float* xs, const float* cs, float* hb, float* tb,
+                                 float* wst, float* st) {
   const int H = d.H;
   const size_t HR = (size_t)H * RS;
   auto kept = [&](int block) { return st ? st + block * HR : nullptr; };
@@ -68,10 +75,11 @@ __device__ void mog_made_forward(const MogDims& d, const MogWeights& w, const fl
                           false, false, false, wst);
     }
     const size_t m = 2 * (size_t)j;
-    tile_gemm<ROWS, RS>(hb, H, w.wb + m * H * H, w.bb + m * H, H, tb, true, true, d.C != 0, wst,
-                        nullptr, kept(2 + d.nb + j));
-    tile_gemm<ROWS, RS>(tb, H, w.wb + (m + 1) * H * H, w.bb + (m + 1) * H, H, hb, false, false,
-                        true, wst, nullptr, kept(2 + j));
+    tile_gemm<ROWS, RS, false, WT, kRoundOut>(hb, H, w.wb + m * H * H, w.bb + m * H, H, tb, true,
+                                              true, d.C != 0, wst, nullptr, kept(2 + d.nb + j));
+    tile_gemm<ROWS, RS, false, WT, kRoundedIn>(tb, H, w.wb + (m + 1) * H * H, w.bb + (m + 1) * H,
+                                               H, hb, false, false, true, wst, nullptr,
+                                               kept(2 + j));
   }
   tile_gemm<ROWS, RS>(hb, H, w.wf, w.bf, d.Pp, tb, false, false, false, wst);
 }

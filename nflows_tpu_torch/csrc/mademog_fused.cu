@@ -1,7 +1,9 @@
 // B11: the log-density of a MixtureOfGaussiansMADE in one launch.
 //
 // Replaces the TPU kernel nflows_tpu/ops/pallas/mademog_fused.py:_kernel
-// (fp32, with and without context). Per sample: the masked residual MADE
+// (fp32 or bf16 weights, with and without context: mademog_log_prob_launch
+// and mademog_log_prob_launch_bf16, the one kernel instantiated for each
+// weight type in this source). Per sample: the masked residual MADE
 // (initial layer, plus relu(Wci c + bci) under a context; num_blocks x
 // [relu, linear, + (Wcb_j c + bcb_j), relu, linear, residual add]; final
 // layer to 3 K D parameters in the K-major layout), then the mixture head:
@@ -28,6 +30,15 @@
 // - The head is one thread per (feature, sample) over P; the per-sample
 //   sum over the features is taken in order in shared memory.
 // - The ragged last tile computes on zero rows and skips their stores.
+// - bf16 weights (fuse_mademog(dtype=bfloat16), the JAX package's default):
+//   the masked matrices and the context projections' are stored and staged
+//   in bf16 and widened exactly in registers, and each GEMM's activation
+//   operand is rounded to bf16 (tile_gemm.cuh): x, the context, relu(h), t
+//   and h, as the TPU kernel's dots cast them
+//   (mademog_fused.py:194-202 for the context). The products are exact in
+//   fp32; the biases, the head and lp stay fp32. Its ideal bound is the same
+//   operation count on the bf16 tensor cores (989 TFLOP/s dense), which this
+//   kernel does not use.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,12 +50,13 @@ namespace {
 using nflows::KC;
 using nflows::MogDims;
 using nflows::MogFeature;
-using nflows::MogWeights;
+using nflows::MogWeightsT;
 using nflows::OC;
 
 constexpr int ROWS = 32;
 constexpr int NT = ROWS * 8;
 
+template <typename WT>
 struct MogArgs {
   const float* x;    // [n][D]
   const float* ctx;  // [n][C], null when C = 0
@@ -52,10 +64,11 @@ struct MogArgs {
   int64_t n;
   int TB;            // rows of the t / P buffer: max(H, Pp)
   MogDims d;
-  MogWeights w;
+  MogWeightsT<WT> w;
 };
 
-__global__ void __launch_bounds__(NT) mademog_log_prob_kernel(MogArgs a) {
+template <typename WT>
+__global__ void __launch_bounds__(NT) mademog_log_prob_kernel(MogArgs<WT> a) {
   extern __shared__ __align__(16) float smem[];
   const MogDims& d = a.d;
   const int D = d.D, C = d.C;
@@ -94,35 +107,62 @@ __global__ void __launch_bounds__(NT) mademog_log_prob_kernel(MogArgs a) {
   }
 }
 
-size_t smem_bytes(const MogArgs& a) {
+template <typename WT>
+size_t smem_bytes(const MogArgs<WT>& a) {
   return sizeof(float) *
          ((size_t)2 * KC * OC + (size_t)ROWS * (a.d.H + a.TB + 2 * a.d.D + a.d.C));
 }
 
+// C = 0: no context (ctx and the context weights may be null). P = 3 K D,
+// Pp = P rounded up to a multiple of 16 / sizeof(WT). WT is the matrices'
+// type (float or __nv_bfloat16); the biases are fp32. Returns a cudaError_t
+// value (0 on success).
+template <typename WT>
+int mademog_log_prob_entry(const float* x, const float* ctx, float* lp, int64_t n, int D, int C,
+                           int K, int H, int P, int Pp, int nb, float eps, const WT* wi,
+                           const float* bi, const WT* wb, const float* bb, const WT* wf,
+                           const float* bf, const WT* wci, const float* bci, const WT* wcb,
+                           const float* bcb, void* stream) {
+  if (n == 0) return 0;
+  constexpr int kOut = 16 / sizeof(WT);  // weights a 16-byte copy stages
+  if (H % kOut || Pp % kOut || Pp < P || P != 3 * K * D || C < 0)
+    return (int)cudaErrorInvalidValue;
+  if (C > 0 && !(ctx && wci && bci && wcb && bcb)) return (int)cudaErrorInvalidValue;
+  MogArgs<WT> a;
+  a.x = x; a.ctx = ctx; a.lp = lp; a.n = n;
+  a.TB = H > Pp ? H : Pp;
+  a.d = MogDims{D, C, K, H, P, Pp, nb, eps};
+  a.w = MogWeightsT<WT>{wi, bi, wb, bb, wf, bf, wci, bci, wcb, bcb};
+  const size_t bytes = smem_bytes(a);
+  cudaError_t err = cudaFuncSetAttribute(mademog_log_prob_kernel<WT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (n + ROWS - 1) / ROWS;
+  mademog_log_prob_kernel<WT><<<(unsigned)blocks, NT, bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C = 0: no context (ctx and the context weights may be null). P = 3 K D,
-// Pp = P rounded up to a multiple of 4. Returns a cudaError_t value (0 on
-// success).
+using bf16 = __nv_bfloat16;
+
+// The arguments of mademog_log_prob_entry, with fp32 and with bf16 weights.
 extern "C" int mademog_log_prob_launch(const float* x, const float* ctx, float* lp, int64_t n,
                                        int D, int C, int K, int H, int P, int Pp, int nb,
                                        float eps, const float* wi, const float* bi,
                                        const float* wb, const float* bb, const float* wf,
                                        const float* bf, const float* wci, const float* bci,
                                        const float* wcb, const float* bcb, void* stream) {
-  if (n == 0) return 0;
-  if (H % 4 || Pp % 4 || Pp < P || P != 3 * K * D || C < 0) return (int)cudaErrorInvalidValue;
-  if (C > 0 && !(ctx && wci && bci && wcb && bcb)) return (int)cudaErrorInvalidValue;
-  MogArgs a;
-  a.x = x; a.ctx = ctx; a.lp = lp; a.n = n;
-  a.TB = H > Pp ? H : Pp;
-  a.d = MogDims{D, C, K, H, P, Pp, nb, eps};
-  a.w = MogWeights{wi, bi, wb, bb, wf, bf, wci, bci, wcb, bcb};
-  const size_t bytes = smem_bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(mademog_log_prob_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (n + ROWS - 1) / ROWS;
-  mademog_log_prob_kernel<<<(unsigned)blocks, NT, bytes, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return mademog_log_prob_entry(x, ctx, lp, n, D, C, K, H, P, Pp, nb, eps, wi, bi, wb, bb, wf, bf,
+                                wci, bci, wcb, bcb, stream);
+}
+
+extern "C" int mademog_log_prob_launch_bf16(const float* x, const float* ctx, float* lp,
+                                            int64_t n, int D, int C, int K, int H, int P, int Pp,
+                                            int nb, float eps, const bf16* wi, const float* bi,
+                                            const bf16* wb, const float* bb, const bf16* wf,
+                                            const float* bf, const bf16* wci, const float* bci,
+                                            const bf16* wcb, const float* bcb, void* stream) {
+  return mademog_log_prob_entry(x, ctx, lp, n, D, C, K, H, P, Pp, nb, eps, wi, bi, wb, bb, wf, bf,
+                                wci, bci, wcb, bcb, stream);
 }

@@ -15,18 +15,40 @@
 //   run in no order. It reads four samples a load, so RS is ROWS + 4 in the
 //   training kernels: with rows 4 banks apart and a lane's rows interleaved
 //   (o = lane/8 + 4 i, k = lane%8 + 8 j) a warp's loads hit distinct banks.
+//
+// tile_gemm's weight type WT is float (every kernel's fp32 instantiation)
+// or __nv_bfloat16 (the bf16-weight serving paths of B2, B9 and B11, the
+// JAX kernels' dtype=bfloat16). With bf16 weights the GEMM is the TPU
+// kernels' _dot: both operands in bf16, the products summed in fp32. The
+// weights are staged as they are stored, 8 to a 16-byte cp.async (so O is
+// then a multiple of 8), and widened in registers, which is exact; each
+// activation is rounded to bf16 (round to nearest even) before the
+// product, after the relu where there is one, so the product of the two is
+// exact in fp32 and only the order of the fp32 sums differs from the TPU
+// kernel's. Where an operand is rounded: as it is loaded (8 conversions a
+// lane to its 32 FMAs), which covers every operand however it was produced
+// (the inputs, h and relu(h), which stay fp32 for the residual sum, the
+// context); except a residual block's inner activation t, whose only
+// reader is the block's second GEMM: the first GEMM's epilogue stores it
+// rounded (ROUND = kRoundOut) and the second skips the load's rounding
+// (kRoundedIn). On the H100 that is 8.5-9.9% faster than rounding t at
+// the load too (tools/checkout_ab.py --dtype bfloat16, PERF.md). The
+// bias, the sums and the rest of the epilogue stay fp32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace nflows {
 
 constexpr int KC = 32;   // weight rows per staged chunk
 constexpr int OC = 256;  // output columns per pass (32 lanes x 8)
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(src_bytes));
@@ -38,10 +60,68 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+template <typename WT>
+constexpr bool kBf16Weights = std::is_same<WT, __nv_bfloat16>::value;
+
+// the four weights w[0..3] of a lane's columns, widened to fp32
+__device__ __forceinline__ float4 load_weights4(const float* w) {
+  return *reinterpret_cast<const float4*>(w);
+}
+__device__ __forceinline__ float4 load_weights4(const __nv_bfloat16* w) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(w);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// v rounded to bf16 (nearest even) and widened back: the value a bf16
+// operand carries into the product
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  const float2 lo = __bfloat1622float2(__float22bfloat162_rn(make_float2(v.x, v.y)));
+  const float2 hi = __bfloat1622float2(__float22bfloat162_rn(make_float2(v.z, v.w)));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// ROUND flags of tile_gemm, which act with bf16 weights only: kRoundOut
+// stores the output rounded to bf16 (after the relu), for an output whose
+// only reader is a later GEMM; kRoundedIn skips the rounding of the
+// operand at the load, for such an input.
+constexpr int kRoundOut = 1, kRoundedIn = 2;
+
+template <int ROWS, int RS, bool RELU, typename WT, bool ROUND_IN = true>
+__device__ __forceinline__ void chunk_fma(const float* in_c, const WT* ws, int kn,
+                                          int s_off, int c_off, float (&acc)[8][4]) {
+#pragma unroll 4
+  for (int k = 0; k < kn; ++k) {
+    float4 a0 = *reinterpret_cast<const float4*>(in_c + k * RS + s_off);
+    float4 a1 = *reinterpret_cast<const float4*>(in_c + k * RS + s_off + 16);
+    if (RELU) {
+      a0.x = fmaxf(a0.x, 0.0f); a0.y = fmaxf(a0.y, 0.0f);
+      a0.z = fmaxf(a0.z, 0.0f); a0.w = fmaxf(a0.w, 0.0f);
+      a1.x = fmaxf(a1.x, 0.0f); a1.y = fmaxf(a1.y, 0.0f);
+      a1.z = fmaxf(a1.z, 0.0f); a1.w = fmaxf(a1.w, 0.0f);
+    }
+    if constexpr (kBf16Weights<WT> && ROUND_IN) {
+      a0 = round_bf16(a0);
+      a1 = round_bf16(a1);
+    }
+    const float4 b0 = load_weights4(ws + k * OC + c_off);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[4] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+  }
+}
+
+// the context GLU gate, 1 / (1 + exp(-v)) as the JAX kernel writes it
+__device__ __forceinline__ float gate_sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
+
 // out[o][s] (= or +=) g(sum_k f(in[k][s]) W[k][o] + bias[o]) for the ROWS
 // samples of the tile; f is relu when relu_in, g when relu_out. Activations are
 // feature-major in shared memory ([features][RS]); W is [I][O] in global
-// memory, O a multiple of 4; bias may be null. With mask, the product is
+// memory, O a multiple of 16 / sizeof(WT); bias may be null. With mask, the product is
 // zeroed where mask[o][s] <= 0 before it is added or stored (the adjoint of
 // a relu whose output or input mask holds); with stash, the result is also
 // written to stash[o][s] in global memory. Warps tile the pass as (ROWS/32) x 8
@@ -55,34 +135,8 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // multiplication is written to pre[o][s] in global memory where pre is not
 // null. out may be mask or gate: each element is read before it is
 // written, by the same thread. Ends with a barrier.
-template <int ROWS, int RS, bool RELU>
-__device__ __forceinline__ void chunk_fma(const float* in_c, const float* ws, int kn,
-                                          int s_off, int c_off, float (&acc)[8][4]) {
-#pragma unroll 4
-  for (int k = 0; k < kn; ++k) {
-    float4 a0 = *reinterpret_cast<const float4*>(in_c + k * RS + s_off);
-    float4 a1 = *reinterpret_cast<const float4*>(in_c + k * RS + s_off + 16);
-    if (RELU) {
-      a0.x = fmaxf(a0.x, 0.0f); a0.y = fmaxf(a0.y, 0.0f);
-      a0.z = fmaxf(a0.z, 0.0f); a0.w = fmaxf(a0.w, 0.0f);
-      a1.x = fmaxf(a1.x, 0.0f); a1.y = fmaxf(a1.y, 0.0f);
-      a1.z = fmaxf(a1.z, 0.0f); a1.w = fmaxf(a1.w, 0.0f);
-    }
-    const float4 b0 = *reinterpret_cast<const float4*>(ws + k * OC + c_off);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
-// the context GLU gate, 1 / (1 + exp(-v)) as the JAX kernel writes it
-__device__ __forceinline__ float gate_sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-template <int ROWS, int RS = ROWS, bool GATE = false>
-__device__ void tile_gemm(const float* in, int I, const float* __restrict__ W,
+template <int ROWS, int RS = ROWS, bool GATE = false, typename WT = float, int ROUND = 0>
+__device__ void tile_gemm(const float* in, int I, const WT* __restrict__ W,
                           const float* __restrict__ bias, int O, float* out, bool relu_in,
                           bool relu_out, bool accumulate, float* wst,
                           const float* mask = nullptr, float* stash = nullptr,
@@ -103,13 +157,14 @@ __device__ void tile_gemm(const float* in, int I, const float* __restrict__ W,
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
     auto stage = [&](int c) {
-      float* dst = wst + (c & 1) * KC * OC;
+      WT* dst = reinterpret_cast<WT*>(wst) + (c & 1) * KC * OC;
       const int k0 = c * KC;
       const int kn = min(KC, I - k0);
-      const int f4 = live / 4;
-      for (int e = tid; e < kn * f4; e += NT) {
-        const int r = e / f4, c4 = (e % f4) * 4;
-        cp_async16(dst + r * OC + c4, W + (size_t)(k0 + r) * O + oc + c4, 16);
+      constexpr int V = 16 / sizeof(WT);  // weights a 16-byte copy
+      const int fv = live / V;
+      for (int e = tid; e < kn * fv; e += NT) {
+        const int r = e / fv, cv = (e % fv) * V;
+        cp_async16(dst + r * OC + cv, W + (size_t)(k0 + r) * O + oc + cv, 16);
       }
       cp_async_commit();
     };
@@ -121,11 +176,12 @@ __device__ void tile_gemm(const float* in, int I, const float* __restrict__ W,
       cp_async_wait_one();
       __syncthreads();
       if (active) {
-        const float* ws = wst + (c & 1) * KC * OC;
+        const WT* ws = reinterpret_cast<const WT*>(wst) + (c & 1) * KC * OC;
         const float* in_c = in + c * KC * RS;
         const int kn = min(KC, I - c * KC);
-        if (relu_in) chunk_fma<ROWS, RS, true>(in_c, ws, kn, s_off, c_off, acc);
-        else chunk_fma<ROWS, RS, false>(in_c, ws, kn, s_off, c_off, acc);
+        constexpr bool kRoundIn = !(ROUND & kRoundedIn);
+        if (relu_in) chunk_fma<ROWS, RS, true, WT, kRoundIn>(in_c, ws, kn, s_off, c_off, acc);
+        else chunk_fma<ROWS, RS, false, WT, kRoundIn>(in_c, ws, kn, s_off, c_off, acc);
       }
       __syncthreads();
     }
@@ -160,6 +216,7 @@ __device__ void tile_gemm(const float* in, int I, const float* __restrict__ W,
             v.x = fmaxf(v.x, 0.0f); v.y = fmaxf(v.y, 0.0f);
             v.z = fmaxf(v.z, 0.0f); v.w = fmaxf(v.w, 0.0f);
           }
+          if constexpr (kBf16Weights<WT> && (ROUND & kRoundOut)) v = round_bf16(v);
           *dst = v;
           if (stash) *reinterpret_cast<float4*>(stash + at) = v;
         }

@@ -108,8 +108,8 @@ class NeuralSplineFlow(Flow):
         entire transform chain as one launch on the card (B2's plain
         version on the CPU).
 
-        ``dtype`` is the conditioner GEMM precision. The JAX package's
-        default is bf16; the port runs fp32 (the default here) and raises
-        ``NotImplementedError`` for anything else, as ``fuse_nsf`` does."""
+        ``dtype`` is the conditioner GEMM precision: torch.float32 (the
+        port's default) or torch.bfloat16 (the JAX package's default, its
+        documented deployment), as ``fuse_nsf`` takes it."""
         from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
         return fuse_nsf(self, dtype=torch.float32 if dtype is None else dtype)

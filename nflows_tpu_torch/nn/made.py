@@ -75,6 +75,9 @@ class MaskedDense(Dense):
             is_output, rng=rng)
         self.register_buffer("mask", torch.from_numpy(mask).to(device))
         self.degrees = tuple(int(d) for d in degrees)
+        # drawn at random (hidden layers) or from random degrees (the output
+        # layer after them): load_jax_params copies such a mask in
+        self.random_mask = bool(random_mask)
 
     def forward(self, x):
         return F.linear(x, self.weight * self.mask, self.bias)

@@ -7,7 +7,9 @@ whole-chain kernel, with the context's embedding and checks. Subclasses
 set ``features``, ``context_features``, ``device`` and, for a conditional
 flow, ``_embedding_net`` (None: identity), and implement
 ``_run(x, inverse, context) -> (y, logabsdet)`` on [N, features] float32
-rows with the embedded context [N, context_features] or None. The kernel
+rows with the embedded context [N, context_features] or None. Inputs and
+contexts of another floating dtype (bf16 requests to a bf16 view) are
+widened to fp32 first, as the JAX views cast them. The kernel
 masks its ragged last tile, so unlike the TPU views nothing is padded to a
 lane tile.
 
@@ -38,9 +40,12 @@ class FusedFlowView:
         raise NotImplementedError
 
     def _embed(self, context):
-        if context is None or self._embedding_net is None:
-            return context
-        return self._embedding_net(context)
+        # a bf16 context (CompiledFlow(dtype=torch.bfloat16)) is widened
+        # first: the kernels take fp32 rows
+        if context is None:
+            return None
+        context = context.float()
+        return context if self._embedding_net is None else self._embedding_net(context)
 
     def _check_context(self, context, n):
         if self.context_features is None:

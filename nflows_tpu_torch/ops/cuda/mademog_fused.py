@@ -16,12 +16,17 @@ Weights come in the layout ``_extract`` gives, which is the JAX package's:
 component k of feature d; j = logit, mean, unconstrained std), ``bf``, and
 for a conditional model ``wci [H, C]``, ``bci``, ``wcb [nb H, C]``, ``bcb``.
 :func:`pack_weights` re-lays them for the kernel as in-major [in, out]
-matrices, the final layer's outputs zero-padded to a multiple of 4.
+matrices, the final layer's outputs zero-padded to a multiple of 4 (of 8
+with bf16 weights, which a 16-byte copy of them needs).
 
 Samples are rows: x is [N, D], the context [N, C], the result lp [N].
 :func:`mademog_log_prob_plain` computes the same in PyTorch on the same
 stacks; a wrapper call with a CPU tensor runs it, a CUDA tensor runs the
-kernel or raises. Only fp32 weights are ported so far.
+kernel or raises. The weights are fp32 or bf16 (``fuse_mademog(dtype=
+torch.bfloat16)``, the JAX package's default): with bf16, the matrices are
+bf16 and the biases fp32, and every GEMM rounds its operand, the context
+included, to bf16 and sums the exact products in fp32
+(``nsf_flow_kernel.gemm``; JAX ``mademog_fused.py:194-202``).
 
 Sampling stays on the module (``MixtureOfGaussiansMADE.sample``: D
 sequential MADE passes with categorical and normal draws), as in the JAX
@@ -43,21 +48,26 @@ from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
     _KC,
     _OC,
     MAX_SHARED_MEMORY,
-    _round4,
+    WEIGHT_DTYPES,
+    _out_align,
+    _round_out,
+    gemm,
 )
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 from nflows_tpu_torch.utils import shapes as shapeutils
 
 __all__ = ["FusedMADEMoG", "fuse_mademog", "can_fuse_mademog", "mademog_log_prob_cuda",
            "mademog_log_prob_plain", "pack_weights", "shared_memory_bytes",
-           "launch_count"]
+           "launch_count", "bf16_launch_count"]
 
-launch_count = 0  # B11 launches since the last reset
+launch_count = 0  # B11 launches since the last reset (fp32 weights)
+bf16_launch_count = 0  # launches of B11's bf16-weight kernel since the last reset
 
 ROWS = 32                # samples a block holds
 WEIGHT_KEYS = ("wi", "bi", "wb", "bb", "wf", "bf")
 CONTEXT_KEYS = ("wci", "bci", "wcb", "bcb")
 MASKED_KEYS = ("wi", "wb", "wf")
+MATRICES = ("wi", "wb", "wf", "wci", "wcb")  # bf16 with bf16 weights; the rest fp32
 
 
 def can_fuse_mademog(dist) -> bool:
@@ -110,21 +120,24 @@ def _extract(dist, dtype, fold_masks=True, return_masks=False):
     Serving uses the defaults (masks folded into the weights). The fused
     trainer passes ``fold_masks=False, return_masks=True``: the trainable
     weights stay pure permutations of the model's own, and the masks come
-    back in kernel layout for the trainer's per-step fold."""
+    back in kernel layout for the trainer's per-step fold. ``dtype``
+    (float32 or bfloat16) is the matrices' type, cast after the masks are
+    folded in, as the JAX package casts them; the biases and masks stay
+    fp32."""
     made = _validate(dist)
     D, K, H = made.features, made.num_mixture_components, made.hidden_features
     Cf = None if made.context_layer is None else made.context_layer.in_features
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"the fused MADEMoG kernel runs fp32 weights only so far, not {dtype}")
-    if H % 4 or shared_memory_bytes(D, Cf or 0, K, H) > MAX_SHARED_MEMORY:
+    if dtype not in WEIGHT_DTYPES:
+        raise ValueError(
+            f"the fused MADEMoG kernel takes float32 or bfloat16 weights, not {dtype}")
+    if H % _out_align(dtype) or shared_memory_bytes(D, Cf or 0, K, H, dtype) > MAX_SHARED_MEMORY:
         raise ValueError(
             f"hidden width {H} does not fit the fused kernel's shared-memory tile")
 
     def w_out_in(md):
         # nn.Linear keeps [out, in], the kernel layout of the JAX package
         w = md.weight.detach().float()
-        return w * md.mask if fold_masks else w
+        return (w * md.mask if fold_masks else w).to(dtype)
 
     def column(md):
         return md.bias.detach().float()[:, None]
@@ -138,8 +151,10 @@ def _extract(dist, dtype, fold_masks=True, return_masks=False):
         wf=w_out_in(made.final_layer)[order], bf=column(made.final_layer)[order])
     if Cf is not None:
         weights.update(
-            wci=made.context_layer.weight.detach().float(), bci=column(made.context_layer),
-            wcb=torch.cat([blk.context_layer.weight.detach().float() for blk in made.blocks]),
+            wci=made.context_layer.weight.detach().float().to(dtype),
+            bci=column(made.context_layer),
+            wcb=torch.cat([blk.context_layer.weight.detach().float()
+                           for blk in made.blocks]).to(dtype),
             bcb=torch.cat([column(blk.context_layer) for blk in made.blocks]))
     static = dict(D=D, K=K, H=H, num_blocks=len(made.blocks), epsilon=float(made.epsilon))
     if not return_masks:
@@ -156,20 +171,21 @@ def _extract(dist, dtype, fold_masks=True, return_masks=False):
 def _made_params(x, weights, num_blocks, context):
     """The residual MADE on the stacks: x [N, D] -> P [N, 3KD], K-major
     columns. Context enters additively: relu(Wci c + bci) after the initial
-    layer, Wcb_j c + bcb_j after each block's first linear."""
+    layer, Wcb_j c + bcb_j after each block's first linear. With bf16
+    matrices every GEMM is ``gemm`` (bf16 operands, fp32 sums)."""
     H = weights["bi"].shape[0]
-    h = x @ weights["wi"].T + weights["bi"][:, 0]
+    h = gemm(x, weights["wi"]) + weights["bi"][:, 0]
     if context is not None:
-        h = h + torch.relu(context @ weights["wci"].T + weights["bci"][:, 0])
+        h = h + torch.relu(gemm(context, weights["wci"]) + weights["bci"][:, 0])
     wb, bb = weights["wb"], weights["bb"][:, 0]
     for j in range(num_blocks):
         r0, r1 = slice(2 * j * H, (2 * j + 1) * H), slice((2 * j + 1) * H, (2 * j + 2) * H)
-        t = torch.relu(h) @ wb[r0].T + bb[r0]
+        t = gemm(torch.relu(h), wb[r0]) + bb[r0]
         if context is not None:
             rc = slice(j * H, (j + 1) * H)
-            t = t + (context @ weights["wcb"][rc].T + weights["bcb"][rc, 0])
-        h = h + torch.relu(t) @ wb[r1].T + bb[r1]
-    return h @ weights["wf"].T + weights["bf"][:, 0]
+            t = t + (gemm(context, weights["wcb"][rc]) + weights["bcb"][rc, 0])
+        h = h + gemm(torch.relu(t), wb[r1]) + bb[r1]
+    return gemm(h, weights["wf"]) + weights["bf"][:, 0]
 
 
 def head_terms(x, P, K, epsilon):
@@ -207,31 +223,35 @@ def mademog_log_prob_plain(x: torch.Tensor, weights: Dict[str, torch.Tensor], st
 # -- the kernel -------------------------------------------------------------------
 
 
-def shared_memory_bytes(D: int, C: int, K: int, H: int) -> int:
-    """Dynamic shared memory of one block (csrc/mademog_fused.cu: smem_bytes)."""
-    TB = max(H, _round4(3 * K * D))
+def shared_memory_bytes(D: int, C: int, K: int, H: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one block (csrc/mademog_fused.cu: smem_bytes);
+    ``dtype``, the weights', pads the final layer's outputs."""
+    TB = max(H, _round_out(3 * K * D, dtype))
     return 4 * (2 * _KC * _OC + ROWS * (H + TB + 2 * D + C))
 
 
 def pack_weights(weights: Dict[str, torch.Tensor], static: dict,
                  out: Dict[str, torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """Kernel layout of the (mask-folded) stacks: in-major [in, out] fp32
-    matrices on the weights' device, the final layer's outputs padded to a
-    multiple of 4, the biases flat. With ``out``, an earlier result for the
+    """Kernel layout of the (mask-folded) stacks: in-major [in, out]
+    matrices on the weights' device, bf16 where the stacks are, else fp32,
+    the final layer's outputs padded to a multiple of 4 (8 in bf16), the
+    biases flat and fp32. With ``out``, an earlier result for the
     same model, the tensors are refilled in place: the trainer re-packs this
     way each step."""
     H, D, nb = static["H"], static["D"], static["num_blocks"]
     P = weights["wf"].shape[0]
-    Pp = _round4(P)
+    wdt = torch.bfloat16 if weights["wi"].dtype == torch.bfloat16 else torch.float32
+    Pp = _round_out(P, wdt)
     if out is None:
         f32 = dict(dtype=torch.float32, device=weights["wi"].device)
-        out = dict(wi=torch.empty(D, H, **f32), bi=torch.empty(H, **f32),
-                   wb=torch.empty(2 * nb, H, H, **f32), bb=torch.empty(2 * nb * H, **f32),
-                   wf=torch.zeros(H, Pp, **f32), bf=torch.zeros(Pp, **f32))
+        mat = dict(dtype=wdt, device=weights["wi"].device)
+        out = dict(wi=torch.empty(D, H, **mat), bi=torch.empty(H, **f32),
+                   wb=torch.empty(2 * nb, H, H, **mat), bb=torch.empty(2 * nb * H, **f32),
+                   wf=torch.zeros(H, Pp, **mat), bf=torch.zeros(Pp, **f32))
         if "wci" in weights:
             C = weights["wci"].shape[1]
-            out.update(wci=torch.empty(C, H, **f32), bci=torch.empty(H, **f32),
-                       wcb=torch.empty(nb, C, H, **f32), bcb=torch.empty(nb * H, **f32))
+            out.update(wci=torch.empty(C, H, **mat), bci=torch.empty(H, **f32),
+                       wcb=torch.empty(nb, C, H, **mat), bcb=torch.empty(nb * H, **f32))
     with torch.no_grad():
         out["wi"].copy_(weights["wi"].T)
         out["wb"].copy_(weights["wb"].view(2 * nb, H, H).transpose(1, 2))
@@ -250,9 +270,9 @@ def pack_weights(weights: Dict[str, torch.Tensor], static: dict,
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mademog_log_prob_launch.argtypes = (
-        [p, p, p, ctypes.c_int64] + [i] * 7 + [f] + [p] * 10 + [p])
-    lib.mademog_log_prob_launch.restype = i
+    for fn in (lib.mademog_log_prob_launch, lib.mademog_log_prob_launch_bf16):
+        fn.argtypes = [p, p, p, ctypes.c_int64] + [i] * 7 + [f] + [p] * 10 + [p]
+        fn.restype = i
 
 
 def check_inputs(what, x, context, static, context_features):
@@ -273,10 +293,11 @@ def check_inputs(what, x, context, static, context_features):
                          f"{tuple(context.shape)} {context.dtype} on {context.device}")
 
 
-def check_packed(what, packed, static, context_features, device):
-    """Shapes and types of :func:`pack_weights`' tensors for this model."""
+def check_packed(what, packed, static, context_features, device, dtype=torch.float32):
+    """Shapes and types of :func:`pack_weights`' tensors for this model, its
+    matrices in ``dtype``."""
     D, K, H, nb = static["D"], static["K"], static["H"], static["num_blocks"]
-    Pp = _round4(3 * K * D)
+    Pp = _round_out(3 * K * D, dtype)
     shapes = dict(wi=(D, H), bi=(H,), wb=(2 * nb, H, H), bb=(2 * nb * H,), wf=(H, Pp),
                   bf=(Pp,))
     if context_features is not None:
@@ -284,9 +305,10 @@ def check_packed(what, packed, static, context_features, device):
         shapes.update(wci=(C, H), bci=(H,), wcb=(nb, C, H), bcb=(nb * H,))
     for name, shape in shapes.items():
         t = packed[name]
-        if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != device
+        want = dtype if name in MATRICES else torch.float32
+        if (tuple(t.shape) != shape or t.dtype != want or t.device != device
                 or not t.is_contiguous()):
-            raise ValueError(f"{what}: packed {name} must be a contiguous {shape} float32 "
+            raise ValueError(f"{what}: packed {name} must be a contiguous {shape} {want} "
                              f"tensor on {device}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}")
 
@@ -303,31 +325,41 @@ def mademog_log_prob_cuda(x: torch.Tensor, weights: Dict[str, torch.Tensor], sta
 
     ``weights`` are the mask-folded stacks of :func:`_extract`; ``packed``
     is :func:`pack_weights` of them, built here when not given (callers that
-    launch repeatedly keep it)."""
-    global launch_count
+    launch repeatedly keep it). fp32 weights launch the fp32 kernel, bf16
+    weights (the matrices bf16, the biases fp32) the bf16 one; x and the
+    context are fp32 either way."""
+    global launch_count, bf16_launch_count
     if x.device.type == "cpu":
         return mademog_log_prob_plain(x, weights, static, context)
     what = "mademog_log_prob_cuda"
     Cf = weights["wci"].shape[1] if "wci" in weights else None
     check_inputs(what, x, context, static, Cf)
+    wdt = weights["wi"].dtype
+    if wdt not in WEIGHT_DTYPES:
+        raise ValueError(f"{what}: weights must be float32 or bfloat16, got {wdt}")
+    bf16 = wdt == torch.bfloat16
     if packed is None:
         packed = pack_weights(weights, static)
-    check_packed(what, packed, static, Cf, x.device)
+    check_packed(what, packed, static, Cf, x.device, wdt)
     D, K, H, nb = static["D"], static["K"], static["H"], static["num_blocks"]
-    if H % 4 or shared_memory_bytes(D, Cf or 0, K, H) > MAX_SHARED_MEMORY:
+    if H % _out_align(wdt) or shared_memory_bytes(D, Cf or 0, K, H, wdt) > MAX_SHARED_MEMORY:
         raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
                          "shared-memory tile")
     n = x.shape[0]
     lib = _build.load_library("mademog_fused", _declare)
+    launch = lib.mademog_log_prob_launch_bf16 if bf16 else lib.mademog_log_prob_launch
     lp = torch.empty(n, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        code = lib.mademog_log_prob_launch(
+        code = launch(
             x.data_ptr(), data_ptr(context), lp.data_ptr(), n, D, Cf or 0, K, H, 3 * K * D,
-            _round4(3 * K * D), nb, static["epsilon"],
+            _round_out(3 * K * D, wdt), nb, static["epsilon"],
             *(data_ptr(packed.get(k)) for k in WEIGHT_KEYS + CONTEXT_KEYS), stream)
-    launch_count += 1
-    _build.check(code, "mademog_log_prob_launch")
+    if bf16:
+        bf16_launch_count += 1
+    else:
+        launch_count += 1
+    _build.check(code, "mademog_log_prob_launch_bf16" if bf16 else "mademog_log_prob_launch")
     return lp
 
 
@@ -364,6 +396,8 @@ class FusedMADEMoG:
 
     def sample(self, generator, num_samples, context=None):
         made = getattr(self._dist, "made", self._dist)
+        if context is not None:
+            context = context.float()
         return made.sample(generator, num_samples, context=context)
 
     def sample_and_log_prob(self, generator, num_samples, context=None):
@@ -379,7 +413,8 @@ class FusedMADEMoG:
 def fuse_mademog(dist, dtype=torch.float32) -> FusedMADEMoG:
     """Build the fused log_prob view of a MADEMoG / MixtureOfGaussiansMADE.
 
-    ``dtype`` sets the MADE GEMM precision; only fp32 runs so far (the JAX
-    package defaults to bf16) and raises ``NotImplementedError`` for
-    anything else."""
+    ``dtype`` sets the MADE GEMM precision: torch.float32 (the default
+    here) or torch.bfloat16, the JAX package's default, where each GEMM takes
+    bf16 operands and sums in fp32. Inputs, contexts and results are fp32
+    either way (a bf16 input or context is widened first)."""
     return FusedMADEMoG(dist, dtype=dtype)

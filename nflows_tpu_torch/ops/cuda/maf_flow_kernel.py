@@ -30,7 +30,12 @@ zero-padded to multiples of 4, and the per-layer permutations as one int32
 array; the context stacks in-major as well, their C inputs padded to C4.
 
 Samples are rows here: x is [N, D], the context [N, C], and the result is
-(y [N, D], lad [N]). Ported so far: fp32, with or without a context.
+(y [N, D], lad [N]), with fp32 or bf16 weights, with or without a context.
+With bf16 weights (``csrc/maf_flow_kernel_bf16.cu``, the JAX package's
+default deployment) the matrices wi, wb, wf, wci and wcb are bf16 and the
+biases fp32; every GEMM rounds its activation operand to bf16 and sums the
+exact products in fp32 (``nsf_flow_kernel.gemm``), and the packed final
+layer's outputs are padded to a multiple of 8.
 
 :func:`maf_flow_kernel_plain` computes the same chain step by step in
 PyTorch on the same stacks, with the same iteration count. The CPU tests
@@ -51,18 +56,25 @@ from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
     _KC,
     _OC,
     MAX_SHARED_MEMORY,
+    WEIGHT_DTYPES,
+    _out_align,
     _round4,
+    _round_out,
+    gemm,
 )
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 
 __all__ = ["CONTEXT_KEYS", "MAFLayerStatic", "maf_flow_kernel_cuda", "maf_flow_kernel_plain",
-           "pack_weights", "shared_memory_bytes", "tile_rows", "launch_count"]
+           "pack_weights", "shared_memory_bytes", "tile_rows", "launch_count",
+           "bf16_launch_count"]
 
-launch_count = 0  # kernel launches since the last reset
+launch_count = 0  # kernel launches since the last reset (fp32 weights)
+bf16_launch_count = 0  # launches of the bf16-weight kernel since the last reset
 
 _EPSILON = 1e-3  # MaskedAffineAutoregressiveTransform._EPSILON
 TRANSFORMERS = ("affine", "rq")
 CONTEXT_KEYS = ("wci", "bci", "wcb", "bcb")  # the MADE's context projections
+MATRICES = ("wi", "wb", "wf", "wci", "wcb")  # bf16 with bf16 weights; the rest fp32
 
 
 class MAFLayerStatic(NamedTuple):
@@ -100,23 +112,25 @@ def _check_context(what, weights, context):
                            "got a context for weights without context projections"))
 
 
-def shared_memory_bytes(rows: int, D: int, H: int, P: int, C: int = 0) -> int:
+def shared_memory_bytes(rows: int, D: int, H: int, P: int, C: int = 0,
+                        dtype=torch.float32) -> int:
     """Dynamic shared memory of one block of ``rows`` samples
-    (csrc/maf_flow_kernel.cu: smem_bytes); C context features add a
-    [C4][rows] tile."""
+    (csrc/maf_flow_kernel.cuh: smem_bytes); C context features add a
+    [C4][rows] tile. ``dtype``, the weights', pads P."""
     D4 = _round4(D)
-    TB = max(H, _round4(P), D4)
+    TB = max(H, _round_out(P, dtype), D4)
     return 4 * (2 * _KC * _OC + rows * (H + TB + 3 * D4 + D + 1 + _round4(C)))
 
 
-def tile_rows(n: int, D: int, H: int, P: int, sms: int, C: int = 0) -> int:
+def tile_rows(n: int, D: int, H: int, P: int, sms: int, C: int = 0,
+              dtype=torch.float32) -> int:
     """Samples a block holds: 64 where that fits and still gives every SM a
     tile, else 32; 0 if neither fits. At features 10, hidden 256, 5 layers
     on an NVIDIA H100 80GB HBM3 (700 W, 132 SMs; chip_smoke.py) 64-sample
     tiles take 7.995 ms against 5.024 ms for a 4,096-sample inverse, where
     they fill 64 SMs, and 64.55 ms against 81.20 ms for 65,536 samples."""
     def fits(rows):
-        return shared_memory_bytes(rows, D, H, P, C) <= MAX_SHARED_MEMORY
+        return shared_memory_bytes(rows, D, H, P, C, dtype) <= MAX_SHARED_MEMORY
     if fits(64) and -(-n // 64) >= sms:
         return 64
     return 32 if fits(32) else 0
@@ -124,36 +138,40 @@ def tile_rows(n: int, D: int, H: int, P: int, sms: int, C: int = 0) -> int:
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.maf_flow_launch.argtypes = (
-        [p, p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 11 + [i, i, f, i] + [f] * 4
-        + [i, p])
-    lib.maf_flow_launch.restype = i
+    for fn in (getattr(lib, name, None) for name in ("maf_flow_launch", "maf_flow_launch_bf16")):
+        if fn is not None:
+            fn.argtypes = ([p, p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 11 + [i, i, f, i]
+                           + [f] * 4 + [i, p])
+            fn.restype = i
 
 
 def pack_weights(weights: Dict[str, torch.Tensor], layer_static: Sequence,
                  num_blocks: int, out: Dict[str, torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
-    """Kernel layout of the (mask-folded) stacks: fp32, contiguous, on the
-    weights' device. With ``out``, an earlier result for the same model, the
+    """Kernel layout of the (mask-folded) stacks: contiguous, on the
+    weights' device, the matrices bf16 where the stacks are, else fp32, the
+    biases fp32. With ``out``, an earlier result for the same model, the
     matrices are copied into its tensors and the index array is kept: the
     trainer re-packs this way each step. The context stacks, where there
     are any, go in-major with their inputs padded to C4 (wci [L, C4, H],
     wcb [L, nb, C4, H], bci [L, H], bcb [L, nb, H])."""
     d = _dims(weights, layer_static, num_blocks)
     L, H, D, P, nb2, C = (d[k] for k in ("L", "H", "D", "P", "nb2", "C"))
-    D4, Pp, C4, nb = _round4(D), _round4(P), _round4(C), nb2 // 2
+    wdt = torch.bfloat16 if weights["wi"].dtype == torch.bfloat16 else torch.float32
+    D4, Pp, C4, nb = _round4(D), _round_out(P, wdt), _round4(C), nb2 // 2
     dev = weights["wi"].device
     if out is None:
         f32 = dict(dtype=torch.float32, device=dev)
+        mat = dict(dtype=wdt, device=dev)
         out = dict(
-            wi=torch.zeros(L, D4, H, **f32), wb=torch.empty(L, nb2, H, H, **f32),
-            wf=torch.zeros(L, H, Pp, **f32), bf=torch.zeros(L, Pp, **f32),
+            wi=torch.zeros(L, D4, H, **mat), wb=torch.empty(L, nb2, H, H, **mat),
+            wf=torch.zeros(L, H, Pp, **mat), bf=torch.zeros(L, Pp, **f32),
             idx=torch.tensor(
                 [list(ls.perm_rows) + list(ls.inv_perm_rows) + [int(ls.wrapped)]
                  for ls in layer_static], dtype=torch.int32, device=dev))
         if C:
-            out["wci"] = torch.zeros(L, C4, H, **f32)
-            out["wcb"] = torch.zeros(L, nb, C4, H, **f32)
+            out["wci"] = torch.zeros(L, C4, H, **mat)
+            out["wcb"] = torch.zeros(L, nb, C4, H, **mat)
     with torch.no_grad():
         out["wi"][:, :D].copy_(weights["wi"].view(L, H, D).transpose(1, 2))
         out["wb"].copy_(weights["wb"].view(L, nb2, H, H).transpose(2, 3))
@@ -182,7 +200,9 @@ def maf_flow_kernel_plain(
     multiplies the RQ width and height parameters before the spline, for
     weights extracted without the rescale folded in. ``context`` [N, C] is
     required exactly when the weights hold context projections; like the
-    kernel, every MADE pass recomputes them. Differentiable."""
+    kernel, every MADE pass recomputes them. With bf16 matrices every GEMM
+    is ``gemm`` (bf16 operands, fp32 sums), as the bf16 kernel computes it.
+    Differentiable."""
     _check_transformer(transformer, spline_kw, wh_scale)
     _check_context("maf_flow_kernel_plain", weights, context)
     d = _dims(weights, layer_static, num_blocks)
@@ -198,16 +218,16 @@ def maf_flow_kernel_plain(
     K = spline_kw["num_bins"] if transformer == "rq" else 0
 
     def conditioner(l, xin):
-        h = xin @ wi[l].T + bi[l]
+        h = gemm(xin, wi[l]) + bi[l]
         if C:
-            h = h + torch.relu(context @ wci[l].T + bci[l])
+            h = h + torch.relu(gemm(context, wci[l]) + bci[l])
         for j in range(num_blocks):
-            t = torch.relu(h) @ wb[l, 2 * j].T + bb[l, 2 * j]
+            t = gemm(torch.relu(h), wb[l, 2 * j]) + bb[l, 2 * j]
             if C:
-                t = t + context @ wcb[l, j].T + bcb[l, j]
-            t = torch.relu(t) @ wb[l, 2 * j + 1].T + bb[l, 2 * j + 1]
+                t = t + gemm(context, wcb[l, j]) + bcb[l, j]
+            t = gemm(torch.relu(t), wb[l, 2 * j + 1]) + bb[l, 2 * j + 1]
             h = h + t
-        params = h @ wf[l].T + bf[l]                       # [n, P], column j*D + t
+        params = gemm(h, wf[l]) + bf[l]                    # [n, P], column j*D + t
         if wh_scale is not None:
             params = torch.cat([params[:, :2 * K * D] * wh_scale,
                                 params[:, 2 * K * D:]], dim=1)
@@ -264,14 +284,20 @@ def maf_flow_kernel_cuda(
     ``packed`` is :func:`pack_weights` of ``weights``, built here when not
     given (callers that launch repeatedly keep it). ``wh_scale``: see
     :func:`maf_flow_kernel_plain`. ``rows`` forces the tile size (32 or 64);
-    None chooses by shared memory and SM count."""
-    global launch_count
+    None chooses by shared memory and SM count. fp32 weights launch the fp32
+    kernel, bf16 weights (wi, wb, wf, wci, wcb bf16, the biases fp32) the
+    bf16 one; x and the context are fp32 either way."""
+    global launch_count, bf16_launch_count
     kw = dict(inverse=inverse, num_blocks=num_blocks, transformer=transformer,
               spline_kw=spline_kw, wh_scale=wh_scale, context=context)
     if x.device.type == "cpu":
         return maf_flow_kernel_plain(x, weights, layer_static, **kw)
     _check_transformer(transformer, spline_kw, wh_scale)
     _check_context("maf_flow_kernel_cuda", weights, context)
+    wdt = weights["wi"].dtype
+    if wdt not in WEIGHT_DTYPES:
+        raise ValueError(f"maf_flow_kernel_cuda: weights must be float32 or bfloat16, got {wdt}")
+    bf16 = wdt == torch.bfloat16
     if packed is None:
         packed = pack_weights(weights, layer_static, num_blocks)
     if x.dtype != torch.float32 or not x.is_contiguous() or x.ndim != 2:
@@ -282,7 +308,7 @@ def maf_flow_kernel_cuda(
     K = spline_kw["num_bins"] if transformer == "rq" else 0
     P = 2 * D if transformer == "affine" else (3 * K - 1) * D
     C = 0 if context is None else weights["wci"].shape[1]
-    D4, Pp, C4 = _round4(D), _round4(P), _round4(C)
+    D4, Pp, C4 = _round4(D), _round_out(P, wdt), _round4(C)
     expected = dict(wi=(L, D4, H), bi=(L, H), wb=(L, nb2, H, H), bb=(L, nb2, H),
                     wf=(L, H, Pp), bf=(L, Pp), idx=(L, 2 * D + 1))
     if C:
@@ -298,7 +324,8 @@ def maf_flow_kernel_cuda(
             raise ValueError(f"maf_flow_kernel_cuda: packed has no {name}: pack the "
                              "conditional weights with pack_weights")
         t = packed[name]
-        dtype = torch.int32 if name == "idx" else torch.float32
+        dtype = (torch.int32 if name == "idx" else wdt if name in MATRICES
+                 else torch.float32)
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device
                 or not t.is_contiguous()):
             raise ValueError(f"maf_flow_kernel_cuda: packed {name} must be a contiguous "
@@ -306,20 +333,21 @@ def maf_flow_kernel_cuda(
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if rows is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        rows = tile_rows(n, D, H, P, sms, C)
-    if rows not in (32, 64) or H % 4 or (
-            shared_memory_bytes(rows, D, H, P, C) > MAX_SHARED_MEMORY):
+        rows = tile_rows(n, D, H, P, sms, C, wdt)
+    if rows not in (32, 64) or H % _out_align(wdt) or (
+            shared_memory_bytes(rows, D, H, P, C, wdt) > MAX_SHARED_MEMORY):
         raise ValueError(f"maf_flow_kernel_cuda: hidden width {H} does not fit "
                          f"the kernel's shared-memory tile of {rows} samples")
 
-    lib = _build.load_library("maf_flow_kernel", _declare)
+    lib = _build.load_library("maf_flow_kernel_bf16" if bf16 else "maf_flow_kernel", _declare)
+    launch = lib.maf_flow_launch_bf16 if bf16 else lib.maf_flow_launch
     y = torch.empty_like(x)
     lad = torch.empty(n, dtype=torch.float32, device=x.device)
     skw = spline_kw or dict(num_bins=0, tail_bound=0.0, min_bin_width=0.0,
                             min_bin_height=0.0, min_derivative=0.0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        code = lib.maf_flow_launch(
+        code = launch(
             x.data_ptr(), 0 if C == 0 else context.data_ptr(), y.data_ptr(), lad.data_ptr(),
             n, D, L, H, D4, P, Pp, nb2, C, C4,
             packed["wi"].data_ptr(), packed["bi"].data_ptr(),
@@ -330,6 +358,9 @@ def maf_flow_kernel_cuda(
             1.0 if wh_scale is None else wh_scale, skw["num_bins"], skw["tail_bound"],
             skw["min_bin_width"], skw["min_bin_height"], skw["min_derivative"],
             rows, stream)
-    launch_count += 1
-    _build.check(code, "maf_flow_launch")
+    if bf16:
+        bf16_launch_count += 1
+    else:
+        launch_count += 1
+    _build.check(code, "maf_flow_launch_bf16" if bf16 else "maf_flow_launch")
     return y, lad

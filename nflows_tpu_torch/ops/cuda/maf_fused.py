@@ -18,8 +18,10 @@ become the stacks ``wci``, ``bci``, ``wcb``, ``bcb``, and the result is a
 The same extraction serves fused training (maf_train.py) through
 ``fold_masks`` / ``fold_wh_scale`` / ``return_masks``.
 
-So far only fp32 is fused. A conditional flow's embedding net runs outside
-the kernel, once a call (``_fused_view_common``).
+``dtype`` is the matrices' type: fp32 (the default here) or bf16 (the JAX
+package's default), cast after the masks and the rescale are folded in, as
+there; the biases stay fp32. A conditional flow's embedding net runs
+outside the kernel, once a call (``_fused_view_common``).
 """
 
 from __future__ import annotations
@@ -206,17 +208,19 @@ def _extract(flow, dtype, fold_masks=True, fold_wh_scale=True,
             mfs.append(made.final_layer.mask[order])
 
     transformer, mult, D, H, num_blocks, spline_cfg, Cf = ref_cfg
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"the fused AR kernel runs fp32 weights only so far, not {dtype}")
-    if H % 4 or not maf_flow_kernel.tile_rows(1, D, H, mult * D, sms=1, C=Cf or 0):
+    if dtype not in maf_flow_kernel.WEIGHT_DTYPES:
+        raise ValueError(f"the fused AR kernel takes float32 or bfloat16 weights, not {dtype}")
+    if H % maf_flow_kernel._out_align(dtype) or not maf_flow_kernel.tile_rows(
+            1, D, H, mult * D, sms=1, C=Cf or 0, dtype=dtype):
         raise ValueError(
             f"hidden width {H} does not fit the fused kernel's shared-memory tile")
-    weights = dict(wi=torch.cat(wis), bi=torch.cat(bis), wb=torch.cat(wbs),
-                   bb=torch.cat(bbs), wf=torch.cat(wfs), bf=torch.cat(bfs))
+    # the matrices in dtype, after the folds; the biases fp32
+    weights = dict(wi=torch.cat(wis).to(dtype), bi=torch.cat(bis),
+                   wb=torch.cat(wbs).to(dtype), bb=torch.cat(bbs),
+                   wf=torch.cat(wfs).to(dtype), bf=torch.cat(bfs))
     if Cf is not None:
-        weights.update(wci=torch.cat(wcis), bci=torch.cat(bcis), wcb=torch.cat(wcbs),
-                       bcb=torch.cat(bcbs))
+        weights.update(wci=torch.cat(wcis).to(dtype), bci=torch.cat(bcis),
+                       wcb=torch.cat(wcbs).to(dtype), bcb=torch.cat(bcbs))
     spline_kw = None
     if transformer == "rq":
         K, tb, mbw, mbh, md = spline_cfg
@@ -261,8 +265,10 @@ class FusedMAF(FusedFlowView):
 def fuse_maf(flow, dtype=torch.float32) -> FusedMAF:
     """Build the fused inference view of an autoregressive flow.
 
-    ``dtype`` sets the MADE GEMM precision; only fp32 runs so far (the
-    JAX package defaults to bf16) and raises ``NotImplementedError`` for
-    anything else.
+    ``dtype`` sets the MADE GEMM precision: torch.float32 (the default
+    here) or torch.bfloat16, the JAX package's default, where each GEMM
+    takes bf16 operands and sums in fp32 (kernel
+    ``csrc/maf_flow_kernel_bf16.cu``). Inputs and results are fp32 either
+    way.
     """
     return FusedMAF(flow, dtype=dtype)

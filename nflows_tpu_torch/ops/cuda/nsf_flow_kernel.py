@@ -27,7 +27,13 @@ zero-padded to multiples of 4, and the per-layer index lists as one int32
 array.
 
 Samples are rows here: x is [N, D], the context [N, C], and the result is
-(y [N, D], lad [N]). B2 runs fp32 weights, with or without a context.
+(y [N, D], lad [N]). B2 runs fp32 or bf16 weights, with or without a
+context. With bf16 weights (``csrc/nsf_flow_kernel_bf16.cu``, the JAX
+package's default deployment) the matrices w0, wb, wf, wc0 and wcb are
+bf16 and the biases fp32, and every GEMM is the JAX kernel's ``_dot``: the
+activation operand rounded to bf16, the products summed in fp32
+(:func:`gemm`); the packed matrices' output widths are then padded to
+multiples of 8, which a 16-byte copy of bf16 weights needs.
 
 :func:`nsf_flow_kernel_plain` computes the same chain step by step in
 PyTorch on the extracted weights, with the port's plain splines
@@ -54,7 +60,7 @@ from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 
 __all__ = ["nsf_flow_kernel_cuda", "nsf_flow_kernel_plain", "pack_weights",
            "shared_memory_bytes", "params_per_feature", "stage_floats", "FAMILIES",
-           "launch_count"]
+           "gemm", "launch_count", "bf16_launch_count"]
 
 # the coupling families, in the order of csrc/coupling_stage.cuh's CouplingFamily
 FAMILIES = ("rq", "lrs", "linear", "quadratic", "cubic", "affine", "additive")
@@ -64,17 +70,44 @@ SCALE_ACTIVATIONS = ("default", "general", "none")
 # heights; all of a quadratic spline's) carry the softmax 1/sqrt(hidden),
 # as the JAX package's _family_spline_config has it
 RESCALED_FAMILIES = ("rq", "lrs", "quadratic", "cubic")
+# the packed stacks that are matrices (bf16 with bf16 weights); the rest fp32
+MATRICES = ("w0", "wb", "wf", "wc0", "wcb")
 
-launch_count = 0  # kernel launches since the last reset
+launch_count = 0  # kernel launches since the last reset (fp32 weights)
+bf16_launch_count = 0  # launches of the bf16-weight kernel since the last reset
+WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 # Shared memory a block may use on Hopper (H100/H200), and the layout the
-# kernel carves from it (csrc/nsf_flow_kernel.cu: smem_bytes).
+# kernel carves from it (csrc/nsf_flow_kernel.cuh: smem_bytes).
 MAX_SHARED_MEMORY = 232448
 _KC, _OC = 32, 256
 
 
 def _round4(n: int) -> int:
     return -(-n // 4) * 4
+
+
+def _out_align(dtype=torch.float32) -> int:
+    """The weights one 16-byte cp.async stages (4 fp32, 8 bf16;
+    csrc/tile_gemm.cuh): a packed matrix's output width, H among them, is a
+    multiple of it."""
+    return 8 if dtype == torch.bfloat16 else 4
+
+
+def _round_out(n: int, dtype=torch.float32) -> int:
+    """A packed matrix's output width: n rounded up to ``_out_align``."""
+    align = _out_align(dtype)
+    return -(-n // align) * align
+
+
+def gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w.T`` as the kernels compute it: with bf16 weights, the operand
+    ``a`` rounded to bf16 (nearest even) and the exact products summed in
+    fp32, the JAX kernels' ``_dot`` with ``preferred_element_type=float32``;
+    otherwise in the operands' own dtype."""
+    if w.dtype == torch.bfloat16:
+        return a.to(torch.bfloat16).float() @ w.float().T
+    return a @ w.T
 
 
 def params_per_feature(spline: str, num_bins: int = 0) -> int:
@@ -88,10 +121,11 @@ def params_per_feature(spline: str, num_bins: int = 0) -> int:
 
 
 def shared_memory_bytes(rows: int, D: int, H: int, Tid: int, T: int,
-                        TM: int, C: int = 0) -> int:
+                        TM: int, C: int = 0, dtype=torch.float32) -> int:
     """Dynamic shared memory of one block of ``rows`` samples; a context of
-    C features adds its tile [C][rows] and the gate buffer [H][rows]."""
-    TB = max(H, _round4(TM), _round4(Tid))
+    C features adds its tile [C][rows] and the gate buffer [H][rows]. bf16
+    weights take the same layout (their staging uses half its buffer)."""
+    TB = max(H, _round_out(TM, dtype), _round4(Tid))
     return 4 * (2 * _KC * _OC + rows * (H + TB + 2 * D + 2 * T + 1 + (C + H if C else 0)))
 
 
@@ -119,16 +153,18 @@ def _ptr(t) -> int:
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nsf_flow_launch.argtypes = (
-        [p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 7 + [i] * 4 + [f] * 8
-        + [p, i, p, p, p] + [i, p])
-    lib.nsf_flow_launch.restype = i
+    for fn in (getattr(lib, name, None) for name in ("nsf_flow_launch", "nsf_flow_launch_bf16")):
+        if fn is not None:
+            fn.argtypes = ([p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 7 + [i] * 4 + [f] * 8
+                           + [p, i, p, p, p] + [i, p])
+            fn.restype = i
 
 
 def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
                  out: Dict[str, torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """Kernel layout of the extracted weights (fp32, contiguous, on the
-    weights' device). With ``out``, an earlier result for the same model,
+    """Kernel layout of the extracted weights (contiguous, on the weights'
+    device): the matrices bf16 where the extracted ones are, else fp32, the
+    biases fp32. With ``out``, an earlier result for the same model,
     the matrices are copied into its tensors and the index array is kept:
     the trainers re-pack this way after each optimizer step. The context
     stacks, where there are any, go in-major too (wc0 [L, C, H], wcb
@@ -136,20 +172,22 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
     w0, wf = weights["w0"], weights["wf"]
     L, H, Tid = w0.shape
     TM = wf.shape[1]
-    I4, TMp = _round4(Tid), _round4(TM)
+    wdt = torch.bfloat16 if w0.dtype == torch.bfloat16 else torch.float32
+    I4, TMp = _round4(Tid), _round_out(TM, wdt)
     dev = w0.device
     if out is None:
         f32 = dict(dtype=torch.float32, device=dev)
+        mat = dict(dtype=wdt, device=dev)
         out = dict(
-            w0=torch.zeros(L, I4, H, **f32), wb=torch.empty(weights["wb"].shape, **f32),
-            wf=torch.zeros(L, H, TMp, **f32), bf=torch.zeros(L, TMp, **f32),
+            w0=torch.zeros(L, I4, H, **mat), wb=torch.empty(weights["wb"].shape, **mat),
+            wf=torch.zeros(L, H, TMp, **mat), bf=torch.zeros(L, TMp, **f32),
             idx=torch.tensor(
                 [list(li.id_rows) + list(li.tr_rows) + list(li.merge_fwd)
                  + list(li.id_idx) + list(li.tr_idx) + list(li.merge_inv)
                  for li in layer_indices], dtype=torch.int32, device=dev))
         if "wc0" in weights:
-            out["wc0"] = torch.empty(weights["wc0"].transpose(1, 2).shape, **f32)
-            out["wcb"] = torch.empty(weights["wcb"].transpose(2, 3).shape, **f32)
+            out["wc0"] = torch.empty(weights["wc0"].transpose(1, 2).shape, **mat)
+            out["wcb"] = torch.empty(weights["wcb"].transpose(2, 3).shape, **mat)
     with torch.no_grad():
         out["w0"][:, :Tid].copy_(w0.transpose(1, 2))
         out["wb"].copy_(weights["wb"].transpose(2, 3))
@@ -242,7 +280,9 @@ def nsf_flow_kernel_plain(
     stage, for weights extracted without the softmax rescale folded in.
     ``context`` [N, C] goes with the weights' context stacks. Differentiable
     (in the context too): the training kernels' plain versions are autograd
-    over this function."""
+    over this function. With bf16 matrices every GEMM is :func:`gemm`, as
+    the bf16 kernel computes it (bf16 operands, fp32 sums); the rest of the
+    chain stays in x's dtype, fp32."""
     _check_context("nsf_flow_kernel_plain", x, weights, context)
     K = num_bins
     n = x.shape[0]
@@ -256,18 +296,18 @@ def nsf_flow_kernel_plain(
         identity = x[:, list(id_src)]
         transform = x[:, list(tr_src)]
         T = transform.shape[1]
-        h = identity @ weights["w0"][l].T + weights["b0"][l, :, 0]
+        h = gemm(identity, weights["w0"][l]) + weights["b0"][l, :, 0]
         if context is not None:
-            h = h + context @ weights["wc0"][l].T
+            h = h + gemm(context, weights["wc0"][l])
         for j in range(num_blocks):
-            t = torch.relu(h) @ weights["wb"][l, 2 * j].T + weights["bb"][l, 2 * j, :, 0]
-            t = (torch.relu(t) @ weights["wb"][l, 2 * j + 1].T
+            t = gemm(torch.relu(h), weights["wb"][l, 2 * j]) + weights["bb"][l, 2 * j, :, 0]
+            t = (gemm(torch.relu(t), weights["wb"][l, 2 * j + 1])
                  + weights["bb"][l, 2 * j + 1, :, 0])
             if context is not None:
-                t = t * torch.sigmoid(context @ weights["wcb"][l, j].T
+                t = t * torch.sigmoid(gemm(context, weights["wcb"][l, j])
                                       + weights["bcb"][l, j, :, 0])
             h = h + t
-        P = h @ weights["wf"][l].T + weights["bf"][l, :, 0]       # [n, TM]
+        P = gemm(h, weights["wf"][l]) + weights["bf"][l, :, 0]   # [n, TM]
         P = P.reshape(n, -1, T).transpose(1, 2)                   # [n, T, M]
         if wh_scale is not None:
             P = torch.cat([P[..., :2 * K] * wh_scale, P[..., 2 * K:]], dim=-1)
@@ -293,8 +333,10 @@ def nsf_flow_kernel_cuda(
     ``nsf_fused._extract``. ``packed`` is :func:`pack_weights` of
     ``weights``, built here when not given (callers that launch repeatedly
     keep it). ``wh_scale``: see :func:`nsf_flow_kernel_plain`; None leaves
-    the parameters as they are."""
-    global launch_count
+    the parameters as they are. fp32 weights launch the fp32 kernel, bf16
+    weights (w0, wb, wf, wc0, wcb bf16, the biases fp32) the bf16 one; x and
+    the context are fp32 either way."""
+    global launch_count, bf16_launch_count
     kw = dict(inverse=inverse, num_blocks=num_blocks, spline=spline, num_bins=num_bins,
               tail_bound=tail_bound, min_bin_width=min_bin_width,
               min_bin_height=min_bin_height, min_derivative=min_derivative,
@@ -302,6 +344,9 @@ def nsf_flow_kernel_cuda(
     if x.device.type == "cpu":
         return nsf_flow_kernel_plain(x, weights, layer_indices, context=context, **kw)
     _check_context("nsf_flow_kernel_cuda", x, weights, context)
+    wdt = weights["w0"].dtype
+    if wdt not in WEIGHT_DTYPES:
+        raise ValueError(f"nsf_flow_kernel_cuda: weights must be float32 or bfloat16, got {wdt}")
     M = params_per_feature(spline, num_bins)
     if spline == "affine" and scale_act not in ("default", "general"):
         raise ValueError("spline='affine' takes scale_act 'default' or 'general', "
@@ -317,9 +362,10 @@ def nsf_flow_kernel_cuda(
     TM = T * M
     H = packed["b0"].shape[1]
     C = 0 if context is None else context.shape[1]
+    TMp = _round_out(TM, wdt)
     expected = dict(w0=(L, _round4(Tid), H), b0=(L, H), wb=(L, 2 * num_blocks, H, H),
-                    bb=(L, 2 * num_blocks, H), wf=(L, H, _round4(TM)),
-                    bf=(L, _round4(TM)), idx=(L, 2 * D + 2 * Tid + 2 * T))
+                    bb=(L, 2 * num_blocks, H), wf=(L, H, TMp),
+                    bf=(L, TMp), idx=(L, 2 * D + 2 * Tid + 2 * T))
     if C:
         expected.update(wc0=(L, C, H), wcb=(L, num_blocks, C, H), bcb=(L, num_blocks, H))
         if (context.dtype != torch.float32 or not context.is_contiguous()
@@ -330,7 +376,8 @@ def nsf_flow_kernel_cuda(
         t = packed.get(name)
         if t is None:
             raise ValueError(f"nsf_flow_kernel_cuda: packed has no {name!r}")
-        dtype = torch.int32 if name == "idx" else torch.float32
+        dtype = (torch.int32 if name == "idx" else wdt if name in MATRICES
+                 else torch.float32)
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device
                 or not t.is_contiguous()):
             raise ValueError(f"nsf_flow_kernel_cuda: packed {name} must be a contiguous "
@@ -339,19 +386,22 @@ def nsf_flow_kernel_cuda(
     # 64-sample tiles unless they would leave SMs idle or not fit
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     rows = 64 if -(-n // 64) >= sms else 32
-    if shared_memory_bytes(rows, D, H, Tid, T, TM, C) > MAX_SHARED_MEMORY:
+    if shared_memory_bytes(rows, D, H, Tid, T, TM, C, wdt) > MAX_SHARED_MEMORY:
         rows = 32
-    if H % 4 or shared_memory_bytes(rows, D, H, Tid, T, TM, C) > MAX_SHARED_MEMORY:
+    bf16 = wdt == torch.bfloat16
+    if H % _out_align(wdt) or shared_memory_bytes(rows, D, H, Tid, T, TM, C,
+                                                  wdt) > MAX_SHARED_MEMORY:
         raise ValueError(f"nsf_flow_kernel_cuda: hidden width {H} does not fit "
                          "the kernel's shared-memory tile")
-    lib = _build.load_library("nsf_flow_kernel", _declare)
+    lib = _build.load_library("nsf_flow_kernel_bf16" if bf16 else "nsf_flow_kernel", _declare)
+    launch = lib.nsf_flow_launch_bf16 if bf16 else lib.nsf_flow_launch
     y = torch.empty_like(x)
     lad = torch.empty(n, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        code = lib.nsf_flow_launch(
+        code = launch(
             x.data_ptr(), y.data_ptr(), lad.data_ptr(), n, D, L, H, Tid,
-            _round4(Tid), T, TM, _round4(TM), 2 * num_blocks,
+            _round4(Tid), T, TM, TMp, 2 * num_blocks,
             packed["w0"].data_ptr(), packed["b0"].data_ptr(),
             packed["wb"].data_ptr(), packed["bb"].data_ptr(),
             packed["wf"].data_ptr(), packed["bf"].data_ptr(),
@@ -362,6 +412,9 @@ def nsf_flow_kernel_cuda(
                           min_derivative, min_lambda),
             _ptr(context), C, _ptr(packed.get("wc0")), _ptr(packed.get("wcb")),
             _ptr(packed.get("bcb")), rows, stream)
-    launch_count += 1
-    _build.check(code, "nsf_flow_launch")
+    if bf16:
+        bf16_launch_count += 1
+    else:
+        launch_count += 1
+    _build.check(code, "nsf_flow_launch_bf16" if bf16 else "nsf_flow_launch")
     return y, lad

@@ -17,9 +17,10 @@ columns ``wc0`` [L, H, C] and each block's GLU projection ``wcb``
 [L, num_blocks, H, C], ``bcb`` [L, num_blocks, H, 1]. The flow's
 ``embedding_net`` runs outside the kernel (``_fused_view_common``).
 
-B2 runs fp32 weights so far; bf16 is still to port. A flow that does not
-qualify raises ``ValueError``; ``CompiledFlow`` then serves it on the
-unfused chain.
+``dtype`` is the matrices' type: fp32 (the default here) or bf16 (the JAX
+package's default), cast after the fold as there; the biases stay fp32. A
+flow that does not qualify raises ``ValueError``; ``CompiledFlow`` then
+serves it on the unfused chain.
 """
 
 from __future__ import annotations
@@ -217,20 +218,21 @@ def _extract(flow, dtype, fold_wh_scale=True):
 
     (spline, scale_act, K, T, Tid, H, num_blocks, tail_bound, mbw, mbh, md, ml,
      context_features) = ref_cfg
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"the fused NSF kernel runs fp32 weights only so far, not {dtype}")
+    if dtype not in nsf_flow_kernel.WEIGHT_DTYPES:
+        raise ValueError(f"the fused NSF kernel takes float32 or bfloat16 weights, not {dtype}")
     TM = T * nsf_flow_kernel.params_per_feature(spline, K)
     smem = nsf_flow_kernel.shared_memory_bytes(32, Tid + T, H, Tid, T, TM,
-                                               context_features or 0)
-    if H % 4 or smem > nsf_flow_kernel.MAX_SHARED_MEMORY:
+                                               context_features or 0, dtype)
+    if H % nsf_flow_kernel._out_align(dtype) or smem > nsf_flow_kernel.MAX_SHARED_MEMORY:
         raise ValueError(
             f"hidden width {H} does not fit the fused kernel's shared-memory tile")
-    weights = dict(w0=torch.stack(w0s), b0=torch.stack(b0s),
-                   wb=torch.stack(wbs), bb=torch.stack(bbs),
-                   wf=torch.stack(wfs), bf=torch.stack(bfs))
+    # the matrices in dtype, after the fold; the biases fp32
+    weights = dict(w0=torch.stack(w0s).to(dtype), b0=torch.stack(b0s),
+                   wb=torch.stack(wbs).to(dtype), bb=torch.stack(bbs),
+                   wf=torch.stack(wfs).to(dtype), bf=torch.stack(bfs))
     if context_features is not None:
-        weights.update(wc0=torch.stack(wc0s), wcb=torch.stack(wcbs), bcb=torch.stack(bcbs))
+        weights.update(wc0=torch.stack(wc0s).to(dtype), wcb=torch.stack(wcbs).to(dtype),
+                       bcb=torch.stack(bcbs))
     # the static dicts of the JAX package's _extract, key for key
     if spline in ("affine", "additive"):
         static = dict(num_blocks=num_blocks, spline=spline, scale_act=scale_act)
@@ -287,8 +289,10 @@ class FusedNSF(FusedFlowView):
 def fuse_nsf(flow, dtype=torch.float32) -> FusedNSF:
     """Build the fused inference view of ``flow``.
 
-    ``dtype`` sets the conditioner GEMM precision; this slice runs fp32
-    only (the JAX package defaults to bf16) and raises
-    ``NotImplementedError`` for anything else.
+    ``dtype`` sets the conditioner GEMM precision: torch.float32 (the
+    default here) or torch.bfloat16, the JAX package's default, where each
+    GEMM takes bf16 operands and sums in fp32 (kernel
+    ``csrc/nsf_flow_kernel_bf16.cu``). Inputs and results are fp32 either
+    way.
     """
     return FusedNSF(flow, dtype=dtype)

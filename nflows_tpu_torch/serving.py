@@ -27,6 +27,16 @@ linear, quadratic and cubic couplings; ``use_fused=False`` serves any flow
 there); a kernel that fails to build or launch raises. ``use_fused=True``
 raises with each prober's reason when the flow does not qualify;
 ``use_fused=False`` serves the unfused chain.
+
+``dtype`` is the serving precision, as in the JAX class. torch.float32
+(the default) serves fp32 everywhere. torch.bfloat16 (the JAX package's
+fastest path) hands bf16 to each prober, so the fused kernels run with bf16
+weights (bf16 GEMM operands, fp32 sums); their inputs may come in either
+dtype and are widened to fp32, and results are fp32. On the unfused chain,
+as the JAX endpoints lowered for bf16 inputs, a bf16 server takes only
+bf16 inputs and contexts (``TypeError`` otherwise) and runs the fp32 chain
+on their values, returning fp32. (The JAX class cannot lower that route for
+a scan-stacked chain; the port has no such chain, ROADMAP C4.)
 """
 
 from __future__ import annotations
@@ -54,9 +64,8 @@ class CompiledFlow:
             raise ValueError(
                 f"the flow's parameters live on {sorted(map(str, flow_devices))} "
                 f"but CompiledFlow serves on {self.device}")
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"serving runs float32 only so far, not {dtype}")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"CompiledFlow serves float32 or bfloat16, not {dtype}")
         self._flow = flow
         self.batch_size = batch_size
         self.features = features
@@ -117,6 +126,21 @@ class CompiledFlow:
         if x.device != self.device:
             raise ValueError(
                 f"CompiledFlow serves on {self.device}; inputs are on {x.device}")
+        self._check_dtype("inputs", x)
+
+    def _check_dtype(self, what, t):
+        """The unfused route of a bf16 server takes bf16 arrays only, as the
+        JAX endpoints lowered for bf16 inputs do."""
+        if (self._fused is None and self._dtype == torch.bfloat16
+                and t.dtype != torch.bfloat16):
+            raise TypeError(
+                f"this CompiledFlow serves bfloat16 on the unfused chain; its {what} must be "
+                f"torch.bfloat16, got {t.dtype}")
+
+    def _unfused(self, t):
+        """A request's array for the unfused chain: a bf16 one widened to the
+        model's fp32."""
+        return None if t is None else t.float() if t.dtype == torch.bfloat16 else t
 
     def _check_context(self, context):
         if self.context_features is None:
@@ -136,6 +160,7 @@ class CompiledFlow:
             raise ValueError(
                 f"CompiledFlow expects context of shape {expected}, got "
                 f"{tuple(context.shape)}")
+        self._check_dtype("context", context)
 
     def _check_generator(self, generator):
         if not isinstance(generator, torch.Generator):
@@ -156,7 +181,7 @@ class CompiledFlow:
         self._check_context(context)
         if self._fused is not None:
             return self._fused.log_prob(inputs, context)
-        return self._flow.log_prob(inputs, context)
+        return self._flow.log_prob(self._unfused(inputs), self._unfused(context))
 
     @torch.no_grad()
     def sample(self, generator, context=None):
@@ -164,7 +189,7 @@ class CompiledFlow:
         self._check_context(context)
         if self._fused is not None:
             return self._fused.sample(generator, self.num_samples, context=context)
-        return self._flow.sample(generator, self.num_samples, context=context)
+        return self._flow.sample(generator, self.num_samples, context=self._unfused(context))
 
     @torch.no_grad()
     def sample_and_log_prob(self, generator, context=None) -> Tuple:
@@ -174,4 +199,4 @@ class CompiledFlow:
             return self._fused.sample_and_log_prob(
                 generator, self.num_samples, context=context)
         return self._flow.sample_and_log_prob(
-            generator, self.num_samples, context=context)
+            generator, self.num_samples, context=self._unfused(context))

@@ -215,3 +215,42 @@ def test_options_that_wait_for_other_modules():
         NeuralSplineFlowAR(5, 16, num_layers=2, use_linear_layers=True, device="cpu")
     with pytest.raises(NotImplementedError, match="batch norm"):
         MaskedAutoregressiveFlow(5, 16, 2, 1, batch_norm_within_layers=True, device="cpu")
+
+
+def test_random_mask_maf_carries_over():
+    """Random-mask MADEs draw their hidden degrees from an unseeded numpy
+    generator in both packages, so the incoming masks are copied in, after
+    a check that they are autoregressive; log_prob then matches within the
+    interop bar (measured 1.9e-6)."""
+    kw = dict(features=5, hidden_features=32, num_layers=3, num_blocks_per_layer=2,
+              use_residual_blocks=False, use_random_masks=True)
+    jflow = JaxMAF(key=jax.random.key(5), rng=np.random.default_rng(5), **kw)
+    tflow = MaskedAutoregressiveFlow(device="cpu", rng=np.random.default_rng(5), **kw)
+    params = _jax_params(jflow)
+    load_jax_params(tflow, params)
+    x = _normal(7, (64, 5), scale=1.5)
+    with torch.no_grad():
+        _close(tflow.log_prob(torch.from_numpy(x)), jflow.log_prob(jnp.asarray(x)), 1e-4)
+    made = tflow.transform.transforms[1].autoregressive_net
+    key = ".transform.transforms[1].autoregressive_net.initial_layer.mask"
+    np.testing.assert_array_equal(made.initial_layer.mask.numpy(), params[key].T)
+    # each random layer's degrees are now the smallest that give its mask
+    degrees = np.arange(1, 6)
+    for layer in [made.initial_layer] + [b.linear for b in made.blocks]:
+        out = np.asarray(layer.degrees)
+        np.testing.assert_array_equal(layer.mask.numpy(), out[:, None] >= degrees[None, :])
+        degrees = out
+    # masks that let an output see its own feature are refused
+    bad = dict(params)
+    final = ".transform.transforms[1].autoregressive_net.final_layer.mask"
+    bad[final] = np.ones_like(params[final])
+    with pytest.raises(ValueError, match="not autoregressive"):
+        load_jax_params(MaskedAutoregressiveFlow(device="cpu", **kw), bad)
+    # degree-rule masks are still compared, not copied
+    jres = JaxMAF(key=jax.random.key(6), **dict(kw, use_random_masks=False))
+    plain = _jax_params(jres)
+    mask = ".transform.transforms[1].autoregressive_net.blocks[0].linear.mask"
+    plain[mask] = np.zeros_like(plain[mask])
+    with pytest.raises(ValueError, match="differs from the mask the port built"):
+        load_jax_params(MaskedAutoregressiveFlow(
+            device="cpu", **dict(kw, use_random_masks=False)), plain)

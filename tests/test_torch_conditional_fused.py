@@ -614,8 +614,8 @@ def _smem_bytes_of(source, **values):
     """Evaluate ``smem_bytes`` of a CUDA source in Python: the casts
     dropped, ``a.X`` read from ``values``, ``c ? t : f`` as a conditional."""
     text = (Path(nsf_flow_kernel.__file__).resolve().parents[2] / "csrc" / source).read_text()
-    body = re.search(r"size_t smem_bytes\(int rows, const \w+& a\) \{\s*return (.*?);\s*\}",
-                     text, re.S).group(1)
+    body = re.search(r"size_t smem_bytes\(int rows, const \w+(?:<\w+>)?& a\) \{\s*return "
+                     r"(.*?);\s*\}", text, re.S).group(1)
     expr = body.replace("(size_t)", "").replace("sizeof(float)", "4")
     expr = re.sub(r"\(a\.(\w+) \? ([^:]+) : ([^)]+)\)", r"((\2) if a.\1 else (\3))", expr)
     expr = re.sub(r"\ba\.(\w+)", r"v['\1']", expr)
@@ -632,8 +632,9 @@ def test_shared_memory_counts_match_the_sources(rows, dims):
     r4 = nsf_flow_kernel._round4
     TB = max(dims["H"], r4(dims["TM"]), r4(dims["Tid"]))
     args = (rows, dims["D"], dims["H"], dims["Tid"], dims["T"], dims["TM"], dims["C"])
+    # B2's kernel, for either weight type, is nsf_flow_kernel.cuh
     assert nsf_flow_kernel.shared_memory_bytes(*args) == _smem_bytes_of(
-        "nsf_flow_kernel.cu", rows=rows, TB=TB, **dims)
+        "nsf_flow_kernel.cuh", rows=rows, TB=TB, **dims)
     assert nsf_train.shared_memory_bytes(
         rows, dims["D"], dims["L"], dims["H"], dims["Tid"], dims["T"], dims["TM"],
         dims["C"]) == _smem_bytes_of("nsf_train.cu", rows=rows, TB=TB, **dims)

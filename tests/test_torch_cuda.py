@@ -1,7 +1,8 @@
 """Kernels B1 to B12 on the card, each against its plain PyTorch version
 on the same CUDA tensors, and the serving and training paths through them:
 B2, B3 and B4 for all seven coupling families; B9 and B10 with a context,
-and B10's inverse direction (an IAF trained by reverse KL).
+and B10's inverse direction (an IAF trained by reverse KL); B2, B9 and B11
+with bf16 weights, and CompiledFlow(dtype=torch.bfloat16).
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -21,7 +22,12 @@ by atomics in another order than autograd's); two launches on the same
 inputs agree within 1e-5 plus 1e-4 relative (only the order of the atomic
 adds differs). B5-B8 as B1: outputs 1e-4 and logabsdet 1e-3 against their
 plain versions (the plain fp32 versions are within 2.4e-5 of float64 on
-these inputs), gradients 1e-4 absolute and relative.
+these inputs), gradients 1e-4 absolute and relative. The bf16-weight
+instantiations of B2, B9 and B11, at full width, against their bf16 plain
+versions: the bands of benchmarks/hw_numerics.py:68-123 (5e-3 on outputs,
+2e-2 on logabsdet and log_prob), and a mean |delta| at most a quarter of
+the kernel's mean |delta| to the fp32 plain version (it rounds where the
+plain version rounds).
 """
 
 import numpy as np
@@ -1451,3 +1457,133 @@ def test_conditional_serving_and_training_run_the_kernels(cuda):
                                   list(emb.parameters()))
     for a, b in zip(g_kernel, g_plain):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3)
+
+
+# -- bf16 weights: B2, B9 and B11 at full width ------------------------------------
+
+BF16_OUT, BF16_LAD = 5e-3, 2e-2  # benchmarks/hw_numerics.py:68-123
+
+
+def _bf16_hold(kernel, plain16, plain32, band):
+    """A bf16 kernel within ``band`` of its bf16 plain version, and at most a
+    quarter as far from it as from the fp32 plain version in mean |delta|:
+    it rounds where the plain version (and the JAX kernel) rounds."""
+    assert torch.isfinite(kernel).all()
+    err = (kernel - plain16).abs()
+    assert err.max().item() <= band, err.max().item()
+    assert err.mean().item() <= 0.25 * (kernel - plain32).abs().mean().item()
+
+
+def _tame(flow, attr):
+    """Scale each layer's final conditioner weights by 0.1 (chip_smoke.py's
+    tame): as initialised a full-width RealNVP's or MAF's inverse sends
+    samples to 1e17."""
+    with torch.no_grad():
+        for t in flow.transform.transforms:
+            net = getattr(getattr(t, "transform", t), attr, None)
+            if net is not None:
+                net.final_layer.weight.mul_(0.1)
+    return flow.eval()
+
+
+def _bf16_coupling_flow(device, kind):
+    from nflows_tpu_torch import SimpleRealNVP
+
+    if kind == "affine":
+        flow = SimpleRealNVP(6, 256, 10, 2, generator=torch.Generator().manual_seed(11),
+                             device=device)
+        return _tame(flow, "transform_net")
+    # the flagship's widths (features 6, hidden 256, 10 layers, 8 bins)
+    flow = NeuralSplineFlow(6, 256, num_layers=10, num_blocks_per_layer=2, num_bins=8,
+                            tail_bound=B, context_features=10 if kind == "rq_context" else None,
+                            generator=torch.Generator().manual_seed(6),
+                            rng=np.random.default_rng(6), device=device)
+    return flow.eval()
+
+
+@pytest.mark.parametrize("kind", ["rq", "affine", "rq_context"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [203, 4096])
+def test_b2_bf16_matches_its_plain_version(cuda, kind, inverse, n):
+    flow = _bf16_coupling_flow(cuda, kind)
+    f16, f32 = fuse_nsf(flow, dtype=torch.bfloat16), fuse_nsf(flow)
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, 6, generator=g).to(cuda)
+    ctx = torch.randn(n, 10, generator=g).to(cuda) if kind == "rq_context" else None
+    kw = dict(inverse=inverse, context=ctx, **f16._static)
+    before = (nsf_flow_kernel.launch_count, nsf_flow_kernel.bf16_launch_count)
+    y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, f16._weights, f16._indices,
+                                                  packed=f16._packed, **kw)
+    assert (nsf_flow_kernel.launch_count, nsf_flow_kernel.bf16_launch_count) == (
+        before[0], before[1] + 1)
+    p16 = nsf_flow_kernel.nsf_flow_kernel_plain(x, f16._weights, f16._indices, **kw)
+    p32 = nsf_flow_kernel.nsf_flow_kernel_plain(x, f32._weights, f32._indices, **kw)
+    _bf16_hold(y, p16[0], p32[0], BF16_OUT)
+    _bf16_hold(lad, p16[1], p32[1], BF16_LAD)
+
+
+@pytest.mark.parametrize("kind", ["maf", "nsf_ar", "maf_context"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_b9_bf16_matches_its_plain_version(cuda, kind, inverse):
+    from nflows_tpu_torch import MaskedAutoregressiveFlow, NeuralSplineFlowAR
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+    from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
+
+    gen = torch.Generator().manual_seed(12)
+    if kind == "nsf_ar":
+        flow = NeuralSplineFlowAR(10, 256, num_layers=5, num_blocks_per_layer=2, num_bins=8,
+                                  tail_bound=B, generator=gen, device=cuda).eval()
+    elif kind == "maf":
+        flow = _tame(MaskedAutoregressiveFlow(10, 256, 5, 2, generator=gen, device=cuda),
+                     "autoregressive_net")
+    else:
+        flow = _tame(NeuralSplineFlowAR(10, 256, num_layers=5, num_blocks_per_layer=2,
+                                        num_bins=8, tail_bound=B, context_features=10,
+                                        generator=gen, device=cuda), "autoregressive_net")
+    f16, f32 = fuse_maf(flow, dtype=torch.bfloat16), fuse_maf(flow)
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(4096, 10, generator=g).to(cuda)
+    ctx = torch.randn(4096, 10, generator=g).to(cuda) if kind == "maf_context" else None
+    kw = dict(inverse=inverse, context=ctx, **_maf_kw(f16))
+    before = maf_flow_kernel.bf16_launch_count
+    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(x, f16._weights, f16._static,
+                                                  packed=f16._packed, **kw)
+    assert maf_flow_kernel.bf16_launch_count == before + 1
+    p16 = maf_flow_kernel.maf_flow_kernel_plain(x, f16._weights, f16._static, **kw)
+    p32 = maf_flow_kernel.maf_flow_kernel_plain(x, f32._weights, f32._static, **kw)
+    _bf16_hold(y, p16[0], p32[0], BF16_OUT)
+    _bf16_hold(lad, p16[1], p32[1], BF16_LAD)
+
+
+@pytest.mark.parametrize("case", ["narrow", "full_context"])
+def test_b11_bf16_matches_its_plain_version(cuda, case):
+    from nflows_tpu_torch.ops.cuda import mademog_fused
+
+    model = _mog(cuda, case)
+    f16 = mademog_fused.fuse_mademog(model, dtype=torch.bfloat16)
+    f32 = mademog_fused.fuse_mademog(model)
+    x, c = _mog_inputs(cuda, case, 4096, seed=14)
+    before = mademog_fused.bf16_launch_count
+    lp = mademog_fused.mademog_log_prob_cuda(x, f16._weights, f16._static, c,
+                                             packed=f16._packed)
+    assert mademog_fused.bf16_launch_count == before + 1
+    _bf16_hold(lp, mademog_fused.mademog_log_prob_plain(x, f16._weights, f16._static, c),
+               mademog_fused.mademog_log_prob_plain(x, f32._weights, f32._static, c), BF16_LAD)
+
+
+def test_compiled_flow_in_bf16_launches_the_bf16_kernels(cuda):
+    from nflows_tpu_torch import MaskedAutoregressiveFlow
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel, mademog_fused
+
+    flow, mog = _flow(cuda), _mog(cuda, "narrow")
+    maf = MaskedAutoregressiveFlow(5, 64, 3, 2, device=cuda).eval()
+    for model, features, module in ((flow, 6, nsf_flow_kernel), (maf, 5, maf_flow_kernel),
+                                    (mog, 5, mademog_fused)):
+        served = CompiledFlow(model, batch_size=256, features=features, dtype=torch.bfloat16)
+        assert served.is_fused
+        x = torch.randn(256, features, generator=torch.Generator().manual_seed(15)).to(cuda)
+        before = (module.launch_count, module.bf16_launch_count)
+        lp = served.log_prob(x.to(torch.bfloat16))
+        assert (module.launch_count, module.bf16_launch_count) == (before[0], before[1] + 1)
+        assert lp.dtype == torch.float32
+        _close(lp, CompiledFlow(model, batch_size=256, features=features).log_prob(x), 0.1)

@@ -197,12 +197,29 @@ def test_conditional_flow_is_served_unfused():
 
 
 def test_bf16_is_not_ported_yet(flows):
+    """bf16 serving is ported now (the name is kept from when it was
+    refused): fuse_nsf and CompiledFlow take torch.bfloat16 and run B2's
+    bf16 plain version on the CPU, fp32 in and fp32 out, near the fp32
+    result but not equal to it; other dtypes are still refused."""
     _, tflow = flows
-    with pytest.raises(NotImplementedError):
-        fuse_nsf(tflow, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        CompiledFlow(tflow, batch_size=BATCH, features=6, dtype=torch.bfloat16,
-                     device="cpu")
+    fused = fuse_nsf(tflow, dtype=torch.bfloat16)
+    assert fused._weights["wb"].dtype == torch.bfloat16
+    assert fused._weights["bb"].dtype == torch.float32
+    served = CompiledFlow(tflow, batch_size=BATCH, features=6, dtype=torch.bfloat16,
+                          device="cpu")
+    assert served.is_fused
+    x = torch.from_numpy(_x(seed=15))
+    with torch.no_grad():
+        lp = served.log_prob(x)
+        lp32 = tflow.log_prob(x)
+    assert lp.dtype == torch.float32
+    torch.testing.assert_close(lp, fused.log_prob(x), atol=0, rtol=0)
+    gap = (lp - lp32).abs().max().item()
+    assert 1e-5 < gap < 5e-2, gap
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fuse_nsf(tflow, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        CompiledFlow(tflow, batch_size=BATCH, features=6, dtype=torch.float16, device="cpu")
 
 
 def test_no_device_and_no_cuda_raises(flows, monkeypatch):

@@ -118,16 +118,34 @@ def test_autoregressive_property_by_jacobian(kind, features):
 
 
 def test_a_mask_that_differs_is_refused():
-    kw = dict(features=6, hidden_features=32, num_blocks=1, use_residual_blocks=False,
-              random_mask=True)
-    jnet = jax_made.MADE(key=jax.random.key(0), rng=np.random.default_rng(1), **kw)
-    same = torch_made.MADE(rng=np.random.default_rng(1), device="cpu", **kw)
-    other = torch_made.MADE(rng=np.random.default_rng(2), device="cpu", **kw)
-    load_jax_params(same, _jax_params(jnet))
-    before = other.initial_layer.weight.detach().clone()
+    """A degree-rule mask that differs from the port's is refused, and
+    nothing is written. Random masks differ by construction (each side
+    draws its degrees from its own generator), so they are copied in once
+    the chain is checked to be autoregressive: a MADE built from another
+    generator then computes the JAX one's function."""
+    kw = dict(features=6, hidden_features=32, num_blocks=1, use_residual_blocks=False)
+    jnet = jax_made.MADE(key=jax.random.key(0), rng=np.random.default_rng(1),
+                         random_mask=True, **kw)
+    other = torch_made.MADE(rng=np.random.default_rng(2), random_mask=True, device="cpu",
+                            **kw)
+    load_jax_params(other, _jax_params(jnet))
+    for layer, jlayer in ((other.initial_layer, jnet.initial_layer),
+                          (other.blocks[0].linear, jnet.blocks[0].linear),
+                          (other.final_layer, jnet.final_layer)):
+        np.testing.assert_array_equal(layer.mask.numpy(), np.asarray(jlayer.mask).T)
+    x = np.random.default_rng(3).normal(size=(16, 6)).astype(np.float32)
+    with torch.no_grad():
+        np.testing.assert_allclose(other(torch.from_numpy(x)).numpy(),
+                                   np.asarray(jnet(jnp.asarray(x))), atol=1e-5, rtol=0)
+    jrule = jax_made.MADE(key=jax.random.key(0), **kw)
+    params = _jax_params(jrule)
+    key = ".blocks[0].linear.mask"
+    params[key] = 1.0 - params[key]
+    target = torch_made.MADE(device="cpu", **kw)
+    before = target.initial_layer.weight.detach().clone()
     with pytest.raises(ValueError, match="differs from the mask"):
-        load_jax_params(other, _jax_params(jnet))
-    assert torch.equal(other.initial_layer.weight.detach(), before)   # nothing was written
+        load_jax_params(target, params)
+    assert torch.equal(target.initial_layer.weight.detach(), before)   # nothing was written
 
 
 def test_construction_guards_match_jax():

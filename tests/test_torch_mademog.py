@@ -217,11 +217,21 @@ def test_refusals():
 
 
 def test_a_mask_that_differs_is_refused():
+    """A degree-rule mask that differs is refused; random masks, which each
+    package draws from its own generator, are copied in (after the
+    autoregressive check), so a MoG-MADE built from another generator
+    carries over and computes the JAX model's log_prob."""
     kw = dict(features=5, hidden_features=16, num_blocks=1, use_residual_blocks=False,
-              random_mask=True, num_mixture_components=2)
-    jm = JaxMoG(key=jax.random.key(0), rng=np.random.default_rng(0), **kw)
-    tm = MixtureOfGaussiansMADE(rng=np.random.default_rng(1), device="cpu", **kw)
+              num_mixture_components=2)
+    jm = JaxMoG(key=jax.random.key(0), rng=np.random.default_rng(0), random_mask=True, **kw)
+    tm = MixtureOfGaussiansMADE(rng=np.random.default_rng(1), random_mask=True, device="cpu",
+                                **kw)
+    load_jax_params(tm, _jax_params(jm))
+    x = np.random.default_rng(2).normal(size=(16, 5)).astype(np.float32)
+    with torch.no_grad():
+        np.testing.assert_allclose(tm.log_prob(torch.from_numpy(x)).numpy(),
+                                   np.asarray(jm.log_prob(jnp.asarray(x))), atol=1e-4, rtol=0)
+    params = _jax_params(JaxMoG(key=jax.random.key(0), **kw))
+    params[".initial_layer.mask"] = 1.0 - params[".initial_layer.mask"]
     with pytest.raises(ValueError, match="differs from the mask"):
-        load_jax_params(tm, _jax_params(jm))
-    same = MixtureOfGaussiansMADE(rng=np.random.default_rng(0), device="cpu", **kw)
-    load_jax_params(same, _jax_params(jm))
+        load_jax_params(MixtureOfGaussiansMADE(device="cpu", **kw), params)

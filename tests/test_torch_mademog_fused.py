@@ -189,8 +189,11 @@ def test_serving_errors_name_every_prober():
     conditional = MixtureOfGaussiansMADE(5, 16, context_features=2, device="cpu")
     with pytest.raises(ValueError, match="conditionality"):
         CompiledFlow(conditional, 16, 5, device="cpu", use_fused=True)
-    with pytest.raises(NotImplementedError, match="fp32"):
-        mademog_fused.fuse_mademog(conditional, dtype=torch.bfloat16)
+    # bf16 is ported (tests/test_torch_bf16_serving.py); other dtypes are not
+    assert mademog_fused.fuse_mademog(
+        conditional, dtype=torch.bfloat16)._weights["wcb"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mademog_fused.fuse_mademog(conditional, dtype=torch.float16)
     # a MAF is still taken by fuse_maf, before fuse_mademog
     maf = MaskedAutoregressiveFlow(5, 16, 2, 1, device="cpu")
     assert type(CompiledFlow(maf, 16, 5, device="cpu")._fused).__name__ == "FusedMAF"

@@ -263,8 +263,10 @@ def test_refusal_messages_are_the_jax_ones():
 
 def test_other_dtypes_and_widths_are_refused():
     flow = _ar()
-    with pytest.raises(NotImplementedError, match="fp32 weights only"):
-        maf_fused.fuse_maf(flow, dtype=torch.bfloat16)
+    # bf16 is ported (tests/test_torch_bf16_serving.py); other dtypes are not
+    assert maf_fused.fuse_maf(flow, dtype=torch.bfloat16)._weights["wb"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        maf_fused.fuse_maf(flow, dtype=torch.float16)
     with pytest.raises(ValueError, match="does not fit"):
         maf_fused.fuse_maf(MaskedAutoregressiveFlow(5, 30, 2, 1, device="cpu"))
     assert maf_flow_kernel.shared_memory_bytes(64, 10, 256, 20) <= 232448

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``nflows_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, statically or at run
 time (building, serving and training each family, a conditional NSF, a
-conditional NSF-AR, an IAF's variational step and the two diagonal Normal
-bases included)."""
+conditional NSF-AR, an IAF's variational step, the two diagonal Normal
+bases and serving in bf16 included)."""
 
 import ast
 import pathlib
@@ -60,7 +60,8 @@ def test_scan_covers_the_port():
     sources = {p.name for p in (ROOT / "nflows_tpu_torch" / "csrc").glob("*.cu*")}
     assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh",
             "affine_coupling.cuh", "coupling_stage.cuh", "nsf_flow_kernel.cu", "nsf_train.cu",
-            "tile_gemm.cuh"} <= sources
+            "tile_gemm.cuh", "nsf_flow_kernel.cuh", "nsf_flow_kernel_bf16.cu",
+            "maf_flow_kernel.cuh", "maf_flow_kernel.cu", "maf_flow_kernel_bf16.cu"} <= sources
     for stem in ("lrs_spline", "linear_spline", "quadratic_spline", "cubic_spline"):
         assert {f"{stem}.cu", f"{stem}.cuh", f"{stem}_bwd.cuh"} <= sources
 
@@ -162,6 +163,15 @@ def test_runtime_loads_no_jax():
         "base = nt.ConditionalDiagonalNormal([6], context_encoder=torch.nn.Linear(3, 12))\n"
         "nt.Flow(cnsf.transform, base).log_prob(x, c)\n"
         "nt.DiagonalNormal([6]).log_prob(x)\n"
+        "bf16 = torch.bfloat16\n"
+        "for m, d in ((f, 6), (nt.MaskedAutoregressiveFlow(5, 8, 2, 1, device='cpu'), 5),\n"
+        "             (nt.MixtureOfGaussiansMADE(5, 8, device='cpu'), 5)):\n"
+        "    served = nt.CompiledFlow(m, 16, d, dtype=bf16, device='cpu')\n"
+        "    assert served.is_fused\n"
+        "    served.log_prob(torch.randn(16, d).to(bf16))\n"
+        "    nt.CompiledFlow(m, 16, d, dtype=bf16, use_fused=False,\n"
+        "                    device='cpu').log_prob(torch.randn(16, d).to(bf16))\n"
+        "f.fused(bf16).sample(torch.Generator(), 4)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'nflows_tpu')]\n"
         "print(bad)\n"

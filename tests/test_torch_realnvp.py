@@ -459,8 +459,10 @@ def test_training_kernels_refuse_the_spline_families(chains, family):
 def test_fused_method_and_what_fuse_nsf_refuses():
     flow = NeuralSplineFlow(6, HIDDEN, num_layers=2, num_bins=4, device="cpu")
     assert isinstance(flow.fused(), nsf_fused.FusedNSF)
-    with pytest.raises(NotImplementedError, match="fp32"):
-        flow.fused(torch.bfloat16)
+    # bf16, the JAX package's default, is ported; other dtypes are refused
+    assert flow.fused(torch.bfloat16)._weights["wf"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flow.fused(torch.float16)
     other = AffineCouplingTransform(_mask(6), _net, scale_activation=torch.sigmoid, device="cpu")
     other_flow = Flow(CompositeTransform([other]), StandardNormal([6]))
     with pytest.raises(ValueError, match="DEFAULT/GENERAL"):

@@ -9,8 +9,13 @@ it times the autoregressive kernels instead: B9 forward and inverse at
 N = 4,096 and B10 at N = 512 and 4,096 on the full-width MAF
 (``chip_smoke.MAF``), and B9 forward and inverse and B10 at 512 on the
 NSF-AR (``chip_smoke.NSF_AR``), unconditional, random weights from seed 0.
+With ``--dtype bfloat16`` it times the serving kernels' bf16-weight
+instantiations instead, on the same models: B2 (forward and inverse on the
+flagship, forward on RealNVP), or with ``--family maf`` B9; both sides must
+have them (the training kernels are fp32 only and are left out).
 
     python3 tools/checkout_ab.py OLD_CHECKOUT [NEW_CHECKOUT] [--rounds R] [--family maf]
+        [--dtype bfloat16]
 
 Where ``tools/kernel_ab.py`` swaps one kernel library inside one process
 (and needs the same C interface on both sides), this runs each side in a
@@ -49,13 +54,14 @@ from nflows_tpu_torch.ops.cuda import _build, nsf_flow_kernel as nfk, nsf_train
 from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
 cs.log = lambda *args: None
 torch.backends.cuda.matmul.allow_tf32 = False
+DTYPE = torch.__DTYPE__
 _build.build_all()
 flow = NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
                         rng=np.random.default_rng(0), device="cuda", **cs.FLAGSHIP)
 gen = torch.Generator().manual_seed(1)
 D = cs.FLAGSHIP["features"]
 out = {}
-fused = fuse_nsf(flow)
+fused = fuse_nsf(flow, dtype=DTYPE)
 x = torch.randn(4096, D, generator=gen).cuda()
 for inverse in (False, True):
     kw = dict(inverse=inverse, **fused._static)
@@ -64,15 +70,15 @@ for inverse in (False, True):
     out["b2_inverse" if inverse else "b2_forward"] = cs.device_ms(torch, run, 20,
                                                                   kernel="nsf_flow_kernel")
 affine = cs.realnvp_flow("affine", "cuda", seed=0)
-fused = fuse_nsf(affine)
+fused = fuse_nsf(affine, dtype=DTYPE)
 run = lambda: nfk.nsf_flow_kernel_cuda(x, fused._weights, fused._indices, packed=fused._packed,
                                        inverse=False, **fused._static)
 out["affine_b2_forward"] = cs.device_ms(torch, run, 20, kernel="nsf_flow_kernel")
 narrow = NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
                           rng=np.random.default_rng(0), device="cuda",
                           **dict(cs.FLAGSHIP, hidden_features=128))
-for tag, model, sizes in (("", flow, (512, 4096)), ("affine_", affine, (512,)),
-                          ("narrow_", narrow, (16384,))):
+for tag, model, sizes in (() if DTYPE == torch.bfloat16 else (
+        ("", flow, (512, 4096)), ("affine_", affine, (512,)), ("narrow_", narrow, (16384,)))):
     trainer = nsf_train.FusedNSFTrainer(model, 512)
     w = {k: v.detach() for k, v in trainer.weights.items()}
     kw = dict(wh_scale=trainer._wh_scale, **trainer._static)
@@ -106,6 +112,7 @@ from nflows_tpu_torch.ops.cuda import _build, maf_flow_kernel as mfk, maf_train
 from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
 cs.log = lambda *args: None
 torch.backends.cuda.matmul.allow_tf32 = False
+DTYPE = torch.__DTYPE__
 _build.build_all()
 gen = torch.Generator().manual_seed(1)
 D = cs.MAF["features"]
@@ -113,7 +120,7 @@ out = {}
 for tag, cls, cfg, sizes in (("maf_", MaskedAutoregressiveFlow, cs.MAF, (512, 4096)),
                              ("nsf_ar_", NeuralSplineFlowAR, cs.NSF_AR, (512,))):
     flow = cls(generator=torch.Generator().manual_seed(0), device="cuda", **cfg).eval()
-    view = fuse_maf(flow)
+    view = fuse_maf(flow, dtype=DTYPE)
     kw = dict(num_blocks=view._num_blocks, transformer=view._transformer,
               spline_kw=view._spline_kw)
     x = torch.randn(4096, D, generator=gen).cuda()
@@ -122,6 +129,8 @@ for tag, cls, cfg, sizes in (("maf_", MaskedAutoregressiveFlow, cs.MAF, (512, 40
                                                packed=view._packed, inverse=inverse, **kw)
         out[tag + ("b9_inverse" if inverse else "b9_forward")] = cs.device_ms(
             torch, run, 10 if inverse else 20, kernel="maf_flow_kernel")
+    if DTYPE == torch.bfloat16:
+        continue
     trainer = maf_train.FusedMAFTrainer(flow, 512)
     w = {k: v.detach().contiguous() for k, v in trainer._fold(trainer.weights).items()}
     mkw = dict(wh_scale=trainer._wh_scale, **trainer._static)
@@ -154,9 +163,11 @@ def _option(argv, name, default):
 def main(argv) -> int:
     argv, rounds = _option(argv, "--rounds", "2")
     argv, family = _option(argv, "--family", "coupling")
-    if not 1 <= len(argv) <= 2 or family not in ("coupling", "maf"):
+    argv, dtype = _option(argv, "--dtype", "float32")
+    if (not 1 <= len(argv) <= 2 or family not in ("coupling", "maf")
+            or dtype not in ("float32", "bfloat16")):
         sys.exit(__doc__)
-    code = TURN_MAF if family == "maf" else TURN
+    code = (TURN_MAF if family == "maf" else TURN).replace("__DTYPE__", dtype)
     old = os.path.abspath(argv[0])
     new = os.path.abspath(argv[1]) if len(argv) == 2 else ROOT
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
