@@ -48,7 +48,7 @@ fused-autograd and eager routes. Then the conditional coupling flows: the
 flagship made conditional (context 10, the MADEMoG twin's width), B2 with its
 context path against its plain version forward and inverse at N = 4,096 and
 a ragged N, B3 and B4 with the context adjoints (gradients of the context
-weights, and B4's cotangent of the context) at 512 and 4,096, then the same
+weights, and B4's cotangent of the context) at 512, 2,048 and 4,096, then the same
 three kernels on a conditional affine chain at RealNVP's widths; the
 conditional flagship served through ``CompiledFlow`` fused (one B2 a
 request) and unfused (ten B1): log_prob of 4,096 samples with 4,096
@@ -77,6 +77,20 @@ against its bf16 plain version (every GEMM operand rounded to bf16, fp32
 sums) and timed beside its fp32 instantiation; then ``CompiledFlow(dtype=
 torch.bfloat16)`` serving the flagship, the MAF and the MoG-MADE at 4,096
 on bf16 requests, one launch of the bf16 kernel a log_prob.
+B3 and B4, wherever they are held (the flagship, the six other families,
+the conditional flagship and affine chain; at 512, 2,048 and 4,096), run at
+the cluster size the wrapper chooses and again at every other one their
+32-sample tiles can take: one block a tile (csrc/nsf_train.cu) and clusters
+of 2, 4 and 8 blocks (csrc/nsf_train_cluster.cu), each held to the plain
+version in the same bands; each line says how many tiles, the chosen size,
+the grid and the clusters of each size the card holds at once, and the
+kernel's time beside one block a tile's. On the flagship every cluster
+size is timed at the three sizes, and at 512 also at hidden 64 and 128:
+the measurements behind ``nsf_train.cluster_size``'s rule. Phase 7 prints
+the cluster size of the fused step's B3. After phase 21, B4 holds the one
+tie it has met (``TIE_X``) at every cluster size: the other rows within
+the band, each copy of the tie's row within it or shown to be the float64
+cotangent of the row moved by 1e-6.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
@@ -231,6 +245,19 @@ TRAIN_BATCH = 512
 TRAIN_STEPS = 20
 FLAGSHIP = dict(features=6, hidden_features=256, num_layers=10,
                 num_blocks_per_layer=2, num_bins=8, tail_bound=3.0)
+# A tie that B4 has met: sample 1,688 of the cubic chain's inputs at
+# N = 2,048 in phase 21, as the shared generator drew them before those
+# inputs came from a generator of their own (x, gy, glad; float32 as hex).
+# Its path passes 6.7e-7 from a knot of layer 7's spline, closer than fp32
+# rounding carries it (1.2e-6), and the float64 cotangent gx x N jumps by
+# 0.178 there; B4 at every cluster size, one block a tile included, lands
+# on the far side (PERF.md §6, tools/tie_probe.py --held).
+TIE_X = ("0x1.f9d346p+0", "0x1.b999e8p-1", "-0x1.a35680p+0", "-0x1.2b4144p+1",
+         "0x1.fc6ef8p-6", "-0x1.cb3018p-3")
+TIE_GY = ("-0x1.dfbc7cp-13", "0x1.4e35cap-11", "-0x1.76f784p-12", "0x1.25daa6p-12",
+          "0x1.3ef326p-13", "0x1.b3ca6ap-11")
+TIE_GLAD = "-0x1.edaa94p-12"
+TIE_N = 2048
 # the autoregressive family at full width: MAF (affine) and NSF-AR (rq)
 MAF = dict(features=10, hidden_features=256, num_layers=5, num_blocks_per_layer=2)
 NSF_AR = dict(**MAF, num_bins=8, tail_bound=3.0)
@@ -788,10 +815,17 @@ def main() -> int:
     serve("NSF", flow, D, "B2", dict(B1=L), dict(B1=L))
 
     # -- phase 6: B3 and B4 against their plain versions (full-width flagship) ----
-    def hold_training_kernels(trainer, batches_n):
+    def hold_training_kernels(trainer, batches_n, every_cluster=False, fresh=(2048,)):
         """B3 and B4 on ``trainer``'s weights against their plain versions at
         each batch size (with a context of N(0, 1) rows where the trainer's
-        flow has one): errors, times and bounds by batch, for each kernel."""
+        flow has one), at the cluster size the wrapper chooses and at every
+        other one its 32-sample tiles can take (csrc/nsf_train.cu and
+        csrc/nsf_train_cluster.cu): errors, times and bounds by batch, for
+        each kernel, the chosen cluster size's time beside one block a
+        tile's, and with ``every_cluster`` each cluster size's time. The
+        inputs at the sizes in ``fresh`` come from a generator of their own
+        (seeded with the size), so that the shared one draws what it drew
+        before those sizes were added."""
         tw32 = {k: v.detach() for k, v in trainer.weights.items()}
         tw64 = {k: v.double() for k, v in tw32.items()}
         tidx = trainer._indices
@@ -801,13 +835,22 @@ def main() -> int:
         C = d["C"]
         out3, out4 = {}, {}
         for n in batches_n:
-            x = (1.5 * torch.randn(n, d["D"], generator=gen)).to(dev)
-            ctx = torch.randn(n, C, generator=gen).to(dev) if C else None
+            draw = torch.Generator().manual_seed(n) if n in fresh else gen
+            x = (1.5 * torch.randn(n, d["D"], generator=draw)).to(dev)
+            ctx = torch.randn(n, C, generator=draw).to(dev) if C else None
             tkw = dict(wh_scale=trainer._wh_scale, context=ctx, **trainer._static)
             dkw = dict(tkw, context=None if ctx is None else ctx.double())
             nops = 3 * 2 * n * d["L"] * (d["Tid"] * d["H"] + C * d["H"] + d["nb2"] * d["H"] ** 2
                                          + d["nb2"] // 2 * C * d["H"] + d["H"] * d["TM"])
-            log(f"B3 at N={n}" + (f", context {C}:" if C else ":"))
+            rows, chosen, grid = nsf_train.launch_layout(True, n, d, dev)
+            others = [c for c in (1, *nsf_train.CLUSTER_SIZES) if c != chosen and rows == 32]
+            active = {c: nsf_train.active_clusters(
+                dev, True, C, c, nsf_train.shared_memory_bytes(
+                    rows, d["D"], d["L"], d["H"], d["Tid"], d["T"], d["TM"], C, c))
+                for c in nsf_train.CLUSTER_SIZES} if rows == 32 else {}
+            log(f"B3 at N={n}" + (f", context {C}" if C else "") + f": {-(-n // rows)} tiles of "
+                f"{rows} samples, cluster size {chosen} (grid {grid}); active clusters by size "
+                f"{active}")
             loss, lp, grads = nsf_train.nsf_loss_grad_cuda(x, tw32, tidx, **tkw)
             p_loss, p_lp, p_grads = nsf_train.nsf_loss_grad_plain(x, tw32, tidx, **tkw)
             d_loss, d_lp, d_grads = nsf_train.nsf_loss_grad_plain(x.double(), tw64, tidx, **dkw)
@@ -816,6 +859,15 @@ def main() -> int:
                 raise AssertionError("B3 produced non-finite values")
             errs = [hold("loss", loss, p_loss, d_loss, 1e-4), hold("lp", lp, p_lp, d_lp, 1e-3)]
             errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4) for k in stacks]
+            for c in others:
+                log(f"  cluster size {c}:")
+                c_loss, c_lp, c_grads = nsf_train.nsf_loss_grad_cuda(x, tw32, tidx, rows=rows,
+                                                                    cluster=c, **tkw)
+                torch.cuda.synchronize()
+                errs += [hold("  loss", c_loss, p_loss, d_loss, 1e-4),
+                         hold("  lp", c_lp, p_lp, d_lp, 1e-3)]
+                errs += [hold(f"  g{k}", c_grads[k], p_grads[k], d_grads[k], 2e-4)
+                         for k in stacks]
             first = {k: v.clone() for k, v in grads.items()}
             _, _, again = nsf_train.nsf_loss_grad_cuda(x, tw32, tidx, grads=grads, **tkw)
             torch.cuda.synchronize()
@@ -825,23 +877,38 @@ def main() -> int:
             if not all(torch.allclose(again[k], first[k], atol=1e-5, rtol=1e-4) for k in stacks):
                 raise AssertionError("B3: a second launch added to the first one's gradients")
             packed = nsf_flow_kernel.pack_weights(tw32, tidx)
+
+            def cluster_times(kernel, name):
+                """The kernel's time at one block a tile and, with
+                ``every_cluster``, at each cluster size: {CS: ms}."""
+                return {c: device_ms(torch, lambda: kernel(c), 10, kernel=name)  # noqa: B023
+                        for c in ([1] if every_cluster else [1] if chosen != 1 else [])
+                        + (list(nsf_train.CLUSTER_SIZES) if every_cluster and rows == 32
+                           else [])}
+
             run = lambda: nsf_train.nsf_loss_grad_cuda(  # noqa: E731
                 x, tw32, tidx, packed=packed, grads=grads, **tkw)
             run_plain = lambda: nsf_train.nsf_loss_grad_plain(x, tw32, tidx, **tkw)  # noqa: E731
-            ms = device_ms(torch, run, 10, kernel="nsf_loss_grad_kernel")
+            ms = device_ms(torch, run, 10, kernel="nsf_loss_grad")
             ms_source = device_ms.source
+            by_cluster = cluster_times(lambda c: nsf_train.nsf_loss_grad_cuda(
+                x, tw32, tidx, packed=packed, grads=grads, rows=rows, cluster=c, **tkw),
+                "nsf_loss_grad")
             plain_ms = device_ms(torch, run_plain, 3)
             nbytes = 2 * w_bytes + 4 * n * (d["D"] + 1 + C)
             bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
             bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by}, {nops / 1e9:.1f} GFLOP)  {nops / ms / 1e9:.1f} TFLOP/s")
+            log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain {plain_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.1f} GFLOP)  "
+                f"{nops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; by "
+                f"cluster size {json.dumps({c: round(t, 4) for c, t in by_cluster.items()})}")
             out3[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           bound_ms=bound_ms, bound_by=bound_by, cluster_size=chosen,
+                           ms_by_cluster_size=by_cluster, active_clusters=active)
 
             log(f"B4 at N={n}:")
-            gy = (torch.randn(n, d["D"], generator=gen) / n).to(dev)
-            glad = (torch.randn(n, generator=gen) / n).to(dev)
+            gy = (torch.randn(n, d["D"], generator=draw) / n).to(dev)
+            glad = (torch.randn(n, generator=draw) / n).to(dev)
             gx, grads = nsf_train.nsf_train_bwd_cuda(x, gy, glad, tw32, tidx, **tkw)
             p_gx, p_grads = nsf_train.nsf_train_bwd_plain(x, gy, glad, tw32, tidx, **tkw)
             d_gx, d_grads = nsf_train.nsf_train_bwd_plain(
@@ -855,23 +922,72 @@ def main() -> int:
                 errs.append(hold("gctx * N", grads["ctx"] * n, p_grads["ctx"] * n,
                                  d_grads["ctx"] * n, 5e-3))
             errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4) for k in stacks]
+            for c in others:
+                log(f"  cluster size {c}:")
+                c_gx, c_grads = nsf_train.nsf_train_bwd_cuda(x, gy, glad, tw32, tidx, rows=rows,
+                                                             cluster=c, **tkw)
+                torch.cuda.synchronize()
+                errs.append(hold("  gx * N", c_gx * n, p_gx * n, d_gx * n, 5e-3))
+                if C:
+                    errs.append(hold("  gctx * N", c_grads["ctx"] * n, p_grads["ctx"] * n,
+                                     d_grads["ctx"] * n, 5e-3))
+                errs += [hold(f"  g{k}", c_grads[k], p_grads[k], d_grads[k], 2e-4)
+                         for k in stacks]
             run = lambda: nsf_train.nsf_train_bwd_cuda(  # noqa: E731
                 x, gy, glad, tw32, tidx, packed=packed, grads=grads, **tkw)
             run_plain = lambda: nsf_train.nsf_train_bwd_plain(  # noqa: E731
                 x, gy, glad, tw32, tidx, **tkw)
-            ms = device_ms(torch, run, 10, kernel="nsf_train_bwd_kernel")
+            ms = device_ms(torch, run, 10, kernel="nsf_train_bwd")
             ms_source = device_ms.source
+            by_cluster = cluster_times(lambda c: nsf_train.nsf_train_bwd_cuda(
+                x, gy, glad, tw32, tidx, packed=packed, grads=grads, rows=rows, cluster=c,
+                **tkw), "nsf_train_bwd")
             plain_ms = device_ms(torch, run_plain, 3)
             nbytes = 2 * w_bytes + 4 * n * (3 * d["D"] + 1 + 2 * C)
             bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
             bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by}, {nops / 1e9:.1f} GFLOP)  {nops / ms / 1e9:.1f} TFLOP/s")
+            log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain {plain_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.1f} GFLOP)  "
+                f"{nops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; by "
+                f"cluster size {json.dumps({c: round(t, 4) for c, t in by_cluster.items()})}")
             out4[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           bound_ms=bound_ms, bound_by=bound_by, cluster_size=chosen,
+                           ms_by_cluster_size=by_cluster)
         return out3, out4
 
-    b3, b4 = hold_training_kernels(fused_trainer(flow, TRAIN_BATCH), (TRAIN_BATCH, SERVE_BATCH))
+    TRAIN_SIZES = (TRAIN_BATCH, 2048, SERVE_BATCH)
+    b3, b4 = hold_training_kernels(fused_trainer(flow, TRAIN_BATCH), TRAIN_SIZES,
+                                   every_cluster=True)
+
+    # the cluster-size rule at narrower widths: B3 and B4 at the training
+    # batch on the flagship at hidden 64 and 128 (random weights from seed 0),
+    # at one block a tile and at every cluster size, and the size chosen
+    by_hidden = {}
+    for h in (64, 128):
+        tr_h = fused_trainer(NeuralSplineFlow(
+            generator=torch.Generator().manual_seed(0), rng=np.random.default_rng(0),
+            device=dev, **dict(FLAGSHIP, hidden_features=h)).eval(), TRAIN_BATCH)
+        w_h, idx_h = {k: v.detach() for k, v in tr_h.weights.items()}, tr_h._indices
+        kw_h = dict(wh_scale=tr_h._wh_scale, packed=nsf_flow_kernel.pack_weights(w_h, idx_h),
+                    rows=32, **tr_h._static)
+        g_h = torch.Generator().manual_seed(h)
+        x_h = (1.5 * torch.randn(TRAIN_BATCH, D, generator=g_h)).to(dev)
+        gy_h = (torch.randn(TRAIN_BATCH, D, generator=g_h) / TRAIN_BATCH).to(dev)
+        glad_h = (torch.randn(TRAIN_BATCH, generator=g_h) / TRAIN_BATCH).to(dev)
+        rows_h, chosen_h, _ = nsf_train.launch_layout(True, TRAIN_BATCH, tr_h._dims, dev)
+        times = {}
+        for kid, name, call in (
+                ("B3", "nsf_loss_grad", lambda c: nsf_train.nsf_loss_grad_cuda(
+                    x_h, w_h, idx_h, cluster=c, **kw_h)),  # noqa: B023
+                ("B4", "nsf_train_bwd", lambda c: nsf_train.nsf_train_bwd_cuda(
+                    x_h, gy_h, glad_h, w_h, idx_h, cluster=c, **kw_h))):  # noqa: B023
+            if not all(torch.isfinite(t).all() for t in call(chosen_h)[-1].values()):
+                raise AssertionError(f"{kid} produced non-finite values at hidden {h}")
+            times[kid] = {c: device_ms(torch, lambda: call(c), 10, kernel=name)  # noqa: B023
+                          for c in (1, *nsf_train.CLUSTER_SIZES)}
+        by_hidden[h] = dict(rows=rows_h, cluster_size=chosen_h, ms_by_cluster_size=times)
+        log(f"B3 and B4 at N={TRAIN_BATCH} on the flagship at hidden {h}: {rows_h}-sample "
+            f"tiles, cluster size {chosen_h}; ms by cluster size {json.dumps(times)}")
 
     # -- phase 7: the trainers on the card --------------------------------------
     import copy
@@ -972,6 +1088,9 @@ def main() -> int:
             counts = read_counts()
             log(f"training {model} ({name}): launches a step {counts}")
             expect_counts(f"one {name} step", counts, **expected)
+            if name == "fused":
+                rows, cs, grid = nsf_train.launch_layout(True, TRAIN_BATCH, fused_tr._dims, dev)
+                log(f"  its B3: {rows}-sample tiles on clusters of {cs} blocks, grid {grid}")
             for kid in expected:
                 launches.setdefault(kid, counts[kid])
                 if context_features is not None:
@@ -1702,7 +1821,66 @@ def main() -> int:
     for fam, flow_f in {**family_flows, **realnvp_flows}.items():
         log(f"B3 and B4 on the {fam} chain:")
         b3_families[fam], b4_families[fam] = hold_training_kernels(
-            fused_trainer(flow_f, TRAIN_BATCH), (TRAIN_BATCH, SERVE_BATCH))
+            fused_trainer(flow_f, TRAIN_BATCH), TRAIN_SIZES)
+
+    # the held tie (TIE_X): B4 on a batch of 64 rows from a generator of
+    # their own with the tie's row at rows 0, 24 (its row in its tile then)
+    # and 63, at one block a tile and at every cluster size, five launches
+    # each. The launches give the same bits; the other rows hold the band; a
+    # copy of the tie's row holds it too, or is a tie: the float64 cotangent
+    # at the row moved by 1e-6 along one feature lies within the band of the
+    # kernel's and moves by at least half the error
+    log(f"B4 on the held tie (the cubic chain, TIE_X at N={TIE_N}):")
+    tie_tr = fused_trainer(family_flows["cubic"], TRAIN_BATCH)
+    tie_w = {k: v.detach() for k, v in tie_tr.weights.items()}
+    tie_w64, tie_idx = {k: v.double() for k, v in tie_w.items()}, tie_tr._indices
+    tie_kw = dict(wh_scale=tie_tr._wh_scale, **tie_tr._static)
+    g_tie, copies = torch.Generator().manual_seed(TIE_N), [0, 24, 63]
+    x = 1.5 * torch.randn(64, D, generator=g_tie)
+    gy = torch.randn(64, D, generator=g_tie) / TIE_N
+    glad = torch.randn(64, generator=g_tie) / TIE_N
+    x[copies] = torch.tensor([float.fromhex(v) for v in TIE_X])
+    gy[copies] = torch.tensor([float.fromhex(v) for v in TIE_GY])
+    glad[copies] = float.fromhex(TIE_GLAD)
+    x, gy, glad = x.to(dev), gy.to(dev), glad.to(dev)
+    rest = [i for i in range(64) if i not in copies]
+    p_gx, _ = nsf_train.nsf_train_bwd_plain(x, gy, glad, tie_w, tie_idx, **tie_kw)
+    d_gx, _ = nsf_train.nsf_train_bwd_plain(x.double(), gy.double(), glad.double(), tie_w64,
+                                            tie_idx, **tie_kw)
+    moved = x[:1].double().repeat(2 * D, 1)
+    for e in range(2 * D):
+        moved[e, e // 2] += 1e-6 if e % 2 else -1e-6
+    m_gx, _ = nsf_train.nsf_train_bwd_plain(moved, gy[:1].double().repeat(2 * D, 1),
+                                            glad[:1].double().repeat(2 * D), tie_w64, tie_idx,
+                                            **tie_kw)
+    moves = (m_gx - d_gx[:1]).abs().amax(1) * TIE_N   # the float64 cotangent's move
+    tie = dict(plain_err=float((p_gx[0].double() - d_gx[0]).abs().max()) * TIE_N,
+               largest_move=float(moves.max()), by_cluster_size={})
+    for c in (1, *nsf_train.CLUSTER_SIZES):
+        runs = [nsf_train.nsf_train_bwd_cuda(x, gy, glad, tie_w, tie_idx, rows=32, cluster=c,
+                                             **tie_kw)[0] for _ in range(5)]
+        torch.cuda.synchronize()
+        gx = runs[0]
+        if not all(torch.equal(r, gx) for r in runs[1:]):
+            raise AssertionError(f"B4 on the held tie: launches at cluster size {c} differ")
+        hold(f"cluster size {c}, the other rows: gx * N", gx[rest] * TIE_N, p_gx[rest] * TIE_N,
+             d_gx[rest] * TIE_N, 5e-3)
+        errs = []
+        for i in copies:
+            err = float((gx[i].double() - d_gx[i]).abs().max()) * TIE_N
+            near = (m_gx - gx[i].double()).abs().amax(1) * TIE_N
+            e = int(near.argmin())
+            ok = err <= 5e-3 or (float(near[e]) <= 5e-3 and float(moves[e]) >= 0.5 * err)
+            log(f"  row {i}: |kernel-f64| x N {err:.3e}; nearest float64 cotangent at the row "
+                f"moved by {'+' if e % 2 else '-'}1e-6 along feature {e // 2}: {float(near[e]):.3e}"
+                f", which moves by {float(moves[e]):.3e} there  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("B4 on the held tie: an error that is not a tie")
+            errs.append(err)
+        tie["by_cluster_size"][c] = dict(
+            err=max(errs), copies_bit_equal=all(torch.equal(gx[i], gx[0]) for i in copies))
+        log(f"  cluster size {c}: copies of the row bit-equal: "
+            f"{tie['by_cluster_size'][c]['copies_bit_equal']}; five launches bit-equal")
 
     # -- phase 22: serving RealNVP, NICE and the GENERAL-activation chain ----------------
     # fused: one B2 a request; unfused: plain tensor code, no kernel of the port
@@ -1792,13 +1970,12 @@ def main() -> int:
     lively = lively_blocks(copy.deepcopy(cond_flow), seed=21)
     b2_ctx = hold_b2_context("conditional NSF", lively, (SERVE_BATCH, RAGGED))
     log(f"B3 and B4 on the conditional NSF (context {C}):")
-    b3_ctx, b4_ctx = hold_training_kernels(fused_trainer(lively, TRAIN_BATCH),
-                                           (TRAIN_BATCH, SERVE_BATCH))
+    b3_ctx, b4_ctx = hold_training_kernels(fused_trainer(lively, TRAIN_BATCH), TRAIN_SIZES)
     cond_affine = lively_blocks(realnvp_flow("affine", dev, seed=22, context_features=C), seed=23)
     b2_ctx_affine = hold_b2_context("conditional affine chain", cond_affine, (SERVE_BATCH,))
     log(f"B3 and B4 on the conditional affine chain (context {C}):")
     b3_ctx_affine, b4_ctx_affine = hold_training_kernels(
-        fused_trainer(cond_affine, TRAIN_BATCH), (TRAIN_BATCH,))
+        fused_trainer(cond_affine, TRAIN_BATCH), TRAIN_SIZES, fresh=(2048, SERVE_BATCH))
 
     # -- phase 25: serving the conditional NSF through CompiledFlow ----------------------
     # log_prob of 4,096 samples with 4,096 context rows; sample 256 samples for
@@ -2368,9 +2545,16 @@ def main() -> int:
 
     def at_both_batches(per_kind):
         """A training kernel's numbers for each family at the training batch,
-        with its time at the serving batch beside them."""
-        return {k: {**v[TRAIN_BATCH], f"ms_at_{SERVE_BATCH}": v[SERVE_BATCH]["ms"]}
+        with its times at 2,048 and the serving batch beside them."""
+        return {k: {**at_training_batch(v), f"ms_at_{SERVE_BATCH}": v[SERVE_BATCH]["ms"]}
                 for k, v in per_kind.items()}
+
+    def at_training_batch(per_n):
+        """A training kernel's numbers at the training batch, with its time,
+        cluster size and time at one block a tile at 2,048."""
+        return {**per_n[TRAIN_BATCH], "ms_at_2048": per_n[2048]["ms"],
+                "cluster_size_at_2048": per_n[2048]["cluster_size"],
+                "ms_by_cluster_size_at_2048": per_n[2048]["ms_by_cluster_size"]}
 
     uncond, cond = (m for m, _, _ in mog_models)
     rows = []
@@ -2383,21 +2567,33 @@ def main() -> int:
              "nflows_tpu_torch/csrc/nsf_flow_kernel.cu",
              "nflows_tpu/ops/pallas/nsf_flow_kernel.py:1095",
              "ops/pallas/nsf_flow_kernel.py:_kernel"),
-            ("B3", with_context({**b3[TRAIN_BATCH], "families": at_both_batches(b3_families)},
-                                {**b3_ctx[TRAIN_BATCH],
+            ("B3", with_context({**at_training_batch(b3),
+                                 f"ms_at_{SERVE_BATCH}": b3[SERVE_BATCH]["ms"],
+                                 f"ms_by_cluster_size_at_{SERVE_BATCH}":
+                                     b3[SERVE_BATCH]["ms_by_cluster_size"],
+                                 "cluster_rule_by_hidden": by_hidden,
+                                 "families": at_both_batches(b3_families)},
+                                {**at_training_batch(b3_ctx),
                                  f"ms_at_{SERVE_BATCH}": b3_ctx[SERVE_BATCH]["ms"],
                                  f"bound_ms_at_{SERVE_BATCH}": b3_ctx[SERVE_BATCH]["bound_ms"],
-                                 "families": {"affine": b3_ctx_affine[TRAIN_BATCH]}},
-                                context_launches=context_launches["B3"]),
+                                 "families": {"affine": at_training_batch(b3_ctx_affine)}},
+                                context_launches=context_launches["B3"],
+                                cluster_source="nflows_tpu_torch/csrc/nsf_train_cluster.cu"),
              "nflows_tpu_torch/csrc/nsf_train.cu",
              "nflows_tpu/ops/pallas/nsf_train.py:295",
              "ops/pallas/nsf_train.py:_loss_grad_kernel"),
-            ("B4", with_context({**b4[TRAIN_BATCH], "families": at_both_batches(b4_families)},
-                                {**b4_ctx[TRAIN_BATCH],
+            ("B4", with_context({**at_training_batch(b4),
+                                 f"ms_at_{SERVE_BATCH}": b4[SERVE_BATCH]["ms"],
+                                 f"ms_by_cluster_size_at_{SERVE_BATCH}":
+                                     b4[SERVE_BATCH]["ms_by_cluster_size"],
+                                 "held_tie": tie,
+                                 "families": at_both_batches(b4_families)},
+                                {**at_training_batch(b4_ctx),
                                  f"ms_at_{SERVE_BATCH}": b4_ctx[SERVE_BATCH]["ms"],
                                  f"bound_ms_at_{SERVE_BATCH}": b4_ctx[SERVE_BATCH]["bound_ms"],
-                                 "families": {"affine": b4_ctx_affine[TRAIN_BATCH]}},
-                                context_launches=context_launches["B4"]),
+                                 "families": {"affine": at_training_batch(b4_ctx_affine)}},
+                                context_launches=context_launches["B4"],
+                                cluster_source="nflows_tpu_torch/csrc/nsf_train_cluster.cu"),
              "nflows_tpu_torch/csrc/nsf_train.cu",
              "nflows_tpu/ops/pallas/nsf_train.py:163",
              "ops/pallas/nsf_train.py:_bwd_kernel"),
@@ -2450,7 +2646,7 @@ def main() -> int:
             "library_ms": None,
             **{k: v for k, v in stats.items()
                if k.startswith(("inverse_", "forward_", "schedule_", "context_", "ms_at_",
-                                "families"))},
+                                "families", "cluster_", "ms_by_", "active_", "held_"))},
         })
     for kid, stats, more, stem, replaces, tpu in (
             ("B2", b2_bf16_stats[SERVE_BATCH],

@@ -17,6 +17,11 @@ and ``csrc/affine_coupling.cuh``).
   trajectory as on the model, and :meth:`FusedNSFTrainer.to_flow` maps the
   trained weights back into a standard flow.
 
+Each kernel has two layouts: a tile of samples a block (``csrc/nsf_train.cu``)
+and, where the tiles would leave SMs idle, a tile of 32 samples a
+thread-block cluster of CS blocks (``csrc/nsf_train_cluster.cu``), chosen
+by :func:`cluster_size`.
+
 Samples are rows, as for B2: x is [N, D], the context [N, C]. The weights
 are the dict ``nsf_fused._extract(flow, fold_wh_scale=False)`` gives (w0,
 b0, wb, bb, wf, bf, and wc0, wcb, bcb for a conditional chain; fp32, the
@@ -58,8 +63,8 @@ from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
 __all__ = ["FusedNSFTrainer", "CONTEXT_KEYS", "family_wh_scale", "nsf_loss_grad_cuda",
            "nsf_loss_grad_plain",
            "nsf_train_bwd_cuda", "nsf_train_bwd_plain", "nsf_train_apply",
-           "shared_memory_bytes", "tile_rows", "loss_grad_launch_count",
-           "bwd_launch_count"]
+           "shared_memory_bytes", "tile_rows", "cluster_size", "launch_layout",
+           "active_clusters", "CLUSTER_SIZES", "loss_grad_launch_count", "bwd_launch_count"]
 
 WEIGHT_KEYS = ("w0", "b0", "wb", "bb", "wf", "bf")
 CONTEXT_KEYS = ("wc0", "wcb", "bcb")
@@ -67,13 +72,27 @@ CONTEXT_KEYS = ("wc0", "wcb", "bcb")
 loss_grad_launch_count = 0  # B3 launches since the last reset
 bwd_launch_count = 0        # B4 launches since the last reset
 
+# the cluster sizes csrc/nsf_train_cluster.cu instantiates
+CLUSTER_SIZES = (2, 4, 8)
+
+
+def _launch_argtypes():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return ([i] + [p] * 5 + [ctypes.c_int64] + [i] * 9 + [p] * 17 + [i] + [p] * 10
+            + [i, i, f, f, i, i, i] + [f] * 7 + [i, p])
+
 
 def _declare(lib):
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nsf_train_launch.argtypes = (
-        [i] + [p] * 5 + [ctypes.c_int64] + [i] * 9 + [p] * 17 + [i] + [p] * 10
-        + [i, f, f, i, i, i] + [f] * 7 + [i, p])
-    lib.nsf_train_launch.restype = i
+    lib.nsf_train_launch.argtypes = _launch_argtypes()
+    lib.nsf_train_launch.restype = ctypes.c_int
+
+
+def _declare_cluster(lib):
+    lib.nsf_train_cluster_launch.argtypes = _launch_argtypes()
+    lib.nsf_train_cluster_launch.restype = ctypes.c_int
+    lib.nsf_train_cluster_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    lib.nsf_train_cluster_occupancy.restype = ctypes.c_int
 
 
 def _keys(weights):
@@ -100,12 +119,17 @@ def family_wh_scale(static, hidden):
 
 
 def shared_memory_bytes(rows: int, D: int, L: int, H: int, Tid: int, T: int,
-                        TM: int, C: int = 0) -> int:
+                        TM: int, C: int = 0, cluster: int = 1) -> int:
     """Dynamic shared memory of one block of ``rows`` samples
-    (csrc/nsf_train.cu: smem_bytes); a context of C features adds its tile
+    (csrc/nsf_train.cu: smem_bytes; with ``cluster`` > 1, a block of a
+    cluster, csrc/nsf_train_cluster.cu: smem_bytes, whose GEMM buffer holds
+    a ring of two 128 x 32 weight chunks and the warps' partial tiles
+    [rows / 4][32][rows]); a context of C features adds its tile
     [C][rows + 4] and its cotangent's [C][rows]."""
     TB = max(H, _round4(TM), _round4(Tid))
-    return 4 * (2 * nsf_flow_kernel._KC * nsf_flow_kernel._OC + 3 * TB * (rows + 4)
+    gemm = (2 * 128 * 32 + rows // 4 * 32 * rows if cluster > 1
+            else 2 * nsf_flow_kernel._KC * nsf_flow_kernel._OC)
+    return 4 * (gemm + 3 * TB * (rows + 4)
                 + rows * ((L + 4) * D + 2 * T + Tid + 2) + C * (2 * rows + 4))
 
 
@@ -118,6 +142,77 @@ def tile_rows(n: int, d: Dict[str, int], sms: int) -> int:
     if fits(64) and -(-n // 64) >= sms:
         return 64
     return 32 if fits(32) else 0
+
+
+def cluster_size(n: int, rows: int, sms: int, active_clusters: Dict[int, int]) -> int:
+    """The blocks a tile of B3/B4 is spread over: the largest cluster size CS
+    of ``active_clusters`` ({CS: the clusters of CS blocks the card holds at
+    once}) whose clusters hold every 32-sample tile in one wave, else 1, one
+    block a tile (``sms`` blocks hold ``sms`` tiles at once)."""
+    tiles = -(-n // rows)
+    best = 1
+    if rows != 32 or tiles >= sms:
+        return best
+    for cs, clusters in sorted(active_clusters.items()):
+        if clusters < 1:
+            raise ValueError(f"no cluster of {cs} blocks fits the card")
+        if clusters >= tiles:
+            best = cs
+    return best
+
+
+_ACTIVE_CLUSTERS = {}  # (device, loss, context, CS, shared memory) -> clusters
+
+
+def active_clusters(dev, loss, context, cs, smem):
+    """cudaOccupancyMaxActiveClusters of a B3 (``loss``) or B4 kernel, with
+    or without a ``context``, in clusters of ``cs`` blocks with ``smem``
+    bytes of shared memory a block: queried once and cached; raises where
+    it is 0."""
+    key = (dev.index, bool(loss), bool(context), cs, smem)
+    if key not in _ACTIVE_CLUSTERS:
+        lib = _build.load_library("nsf_train_cluster", _declare_cluster)
+        found = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            code = lib.nsf_train_cluster_occupancy(int(loss), int(bool(context)), cs, smem,
+                                                   ctypes.byref(found))
+        _build.check(code, "nsf_train_cluster_occupancy")
+        if found.value < 1:
+            raise RuntimeError(f"no cluster of {cs} blocks with {smem} bytes of shared "
+                               "memory a block fits the card")
+        _ACTIVE_CLUSTERS[key] = found.value
+    return _ACTIVE_CLUSTERS[key]
+
+
+def launch_layout(loss, n, d, dev, rows=None, cluster=None, what="nsf_train"):
+    """(rows, cluster size, grid) of a B3 (``loss``) or B4 launch over ``n``
+    samples of a chain of dims ``d`` (``_dims``) on ``dev``: ``rows`` and
+    ``cluster`` as given, or chosen (:func:`tile_rows`, :func:`cluster_size`
+    on the occupancy the card reports); the grid is min(tiles, SMs) blocks,
+    or the cluster size times min(tiles, active clusters)."""
+    D, L, H, Tid, T, TM, C = (d[k] for k in ("D", "L", "H", "Tid", "T", "TM", "C"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if rows is None:
+        rows = tile_rows(n, d, sms)
+    if rows not in (32, 64) or H % 4 or (
+            shared_memory_bytes(rows, D, L, H, Tid, T, TM, C) > MAX_SHARED_MEMORY):
+        raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
+                         f"shared-memory tile of {rows} samples")
+    tiles = -(-n // rows)
+
+    def active(cs):
+        return active_clusters(dev, loss, C, cs,
+                               shared_memory_bytes(rows, D, L, H, Tid, T, TM, C, cs))
+
+    if cluster is None:
+        idle = rows == 32 and tiles < sms   # where a cluster could help
+        cluster = cluster_size(n, rows, sms, {cs: active(cs) for cs in CLUSTER_SIZES
+                                              if idle and cs <= sms})
+    elif cluster != 1 and (cluster not in CLUSTER_SIZES or rows != 32):
+        raise ValueError(f"{what}: clusters of {cluster} blocks are not built for tiles of "
+                         f"{rows} samples (sizes {CLUSTER_SIZES}, 32-sample tiles)")
+    grid = max(1, min(tiles, sms)) if cluster == 1 else cluster * min(tiles, active(cluster))
+    return rows, cluster, grid
 
 
 def _log_z(features: int) -> float:
@@ -177,10 +272,11 @@ def _check(name, t, shape, device, dtype=torch.float32):
 
 
 def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
-            grads, rows, inv_n, context=None):
-    """Shared launch of B3 (``loss``) and B4. Returns (lp or gx, grads); B4's
-    grads hold the context's cotangent under "ctx" where there is a
-    context."""
+            grads, rows, inv_n, context=None, cluster=None):
+    """Shared launch of B3 (``loss``) and B4. ``cluster`` forces the cluster
+    size (1, or one of CLUSTER_SIZES with 32-sample tiles); None chooses
+    (:func:`cluster_size`). Returns (lp or gx, grads); B4's grads hold the
+    context's cotangent under "ctx" where there is a context."""
     global loss_grad_launch_count, bwd_launch_count
     what = "nsf_loss_grad_cuda" if loss else "nsf_train_bwd_cuda"
     dev = x.device
@@ -216,24 +312,22 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
         _check(f"{what}: packed[{k!r}]", packed[k], shape, dev)
     _check(f"{what}: packed['idx']", packed["idx"], (L, 2 * D + 2 * Tid + 2 * T), dev,
            torch.int32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if rows is None:
-        rows = tile_rows(n, d, sms)
-    if rows not in (32, 64) or H % 4 or (
-            shared_memory_bytes(rows, D, L, H, Tid, T, TM, C) > MAX_SHARED_MEMORY):
-        raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
-                         f"shared-memory tile of {rows} samples")
+    rows, cluster, grid = launch_layout(loss, n, d, dev, rows, cluster, what)
     if grads is None:
         grads = {k: torch.empty(shapes[k], dtype=torch.float32, device=dev) for k in keys}
     for k in keys:
         _check(f"{what}: grads[{k!r}]", grads[k], shapes[k], dev)
         grads[k].zero_()  # the kernel adds into them
 
-    lib = _build.load_library("nsf_train", _declare)
-    grid = max(1, min(-(-n // rows), sms))
-    # per-block scratch for the kept activations (see csrc/nsf_train.cu)
+    if cluster == 1:
+        entry = _build.load_library("nsf_train", _declare).nsf_train_launch
+    else:
+        entry = _build.load_library("nsf_train_cluster",
+                                    _declare_cluster).nsf_train_cluster_launch
+    # scratch for the kept activations, one slot a block or a cluster (see
+    # csrc/nsf_train.cu)
     kept = nb2 + 1 + (nb2 // 2 if C else 0)   # kept [H] matrices a layer before P
-    stash = torch.empty(grid * L * (kept * H + TMp) * (rows + 4),
+    stash = torch.empty(grid // cluster * L * (kept * H + TMp) * (rows + 4),
                         dtype=torch.float32, device=dev)
     out = (torch.empty(n, dtype=torch.float32, device=dev) if loss
            else torch.empty_like(x))
@@ -242,7 +336,7 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
     null = 0  # the pointers the other kernel reads or writes
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = lib.nsf_train_launch(
+        code = entry(
             int(loss), x.data_ptr(), null if loss else gy.data_ptr(),
             null if loss else glad.data_ptr(), out.data_ptr() if loss else null,
             null if loss else out.data_ptr(), n, D, L, H, Tid, I4, T, TM, TMp, nb2,
@@ -253,7 +347,8 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
             stash.data_ptr(), C, ptr(context), ptr(gctx), ptr(packed.get("wc0")),
             ptr(packed.get("wcb")), ptr(packed.get("bcb")), ptr(weights.get("wc0")),
             ptr(weights.get("wcb")), ptr(grads.get("wc0")), ptr(grads.get("wcb")),
-            ptr(grads.get("bcb")), grid, 1.0 if wh_scale is None else wh_scale, inv_n,
+            ptr(grads.get("bcb")), grid, cluster, 1.0 if wh_scale is None else wh_scale,
+            inv_n,
             nsf_flow_kernel.FAMILIES.index(static["spline"]),
             nsf_flow_kernel.SCALE_ACTIVATIONS.index(static.get("scale_act") or "none"),
             static.get("num_bins", 0), *nsf_flow_kernel.stage_floats(**static), rows, stream)
@@ -263,38 +358,41 @@ def _launch(loss, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
         loss_grad_launch_count += 1
     else:
         bwd_launch_count += 1
-    _build.check(code, "nsf_train_launch")
+    _build.check(code, "nsf_train_launch" if cluster == 1 else "nsf_train_cluster_launch")
     return out, grads
 
 
 def nsf_loss_grad_cuda(x, weights, layer_indices, *, wh_scale, packed=None, grads=None,
-                       rows=None, context=None, **static):
+                       rows=None, context=None, cluster=None, **static):
     """B3: x [N, D] (and the context [N, C] of a conditional chain) ->
     (loss, log_prob [N], gradients of the loss).
 
     ``packed`` is ``pack_weights(weights, layer_indices)``, built here when
     not given. ``grads``, when given, are the tensors the gradients are
     written into (zeroed here first). ``rows`` forces the tile size (32 or
-    64); None chooses by shared memory and SM count."""
+    64); None chooses by shared memory and SM count. ``cluster`` forces the
+    blocks a tile is spread over (1, or one of CLUSTER_SIZES at 32-sample
+    tiles); None chooses (:func:`cluster_size`)."""
     if x.device.type == "cpu":
         return nsf_loss_grad_plain(x, weights, layer_indices, wh_scale=wh_scale,
                                    context=context, **static)
     lp, grads = _launch(True, x, None, None, weights, layer_indices, static, wh_scale,
-                        packed, grads, rows, 1.0 / max(x.shape[0], 1), context)
+                        packed, grads, rows, 1.0 / max(x.shape[0], 1), context, cluster)
     return -lp.mean(), lp, grads
 
 
 def nsf_train_bwd_cuda(x, gy, glad, weights, layer_indices, *, wh_scale, packed=None,
-                       grads=None, rows=None, context=None, **static):
+                       grads=None, rows=None, context=None, cluster=None, **static):
     """B4: (x [N, D], gy [N, D], glad [N], and the context [N, C] of a
     conditional chain) -> (gx [N, D], gradients), the pull-back of the
     cotangents through the chain; with a context the gradients also hold
-    the context's cotangent [N, C] under ``"ctx"``."""
+    the context's cotangent [N, C] under ``"ctx"``. ``rows`` and ``cluster``
+    as for :func:`nsf_loss_grad_cuda`."""
     if x.device.type == "cpu":
         return nsf_train_bwd_plain(x, gy, glad, weights, layer_indices,
                                    wh_scale=wh_scale, context=context, **static)
     return _launch(False, x, gy, glad, weights, layer_indices, static, wh_scale, packed,
-                   grads, rows, 0.0, context)
+                   grads, rows, 0.0, context, cluster)
 
 
 class _NSFTrainApply(torch.autograd.Function):

@@ -586,7 +586,7 @@ def test_the_training_launcher_gets_the_context(monkeypatch, chains):
             calls.clear()
             _, grads = nsf_train._launch(loss, x, x, x[:, 0].contiguous(), ttr.weights,
                                          ttr._indices, ttr._static, ttr._wh_scale, packed,
-                                         None, 32, 1.0 / 40, context)
+                                         None, 32, 1.0 / 40, context, cluster=1)
             (args,) = calls
             assert len(args) == len(launch.argtypes)
             # after the 17 pointers of the weights, gradients and scratch

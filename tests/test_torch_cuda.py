@@ -230,13 +230,15 @@ def test_b3_gradients_do_not_depend_on_the_tile_or_an_earlier_launch(cuda):
     tr = _trainer(cuda)
     (w, idx), kw = _train_args(tr)
     x = 1.5 * torch.randn(1024, 6, generator=torch.Generator().manual_seed(5)).to(cuda)
-    _, lp32, g32 = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=32, **kw)
-    _, lp64, g64 = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=64, **kw)
+    # one block a tile for both sizes: clusters sum each dot product in
+    # another order (test_b3_b4_on_every_cluster_size_match_plain)
+    _, lp32, g32 = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=32, cluster=1, **kw)
+    _, lp64, g64 = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=64, cluster=1, **kw)
     _close(lp32, lp64, 1e-5)
     _grads_close(g64, g32, atol=1e-5, rtol=1e-4)
     # a second launch into the same buffers starts from zero again
     first = {k: v.clone() for k, v in g32.items()}
-    _, _, again = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=32, grads=g32, **kw)
+    _, _, again = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=32, cluster=1, grads=g32, **kw)
     assert all(again[k] is g32[k] for k in again)
     _grads_close(again, first, atol=1e-5, rtol=1e-4)
 
@@ -1391,6 +1393,90 @@ def _hold_context_kernels(flow, n, context_features, seed):
 @pytest.mark.parametrize("n", [203, 4096])
 def test_b2_b3_b4_with_context_match_plain(cuda, family, n):
     _hold_context_kernels(_context_flow(cuda, family), n, 3, seed=n + 5)
+
+
+@pytest.mark.parametrize("context", [None, 3])
+@pytest.mark.parametrize("family", CONTEXT_FAMILIES)
+def test_b3_b4_on_every_cluster_size_match_plain(cuda, family, context):
+    """B3 and B4 at one block a tile and on clusters of every size
+    (csrc/nsf_train_cluster.cu), 32-sample tiles, against their plain
+    versions at N = 1, 33, 509, 512 and 2,048: fewer tiles than clusters, a
+    ragged last tile, several tiles a cluster; a second launch into the same
+    buffers starts from zero again; one block a tile and clusters of 8 agree
+    within fp32 rounding (the depth of each dot product is split over warps
+    on a cluster, and the chain carries the rounding through four layers of
+    spline adjoints): log_prob within 1e-5 + 1e-5 relative, gx x N within
+    1e-4 + 1e-4 relative (half the band against the plain version), the
+    weight gradients within 1e-5 + 1e-4 relative. Bands against the plain
+    versions as in test_b3_b4_spline_families_match_plain; ties (B4's
+    cotangents x N past 5e-3 of float64 at one block a tile) are left out,
+    at most one sample or 0.1% of the batch, each checked to be a kink of
+    the float64 chain (``_kink_jumps``)."""
+    tr = nsf_train.FusedNSFTrainer(_context_flow(cuda, family, context=context), 128)
+    (w, idx), kw = _train_args(tr)
+    w64 = {k: v.detach().double() for k, v in w.items()}
+    for n in (1, 33, 509, 512, 2048):
+        g = torch.Generator().manual_seed(n + 11)
+        x = 1.5 * torch.randn(n, 6, generator=g).to(cuda)
+        ctx = None if context is None else torch.randn(n, context, generator=g).to(cuda)
+        gy = torch.randn(n, 6, generator=g).to(cuda) / n
+        glad = torch.randn(n, generator=g).to(cuda) / n
+        gx, _ = nsf_train.nsf_train_bwd_cuda(x, gy, glad, w, idx, rows=32, cluster=1,
+                                             context=ctx, **kw)
+        d_gx, _ = nsf_train.nsf_train_bwd_plain(
+            x.double(), gy.double(), glad.double(), w64, idx,
+            context=None if ctx is None else ctx.double(), **kw)
+        err = (gx.double() - d_gx).abs().amax(dim=1) * n
+        keep = err <= 5e-3
+        ties = (~keep).nonzero()[:, 0]
+        assert len(ties) <= max(1, n // 1000)
+        if len(ties):  # each one a kink of the float64 chain within 1e-6
+            jumps = _kink_jumps(*(a[ties].double() for a in (x, gy, glad)), w64, idx,
+                                None if ctx is None else ctx[ties].double(), kw, n)
+            assert (jumps >= 0.5 * err[ties]).all(), (err[ties], jumps)
+        x, gy, glad = x[keep].contiguous(), gy[keep].contiguous(), glad[keep].contiguous()
+        ctx = None if ctx is None else ctx[keep].contiguous()
+        m = x.shape[0]
+        ckw = dict(context=ctx, **kw)
+        dkw = dict(kw, context=None if ctx is None else ctx.double())
+        p_loss, p_lp, p_grads = nsf_train.nsf_loss_grad_plain(x, w, idx, **ckw)
+        _, _, d_grads = nsf_train.nsf_loss_grad_plain(x.double(), w64, idx, **dkw)
+        p_gx, p_g4 = nsf_train.nsf_train_bwd_plain(x, gy, glad, w, idx, **ckw)
+        d_gx, d_g4 = nsf_train.nsf_train_bwd_plain(x.double(), gy.double(), glad.double(),
+                                                   w64, idx, **dkw)
+        seen = {}
+        for cluster in (1, *nsf_train.CLUSTER_SIZES):
+            before = nsf_train.loss_grad_launch_count
+            loss, lp, grads = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=32, cluster=cluster,
+                                                           **ckw)
+            assert nsf_train.loss_grad_launch_count == before + 1
+            _close(lp, p_lp, 1e-3)
+            _close(loss, p_loss, 1e-4)
+            _hold_all(grads, p_grads, d_grads)
+            first = {k: v.clone() for k, v in grads.items()}
+            _, _, again = nsf_train.nsf_loss_grad_cuda(x, w, idx, rows=32, cluster=cluster,
+                                                       grads=grads, **ckw)
+            for k in first:
+                torch.testing.assert_close(again[k], first[k], atol=1e-5, rtol=1e-4)
+            before = nsf_train.bwd_launch_count
+            gx, g4 = nsf_train.nsf_train_bwd_cuda(x, gy, glad, w, idx, rows=32,
+                                                  cluster=cluster, **ckw)
+            assert nsf_train.bwd_launch_count == before + 1
+            pairs = [(gx, p_gx, d_gx)] + ([(g4["ctx"], p_g4["ctx"], d_g4["ctx"])] if ctx is not
+                                          None else [])
+            for got, plain, exact in pairs:
+                if not torch.allclose(got, plain, atol=2e-4 / m, rtol=1e-3):
+                    _hold(got * m, plain * m, exact * m, 2e-4)
+            _hold_all({k: v for k, v in g4.items() if k != "ctx"},
+                      {k: v for k, v in p_g4.items() if k != "ctx"},
+                      {k: v for k, v in d_g4.items() if k != "ctx"})
+            seen[cluster] = (lp, first, gx)
+        lp1, g1, gx1 = seen[1]
+        lp8, g8, gx8 = seen[8]
+        torch.testing.assert_close(lp8, lp1, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(gx8 * m, gx1 * m, atol=1e-4, rtol=1e-4)
+        for k in g1:
+            torch.testing.assert_close(g8[k], g1[k], atol=1e-5, rtol=1e-4)
 
 
 def test_b2_b3_b4_on_the_conditional_flagship(cuda):

@@ -61,7 +61,8 @@ def test_scan_covers_the_port():
     assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh",
             "affine_coupling.cuh", "coupling_stage.cuh", "nsf_flow_kernel.cu", "nsf_train.cu",
             "tile_gemm.cuh", "nsf_flow_kernel.cuh", "nsf_flow_kernel_bf16.cu",
-            "maf_flow_kernel.cuh", "maf_flow_kernel.cu", "maf_flow_kernel_bf16.cu"} <= sources
+            "maf_flow_kernel.cuh", "maf_flow_kernel.cu", "maf_flow_kernel_bf16.cu",
+            "nsf_train.cuh", "nsf_train_cluster.cu", "cluster_gemm.cuh"} <= sources
     for stem in ("lrs_spline", "linear_spline", "quadratic_spline", "cubic_spline"):
         assert {f"{stem}.cu", f"{stem}.cuh", f"{stem}_bwd.cuh"} <= sources
 

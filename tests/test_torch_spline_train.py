@@ -182,7 +182,7 @@ def test_the_launcher_gets_every_stage_setting(monkeypatch, family):
     x = torch.from_numpy(_x(n=40))
     for loss in (True, False):
         nsf_train._launch(loss, x, x, x[:, 0].contiguous(), ttr.weights, ttr._indices,
-                          static, ttr._wh_scale, None, None, 32, 1.0 / 40)
+                          static, ttr._wh_scale, None, None, 32, 1.0 / 40, cluster=1)
     assert len(calls) == 2
     for args in calls:
         assert len(args) == len(launch.argtypes)

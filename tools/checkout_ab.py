@@ -1,10 +1,12 @@
 """A/B two checkouts of the port on one card: the whole-chain kernel B2
-(forward and inverse at N = 4,096) and the training kernels B3 (N = 512 and
-4,096) and B4 (N = 512) on the full-width flagship NSF, and B2 (forward at
+(forward and inverse at N = 4,096) and the training kernels B3 and B4 (N =
+512, 2,048 and 4,096) on the full-width flagship NSF, and B2 (forward at
 N = 4,096), B3 and B4 (N = 512) on RealNVP at the same widths
-(``chip_smoke.realnvp_flow``; random weights from seed 0), and B3 and B4 at
-N = 16,384 on the flagship at hidden 128, where they take 64-sample tiles.
-All without a context, the paths both sides have. With ``--family maf``
+(``chip_smoke.realnvp_flow``; random weights from seed 0), B3 and B4 at
+N = 16,384 on the flagship at hidden 128, where they take 64-sample tiles,
+and B3 and B4 at 512, 2,048 and 4,096 on the conditional flagship (context
+10, ``chip_smoke.MOG_CONTEXT``; seed 20). Each side runs the cluster size
+its own wrapper chooses. With ``--family maf``
 it times the autoregressive kernels instead: B9 forward and inverse at
 N = 4,096 and B10 at N = 512 and 4,096 on the full-width MAF
 (``chip_smoke.MAF``), and B9 forward and inverse and B10 at 512 on the
@@ -41,9 +43,10 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # One turn, run with the checkout as its working directory and first on
-# sys.path; prints {"b2_forward": ms, "b2_inverse": ms, "b3_512": ms, "b3_4096": ms,
-# "b4_512": ms, "affine_b2_forward": ms, "affine_b3_512": ms, "affine_b4_512": ms,
-# "narrow_b3_16384": ms, "narrow_b4_16384": ms}.
+# sys.path; prints {"b2_forward": ms, "b2_inverse": ms, "b3_512": ms, "b4_512": ms, ...
+# "b3_4096": ms, "b4_4096": ms, "affine_b2_forward": ms, "affine_b3_512": ms,
+# "affine_b4_512": ms, "narrow_b3_16384": ms, "narrow_b4_16384": ms, "context_b3_512":
+# ms, ... "context_b4_4096": ms}.
 TURN = r"""
 import json, sys
 sys.path.insert(0, ".")
@@ -77,8 +80,12 @@ out["affine_b2_forward"] = cs.device_ms(torch, run, 20, kernel="nsf_flow_kernel"
 narrow = NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
                           rng=np.random.default_rng(0), device="cuda",
                           **dict(cs.FLAGSHIP, hidden_features=128))
+conditional = NeuralSplineFlow(generator=torch.Generator().manual_seed(20),
+                               rng=np.random.default_rng(20), device="cuda",
+                               context_features=cs.MOG_CONTEXT, **cs.FLAGSHIP)
 for tag, model, sizes in (() if DTYPE == torch.bfloat16 else (
-        ("", flow, (512, 4096)), ("affine_", affine, (512,)), ("narrow_", narrow, (16384,)))):
+        ("", flow, (512, 2048, 4096)), ("affine_", affine, (512,)),
+        ("narrow_", narrow, (16384,)), ("context_", conditional, (512, 2048, 4096)))):
     trainer = nsf_train.FusedNSFTrainer(model, 512)
     w = {k: v.detach() for k, v in trainer.weights.items()}
     kw = dict(wh_scale=trainer._wh_scale, **trainer._static)
@@ -86,16 +93,17 @@ for tag, model, sizes in (() if DTYPE == torch.bfloat16 else (
     grads = {k: torch.empty_like(v) for k, v in w.items()}
     for n in sizes:
         xb = (1.5 * torch.randn(n, D, generator=gen)).cuda()
+        ctx = (torch.randn(n, cs.MOG_CONTEXT, generator=gen).cuda() if tag == "context_"
+               else None)
         run = lambda: nsf_train.nsf_loss_grad_cuda(xb, w, trainer._indices, packed=packed,
-                                                   grads=grads, **kw)
-        out[f"{tag}b3_{n}"] = cs.device_ms(torch, run, 20, kernel="nsf_loss_grad_kernel")
-    n = sizes[0]
-    gy = (torch.randn(n, D, generator=gen) / n).cuda()
-    glad = (torch.randn(n, generator=gen) / n).cuda()
-    xb = (1.5 * torch.randn(n, D, generator=gen)).cuda()
-    run = lambda: nsf_train.nsf_train_bwd_cuda(xb, gy, glad, w, trainer._indices,
-                                               packed=packed, grads=grads, **kw)
-    out[f"{tag}b4_{n}"] = cs.device_ms(torch, run, 20, kernel="nsf_train_bwd_kernel")
+                                                   grads=grads, context=ctx, **kw)
+        out[f"{tag}b3_{n}"] = cs.device_ms(torch, run, 20, kernel="nsf_loss_grad")
+        gy = (torch.randn(n, D, generator=gen) / n).cuda()
+        glad = (torch.randn(n, generator=gen) / n).cuda()
+        run = lambda: nsf_train.nsf_train_bwd_cuda(xb, gy, glad, w, trainer._indices,
+                                                   packed=packed, grads=grads, context=ctx,
+                                                   **kw)
+        out[f"{tag}b4_{n}"] = cs.device_ms(torch, run, 20, kernel="nsf_train_bwd")
 print(json.dumps(out))
 """
 
