@@ -15,7 +15,11 @@ its composable variant runs B2 forward and B4 backward) and eager
 forward). Then the autoregressive family at full width (features 10,
 hidden 256, 5 layers x 2 blocks, ReversePermutation, no context): the
 whole-chain kernel B9 and its backward B10 against their plain versions on
-a MAF (affine), an NSF-AR (rq, 8 bins) and a wrapped IAF chain; the MAF and
+a MAF (affine), an NSF-AR (rq, 8 bins) and a wrapped IAF chain, B9's fixed
+point (MAF and NSF-AR sampling, the IAF's density) on both of its kernels:
+the degree kernel (csrc/maf_degree_inverse.cu, the route) against both
+plain versions, at both tile sizes, and the fixed-point
+kernel (``schedule="fixed_point"``) beside it, each timed; the MAF and
 the NSF-AR served through ``CompiledFlow`` fused (B9, one launch a request)
 and unfused; the MAF trained for 20 Adam steps on the fused route
 (``fused_trainer``: B9 forward and B10 backward a step) and the eager one.
@@ -97,7 +101,10 @@ line starts with the seconds since the script began.
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
 (a serving request for B1, B2, B5-B9 and B11, a train step for B3, B4, B10
-and B12; B10's row also counts a reverse-KL step as ``inverse_launches``;
+and B12; B9's row also counts a sampling request's launches of the degree
+kernel as ``degree_launches``, and carries the fixed point's times on both
+kernels as ``inverse_ms`` and ``inverse_fixed_point_ms``; B10's row also
+counts a reverse-KL step as ``inverse_launches``;
 the rows ``B2_bf16``, ``B9_bf16`` and ``B11_bf16``, the bf16-weight
 instantiations, count a bf16 request through ``CompiledFlow`` and carry
 the fp32 instantiation's time beside theirs as ``fp32_ms``),
@@ -152,6 +159,11 @@ version is), and the round trip forward(inverse(z)) must return within 5e-3
 of z and of -logabsdet: the plain version bounds the arithmetic, float64 the
 rounding, the round trip the fixed point itself. Those absolute tolerances
 are held on MAF and IAF chains whose final MADE weights are scaled by 0.1.
+The degree kernel computes the same function in another order (each unit
+once, its masked weights only): it is held in the same bands against both
+plain versions, the fixed-point one and the degree one (which share the
+float64 reference), and its results at 16- and 32-sample tiles must lie
+within 1e-5 of the route's.
 The MAF as initialised is held too, by relative error: there the sampling
 direction is ill-conditioned (samples of N(0, 1) noise reach 1e18, and the
 plain fp32 version is itself up to 2e-2 relative from float64), so the
@@ -210,8 +222,10 @@ the operations are counted from the MADE masks of the model in the run: two
 for every weight a mask leaves, once a sample for B9 in either direction
 (the autoregressive inverse needs each hidden unit and each parameter once,
 when the features before it are known), three times for B10. The kernels
-multiply the masked zeros too, and B9's inverse runs D + 1 full passes a
-layer; ``schedule_ms`` is that dense count at the same peak rate. With a
+multiply the masked zeros too, and B9's fixed-point kernel runs D + 1 full
+passes a layer; ``schedule_ms`` is that dense count at the same peak rate
+(``inverse_fixed_point_schedule_ms``), and for the degree kernel its slabs
+once a sample, pad columns included (``inverse_schedule_ms``). With a
 context both counts add the projections, 2 N L (1 + nb) C H a pass (three
 times for B10), and the bytes the context and its cotangent. B11 and
 B12 count the same way: two FLOP for every MADE weight the masks leave and
@@ -689,6 +703,7 @@ def main() -> int:
         nsf_train.loss_grad_launch_count = 0
         nsf_train.bwd_launch_count = 0
         maf_flow_kernel.launch_count = 0
+        maf_flow_kernel.degree_launch_count = 0
         maf_train.bwd_launch_count = 0
         mademog_fused.launch_count = 0
         mademog_train.bwd_launch_count = 0
@@ -706,6 +721,7 @@ def main() -> int:
                 "B7": quadratic_spline.launch_count, "B8": cubic_spline.launch_count,
                 "B2_bf16": nsf_flow_kernel.bf16_launch_count,
                 "B9_bf16": maf_flow_kernel.bf16_launch_count,
+                "B9_degree": maf_flow_kernel.degree_launch_count,
                 "B11_bf16": mademog_fused.bf16_launch_count}
 
     def expect_counts(what, counts, **expected):
@@ -769,6 +785,9 @@ def main() -> int:
                 expect_counts(f"two fused {model} requests", rest,
                               **(fused_sample or {fused_kernel: 2}))
                 book.setdefault(fused_kernel, first[fused_kernel])
+                if rest["B9_degree"]:
+                    # B9's fixed point: the degree kernel, once a sampling request
+                    book.setdefault("B9_degree", rest["B9_degree"] // 2)
             else:
                 expect_counts(f"one unfused {model} request", first, **unfused_log_prob)
                 expect_counts(f"two unfused {model} requests", rest,
@@ -1161,6 +1180,141 @@ def main() -> int:
                     net.final_layer.weight.mul_(factor)
         return ar_flow.eval()
 
+    def hold_untamed_inverse(what, view, x, kw):
+        """B9's fixed point on a flow as initialised, held by relative error:
+        the degree kernel (the route) against both plain versions, the
+        fixed-point kernel (forced) against its own."""
+        ctx64 = {} if kw.get("context") is None else {"context": kw["context"].double()}
+        y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+            x, view._weights, view._static, packed=view._packed, **kw)
+        f_y, f_lad = maf_flow_kernel.maf_flow_kernel_cuda(
+            x, view._weights, view._static, packed=view._packed, schedule="fixed_point", **kw)
+        p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, view._weights, view._static, **kw)
+        q_y, q_lad = maf_flow_kernel.maf_flow_kernel_plain(
+            x, view._weights, view._static, schedule="degrees", masks=view._masks, **kw)
+        d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+            x.double(), {k: v.double() for k, v in view._weights.items()}, view._static,
+            **{**kw, **ctx64})
+        torch.cuda.synchronize()
+        log(f"B9{what} on the {'conditional ' if ctx64 else ''}MAF as initialised, inverse of "
+            f"N(0, 1) noise at N={x.shape[0]}: largest |sample| {float(d_y.abs().max()):.3e}")
+        if not all(torch.isfinite(t).all() for t in (y, lad, f_y, f_lad)):
+            raise AssertionError(f"B9{what} produced non-finite values on the MAF as initialised")
+        for name, plain_y, plain_lad in (("fixed-point plain", p_y, p_lad),
+                                         ("degree plain", q_y, q_lad)):
+            hold_relative(torch, f"degree kernel, inverse out, against the {name}", y, plain_y,
+                          d_y)
+            hold_relative(torch, f"degree kernel, inverse lad, against the {name}", lad,
+                          plain_lad, d_lad)
+        hold_relative(torch, "fixed-point kernel, inverse out", f_y, p_y, d_y)
+        hold_relative(torch, "fixed-point kernel, inverse lad", f_lad, p_lad, d_lad)
+
+    def hold_fixed_point(tag, view, x, kw):
+        """B9's fixed point at x within 5e-3 (see the module doc): the route's
+        kernel, which must be the degree kernel, against both plain versions,
+        and the fixed-point kernel (forced) against its own. Returns the
+        degree kernel's (y, lad) and both kernels' largest |kernel - plain|."""
+        ctx64 = {} if kw.get("context") is None else {"context": kw["context"].double()}
+        w64 = {k: v.double() for k, v in view._weights.items()}
+        before = maf_flow_kernel.degree_launch_count
+        y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+            x, view._weights, view._static, packed=view._packed, **kw)
+        if maf_flow_kernel.degree_launch_count != before + 1:
+            raise AssertionError("B9's fixed point did not take the degree kernel")
+        f_y, f_lad = maf_flow_kernel.maf_flow_kernel_cuda(
+            x, view._weights, view._static, packed=view._packed, schedule="fixed_point", **kw)
+        p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, view._weights, view._static, **kw)
+        q_y, q_lad = maf_flow_kernel.maf_flow_kernel_plain(
+            x, view._weights, view._static, schedule="degrees", masks=view._masks, **kw)
+        d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(x.double(), w64, view._static,
+                                                           **{**kw, **ctx64})
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (y, lad, f_y, f_lad)):
+            raise AssertionError("B9 produced non-finite values")
+        err = max(hold(f"{tag} out, degree kernel against the fixed-point plain", y, p_y, d_y,
+                       5e-3),
+                  hold(f"{tag} lad, degree kernel against the fixed-point plain", lad, p_lad,
+                       d_lad, 5e-3),
+                  hold(f"{tag} out, degree kernel against the degree plain", y, q_y, d_y, 5e-3),
+                  hold(f"{tag} lad, degree kernel against the degree plain", lad, q_lad, d_lad,
+                       5e-3))
+        fp_err = max(hold(f"{tag} out, fixed-point kernel", f_y, p_y, d_y, 5e-3),
+                     hold(f"{tag} lad, fixed-point kernel", f_lad, p_lad, d_lad, 5e-3))
+        return y, lad, err, fp_err
+
+    def time_fixed_point(view, x, kw, nops, io_bytes, fixed_point_ops):
+        """B9's fixed point at x on both kernels in this run: the degree kernel
+        (the route) at its own tile and at both tile sizes (each result
+        equal to the route's within 1e-5), the
+        fixed-point kernel, both plain versions; the bound, and each
+        schedule's multiply count at the peak rate (the degree kernel's: its
+        slabs once a sample, pad columns included)."""
+        n = x.shape[0]
+        w, st, dp = view._weights, view._static, view._packed["degrees"]
+        run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+            x, w, st, packed=view._packed, **kw)
+        run_fp = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+            x, w, st, packed=view._packed, schedule="fixed_point", **kw)
+        ms = device_ms(torch, run, 10, kernel="maf_degree_inverse")
+        ms_source = device_ms.source
+        fp_ms = device_ms(torch, run_fp, 5, kernel="maf_flow_kernel")
+        plain_ms = device_ms(torch, lambda: maf_flow_kernel.maf_flow_kernel_plain(
+            x, w, st, **kw), 3)
+        degree_plain_ms = device_ms(torch, lambda: maf_flow_kernel.maf_flow_kernel_plain(
+            x, w, st, schedule="degrees", masks=view._masks, **kw), 3)
+        bound_ms, bound_by = bound(nops, io_bytes)
+        slab_ops = 2 * n * dp["stream"].numel()
+        groups = [b - a for a, b in zip(dp["offsets"][0].tolist(), dp["offsets"][0].tolist()[1:])]
+        D_, H_ = x.shape[1], dp["bi"].shape[1]
+        M_ = dp["bf"].shape[1] // D_
+        C_ = 0 if kw.get("context") is None else kw["context"].shape[1]
+        rows = maf_flow_kernel.degree_tile_rows(
+            n, D_, H_, M_, view._num_blocks,
+            torch.cuda.get_device_properties(dev).multi_processor_count, C_)
+        ref_y, ref_lad = run()
+        by_tile = {}
+        for r in (16, 32):
+            tiled = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+                x, w, st, packed=view._packed, rows=r, **kw)  # noqa: B023
+            t_y, t_lad = tiled()
+            gap = max(max_err(t_y, ref_y), max_err(t_lad, ref_lad))
+            if gap > 1e-5:
+                raise AssertionError(f"the degree kernel's result depends on the tile ({r} "
+                                     f"rows: {gap:.3e})")
+            by_tile[f"rows_{r}"] = device_ms(torch, tiled, 10, kernel="maf_degree_inverse")
+        # below 16 x SMs samples degree_tile_rows takes 16-sample tiles: both
+        # sizes at two such N, on the first samples of x
+        small = {}
+        for m in (512, 2048):
+            xm = x[:m].contiguous()
+            km = {**kw, "context": None if kw.get("context") is None
+                  else kw["context"][:m].contiguous()}
+            small[m] = {f"rows_{r}": device_ms(
+                torch, lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: B023
+                    xm, w, st, packed=view._packed, rows=r, **km), 10,  # noqa: B023
+                kernel="maf_degree_inverse") for r in (16, 32)}
+            small[m]["rule"] = maf_flow_kernel.degree_tile_rows(
+                m, D_, H_, M_, view._num_blocks,
+                torch.cuda.get_device_properties(dev).multi_processor_count, C_)
+        log(f"  inverse time: degree kernel {ms:.4f} ms ({rows}-sample tiles), "
+            f"fixed-point kernel {fp_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, degree plain {degree_plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed, "
+            f"{100 * bound_ms / ms:.1f}% of the degree kernel's time); the degree kernel "
+            f"multiplies {slab_ops / 1e9:.2f} GFLOP ({bound(slab_ops, io_bytes)[0]:.4f} ms at "
+            f"the peak rate), the fixed-point kernel {fixed_point_ops / 1e9:.1f} GFLOP")
+        log(f"    degree groups of a layer {groups}, {dp['chunks'].shape[0]} ring chunks a "
+            f"launch, by tile {by_tile}; at N = 512 and 2,048 (rows the rule takes) {small}")
+        return {"inverse_ms": ms, "inverse_ms_source": ms_source,
+                "inverse_fixed_point_ms": fp_ms, "inverse_plain_ms": plain_ms,
+                "inverse_degree_plain_ms": degree_plain_ms, "inverse_bound_ms": bound_ms,
+                "inverse_bound_by": bound_by,
+                "inverse_schedule_ms": bound(slab_ops, io_bytes)[0],
+                "inverse_fixed_point_schedule_ms": bound(fixed_point_ops, io_bytes)[0],
+                "inverse_rows": rows, "inverse_ms_by_tile": by_tile,
+                "inverse_ms_by_tile_at": small,
+                "inverse_degree_groups": groups}
+
     raw_maf = MaskedAutoregressiveFlow(**MAF, **seeded(0)).eval()
     maf = tame(MaskedAutoregressiveFlow(**MAF, **seeded(0)))
     nsf_ar = NeuralSplineFlowAR(**NSF_AR, **seeded(0)).eval()
@@ -1189,18 +1343,7 @@ def main() -> int:
     x = torch.randn(SERVE_BATCH, DA, generator=gen).to(dev)
     kw = dict(inverse=True, num_blocks=view._num_blocks, transformer=view._transformer,
               spline_kw=view._spline_kw)
-    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
-        x, view._weights, view._static, packed=view._packed, **kw)
-    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, view._weights, view._static, **kw)
-    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
-        x.double(), {k: v.double() for k, v in view._weights.items()}, view._static, **kw)
-    torch.cuda.synchronize()
-    log(f"B9 on the MAF as initialised, inverse of N(0, 1) noise at N={SERVE_BATCH}: largest "
-        f"|sample| {float(d_y.abs().max()):.3e}")
-    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-        raise AssertionError("B9 produced non-finite values on the MAF as initialised")
-    hold_relative(torch, "inverse out", y, p_y, d_y)
-    hold_relative(torch, "inverse lad", lad, p_lad, d_lad)
+    hold_untamed_inverse("", view, x, kw)
 
     b9 = {}
     for model, ar_flow in (("MAF", maf), ("NSF-AR", nsf_ar), ("IAF", iaf)):
@@ -1218,19 +1361,22 @@ def main() -> int:
             errs = {}
             for inverse in (False, True):
                 kw = dict(inverse=inverse, **skw)
-                y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
-                    x, w32, view._static, packed=view._packed, **kw)
-                p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w32, view._static, **kw)
-                d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
-                    x.double(), w64, view._static, **kw)
-                torch.cuda.synchronize()
-                if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-                    raise AssertionError("B9 produced non-finite values")
                 tag = "inverse" if inverse else "forward"
-                fixed_point = inverse != (model == "IAF")
-                tol = 5e-3 if fixed_point else 1e-3
-                errs[tag] = max(hold(f"{tag} out", y, p_y, d_y, tol),
-                                hold(f"{tag} lad", lad, p_lad, d_lad, tol))
+                if inverse != (model == "IAF"):
+                    y, lad, errs[tag], errs[tag + "_fixed_point"] = hold_fixed_point(
+                        tag, view, x, kw)
+                else:
+                    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+                        x, w32, view._static, packed=view._packed, **kw)
+                    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w32, view._static,
+                                                                       **kw)
+                    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+                        x.double(), w64, view._static, **kw)
+                    torch.cuda.synchronize()
+                    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                        raise AssertionError("B9 produced non-finite values")
+                    errs[tag] = max(hold(f"{tag} out", y, p_y, d_y, 1e-3),
+                                    hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
                 back, lad_back = maf_flow_kernel.maf_flow_kernel_cuda(
                     y, w32, view._static, packed=view._packed, **{**kw, "inverse": not inverse})
                 trip = max(max_err(back, x), max_err(lad_back, -lad))
@@ -1239,83 +1385,89 @@ def main() -> int:
                     raise AssertionError(f"B9 {model}: the round trip does not close")
             if model == "IAF" or n != SERVE_BATCH:
                 continue
-            stats = dict(err=errs["forward"], inverse_err=errs["inverse"])
-            for inverse in (False, True):
-                kw = dict(inverse=inverse, **skw)
-                run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
-                    x, w32, view._static, packed=view._packed, **kw)
-                run_plain = lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: E731
-                    x, w32, view._static, **kw)
-                ms = device_ms(torch, run, 10, kernel="maf_flow_kernel")
-                ms_source = device_ms.source
-                plain_ms = device_ms(torch, run_plain, 3)
-                log(f"  a call, events: kernel {call_ms(torch, run, 10):.4f} ms  "
-                    f"plain {call_ms(torch, run_plain, 3):.4f} ms")
-                # the bound counts what the function needs: the weights the
-                # masks leave, once. That holds for the inverse too: feature k
-                # depends on the features before it alone, so every hidden unit
-                # and every parameter can be computed once, when its inputs are
-                # known, and the logabsdet comes from the same parameters. The
-                # kernel runs D + 1 dense passes a layer instead.
-                nops = n * need
-                run_ops = dense_ops(n, P) * ((DA + 1) if inverse else 1)
-                io_bytes = ar_bytes + 4 * n * (2 * DA + 1)
-                bound_ms, bound_by = bound(nops, io_bytes)
-                tag = "inverse" if inverse else "forward"
-                log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-                    f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
-                    f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
-                    f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
-                    f"{run_ops / ms / 1e9:.1f} TFLOP/s")
-                pre = "inverse_" if inverse else ""
-                stats.update({pre + "ms": ms, pre + "ms_source": ms_source,
-                              pre + "plain_ms": plain_ms,
-                              pre + "bound_ms": bound_ms, pre + "bound_by": bound_by,
-                              pre + "schedule_ms": bound(run_ops, io_bytes)[0]})
-                if inverse:
-                    # the tile-size diagnostic: 64-sample tiles halve the weight
-                    # traffic of the fixed point but fill half the SMs here
-                    ref_y, ref_lad = run()
-                    for rows in (32, 64):
-                        tiled = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
-                            x, w32, view._static, packed=view._packed, rows=rows, **kw)  # noqa: B023
-                        t = device_ms(torch, tiled, 10, kernel="maf_flow_kernel")
-                        t_y, t_lad = tiled()
-                        gap = max(max_err(t_y, ref_y), max_err(t_lad, ref_lad))
-                        log(f"    inverse with {rows}-sample tiles: {t:.4f} ms, {gap:.3e} from "
-                            "the default tile's result (limit 1e-5)")
-                        if gap > 1e-5:
-                            raise AssertionError(f"B9 {model}: the result depends on the tile")
+            stats = dict(err=errs["forward"], inverse_err=errs["inverse"],
+                         inverse_fixed_point_err=errs["inverse_fixed_point"])
+            # forward
+            kw = dict(inverse=False, **skw)
+            run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+                x, w32, view._static, packed=view._packed, **kw)
+            run_plain = lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: E731
+                x, w32, view._static, **kw)
+            ms = device_ms(torch, run, 10, kernel="maf_flow_kernel")
+            ms_source = device_ms.source
+            plain_ms = device_ms(torch, run_plain, 3)
+            log(f"  a call, events: kernel {call_ms(torch, run, 10):.4f} ms  "
+                f"plain {call_ms(torch, run_plain, 3):.4f} ms")
+            # the bound counts what the function needs: the weights the masks
+            # leave, once, in either direction (see the module doc)
+            nops = n * need
+            run_ops = dense_ops(n, P)
+            io_bytes = ar_bytes + 4 * n * (2 * DA + 1)
+            bound_ms, bound_by = bound(nops, io_bytes)
+            log(f"  forward time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
+                f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
+                f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
+                f"{run_ops / ms / 1e9:.1f} TFLOP/s")
+            stats.update(ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, schedule_ms=bound(run_ops, io_bytes)[0])
+            # the inverse: both kernels of the fixed point
+            kw = dict(inverse=True, **skw)
+            stats.update(time_fixed_point(view, x, kw, nops, io_bytes,
+                                          dense_ops(n, P) * (DA + 1)))
+            # the fixed-point kernel's tile-size diagnostic: 64-sample tiles
+            # halve its weight traffic but fill half the SMs here
+            ref_y, ref_lad = maf_flow_kernel.maf_flow_kernel_cuda(
+                x, w32, view._static, packed=view._packed, schedule="fixed_point", **kw)
+            for rows in (32, 64):
+                tiled = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+                    x, w32, view._static, packed=view._packed, rows=rows,  # noqa: B023
+                    schedule="fixed_point", **kw)
+                t = device_ms(torch, tiled, 5, kernel="maf_flow_kernel")
+                t_y, t_lad = tiled()
+                gap = max(max_err(t_y, ref_y), max_err(t_lad, ref_lad))
+                log(f"    fixed-point kernel with {rows}-sample tiles: {t:.4f} ms, {gap:.3e} "
+                    "from the default tile's result (limit 1e-5)")
+                if gap > 1e-5:
+                    raise AssertionError(f"B9 {model}: the result depends on the tile")
             xt = x[:TRAIN_BATCH].contiguous()
             ms512 = device_ms(torch, lambda: maf_flow_kernel.maf_flow_kernel_cuda(
                 xt, w32, view._static, packed=view._packed, inverse=False, **skw), 10,
                 kernel="maf_flow_kernel")
             log(f"  forward at N={TRAIN_BATCH}: kernel {ms512:.4f} ms  bound "
                 f"{bound(TRAIN_BATCH * need, ar_bytes)[0]:.4f} ms")
-            # the wrapper's own choice of tile at a large batch: 64 samples,
-            # once that gives every SM a tile, against 32
+            # at a large batch: the forward at the wrapper's tile (64 samples,
+            # once that gives every SM a tile) against 32; the inverse on the
+            # degree kernel at 16- and 32-sample tiles against the fixed-point
+            # kernel at its own choice
             xl = torch.randn(LARGE_BATCH, DA, generator=gen).to(dev)
-            for inverse in (False, True):
-                times = {}
-                for rows in (32, None):
+            large = {}
+            for tag, name, inverse, variants in (
+                    ("forward", "maf_flow_kernel", False, ((32, None), (None, None))),
+                    ("inverse", "maf_degree_inverse", True, ((16, None), (32, None))),
+                    ("inverse", "maf_flow_kernel", True, ((None, "fixed_point"),))):
+                for rows, schedule in variants:
                     tiled = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
                         xl, w32, view._static, packed=view._packed, rows=rows,  # noqa: B023
-                        inverse=inverse, **skw)  # noqa: B023
-                    times[rows] = device_ms(torch, tiled, 3, kernel="maf_flow_kernel")
-                tag = "inverse" if inverse else "forward"
-                log(f"  {tag} at N={LARGE_BATCH}: 32-sample tiles {times[32]:.4f} ms, the "
-                    f"default ({default_rows}-sample tiles) {times[None]:.4f} ms, bound "
-                    f"{bound(LARGE_BATCH * need, ar_bytes)[0]:.4f} ms")
-                stats[f"{tag}_ms_at_{LARGE_BATCH}"] = {"rows_32": times[32],
-                                                      f"rows_{default_rows}": times[None]}
+                        schedule=schedule, inverse=inverse, **skw)  # noqa: B023
+                    key = (schedule or f"rows_{rows or default_rows}"
+                           if inverse else f"rows_{rows or default_rows}")
+                    large.setdefault(tag, {})[key] = device_ms(torch, tiled, 3, kernel=name)
+            log(f"  at N={LARGE_BATCH}, forward by tile {large['forward']}, inverse (the degree "
+                f"kernel by tile, the fixed-point kernel) {large['inverse']}; bound "
+                f"{bound(LARGE_BATCH * need, ar_bytes)[0]:.4f} ms")
+            for tag, times in large.items():
+                stats[f"{tag}_ms_at_{LARGE_BATCH}"] = times
             b9[model] = stats
 
     # -- phase 10: serving the autoregressive flows through CompiledFlow ------------
     # the unfused MAF launches no kernel of the port (its transformer is plain
     # tensor code); the unfused NSF-AR runs B1 once a MADE pass: LA a log_prob,
     # LA x DA a sampling request
-    serve("MAF", maf, DA, "B9", {}, {})
-    serve("NSF-AR", nsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA))
+    # a fused sampling request is one B9 launch, of the degree kernel
+    ar_sample = dict(B9=2, B9_degree=2)
+    serve("MAF", maf, DA, "B9", {}, {}, fused_sample=ar_sample)
+    serve("NSF-AR", nsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA), fused_sample=ar_sample)
 
     # -- phase 11: B10 against its plain version (full-width MAF and NSF-AR) --------
     b10 = {}
@@ -2031,19 +2183,7 @@ def main() -> int:
     ctx = torch.randn(SERVE_BATCH, C, generator=gen).to(dev)
     kw = dict(inverse=True, context=ctx, num_blocks=view._num_blocks,
               transformer=view._transformer, spline_kw=view._spline_kw)
-    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
-        x, view._weights, view._static, packed=view._packed, **kw)
-    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, view._weights, view._static, **kw)
-    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
-        x.double(), {k: v.double() for k, v in view._weights.items()}, view._static,
-        **{**kw, "context": ctx.double()})
-    torch.cuda.synchronize()
-    log(f"B9 with context {C} on the conditional MAF as initialised, inverse at "
-        f"N={SERVE_BATCH}: largest |sample| {float(d_y.abs().max()):.3e}")
-    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-        raise AssertionError("B9 with context produced non-finite values")
-    hold_relative(torch, "inverse out", y, p_y, d_y)
-    hold_relative(torch, "inverse lad", lad, p_lad, d_lad)
+    hold_untamed_inverse(f" with context {C}", view, x, kw)
 
     b9_ctx = {}
     for model, ar_flow in (("conditional MAF", cmaf), ("conditional NSF-AR", cnsf_ar)):
@@ -2062,18 +2202,21 @@ def main() -> int:
             log(f"B9 on the {model} (context {C}) at N={n}:")
             for inverse in (False, True):
                 kw = dict(inverse=inverse, context=ctx, **skw)
-                y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
-                    x, w32, view._static, packed=view._packed, **kw)
-                p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w32, view._static, **kw)
-                d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
-                    x.double(), w64, view._static, **{**kw, "context": ctx.double()})
-                torch.cuda.synchronize()
-                if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-                    raise AssertionError("B9 with context produced non-finite values")
                 tag = "inverse" if inverse else "forward"
-                tol = 5e-3 if inverse else 1e-3
-                err = max(hold(f"{tag} out", y, p_y, d_y, tol),
-                          hold(f"{tag} lad", lad, p_lad, d_lad, tol))
+                if inverse:
+                    y, lad, err, fp_err = hold_fixed_point(tag, view, x, kw)
+                else:
+                    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+                        x, w32, view._static, packed=view._packed, **kw)
+                    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w32, view._static,
+                                                                       **kw)
+                    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+                        x.double(), w64, view._static, **{**kw, "context": ctx.double()})
+                    torch.cuda.synchronize()
+                    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                        raise AssertionError("B9 with context produced non-finite values")
+                    err = max(hold(f"{tag} out", y, p_y, d_y, 1e-3),
+                              hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
                 back, lad_back = maf_flow_kernel.maf_flow_kernel_cuda(
                     y, w32, view._static, packed=view._packed, **{**kw, "inverse": not inverse})
                 trip = max(max_err(back, x), max_err(lad_back, -lad))
@@ -2082,6 +2225,14 @@ def main() -> int:
                     raise AssertionError(f"B9 {model}: the round trip does not close")
                 if n != SERVE_BATCH:
                     continue
+                nops = n * need
+                io_bytes = ar_bytes + 4 * n * (2 * DA + 1 + C)
+                if inverse:
+                    stats.update(inverse_err=err, inverse_fixed_point_err=fp_err,
+                                 **time_fixed_point(view, x, kw, nops, io_bytes,
+                                                    (dense_ops(n, P) + context_ops(n))
+                                                    * (DA + 1)))
+                    continue
                 run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
                     x, w32, view._static, packed=view._packed, **kw)  # noqa: B023
                 run_plain = lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: E731
@@ -2089,20 +2240,16 @@ def main() -> int:
                 ms = device_ms(torch, run, 10, kernel="maf_flow_kernel")
                 ms_source = device_ms.source
                 plain_ms = device_ms(torch, run_plain, 3)
-                nops = n * need
-                run_ops = (dense_ops(n, P) + context_ops(n)) * ((DA + 1) if inverse else 1)
-                io_bytes = ar_bytes + 4 * n * (2 * DA + 1 + C)
+                run_ops = dense_ops(n, P) + context_ops(n)
                 bound_ms, bound_by = bound(nops, io_bytes)
                 log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
                     f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
                     f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
                     f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
                     f"{run_ops / ms / 1e9:.1f} TFLOP/s")
-                pre = "inverse_" if inverse else ""
-                stats.update({pre + "err": err, pre + "ms": ms, pre + "ms_source": ms_source,
-                              pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
-                              pre + "bound_by": bound_by,
-                              pre + "schedule_ms": bound(run_ops, io_bytes)[0]})
+                stats.update(err=err, ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             schedule_ms=bound(run_ops, io_bytes)[0])
         b9_ctx[model] = stats
 
     def hold_b10(model, trainer, n, context_features):
@@ -2174,9 +2321,10 @@ def main() -> int:
             (b10_inv if "IAF" in model else b10_ctx)[(model, n)] = stats
 
     # -- phase 28: serving the conditional MAF and NSF-AR through CompiledFlow ----------
-    serve("conditional MAF", cmaf, DA, "B9", {}, {}, context_features=C, context_rows=16)
-    serve("conditional NSF-AR", cnsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA),
+    serve("conditional MAF", cmaf, DA, "B9", {}, {}, fused_sample=ar_sample,
           context_features=C, context_rows=16)
+    serve("conditional NSF-AR", cnsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA),
+          fused_sample=ar_sample, context_features=C, context_rows=16)
 
     # -- phase 29: training the conditional MAF on the card ----------------------------
     train_ar("conditional MAF", cmaf, context_features=C)
@@ -2424,6 +2572,22 @@ def main() -> int:
             tag = "inverse" if inverse else "forward"
             errs.append(hold_bf16(f"{tag} out", y, p16[0], p32[0], BF16_OUT))
             errs.append(hold_bf16(f"{tag} lad", lad, p16[1], p32[1], BF16_LAD))
+            if inverse:
+                # the route is the bf16 degree kernel: against the bf16 degree
+                # plain too, and the bf16 fixed-point kernel beside it
+                q16 = maf_flow_kernel.maf_flow_kernel_plain(x, v16._weights, st,
+                                                            schedule="degrees",
+                                                            masks=v16._masks, **kw)
+                f16 = maf_flow_kernel.maf_flow_kernel_cuda(x, v16._weights, st,
+                                                           packed=v16._packed,
+                                                           schedule="fixed_point", **kw)
+                torch.cuda.synchronize()
+                errs.append(hold_bf16("inverse out, against the degree plain", y, q16[0],
+                                      p32[0], BF16_OUT))
+                errs.append(hold_bf16("inverse lad, against the degree plain", lad, q16[1],
+                                      p32[1], BF16_LAD))
+                hold_bf16("inverse out, fixed-point kernel", f16[0], p16[0], p32[0], BF16_OUT)
+                hold_bf16("inverse lad, fixed-point kernel", f16[1], p16[1], p32[1], BF16_LAD)
             t = time_pair(
                 lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: B023
                     x, v16._weights, st, packed=v16._packed, **kw),  # noqa: B023
@@ -2431,14 +2595,19 @@ def main() -> int:
                     x, v32._weights, st, packed=v32._packed, **kw),  # noqa: B023
                 lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: B023
                     x, v16._weights, st, **kw),  # noqa: B023
-                "maf_flow_kernel", iters=5 if inverse else 10)
+                "maf_degree_inverse" if inverse else "maf_flow_kernel", iters=10)
+            if inverse:
+                t["fixed_point_ms"] = device_ms(
+                    torch, lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: B023
+                        x, v16._weights, st, packed=v16._packed,  # noqa: B023
+                        schedule="fixed_point", **kw), 5, kernel="maf_flow_kernel")  # noqa: B023
             out.update(t if not inverse else {f"inverse_{k}": v for k, v in t.items()})
         nops = masked_ops(SERVE_BATCH, ar_flow) + (context_ops(SERVE_BATCH)
                                                    if context_features else 0)
         bound_ms, bound_by = bound_bf16(nops, v16._weights,
                                         SERVE_BATCH * (2 * DA + 1 + (context_features or 0)))
         log(f"  time (forward / inverse): bf16 kernel {out['ms']:.4f} / {out['inverse_ms']:.4f} "
-            f"ms, fp32 kernel {out['fp32_ms']:.4f} / {out['inverse_fp32_ms']:.4f} ms, bf16 "
+            f"ms (the bf16 fixed-point kernel {out['inverse_fixed_point_ms']:.4f} ms), fp32 kernel {out['fp32_ms']:.4f} / {out['inverse_fp32_ms']:.4f} ms, bf16 "
             f"plain {out['plain_ms']:.4f} / {out['inverse_plain_ms']:.4f} ms; bound "
             f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP the masks leave, at 989 "
             f"TFLOP/s): {100 * bound_ms / out['ms']:.2f}% of it forward")
@@ -2500,8 +2669,11 @@ def main() -> int:
         log(f"serving the {model} in bf16: launches a log_prob {first}, a sample {rest}")
         expect_counts(f"a bf16 {model} log_prob request", first, **{kid: 1})
         expect_counts(f"a bf16 {model} sample request", rest,
-                      **({kid: 1} if sample_kernel else {}))
+                      **({kid: 1} if sample_kernel else {}),
+                      **({"B9_degree": 1} if kid == "B9_bf16" else {}))
         bf16_launches[kid] = first[kid]
+        if kid == "B9_bf16":
+            bf16_launches["B9_degree"] = rest["B9_degree"]
         if (tuple(lp.shape) != (SERVE_BATCH,) or lp.dtype != torch.float32
                 or not torch.isfinite(lp).all() or tuple(s.shape) != (SERVE_BATCH, features)
                 or not torch.isfinite(s).all()):
@@ -2599,7 +2771,11 @@ def main() -> int:
              "ops/pallas/nsf_train.py:_bwd_kernel"),
             ("B9", with_context(b9["MAF"], b9_ctx["conditional MAF"],
                                 context_launches=context_launches["B9"],
-                                context_families={"NSF-AR": b9_ctx["conditional NSF-AR"]}),
+                                context_degree_launches=context_launches["B9_degree"],
+                                context_families={"NSF-AR": b9_ctx["conditional NSF-AR"]},
+                                families={"NSF-AR": b9["NSF-AR"]},
+                                degree_launches=launches["B9_degree"],
+                                degree_source="nflows_tpu_torch/csrc/maf_degree_inverse.cu"),
              "nflows_tpu_torch/csrc/maf_flow_kernel.cu",
              "nflows_tpu/ops/pallas/maf_flow_kernel.py:99",
              "ops/pallas/maf_flow_kernel.py:_kernel"),
@@ -2646,7 +2822,8 @@ def main() -> int:
             "library_ms": None,
             **{k: v for k, v in stats.items()
                if k.startswith(("inverse_", "forward_", "schedule_", "context_", "ms_at_",
-                                "families", "cluster_", "ms_by_", "active_", "held_"))},
+                                "families", "cluster_", "ms_by_", "active_", "held_",
+                                "degree_"))},
         })
     for kid, stats, more, stem, replaces, tpu in (
             ("B2", b2_bf16_stats[SERVE_BATCH],
@@ -2658,6 +2835,8 @@ def main() -> int:
              "ops/pallas/nsf_flow_kernel.py:_kernel"),
             ("B9", b9_bf16_stats["MAF"],
              dict(families={"NSF-AR": b9_bf16_stats["NSF-AR"]},
+                  degree_launches=bf16_launches["B9_degree"],
+                  degree_source="nflows_tpu_torch/csrc/maf_degree_inverse_bf16.cu",
                   **{f"context_{k}": v for k, v in b9_bf16_stats["conditional MAF"].items()}),
              "maf_flow_kernel_bf16", "nflows_tpu/ops/pallas/maf_flow_kernel.py:99",
              "ops/pallas/maf_flow_kernel.py:_kernel"),

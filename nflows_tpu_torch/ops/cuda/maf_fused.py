@@ -248,12 +248,23 @@ class FusedMAF(FusedFlowView):
     def __init__(self, flow, dtype=torch.float32):
         (self._static, self._weights, self._num_blocks, self.features,
          self._transformer, self._spline_kw,
-         self.context_features) = _extract(flow, dtype)
+         self.context_features, self._masks) = _extract(flow, dtype, return_masks=True)
         self._embedding_net = getattr(flow, "embedding_net", None)
         self.device = self._weights["wi"].device
-        self._packed = (
-            maf_flow_kernel.pack_weights(self._weights, self._static, self._num_blocks)
-            if self.device.type == "cuda" else None)
+        self._packed = None
+        if self.device.type == "cuda":
+            # both kernels' layouts, once: the degree kernel's (None where a
+            # mask is out of degree form or the layers mix wrapped and
+            # unwrapped) serves the fixed-point direction
+            self._packed = maf_flow_kernel.pack_weights(self._weights, self._static,
+                                                        self._num_blocks)
+            order = maf_flow_kernel.degree_order(self._weights, self._static, self._num_blocks,
+                                                 self._masks)
+            uniform = len({ls.wrapped for ls in self._static}) == 1
+            self._packed["degrees"] = (
+                maf_flow_kernel.pack_degree_order(self._weights, self._static,
+                                                  self._num_blocks, order=order)
+                if order is not None and uniform else None)
 
     def _run(self, x, inverse, context=None):
         return maf_flow_kernel.maf_flow_kernel_cuda(

@@ -78,6 +78,23 @@ def _close(a, b, atol):
     torch.testing.assert_close(a, b, atol=atol, rtol=0)
 
 
+def _hold_relative(kernel, plain, plain64, atol=None):
+    """Per-sample relative errors against float64, |a - f64| / (1 + |f64|)
+    (the largest over a sample's features): the kernel's median and 90th
+    percentile at most twice the plain version's, its 99th percentile four
+    times, its maximum ten times (chip_smoke.hold_relative, where an
+    ill-conditioned fixed point makes both fp32 evaluations far from
+    float64 on a few samples). ``atol`` is unused."""
+    def quantiles(t):
+        e = (t.double() - plain64).abs() / (1.0 + plain64.abs())
+        e = e.reshape(e.shape[0], -1).max(dim=1).values
+        q = torch.quantile(e, torch.tensor([0.5, 0.9, 0.99], dtype=e.dtype, device=e.device))
+        return [*q.tolist(), float(e.max())]
+
+    k, p = quantiles(kernel), quantiles(plain)
+    assert all(a <= f * b for a, b, f in zip(k, p, (2.0, 2.0, 4.0, 10.0))), (k, p)
+
+
 def _hold(kernel, plain, plain64, atol):
     """A kernel result within ``atol`` of its plain version, or, where the
     chain amplifies rounding (the affine inverse divides by scales down to
@@ -338,19 +355,52 @@ def _maf_kw(fused):
                 spline_kw=fused._spline_kw)
 
 
+def _hold_degree_route(fused, x, kw, rows=None):
+    """B9's fixed point at x by the route, which must take the degree
+    kernel. Against the degree plain, whose schedule it shares, by _hold
+    (5e-3, or no further from float64 than twice that plain). Against the
+    fixed-point plain by _hold at a few hundred samples; at 16,384, where
+    these flows as initialised send samples past 1e3 and the two schedules'
+    fp32 roundings are amplified differently (the degree plain itself lies
+    up to 6.7 times further from float64 there than the fixed-point plain:
+    tools/degree_rounding.py), by chip_smoke.py's relative quantiles.
+    Returns the kernel's (y, lad)."""
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+
+    before = (maf_flow_kernel.launch_count, maf_flow_kernel.degree_launch_count)
+    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(x, fused._weights, fused._static,
+                                                  packed=fused._packed, rows=rows, **kw)
+    assert (maf_flow_kernel.launch_count, maf_flow_kernel.degree_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    ctx = kw.get("context")
+    w64 = {k: v.double() for k, v in fused._weights.items()}
+    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+        x.double(), w64, fused._static,
+        **{**kw, "context": None if ctx is None else ctx.double()})
+    for schedule in ("degrees", "fixed_point"):
+        p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(
+            x, fused._weights, fused._static, schedule=schedule, masks=fused._masks, **kw)
+        hold = _hold_relative if schedule == "fixed_point" and x.shape[0] >= 1000 else _hold
+        hold(y, p_y, d_y, 5e-3)
+        hold(lad, p_lad, d_lad, 5e-3)
+    return y, lad
+
+
 @pytest.mark.parametrize("kind", ["affine", "rq", "iaf"])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n", [203, 16384])
 def test_b9_matches_plain(cuda, kind, inverse, n):
     """203 leaves a ragged last tile of 32-sample tiles; 16,384 fills the
     card with 64-sample tiles. 5 features are padded to 8 input rows; the
-    IAF chain is wrapped, so its forward runs the fixed point."""
+    IAF chain is wrapped, so its forward runs the fixed point: on the
+    fixed-point kernel (forced) against its plain version, and by the route,
+    the degree kernel, as _hold_degree_route holds it."""
     from nflows_tpu_torch.ops.cuda import maf_flow_kernel
     from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
 
     fused = fuse_maf(_ar_flow(cuda, kind))
     x = torch.randn(n, 5, generator=torch.Generator().manual_seed(n)).to(cuda)
-    kw = dict(inverse=inverse, **_maf_kw(fused))
+    kw = dict(inverse=inverse, schedule="fixed_point", **_maf_kw(fused))
     before = maf_flow_kernel.launch_count
     y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
         x, fused._weights, fused._static, packed=fused._packed, **kw)
@@ -364,9 +414,12 @@ def test_b9_matches_plain(cuda, kind, inverse, n):
         **{**kw, "inverse": not inverse})
     _close(back, x, 5e-3)
     _close(lad_back, -lad, 5e-3)
+    if fixed_point:
+        _hold_degree_route(fused, x, dict(inverse=inverse, **_maf_kw(fused)))
 
 
 def test_b9_tile_sizes_agree_and_a_relaunch_is_independent(cuda):
+    """The fixed-point kernel's tiles (the degree kernel's: below)."""
     from nflows_tpu_torch.ops.cuda import maf_flow_kernel
     from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
 
@@ -374,7 +427,7 @@ def test_b9_tile_sizes_agree_and_a_relaunch_is_independent(cuda):
     x = torch.randn(1000, 5, generator=torch.Generator().manual_seed(1)).to(cuda)
     run = lambda rows: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
         x, fused._weights, fused._static, packed=fused._packed, inverse=True, rows=rows,
-        **_maf_kw(fused))
+        schedule="fixed_point", **_maf_kw(fused))
     y32, lad32 = run(32)
     y64, lad64 = run(64)
     again, lad_again = run(32)
@@ -404,6 +457,92 @@ def test_compiled_flow_serves_a_maf_with_one_launch_a_request(cuda):
     assert maf_flow_kernel.launch_count == b9 + 2
     assert torch.isfinite(s).all() and torch.isfinite(slp).all()
     _close(slp, fused.log_prob(s), 5e-3)
+
+
+@pytest.mark.parametrize("n,rows", [(203, 16), (203, 32), (16384, None)])
+@pytest.mark.parametrize("context", [None, 3])
+@pytest.mark.parametrize("kind", ["affine", "rq", "iaf"])
+def test_b9_degree_kernel_matches_both_plain_versions(cuda, kind, context, n, rows):
+    """B9's fixed point on the degree kernel (the MAF's and NSF-AR's
+    inverse, the IAF's forward) at 203 samples (a ragged last tile) on
+    either tile size, and at 16,384 at the wrapper's choice, against both
+    plain versions as _hold_degree_route holds it. Either tile size gives
+    the same samples."""
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+    from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
+
+    flow = _ar_flow(cuda, kind) if context is None else _cond_ar_flow(cuda, kind)
+    fused = fuse_maf(flow)
+    assert fused._packed["degrees"] is not None
+    g = torch.Generator().manual_seed(n + (rows or 0) + 7)
+    x = torch.randn(n, 5, generator=g).to(cuda)
+    ctx = None if context is None else torch.randn(n, context, generator=g).to(cuda)
+    kw = dict(inverse=kind != "iaf", context=ctx, **_maf_kw(fused))
+    y, lad = _hold_degree_route(fused, x, kw, rows=rows)
+    ref_y, ref_lad = maf_flow_kernel.maf_flow_kernel_cuda(
+        x, fused._weights, fused._static, packed=fused._packed, rows=16, **kw)
+    _close(y, ref_y, 1e-5)
+    _close(lad, ref_lad, 1e-5)
+
+
+@pytest.mark.parametrize("kind", ["maf", "nsf_ar", "iaf"])
+def test_b9_degree_kernel_in_bf16_matches_its_plain_versions(cuda, kind):
+    """The bf16 degree kernel at full width on the MAF's and NSF-AR's
+    inverse and the IAF's forward, against both bf16 plain versions."""
+    from nflows_tpu_torch import (
+        InverseAutoregressiveFlow,
+        MaskedAutoregressiveFlow,
+        NeuralSplineFlowAR,
+    )
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+    from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
+
+    gen = torch.Generator().manual_seed(14)
+    if kind == "nsf_ar":
+        flow = NeuralSplineFlowAR(10, 256, num_layers=5, num_blocks_per_layer=2, num_bins=8,
+                                  tail_bound=B, generator=gen, device=cuda).eval()
+    else:
+        cls = InverseAutoregressiveFlow if kind == "iaf" else MaskedAutoregressiveFlow
+        flow = _tame(cls(10, 256, 5, 2, generator=gen, device=cuda), "autoregressive_net")
+    f16, f32 = fuse_maf(flow, dtype=torch.bfloat16), fuse_maf(flow)
+    x = torch.randn(4001, 10, generator=torch.Generator().manual_seed(15)).to(cuda)
+    kw = dict(inverse=kind != "iaf", **_maf_kw(f16))
+    before = (maf_flow_kernel.bf16_launch_count, maf_flow_kernel.degree_launch_count)
+    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(x, f16._weights, f16._static,
+                                                  packed=f16._packed, **kw)
+    assert (maf_flow_kernel.bf16_launch_count, maf_flow_kernel.degree_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    p32 = maf_flow_kernel.maf_flow_kernel_plain(x, f32._weights, f32._static, **kw)
+    for schedule in ("fixed_point", "degrees"):
+        p16 = maf_flow_kernel.maf_flow_kernel_plain(x, f16._weights, f16._static,
+                                                    schedule=schedule, masks=f16._masks, **kw)
+        _bf16_hold(y, p16[0], p32[0], BF16_OUT)
+        _bf16_hold(lad, p16[1], p32[1], BF16_LAD)
+
+
+def test_b9_routes_by_shape_and_a_forced_schedule_is_kept(cuda):
+    from nflows_tpu_torch.ops.cuda import maf_flow_kernel
+    from nflows_tpu_torch.ops.cuda.maf_fused import fuse_maf
+
+    fused = fuse_maf(_ar_flow(cuda, "rq"))
+    x = torch.randn(300, 5, generator=torch.Generator().manual_seed(16)).to(cuda)
+    call = lambda **kw: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+        x, fused._weights, fused._static, **{**_maf_kw(fused), **kw})
+    counts = lambda: (maf_flow_kernel.launch_count,  # noqa: E731
+                      maf_flow_kernel.degree_launch_count)
+    c0 = counts()
+    call(inverse=False, packed=fused._packed)                          # one pass: B9
+    call(inverse=True, packed=fused._packed, schedule="fixed_point")   # forced
+    call(inverse=True, packed=fused._packed, rows=64)                  # the fixed point's tile
+    assert counts() == (c0[0] + 3, c0[1])
+    y, lad = call(inverse=True)          # no packing given: the degree layout is built here
+    assert counts() == (c0[0] + 4, c0[1] + 1)
+    again, lad_again = call(inverse=True, packed=fused._packed)
+    assert torch.equal(y, again) and torch.equal(lad, lad_again)
+    with pytest.raises(ValueError, match="one pass"):
+        call(inverse=False, schedule="degrees")
+    with pytest.raises(ValueError, match="tile of 48 samples"):
+        call(inverse=True, packed=fused._packed, schedule="degrees", rows=48)
 
 
 def _maf_trainer(device, kind, batch=128):
@@ -539,7 +678,9 @@ def test_b9_with_context_matches_plain(cuda, kind, inverse, n):
     g = torch.Generator().manual_seed(n + 2)
     x = torch.randn(n, 5, generator=g).to(cuda)
     ctx = torch.randn(n, 3, generator=g).to(cuda)
-    kw = dict(inverse=inverse, context=ctx, **_maf_kw(fused))
+    # the fixed point on the fixed-point kernel (forced), and at the end by
+    # the route, the degree kernel
+    kw = dict(inverse=inverse, context=ctx, schedule="fixed_point", **_maf_kw(fused))
     before = maf_flow_kernel.launch_count
     y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
         x, fused._weights, fused._static, packed=fused._packed, **kw)
@@ -562,6 +703,8 @@ def test_b9_with_context_matches_plain(cuda, kind, inverse, n):
     with pytest.raises(ValueError, match="pass the context"):
         maf_flow_kernel.maf_flow_kernel_cuda(x, fused._weights, fused._static,
                                              packed=fused._packed, **{**kw, "context": None})
+    if fixed_point:
+        _hold_degree_route(fused, x, dict(inverse=inverse, context=ctx, **_maf_kw(fused)))
 
 
 def _b10_case(device, kind, context, n):

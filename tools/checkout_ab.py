@@ -10,7 +10,9 @@ its own wrapper chooses. With ``--family maf``
 it times the autoregressive kernels instead: B9 forward and inverse at
 N = 4,096 and B10 at N = 512 and 4,096 on the full-width MAF
 (``chip_smoke.MAF``), and B9 forward and inverse and B10 at 512 on the
-NSF-AR (``chip_smoke.NSF_AR``), unconditional, random weights from seed 0.
+NSF-AR (``chip_smoke.NSF_AR``), unconditional, random weights from seed 0;
+the inverse on whichever kernel each side's wrapper routes it to (the
+degree kernel, where a checkout has one, else the fixed-point kernel).
 With ``--dtype bfloat16`` it times the serving kernels' bf16-weight
 instantiations instead, on the same models: B2 (forward and inverse on the
 flagship, forward on RealNVP), or with ``--family maf`` B9; both sides must
@@ -135,8 +137,10 @@ for tag, cls, cfg, sizes in (("maf_", MaskedAutoregressiveFlow, cs.MAF, (512, 40
     for inverse in (False, True):
         run = lambda: mfk.maf_flow_kernel_cuda(x, view._weights, view._static,
                                                packed=view._packed, inverse=inverse, **kw)
+        # "maf_": the fixed point runs on the degree kernel where a checkout
+        # has one (maf_degree_inverse_kernel), else on maf_flow_kernel
         out[tag + ("b9_inverse" if inverse else "b9_forward")] = cs.device_ms(
-            torch, run, 10 if inverse else 20, kernel="maf_flow_kernel")
+            torch, run, 10 if inverse else 20, kernel="maf_")
     if DTYPE == torch.bfloat16:
         continue
     trainer = maf_train.FusedMAFTrainer(flow, 512)

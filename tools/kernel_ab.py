@@ -1,19 +1,21 @@
 """A/B two versions of a whole-chain kernel on one card: B2
 (``nsf_flow_kernel``), the training kernel B3 (``nsf_train``), the
-autoregressive chain B9 (``maf_flow_kernel``) or its backward B10
-(``maf_train``).
+autoregressive chain B9 (``maf_flow_kernel``, its fixed point forced to
+that kernel with ``schedule="fixed_point"``; ``maf_degree_inverse``, the
+fixed point solved in degree order) or its backward B10 (``maf_train``).
 
     python3 tools/kernel_ab.py OLD_CSRC_DIR [STEM] [more old dirs]
 
 STEM is one of nsf_flow_kernel (the default), nsf_train, maf_flow_kernel,
-maf_train.
+maf_degree_inverse, maf_train.
 
 Builds ``OLD_CSRC_DIR/<kernel>.cu`` beside the checkout's own
 ``nflows_tpu_torch/csrc/<kernel>.cu`` (same nvcc flags), holds both against
 the kernel's plain version on the full-width flagship (random weights from
 seed 0), and times them in turns (old, new, new, old) with torch.profiler
 device time: B2 at N = 4,096 and 65,536, B3 at N = 512 and 4,096, B9 forward
-and inverse at N = 4,096 and B10 at N = 512 and 4,096 on the full-width MAF
+and inverse at N = 4,096 (the inverse on either of its kernels, the other
+one's time printed beside) and B10 at N = 512 and 4,096 on the full-width MAF
 (features 10, hidden 256, 5 layers, final-layer weights scaled as in
 chip_smoke.py). Further
 directories are timed as well, each in turns with the checkout's kernel.
@@ -52,7 +54,8 @@ def main(kernel: str, old_dirs) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line())
     declare = {"nsf_flow_kernel": nfk._declare, "nsf_train": nsf_train._declare,
-               "maf_flow_kernel": mfk._declare, "maf_train": maf_train._declare}[kernel]
+               "maf_flow_kernel": mfk._declare, "maf_degree_inverse": mfk._declare_degrees,
+               "maf_train": maf_train._declare}[kernel]
     new = _build.build_all()[kernel]
     declare(new)
     olds = []
@@ -64,8 +67,11 @@ def main(kernel: str, old_dirs) -> int:
         olds.append((f"old{i}" if i else "old", ctypes.CDLL(old_lib)))
         declare(olds[-1][1])
 
+    load_library = _build.load_library
+
     def use(lib):
-        _build.load_library = lambda stem, declare: lib
+        """Launch ``lib``'s kernel from now on; None: the checkout's own build."""
+        _build.load_library = load_library if lib is None else (lambda stem, declare: lib)
 
     flow = NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
                             rng=np.random.default_rng(0), device="cuda", **cs.FLAGSHIP)
@@ -82,7 +88,7 @@ def main(kernel: str, old_dirs) -> int:
         use(new)
         print(f"N={n} new, under load: {clocks_under_load(torch, run)}")
 
-    if kernel in ("maf_flow_kernel", "maf_train"):
+    if kernel in ("maf_flow_kernel", "maf_degree_inverse", "maf_train"):
         return maf_turns(torch, kernel, olds, new, use, turns, gen)
 
     if kernel == "nsf_flow_kernel":
@@ -143,11 +149,18 @@ def maf_turns(torch, kernel, olds, new, use, turns, gen):
     w = {k: v.detach().contiguous() for k, v in trainer._fold(trainer.weights).items()}
     layers, static = trainer._layers, trainer._static
     packed = mfk.pack_weights(w, layers, static["num_blocks"])
-    if kernel == "maf_flow_kernel":
+    packed["degrees"] = mfk.pack_degree_order(w, layers, static["num_blocks"])
+    if kernel != "maf_train":
+        # the source under test takes its direction(s); the fixed point's
+        # other kernel runs as the checkout builds it, for its time beside
         x = torch.randn(4096, D, generator=gen).cuda()
-        for inverse in (False, True):
-            kw = dict(inverse=inverse, **static)
-            p_y, p_lad = mfk.maf_flow_kernel_plain(x, w, layers, **kw)
+        ours = "fixed_point" if kernel == "maf_flow_kernel" else "degrees"
+        other = {"fixed_point": ("degrees", "maf_degree_inverse"),
+                 "degrees": ("fixed_point", "maf_flow_kernel")}[ours]
+        for inverse in ((False, True) if ours == "fixed_point" else (True,)):
+            kw = dict(inverse=inverse, schedule=ours if inverse else None, **static)
+            p_y, p_lad = mfk.maf_flow_kernel_plain(x, w, layers, schedule=ours, **static,
+                                                   inverse=inverse)
             for tag, lib in (*olds, ("new", new)):
                 use(lib)
                 y, lad = mfk.maf_flow_kernel_cuda(x, w, layers, packed=packed, **kw)
@@ -156,7 +169,12 @@ def maf_turns(torch, kernel, olds, new, use, turns, gen):
                       f"|lad-plain| {cs.max_err(lad, p_lad):.3e}")
             turns(4096, "inverse" if inverse else "forward",
                   lambda: mfk.maf_flow_kernel_cuda(x, w, layers, packed=packed, **kw),  # noqa: B023
-                  "maf_flow_kernel")
+                  kernel)
+        use(None)
+        run = lambda: mfk.maf_flow_kernel_cuda(  # noqa: E731
+            x, w, layers, packed=packed, inverse=True, schedule=other[0], **static)
+        print(f"N=4096 inverse on the checkout's {other[1]}: "
+              f"{cs.device_ms(torch, run, 10, kernel=other[1]):.4f} device ms")
         return 0
     for n in (512, 4096):
         x = (1.5 * torch.randn(n, D, generator=gen)).cuda()
@@ -200,7 +218,8 @@ def clocks_under_load(torch, fn, seconds=1.0):
 
 
 if __name__ == "__main__":
-    STEMS = ("nsf_flow_kernel", "nsf_train", "maf_flow_kernel", "maf_train")
+    STEMS = ("nsf_flow_kernel", "nsf_train", "maf_flow_kernel", "maf_degree_inverse",
+             "maf_train")
     dirs = [a for a in sys.argv[1:] if a not in STEMS]
     kernels = [a for a in sys.argv[1:] if a in STEMS]
     if not dirs or len(kernels) > 1:
