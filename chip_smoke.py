@@ -95,6 +95,15 @@ the cluster size of the fused step's B3. After phase 21, B4 holds the one
 tie it has met (``TIE_X``) at every cluster size: the other rows within
 the band, each copy of the tie's row within it or shown to be the float64
 cotangent of the row moved by 1e-6.
+B10 likewise (phases 11 and 27: the MAF, the NSF-AR, the conditional MAF
+and NSF-AR, the IAF's inverse direction with and without a context): at
+512 and 2,048 at the cluster size its wrapper chooses and at every other
+one (one block a tile, csrc/maf_train.cu; clusters of 2, 4 and 8 blocks,
+csrc/maf_train_cluster.cu), each held to the plain version in the same
+bands, and timed at every size at 512, 2,048 and 4,096 beside the
+clusters of each size the card holds at once; the fused MAF, conditional
+MAF and IAF steps (phases 12, 29, 30) check that their B10 ran once at the
+chosen size and print that size at each timed batch.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
@@ -104,7 +113,11 @@ line ``{"kernels": [...]}`` with each kernel's launches on the main path
 and B12; B9's row also counts a sampling request's launches of the degree
 kernel as ``degree_launches``, and carries the fixed point's times on both
 kernels as ``inverse_ms`` and ``inverse_fixed_point_ms``; B10's row also
-counts a reverse-KL step as ``inverse_launches``;
+counts a reverse-KL step as ``inverse_launches``, and carries its cluster
+layout: ``cluster_source``, the chosen ``cluster_size`` and
+``ms_by_cluster_size`` at each batch, ``active_clusters``, each phase's
+launches by cluster size (``cluster_launches_by_phase``) and the fused
+steps' cluster size and wall time by batch (``cluster_steps``);
 the rows ``B2_bf16``, ``B9_bf16`` and ``B11_bf16``, the bf16-weight
 instantiations, count a bf16 request through ``CompiledFlow`` and carry
 the fp32 instantiation's time beside theirs as ``fp32_ms``),
@@ -180,7 +193,13 @@ number, and the ratio of two such draws spreads: 0.6 to 3.5 over the same
 seeds, hence ten. B9 with 32- against
 64-sample tiles: 1e-5, a sample's arithmetic does not depend on its tile.
 B10: as B4 (gradient stacks
-2e-4, gx x N 5e-3). Masked weights after 20 Adam steps: bit-equal.
+2e-4, gx x N 5e-3), save for the one tie B10 has met (``B10_TIE``): on
+that batch and at that cluster size the other samples hold the band, and
+that sample holds it or is a tie, the float64 cotangent at the sample
+moved by 1e-7, 1e-6 or 1e-5 along one feature lying within the band of
+the kernel's and moving by at least half the error there (the far side of
+a kink of the chain that close). Masked weights after 20 Adam steps:
+bit-equal.
 B2, B3 and B4 with a context: the same bands as without (the context adds
 C-deep fp32 GEMMs and a sigmoid gate to the same chain); B4's cotangent of
 the context x N 5e-3 like gx x N. They are held on the conditional flagship
@@ -272,6 +291,15 @@ TIE_GY = ("-0x1.dfbc7cp-13", "0x1.4e35cap-11", "-0x1.76f784p-12", "0x1.25daa6p-1
           "0x1.3ef326p-13", "0x1.b3ca6ap-11")
 TIE_GLAD = "-0x1.edaa94p-12"
 TIE_N = 2048
+# A tie that B10 has met: sample 1,927 of the NSF-AR's inputs at N = 2,048 in
+# phase 11 (drawn from a generator seeded 2,048), at one block a tile. Its
+# path passes 7.3e-7 from a knot of the last layer's spline, where fp32
+# rounding moves that input by 4.9e-7; csrc/maf_train.cu lands 0.386 off the
+# float64 gx x N and 9.6e-6 from the float64 cotangent at the sample moved by
+# 1e-5 along one feature, the cluster kernel on the near side (PERF.md §6,
+# tools/b10_tie_probe.py).
+B10_TIE = dict(model="NSF-AR", n=2048, sample=1927, cluster=1)
+TIE_STEPS = (1e-7, 1e-6, 1e-5)
 # the autoregressive family at full width: MAF (affine) and NSF-AR (rq)
 MAF = dict(features=10, hidden_features=256, num_layers=5, num_blocks_per_layer=2)
 NSF_AR = dict(**MAF, num_bins=8, tail_bound=3.0)
@@ -391,6 +419,51 @@ def hold(name, kernel, plain32, plain64, tol, rel=None):
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err_kp
+
+
+def moved_cotangents(backward, x, gy, glad, step, context=None):
+    """``backward``'s (gx, gradients) in float64 at one sample (x, gy, glad
+    and the context, rows [1, .]) moved by -step, +step along each feature
+    in turn: row e has feature e // 2 moved, by +step where e is odd.
+    ``backward(x, gy, glad, context=)`` is a plain backward (B4's, B10's)
+    on fixed weights."""
+    m = 2 * x.shape[1]
+    rows = x.double().repeat(m, 1)
+    for e in range(m):
+        rows[e, e // 2] += step if e % 2 else -step
+    return backward(rows, gy.double().repeat(m, 1), glad.double().repeat(m),
+                    context=None if context is None else context.double().repeat(m, 1))
+
+
+def hold_b10_tie(torch, got, plain, exact, backward, x, gy, glad, ind=""):
+    """``hold`` of B10's gx x N on ``B10_TIE``'s batch and cluster size, save
+    for its sample: the other samples as ``hold``; that sample within the
+    band of float64, or a tie: the float64 cotangent at the sample moved by
+    one of ``TIE_STEPS`` along one feature (``moved_cotangents`` of the
+    float64 plain ``backward``) lies within the band of the kernel's and
+    moves by at least half the error there. Returns (max |kernel - plain|
+    over the other samples, what the tie showed)."""
+    n, s, tol = B10_TIE["n"], B10_TIE["sample"], 5e-3
+    rest = torch.arange(n, device=got.device) != s
+    err_kp = hold(f"{ind}gx * N, all samples but {s}", got[rest] * n, plain[rest] * n,
+                  exact[rest] * n, tol)
+    err = float((got[s].double() - exact[s]).abs().max()) * n
+    seen = []
+    for step in TIE_STEPS:
+        m_gx, _ = moved_cotangents(backward, x[s:s + 1], gy[s:s + 1], glad[s:s + 1], step)
+        near = (m_gx - got[s].double()).abs().amax(1) * n
+        e = int(near.argmin())
+        seen.append((float(near[e]), step, e, float((m_gx[e] - exact[s]).abs().max()) * n))
+    near, step, e, move = min(seen)
+    ok = err <= tol or (near <= tol and move >= 0.5 * err)
+    log(f"  {ind}gx * N, sample {s}: |kernel-f64| {err:.3e}; nearest float64 cotangent at the "
+        f"sample moved by {'+' if e % 2 else '-'}{step:.0e} along feature {e // 2}: "
+        f"{near:.3e}, which moves by {move:.3e} there; tol {tol:.0e}  "
+        f"{('ok' if err <= tol else 'a tie') if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"B10 on the held tie: sample {s} is past the band and is not a tie")
+    return err_kp, dict(sample=s, err=err, nearest_moved=near, step=step, move=move,
+                        tie=err > tol)
 
 
 def hold_exact(name, kernel, plain32, plain64, tol):
@@ -704,13 +777,14 @@ def main() -> int:
         nsf_train.bwd_launch_count = 0
         maf_flow_kernel.launch_count = 0
         maf_flow_kernel.degree_launch_count = 0
-        maf_train.bwd_launch_count = 0
         mademog_fused.launch_count = 0
         mademog_train.bwd_launch_count = 0
         for module in (lrs_spline, linear_spline, quadratic_spline, cubic_spline):
             module.launch_count = 0
         for module in (nsf_flow_kernel, maf_flow_kernel, mademog_fused):
             module.bf16_launch_count = 0
+        for cs in maf_train.cluster_launch_count:
+            maf_train.cluster_launch_count[cs] = 0
 
     def read_counts():
         return {"B1": rq_spline.launch_count, "B2": nsf_flow_kernel.launch_count,
@@ -723,6 +797,11 @@ def main() -> int:
                 "B9_bf16": maf_flow_kernel.bf16_launch_count,
                 "B9_degree": maf_flow_kernel.degree_launch_count,
                 "B11_bf16": mademog_fused.bf16_launch_count}
+
+    def b10_layouts():
+        """B10's launches since the last reset by cluster size (1: one block
+        a tile, csrc/maf_train.cu; 2, 4, 8: csrc/maf_train_cluster.cu)."""
+        return {cs: c for cs, c in maf_train.cluster_launch_count.items() if c}
 
     def expect_counts(what, counts, **expected):
         expected = {**{k: 0 for k in counts}, **expected}
@@ -1470,6 +1549,35 @@ def main() -> int:
     serve("NSF-AR", nsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA), fused_sample=ar_sample)
 
     # -- phase 11: B10 against its plain version (full-width MAF and NSF-AR) --------
+    def b10_occupancy(d):
+        """The clusters of each size of B10's cluster kernel the card holds
+        at once, at the shared memory of chain dims ``d``."""
+        return {c: maf_train.active_clusters(dev, d["C"], c, maf_train.shared_memory_bytes(
+            32, d["D"], d["L"], d["H"], d["P"], d["C"], c)) for c in maf_train.CLUSTER_SIZES}
+
+    def b10_every_cluster(chosen, call, check):
+        """B10 at every cluster size its 32-sample tiles can take other than
+        ``chosen`` (one block a tile, csrc/maf_train.cu, and clusters of 2, 4
+        and 8, csrc/maf_train_cluster.cu): ``call(c)`` launches it, and
+        ``check(c, gx, grads, indent)`` holds the result and returns the
+        errors."""
+        errs = []
+        for c in (1, *maf_train.CLUSTER_SIZES):
+            if c == chosen:
+                continue
+            log(f"  cluster size {c}:")
+            gx, grads = call(c)
+            torch.cuda.synchronize()
+            errs += check(c, gx, grads, "  ")
+        return errs
+
+    def b10_cluster_times(call):
+        """B10's device ms at each cluster size, 32-sample tiles: {CS: ms}."""
+        return {c: device_ms(torch, lambda: call(c), 10, kernel="maf_train_bwd")  # noqa: B023
+                for c in (1, *maf_train.CLUSTER_SIZES)}
+
+    b10_tie = {}   # what B10_TIE showed
+
     b10 = {}
     mstacks = maf_train.WEIGHT_KEYS
     for model, ar_flow in (("MAF", maf), ("NSF-AR", nsf_ar)):
@@ -1483,11 +1591,17 @@ def main() -> int:
         ar_bytes = 4 * sum(v.numel() for v in f32.values())
         need = masked_ops(1, ar_flow)
         mpacked = maf_flow_kernel.pack_weights(f32, mtr._layers, nba)
-        for n in (TRAIN_BATCH, SERVE_BATCH):
-            log(f"B10 on {model} at N={n}:")
-            x = (1.5 * torch.randn(n, DA, generator=gen)).to(dev)
-            gy = (torch.randn(n, DA, generator=gen) / n).to(dev)
-            glad = (torch.randn(n, generator=gen) / n).to(dev)
+        active = b10_occupancy(mtr._dims)
+        # the inputs at 2,048 come from a generator of their own, so that the
+        # shared one draws what it drew before that size was added
+        for n in (TRAIN_BATCH, 2048, SERVE_BATCH):
+            draw = torch.Generator().manual_seed(n) if n == 2048 else gen
+            x = (1.5 * torch.randn(n, DA, generator=draw)).to(dev)
+            gy = (torch.randn(n, DA, generator=draw) / n).to(dev)
+            glad = (torch.randn(n, generator=draw) / n).to(dev)
+            rows, chosen, grid = maf_train.launch_layout(n, mtr._dims, dev)
+            log(f"B10 on {model} at N={n}: {-(-n // rows)} tiles of {rows} samples, cluster "
+                f"size {chosen} (grid {grid}); active clusters by size {active}")
             gx, grads = maf_train.maf_train_bwd_cuda(x, gy, glad, f32, mtr._layers, **mkw)
             p_gx, p_grads = maf_train.maf_train_bwd_plain(x, gy, glad, f32, mtr._layers, **mkw)
             d_gx, d_grads = maf_train.maf_train_bwd_plain(
@@ -1496,14 +1610,31 @@ def main() -> int:
             if not all(torch.isfinite(t).all() for t in (gx, *grads.values())):
                 raise AssertionError("B10 produced non-finite values")
             log(f"  largest |gx * N|: {float((d_gx * n).abs().max()):.3f}")
-            errs = [hold("gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)]
-            errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4) for k in mstacks]
+
+            def check(c, gx, grads, ind=""):  # noqa: B023 (used in its iteration)
+                if (model, n, c) == (B10_TIE["model"], B10_TIE["n"], B10_TIE["cluster"]):
+                    gx_err, b10_tie[(model, n, c)] = hold_b10_tie(
+                        torch, gx, p_gx, d_gx, lambda *a, **kw: maf_train.maf_train_bwd_plain(
+                            *a, f64, mtr._layers, **kw, **mkw), x, gy, glad, ind)  # noqa: B023
+                else:
+                    gx_err = hold(f"{ind}gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)
+                return [gx_err] + [hold(f"{ind}g{k}", grads[k], p_grads[k], d_grads[k], 2e-4)
+                                   for k in mstacks]
+
+            errs = check(chosen, gx, grads)
+            if n != SERVE_BATCH:
+                errs += b10_every_cluster(chosen, lambda c: maf_train.maf_train_bwd_cuda(
+                    x, gy, glad, f32, mtr._layers, rows=32, cluster=c, **mkw),  # noqa: B023
+                    check)
             run = lambda: maf_train.maf_train_bwd_cuda(  # noqa: E731
                 x, gy, glad, f32, mtr._layers, packed=mpacked, grads=grads, **mkw)
             run_plain = lambda: maf_train.maf_train_bwd_plain(  # noqa: E731
                 x, gy, glad, f32, mtr._layers, **mkw)
-            ms = device_ms(torch, run, 10, kernel="maf_train_bwd_kernel")
+            ms = device_ms(torch, run, 10, kernel="maf_train_bwd")
             ms_source = device_ms.source
+            by_cluster = b10_cluster_times(lambda c: maf_train.maf_train_bwd_cuda(  # noqa: B023
+                x, gy, glad, f32, mtr._layers, packed=mpacked, grads=grads, rows=32,
+                cluster=c, **mkw))
             plain_ms = device_ms(torch, run_plain, 3)
             # recompute, input cotangents and weight gradients, each over the
             # weights the masks leave; the kernel runs the three dense
@@ -1511,15 +1642,39 @@ def main() -> int:
             run_ops = 3 * dense_ops(n, P)
             io_bytes = 2 * ar_bytes + 4 * n * (3 * DA + 1)
             bound_ms, bound_by = bound(nops, io_bytes)
-            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by}, {nops / 1e9:.2f} GFLOP needed); the kernel's schedule multiplies "
-                f"{run_ops / 1e9:.1f} GFLOP ({bound(run_ops, io_bytes)[0]:.4f} ms at the peak "
-                f"rate), {run_ops / ms / 1e9:.1f} TFLOP/s")
+            log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain {plain_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
+                f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
+                f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
+                f"{run_ops / ms / 1e9:.1f} TFLOP/s; by cluster size "
+                f"{json.dumps({c: round(t, 4) for c, t in by_cluster.items()})}")
             b10[(model, n)] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
                                    bound_ms=bound_ms, bound_by=bound_by,
-                                   schedule_ms=bound(run_ops, io_bytes)[0])
+                                   schedule_ms=bound(run_ops, io_bytes)[0], cluster_size=chosen,
+                                   ms_by_cluster_size=by_cluster, active_clusters=active)
 
     # -- phase 12: training the MAF on the card ----------------------------------------
+    b10_phase_launches = {}   # B10's launches a fused step by cluster size, by phase
+    b10_step_clusters = {}    # B10's cluster size and the fused step's ms by batch
+
+    def b10_step_layout(phase, trainer, n):
+        """Check that the fused step just taken launched B10 once, at the
+        cluster size the wrapper chooses for batch n, and keep its
+        launches by cluster size for the kernels line."""
+        counts = b10_layouts()
+        _, chosen, grid = maf_train.launch_layout(n, trainer._dims, dev)
+        log(f"  its B10: cluster size {chosen}, grid {grid}; launches by cluster size {counts}")
+        if counts != {chosen: 1}:
+            raise AssertionError(f"{phase}: B10 ran {counts}, expected once at cluster size "
+                                 f"{chosen}")
+        b10_phase_launches[phase] = counts
+
+    def b10_step_cluster(n, trainer):
+        rows, chosen, grid = maf_train.launch_layout(n, trainer._dims, dev)
+        log(f"  batch {n}: the fused step's B10 runs {-(-n // rows)} tiles of {rows} samples at "
+            f"cluster size {chosen} (grid {grid})")
+        return {"cluster_size": chosen}
+
     mix_a = torch.randn(DA, DA, generator=gen).to(dev) / DA ** 0.5
     mix_c = torch.randn(MOG_CONTEXT, DA, generator=gen).to(dev) / MOG_CONTEXT ** 0.5
 
@@ -1568,6 +1723,7 @@ def main() -> int:
             if name == "fused":
                 (launches if context_features is None else context_launches)["B10"] = \
                     counts["B10"]
+                b10_step_layout(f"{model} train", fused_tr, TRAIN_BATCH)
             rest = [steps[name](*batch) for batch in data[1:]]
             curve = losses[name] = [float(v) for v in [first, *rest]]
             log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
@@ -1612,11 +1768,15 @@ def main() -> int:
         def fold(n, fused_tr, steps, args):
             ms = device_ms(torch, lambda: fused_tr._repack(fused_tr._fold(fused_tr.weights)), 20)
             log(f"  batch {n}: folding the masks and re-packing the weights {ms:.4f} ms a step")
+            b10_step_clusters[f"{model} train"][n] = b10_step_cluster(n, fused_tr)
             if n == TRAIN_BATCH:
                 log(f"{model}'s fused step at batch {n}:")
                 host_ops(lambda: steps["fused"](*args[0]))
 
-        time_steps(f"{model} train", timed_routes, "maf", extra=fold)
+        b10_step_clusters[f"{model} train"] = {}
+        walls = time_steps(f"{model} train", timed_routes, "maf", extra=fold)
+        for n, layout in b10_step_clusters[f"{model} train"].items():
+            layout["fused_step_ms"] = walls[("fused", n)]
 
     train_ar("MAF", maf)
 
@@ -1999,12 +2159,9 @@ def main() -> int:
     p_gx, _ = nsf_train.nsf_train_bwd_plain(x, gy, glad, tie_w, tie_idx, **tie_kw)
     d_gx, _ = nsf_train.nsf_train_bwd_plain(x.double(), gy.double(), glad.double(), tie_w64,
                                             tie_idx, **tie_kw)
-    moved = x[:1].double().repeat(2 * D, 1)
-    for e in range(2 * D):
-        moved[e, e // 2] += 1e-6 if e % 2 else -1e-6
-    m_gx, _ = nsf_train.nsf_train_bwd_plain(moved, gy[:1].double().repeat(2 * D, 1),
-                                            glad[:1].double().repeat(2 * D), tie_w64, tie_idx,
-                                            **tie_kw)
+    m_gx, _ = moved_cotangents(
+        lambda *a, **kw: nsf_train.nsf_train_bwd_plain(*a, tie_w64, tie_idx, **kw, **tie_kw),
+        x[:1], gy[:1], glad[:1], 1e-6)
     moves = (m_gx - d_gx[:1]).abs().amax(1) * TIE_N   # the float64 cotangent's move
     tie = dict(plain_err=float((p_gx[0].double() - d_gx[0]).abs().max()) * TIE_N,
                largest_move=float(moves.max()), by_cluster_size={})
@@ -2252,19 +2409,25 @@ def main() -> int:
                              schedule_ms=bound(run_ops, io_bytes)[0])
         b9_ctx[model] = stats
 
-    def hold_b10(model, trainer, n, context_features):
+    def hold_b10(model, trainer, n, context_features, draw):
         """B10 on ``trainer``'s folded weights against its plain version at
         batch n (with N(0, 1) context rows where the trainer is
-        conditional): errors, time, bound."""
+        conditional; inputs from the generator ``draw``), at the cluster
+        size the wrapper chooses and, below the serving batch, at every
+        other one: errors, times by cluster size, bound."""
         f32 = {k: v.detach().contiguous() for k, v in trainer._fold(trainer.weights).items()}
         f64 = {k: v.double() for k, v in f32.items()}
         mkw = dict(wh_scale=trainer._wh_scale, direction=trainer._direction, **trainer._static)
-        x = (1.5 * torch.randn(n, DA, generator=gen)).to(dev)
-        gy = (torch.randn(n, DA, generator=gen) / n).to(dev)
-        glad = (torch.randn(n, generator=gen) / n).to(dev)
+        x = (1.5 * torch.randn(n, DA, generator=draw)).to(dev)
+        gy = (torch.randn(n, DA, generator=draw) / n).to(dev)
+        glad = (torch.randn(n, generator=draw) / n).to(dev)
         ctx = (None if context_features is None
-               else torch.randn(n, context_features, generator=gen).to(dev))
-        log(f"B10 ({trainer._direction}) on the {model} at N={n}:")
+               else torch.randn(n, context_features, generator=draw).to(dev))
+        rows, chosen, grid = maf_train.launch_layout(n, trainer._dims, dev)
+        active = b10_occupancy(trainer._dims)
+        log(f"B10 ({trainer._direction}) on the {model} at N={n}: {-(-n // rows)} tiles of "
+            f"{rows} samples, cluster size {chosen} (grid {grid}); active clusters by size "
+            f"{active}")
         gx, grads = maf_train.maf_train_bwd_cuda(x, gy, glad, f32, trainer._layers,
                                                  context=ctx, **mkw)
         p_gx, p_grads = maf_train.maf_train_bwd_plain(x, gy, glad, f32, trainer._layers,
@@ -2276,20 +2439,31 @@ def main() -> int:
         if not all(torch.isfinite(t).all() for t in (gx, *grads.values())):
             raise AssertionError("B10 produced non-finite values")
         log(f"  largest |gx * N|: {float((d_gx * n).abs().max()):.3f}")
-        errs = [hold("gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)]
-        if ctx is not None:
-            errs.append(hold("gctx * N", grads["ctx"] * n, p_grads["ctx"] * n,
-                             d_grads["ctx"] * n, 5e-3))
-        errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4, rel=1e-3)
-                 for k in grads if k != "ctx"]
+
+        def check(c, gx, grads, ind=""):
+            pairs = [("gx", gx, p_gx, d_gx)] + ([("gctx", grads["ctx"], p_grads["ctx"],
+                                                  d_grads["ctx"])] if ctx is not None else [])
+            errs = [hold(f"{ind}{k} * N", got * n, plain * n, exact * n, 5e-3)
+                    for k, got, plain, exact in pairs]
+            return errs + [hold(f"{ind}g{k}", grads[k], p_grads[k], d_grads[k], 2e-4, rel=1e-3)
+                           for k in grads if k != "ctx"]
+
+        errs = check(chosen, gx, grads)
+        if n != SERVE_BATCH:
+            errs += b10_every_cluster(chosen, lambda c: maf_train.maf_train_bwd_cuda(
+                x, gy, glad, f32, trainer._layers, context=ctx, rows=32, cluster=c, **mkw),
+                check)
         packed = maf_flow_kernel.pack_weights(f32, trainer._layers, nba)
         out = {k: v for k, v in grads.items() if k != "ctx"}
         run = lambda: maf_train.maf_train_bwd_cuda(  # noqa: E731
             x, gy, glad, f32, trainer._layers, context=ctx, packed=packed, grads=out, **mkw)
         run_plain = lambda: maf_train.maf_train_bwd_plain(  # noqa: E731
             x, gy, glad, f32, trainer._layers, context=ctx, **mkw)
-        ms = device_ms(torch, run, 10, kernel="maf_train_bwd_kernel")
+        ms = device_ms(torch, run, 10, kernel="maf_train_bwd")
         ms_source = device_ms.source
+        by_cluster = b10_cluster_times(lambda c: maf_train.maf_train_bwd_cuda(
+            x, gy, glad, f32, trainer._layers, context=ctx, packed=packed, grads=out, rows=32,
+            cluster=c, **mkw))
         plain_ms = device_ms(torch, run_plain, 3)
         P = trainer._dims["P"]
         w_bytes = 4 * sum(v.numel() for v in f32.values())
@@ -2298,26 +2472,32 @@ def main() -> int:
         run_ops = 3 * (dense_ops(n, P) + cops)
         io_bytes = 2 * w_bytes + 4 * n * (3 * DA + 1 + (0 if ctx is None else 2 * C))
         bound_ms, bound_by = bound(nops, io_bytes)
-        log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-            f"({bound_by}, {nops / 1e9:.2f} GFLOP needed); the kernel's schedule multiplies "
-            f"{run_ops / 1e9:.1f} GFLOP ({bound(run_ops, io_bytes)[0]:.4f} ms at the peak "
-            f"rate), {run_ops / ms / 1e9:.1f} TFLOP/s")
+        log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain {plain_ms:.4f} ms  "
+            f"bound {bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
+            f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
+            f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
+            f"{run_ops / ms / 1e9:.1f} TFLOP/s; by cluster size "
+            f"{json.dumps({c: round(t, 4) for c, t in by_cluster.items()})}")
         return dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
-                    schedule_ms=bound(run_ops, io_bytes)[0])
+                    schedule_ms=bound(run_ops, io_bytes)[0], cluster_size=chosen,
+                    ms_by_cluster_size=by_cluster, active_clusters=active)
 
+    # the inputs at 2,048 come from a generator of their own, so that the
+    # shared one draws what it drew before that size was added
     b10_ctx, b10_inv = {}, {}
     for model, ar_flow, cf, sizes in (
-            ("conditional MAF", cmaf, C, (TRAIN_BATCH, SERVE_BATCH)),
-            ("conditional NSF-AR", cnsf_ar, C, (TRAIN_BATCH,)),
-            ("IAF", iaf_full, None, (TRAIN_BATCH, SERVE_BATCH)),
-            ("conditional IAF", ciaf, C, (TRAIN_BATCH,))):
+            ("conditional MAF", cmaf, C, (TRAIN_BATCH, 2048, SERVE_BATCH)),
+            ("conditional NSF-AR", cnsf_ar, C, (TRAIN_BATCH, 2048)),
+            ("IAF", iaf_full, None, (TRAIN_BATCH, 2048, SERVE_BATCH)),
+            ("conditional IAF", ciaf, C, (TRAIN_BATCH, 2048))):
         trainer = fused_trainer(ar_flow, TRAIN_BATCH)
         want = maf_train.FusedIAFTrainer if "IAF" in model else maf_train.FusedMAFTrainer
         if type(trainer) is not want:
             raise AssertionError(f"fused_trainer gave {type(trainer).__name__} for {model}")
         for n in sizes:
-            stats = hold_b10(model, trainer, n, cf)
+            draw = torch.Generator().manual_seed(n + len(model)) if n == 2048 else gen
+            stats = hold_b10(model, trainer, n, cf, draw)
             (b10_inv if "IAF" in model else b10_ctx)[(model, n)] = stats
 
     # -- phase 28: serving the conditional MAF and NSF-AR through CompiledFlow ----------
@@ -2395,6 +2575,7 @@ def main() -> int:
         expect_counts(f"one {name} IAF step", counts, **expected)
         if name == "fused":
             vi_launches = counts["B10"]
+            b10_step_layout("IAF reverse-KL", iaf_tr, TRAIN_BATCH)
         rest = [steps[name](g) for g in gens[1:]]
         vi_losses[name] = [float(v) for v in [first, *rest]]
         log(f"  {TRAIN_STEPS} Adam steps (lr 1e-3, batch {TRAIN_BATCH}): loss "
@@ -2444,6 +2625,7 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = read_counts()
     expect_counts("one conditional IAF step", counts, B9=1, B10=1)
+    b10_step_layout("conditional IAF reverse-KL", ctr, TRAIN_BATCH)
     closs = [float(first)] + [float(cstep(cgen, cctx)) for _ in range(TRAIN_STEPS - 1)]
     log(f"training the conditional IAF (context {C}) by reverse KL: launches a step {counts}; "
         f"loss {closs[0]:.4f} -> {closs[-1]:.4f}")
@@ -2455,11 +2637,15 @@ def main() -> int:
         return steps, [(torch.Generator(device=dev).manual_seed(80 + i),) for i in range(4)], tr
 
     def vi_host_ops(n, tr, steps, args):
+        b10_step_clusters["IAF reverse-KL"][n] = b10_step_cluster(n, tr)
         if n == TRAIN_BATCH:
             log(f"the IAF's fused reverse-KL step at batch {n}:")
             host_ops(lambda: steps["fused"](*args[0]))
 
-    time_steps("IAF reverse-KL", timed_vi_routes, "iaf", extra=vi_host_ops)
+    b10_step_clusters["IAF reverse-KL"] = {}
+    walls = time_steps("IAF reverse-KL", timed_vi_routes, "iaf", extra=vi_host_ops)
+    for n, layout in b10_step_clusters["IAF reverse-KL"].items():
+        layout["fused_step_ms"] = walls[("fused", n)]
 
     # -- phase 31: bf16 weights: B2, B9 and B11 against their bf16 plain versions ----
     # the JAX package's default deployment (fuse_*(dtype=bfloat16)) on the
@@ -2728,6 +2914,19 @@ def main() -> int:
                 "cluster_size_at_2048": per_n[2048]["cluster_size"],
                 "ms_by_cluster_size_at_2048": per_n[2048]["ms_by_cluster_size"]}
 
+    def b10_at_batches(stats, model):
+        """B10's numbers on ``model`` at the training batch, with its time,
+        cluster size and times by cluster size at 2,048 and the serving
+        batch where it was run there."""
+        out = dict(stats[(model, TRAIN_BATCH)])
+        for n in (2048, SERVE_BATCH):
+            if (model, n) in stats:
+                out.update({f"ms_at_{n}": stats[(model, n)]["ms"],
+                            f"cluster_size_at_{n}": stats[(model, n)]["cluster_size"],
+                            f"ms_by_cluster_size_at_{n}":
+                                stats[(model, n)]["ms_by_cluster_size"]})
+        return out
+
     uncond, cond = (m for m, _, _ in mog_models)
     rows = []
     for kid, stats, source, replaces, tpu in (
@@ -2780,15 +2979,20 @@ def main() -> int:
              "nflows_tpu/ops/pallas/maf_flow_kernel.py:99",
              "ops/pallas/maf_flow_kernel.py:_kernel"),
             ("B10", with_context(
-                {**b10[("MAF", TRAIN_BATCH)],
-                 **{f"inverse_{k}": v for k, v in b10_inv[("IAF", TRAIN_BATCH)].items()},
-                 f"inverse_ms_at_{SERVE_BATCH}": b10_inv[("IAF", SERVE_BATCH)]["ms"],
-                 "inverse_launches": vi_launches},
-                {**b10_ctx[("conditional MAF", TRAIN_BATCH)],
-                 f"ms_at_{SERVE_BATCH}": b10_ctx[("conditional MAF", SERVE_BATCH)]["ms"]},
+                {**b10_at_batches(b10, "MAF"),
+                 **{f"inverse_{k}": v
+                    for k, v in b10_at_batches(b10_inv, "IAF").items()},
+                 "inverse_launches": vi_launches,
+                 "families": {"NSF-AR": b10_at_batches(b10, "NSF-AR")}},
+                b10_at_batches(b10_ctx, "conditional MAF"),
                 context_launches=context_launches["B10"],
-                context_families={"NSF-AR": b10_ctx[("conditional NSF-AR", TRAIN_BATCH)],
-                                  "IAF": b10_inv[("conditional IAF", TRAIN_BATCH)]}),
+                context_families={"NSF-AR": b10_at_batches(b10_ctx, "conditional NSF-AR"),
+                                  "IAF": b10_at_batches(b10_inv, "conditional IAF")},
+                cluster_source="nflows_tpu_torch/csrc/maf_train_cluster.cu",
+                held_tie={f"{m} at N={n}, cluster size {c}": t
+                          for (m, n, c), t in b10_tie.items()},
+                cluster_launches_by_phase=b10_phase_launches,
+                cluster_steps=b10_step_clusters),
              "nflows_tpu_torch/csrc/maf_train.cu",
              "nflows_tpu/ops/pallas/maf_train.py:161",
              "ops/pallas/maf_train.py:_bwd_kernel"),

@@ -33,12 +33,14 @@
 //   g_t = g_y, g_x = g_y s. RQ: rq_spline_forward_adjoint
 //   (rq_spline_bwd.cuh), which also carries wh_scale to the width and
 //   height cotangents.
-// - A block walks over tiles of 32 samples (a persistent grid of at most
-//   one block an SM). Per tile: one forward pass that keeps each layer's
-//   input in shared memory and, in a per-block scratch in global memory,
-//   the hidden state before each residual block and after the last, the
-//   relu'd inner activation of each block and the transformer's parameters
-//   P; then the backward sweep over the layers.
+// - A block walks over tiles of 32 or 64 samples (a persistent grid of at
+//   most one block an SM). Where 32-sample tiles would leave SMs idle,
+//   maf_train_cluster.cu spreads each over a thread-block cluster instead
+//   (ops/cuda/maf_train.py: launch_layout). Per tile: one forward pass
+//   that keeps each layer's input in shared memory and, in a per-block
+//   scratch in global memory, the hidden state before each residual block
+//   and after the last, the relu'd inner activation of each block and the
+//   transformer's parameters P; then the backward sweep over the layers.
 // - Three GEMM shapes (tile_gemm.cuh): forward on the packed in-major
 //   weights B9 reads; input cotangents with the same routine on the
 //   [out][in] matrices, relu masks in its epilogue; weight gradients with
@@ -60,6 +62,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "maf_train.cuh"
 #include "rq_spline.cuh"
 #include "rq_spline_bwd.cuh"
 #include "tile_gemm.cuh"
@@ -73,83 +76,6 @@ using nflows::tile_gemm;
 using nflows::tile_wgrad;
 
 constexpr float kAffineEpsilon = 1e-3f;
-
-struct MafTrainArgs {
-  const float* x;     // [n][D]
-  const float* ctx;   // [n][C], null when C = 0
-  const float* gy;    // [n][D]  cotangent of the chain's output
-  const float* glad;  // [n]     cotangent of the logabsdet
-  float* gx;          // [n][D]  cotangent of x
-  float* gctx;        // [n][C]  cotangent of the context
-  int64_t n;
-  int D, L, H, D4, P, Pp, TB, nb2;
-  int C, C4;          // context features, and rounded up to a multiple of 4
-  int inverse;        // 0: forward through unwrapped layers; 1: back through wrapped ones
-  // forward weights, in-major and padded (maf_flow_kernel.py:pack_weights)
-  const float* pwi;  // [L][D4][H]
-  const float* pwb;  // [L][nb2][H][H]
-  const float* pwf;  // [L][H][Pp]
-  const float* pbf;  // [L][Pp]
-  const float* pwci;  // [L][C4][H]
-  const float* pwcb;  // [L][nb][C4][H]
-  // the extracted layout, [out][in], mask folded
-  const float* wi;   // [L][H][D]
-  const float* bi;   // [L][H]
-  const float* wb;   // [L][nb2][H][H]
-  const float* bb;   // [L][nb2][H]
-  const float* wf;   // [L][P][H]
-  const float* wci;  // [L][H][C]
-  const float* bci;  // [L][H]
-  const float* wcb;  // [L][nb][H][C]
-  const float* bcb;  // [L][nb][H]
-  const int* idx;    // [L][2 D + 1]: perm_rows, inv_perm_rows, wrapped
-  // gradients, in the extracted layout, zeroed by the caller
-  float* gwi;
-  float* gbi;
-  float* gwb;
-  float* gbb;
-  float* gwf;
-  float* gbf;
-  float* gwci;
-  float* gbci;
-  float* gwcb;
-  float* gbcb;
-  float* stash;  // [grid][L][(nb2 + 1) H + Pp][ROWS + 4]
-  int rq;        // 0: affine transformer, 1: RQ spline
-  float wh_scale;
-  nflows::RQConfig cfg;
-};
-
-// rows x [RS] floats from the block's scratch in global memory into shared
-// memory, relu'd on the way if asked. Read past L1: another tile of this
-// block wrote the same addresses before.
-template <int ROWS>
-__device__ __forceinline__ void restore(float* dst, const float* src, int rows, bool relu) {
-  constexpr int NT = ROWS * 8, RS = ROWS + 4;
-  for (int e = threadIdx.x; e < rows * (RS / 4); e += NT) {
-    float4 v = __ldcg(reinterpret_cast<const float4*>(src) + e);
-    if (relu) {
-      v.x = fmaxf(v.x, 0.0f); v.y = fmaxf(v.y, 0.0f);
-      v.z = fmaxf(v.z, 0.0f); v.w = fmaxf(v.w, 0.0f);
-    }
-    reinterpret_cast<float4*>(dst)[e] = v;
-  }
-}
-
-// gc[c][s] += sum_o W[o][c] g[o][s]: the cotangent of the C context
-// features through a projection W [H][C]. Each (c, s) belongs to one thread
-// in every call, so gc needs no barrier of its own.
-template <int ROWS>
-__device__ __forceinline__ void context_cotangent(const float* W, const float* g, int H, int C,
-                                                  float* gc) {
-  constexpr int NT = ROWS * 8, RS = ROWS + 4;
-  for (int e = threadIdx.x; e < C * ROWS; e += NT) {
-    const int c = e / ROWS, s = e % ROWS;
-    float sum = 0.0f;
-    for (int o = 0; o < H; ++o) sum += W[o * C + c] * g[o * RS + s];
-    gc[c * RS + s] += sum;
-  }
-}
 
 template <int ROWS, bool CTX>
 __global__ void __launch_bounds__(ROWS * 8) maf_train_bwd_kernel(MafTrainArgs a) {
@@ -406,45 +332,15 @@ int launch(const MafTrainArgs& a, int grid, cudaStream_t stream) {
 // forward direction (unwrapped layers), 1 the inverse (wrapped layers). C =
 // 0: no context (ctx, gctx and the context stacks and gradients may be
 // null). grid: blocks to launch; stash holds grid x L x ((nb2 + 1) H + Pp) x
-// (rows_per_block + 4) floats. rows_per_block: 32 or 64. Returns a
+// (rows_per_block + 4) floats. rows_per_block: 32 or 64; cluster_size: 1
+// (maf_train_cluster.cu spreads a tile over a cluster). Returns a
 // cudaError_t value (0 on success).
-extern "C" int maf_train_launch(
-    const float* x, const float* ctx, const float* gy, const float* glad, float* gx, float* gctx,
-    int64_t n, int D, int L, int H, int D4, int P, int Pp, int nb2, int C, int C4,
-    const float* pwi, const float* pwb, const float* pwf, const float* pbf, const float* pwci,
-    const float* pwcb, const float* wi, const float* bi, const float* wb, const float* bb,
-    const float* wf, const float* wci, const float* bci, const float* wcb, const float* bcb,
-    const int* idx, float* gwi, float* gbi, float* gwb, float* gbb, float* gwf, float* gbf,
-    float* gwci, float* gbci, float* gwcb, float* gbcb, float* stash, int grid, int inverse,
-    int transformer, float wh_scale, int num_bins, float tail_bound, float min_bin_width,
-    float min_bin_height, float min_derivative, int rows_per_block, void* stream) {
+extern "C" int maf_train_launch(MAF_TRAIN_LAUNCH_PARAMS) {
   if (n == 0) return 0;
-  if (H % 4 || D4 % 4 || Pp % 4 || nb2 % 2 || D4 < D || Pp < P || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  if (C < 0 || C4 % 4 || C4 < C || (C == 0 && C4 != 0) || (inverse != 0 && inverse != 1))
-    return (int)cudaErrorInvalidValue;
-  if (C > 0 && !(ctx && gctx && pwci && pwcb && wci && bci && wcb && bcb && gwci && gbci &&
-                 gwcb && gbcb))
-    return (int)cudaErrorInvalidValue;
-  if (transformer != 0 && transformer != 1) return (int)cudaErrorInvalidValue;
-  if (P != (transformer ? (3 * num_bins - 1) * D : 2 * D)) return (int)cudaErrorInvalidValue;
   MafTrainArgs a;
-  a.x = x; a.ctx = ctx; a.gy = gy; a.glad = glad; a.gx = gx; a.gctx = gctx; a.n = n;
-  a.C = C; a.C4 = C4; a.inverse = inverse;
-  a.pwci = pwci; a.pwcb = pwcb; a.wci = wci; a.bci = bci; a.wcb = wcb; a.bcb = bcb;
-  a.gwci = gwci; a.gbci = gbci; a.gwcb = gwcb; a.gbcb = gbcb;
-  a.D = D; a.L = L; a.H = H; a.D4 = D4; a.P = P; a.Pp = Pp;
-  a.TB = H > Pp ? H : Pp;
-  if (D4 > a.TB) a.TB = D4;
-  a.nb2 = nb2;
-  a.pwi = pwi; a.pwb = pwb; a.pwf = pwf; a.pbf = pbf;
-  a.wi = wi; a.bi = bi; a.wb = wb; a.bb = bb; a.wf = wf; a.idx = idx;
-  a.gwi = gwi; a.gbi = gbi; a.gwb = gwb; a.gbb = gbb; a.gwf = gwf; a.gbf = gbf;
-  a.stash = stash;
-  a.rq = transformer;
-  a.wh_scale = wh_scale;
-  a.cfg = nflows::RQConfig{num_bins, tail_bound, min_bin_width, min_bin_height, min_derivative,
-                           1.0f};
+  const int err = pack_maf_train_args(a, MAF_TRAIN_LAUNCH_NAMES);
+  if (err) return err;
+  if (cluster_size != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (C > 0) {
     if (rows_per_block == 32) return launch<32, true>(a, grid, s);

@@ -3,9 +3,11 @@ nflows_tpu/ops/pallas/_trainer_common.py, its single-device part).
 
 ``FusedTrainerBase`` owns what a fused trainer of any family shares: batch
 validation, the conditionality guard, the NLL loss on the fused apply, and
-the train steps. Subclasses set ``weights`` (a dict of leaf tensors that
-require grad), ``features``, ``context_features``, ``device`` and
-``_has_ctx``, and provide:
+the train steps; and the rule by which the training kernels B3, B4 and B10
+spread a tile over a thread-block cluster (:func:`cluster_size`,
+:func:`cluster_layout`, :func:`query_active_clusters`). Subclasses set
+``weights`` (a dict of leaf tensors that require grad), ``features``,
+``context_features``, ``device`` and ``_has_ctx``, and provide:
 
 - ``_apply(weights, x, context=None) -> (y, logabsdet)``: the
   differentiable fused forward (its backward is a kernel);
@@ -25,11 +27,82 @@ port.
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import Callable, Dict
 
 import torch
 
-__all__ = ["FusedTrainerBase"]
+from nflows_tpu_torch.ops.cuda import _build
+
+__all__ = ["FusedTrainerBase", "CLUSTER_SIZES", "cluster_gemm_floats", "cluster_size",
+           "cluster_layout", "query_active_clusters"]
+
+# the cluster sizes the cluster layouts of B3/B4 (csrc/nsf_train_cluster.cu)
+# and B10 (csrc/maf_train_cluster.cu) instantiate
+CLUSTER_SIZES = (2, 4, 8)
+
+
+def cluster_gemm_floats(rows: int) -> int:
+    """The GEMM buffer of a block of a cluster layout, in floats
+    (csrc/cluster_gemm.cuh: WBUF): a ring of two 128 x 32 weight chunks and
+    the warps' partial tiles [rows / 4][32][rows]."""
+    return 2 * 128 * 32 + rows // 4 * 32 * rows
+
+
+def cluster_size(n: int, rows: int, sms: int, active_clusters: Dict[int, int]) -> int:
+    """The blocks a tile of a training kernel is spread over: the largest
+    cluster size CS of ``active_clusters`` ({CS: the clusters of CS blocks
+    the card holds at once}) whose clusters hold every 32-sample tile in one
+    wave, else 1, one block a tile (``sms`` blocks hold ``sms`` tiles at
+    once)."""
+    tiles = -(-n // rows)
+    best = 1
+    if rows != 32 or tiles >= sms:
+        return best
+    for cs, clusters in sorted(active_clusters.items()):
+        if clusters < 1:
+            raise ValueError(f"no cluster of {cs} blocks fits the card")
+        if clusters >= tiles:
+            best = cs
+    return best
+
+
+def cluster_layout(n: int, rows: int, sms: int, active: Callable[[int], int],
+                   cluster=None, what="the training kernel"):
+    """(cluster size, grid) of a launch over ``n`` samples in tiles of
+    ``rows``: ``cluster`` as given (1, or one of CLUSTER_SIZES with
+    32-sample tiles), or chosen by :func:`cluster_size`, asking
+    ``active(cs)`` for the occupancy only where a cluster could help. The
+    grid is min(tiles, SMs) blocks, or the cluster size times min(tiles,
+    active clusters)."""
+    tiles = -(-n // rows)
+    if cluster is None:
+        idle = rows == 32 and tiles < sms   # where a cluster could help
+        cluster = cluster_size(n, rows, sms, {cs: active(cs) for cs in CLUSTER_SIZES
+                                              if idle and cs <= sms})
+    elif cluster != 1 and (cluster not in CLUSTER_SIZES or rows != 32):
+        raise ValueError(f"{what}: clusters of {cluster} blocks are not built for tiles of "
+                         f"{rows} samples (sizes {CLUSTER_SIZES}, 32-sample tiles)")
+    grid = max(1, min(tiles, sms)) if cluster == 1 else cluster * min(tiles, active(cluster))
+    return cluster, grid
+
+
+def query_active_clusters(cache: dict, key, dev, query, what: str, cs: int, smem: int) -> int:
+    """cudaOccupancyMaxActiveClusters through a C entry point: ``query(found)``
+    writes it into the ``ctypes.c_int`` behind the pointer ``found`` and
+    returns a cudaError_t. Asked once for each ``key`` and kept in ``cache``;
+    raises where it is 0."""
+    if key not in cache:
+        found = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            code = query(ctypes.byref(found))
+        _build.check(code, what)
+        if found.value < 1:
+            raise RuntimeError(f"no cluster of {cs} blocks with {smem} bytes of shared "
+                               "memory a block fits the card")
+        cache[key] = found.value
+    return cache[key]
 
 
 class FusedTrainerBase:

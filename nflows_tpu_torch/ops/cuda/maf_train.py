@@ -1,11 +1,17 @@
 """Fused training of autoregressive flows (MAF, NSF-AR, and IAF by
 variational inference): kernel B10 (counterpart of
-nflows_tpu/ops/pallas/maf_train.py; source ``csrc/maf_train.cu``).
+nflows_tpu/ops/pallas/maf_train.py; sources ``csrc/maf_train.cu`` and
+``csrc/maf_train_cluster.cu``).
 
 - :func:`maf_train_bwd_cuda` (B10): recomputes the chain in its one-pass
   direction (the log_prob of a MAF or NSF-AR, the sampling of an IAF; one
   MADE pass a layer, no fixed point) and pulls given cotangents back to the
-  inputs, the context and the weights.
+  inputs, the context and the weights. It has two layouts: a tile of
+  samples a block (``csrc/maf_train.cu``) and, where the tiles would leave
+  SMs idle, a tile of 32 samples a thread-block cluster of 2, 4 or 8 blocks
+  (``csrc/maf_train_cluster.cu``), chosen by :func:`launch_layout` with the
+  rule B3 and B4 follow (``_trainer_common.cluster_size``); ``cluster=``
+  forces one.
 - :func:`maf_train_apply` is the ``torch.autograd.Function`` whose forward
   is B9 (``maf_flow_kernel.py``) and whose backward is B10. The JAX package
   has no loss-and-gradient kernel for this family either, so a fused step
@@ -54,7 +60,13 @@ import numpy as np
 import torch
 
 from nflows_tpu_torch.ops.cuda import _build, maf_flow_kernel
-from nflows_tpu_torch.ops.cuda._trainer_common import FusedTrainerBase
+from nflows_tpu_torch.ops.cuda._trainer_common import (
+    CLUSTER_SIZES,
+    FusedTrainerBase,
+    cluster_gemm_floats,
+    cluster_layout,
+    query_active_clusters,
+)
 from nflows_tpu_torch.ops.cuda.maf_flow_kernel import (
     _EPSILON,
     CONTEXT_KEYS,
@@ -72,31 +84,54 @@ from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 
 __all__ = ["FusedIAFTrainer", "FusedMAFTrainer", "maf_train_bwd_cuda", "maf_train_bwd_plain",
-           "maf_train_apply", "shared_memory_bytes", "tile_rows",
-           "bwd_launch_count"]
+           "maf_train_apply", "shared_memory_bytes", "tile_rows", "launch_layout",
+           "active_clusters", "CLUSTER_SIZES", "bwd_launch_count", "cluster_launch_count"]
 
 WEIGHT_KEYS = ("wi", "bi", "wb", "bb", "wf", "bf")
 MASKED_KEYS = ("wi", "wb", "wf")
 DIRECTIONS = ("forward", "inverse")
 
-bwd_launch_count = 0  # B10 launches since the last reset
+# B10 launches since the last reset by cluster size (1: one block a tile)
+cluster_launch_count = {1: 0, **{cs: 0 for cs in CLUSTER_SIZES}}
+
+
+def __getattr__(name):
+    # bwd_launch_count: every B10 launch since the last reset, the name the
+    # other training modules give their counts
+    if name == "bwd_launch_count":
+        return sum(cluster_launch_count.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _launch_argtypes():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return ([p] * 6 + [ctypes.c_int64] + [i] * 9 + [p] * 27 + [i, i, i, i, f, i] + [f] * 4
+            + [i, p])
 
 
 def _declare(lib):
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.maf_train_launch.argtypes = (
-        [p] * 6 + [ctypes.c_int64] + [i] * 9 + [p] * 27 + [i, i, i, f, i] + [f] * 4
-        + [i, p])
-    lib.maf_train_launch.restype = i
+    lib.maf_train_launch.argtypes = _launch_argtypes()
+    lib.maf_train_launch.restype = ctypes.c_int
 
 
-def shared_memory_bytes(rows: int, D: int, L: int, H: int, P: int, C: int = 0) -> int:
+def _declare_cluster(lib):
+    lib.maf_train_cluster_launch.argtypes = _launch_argtypes()
+    lib.maf_train_cluster_launch.restype = ctypes.c_int
+    lib.maf_train_cluster_occupancy.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    lib.maf_train_cluster_occupancy.restype = ctypes.c_int
+
+
+def shared_memory_bytes(rows: int, D: int, L: int, H: int, P: int, C: int = 0,
+                        cluster: int = 1) -> int:
     """Dynamic shared memory of one block of ``rows`` samples
-    (csrc/maf_train.cu: smem_bytes); C context features add the context and
-    its cotangent, [C4][rows + 4] each."""
+    (csrc/maf_train.cu: smem_bytes; with ``cluster`` > 1, a block of a
+    cluster, csrc/maf_train_cluster.cu: smem_bytes, whose GEMM buffer is
+    ``cluster_gemm_floats``); C context features add the context and its
+    cotangent, [C4][rows + 4] each."""
     TB = max(H, _round4(P), _round4(D))
-    return 4 * (2 * _KC * _OC + (3 * TB + 2 * _round4(C)) * (rows + 4)
-                + rows * ((L + 5) * D + 1))
+    gemm = cluster_gemm_floats(rows) if cluster > 1 else 2 * _KC * _OC
+    return 4 * (gemm + (3 * TB + 2 * _round4(C)) * (rows + 4) + rows * ((L + 5) * D + 1))
 
 
 def tile_rows(n: int, d: Dict[str, int], sms: int) -> int:
@@ -108,6 +143,44 @@ def tile_rows(n: int, d: Dict[str, int], sms: int) -> int:
     if fits(64) and -(-n // 64) >= sms:
         return 64
     return 32 if fits(32) else 0
+
+
+_ACTIVE_CLUSTERS = {}  # (device, context, CS, shared memory) -> clusters
+
+
+def active_clusters(dev, context, cs, smem):
+    """cudaOccupancyMaxActiveClusters of B10's cluster kernel, with or
+    without a ``context``, in clusters of ``cs`` blocks with ``smem`` bytes
+    of shared memory a block: queried once and cached; raises where it is
+    0."""
+    def query(found):
+        lib = _build.load_library("maf_train_cluster", _declare_cluster)
+        return lib.maf_train_cluster_occupancy(int(bool(context)), cs, smem, found)
+
+    return query_active_clusters(_ACTIVE_CLUSTERS, (dev.index, bool(context), cs, smem), dev,
+                                 query, "maf_train_cluster_occupancy", cs, smem)
+
+
+def launch_layout(n, d, dev, rows=None, cluster=None, what="maf_train_bwd_cuda"):
+    """(rows, cluster size, grid) of a B10 launch over ``n`` samples of a
+    chain of dims ``d`` (``_dims``) on ``dev``: ``rows`` and ``cluster`` as
+    given, or chosen (:func:`tile_rows`, ``_trainer_common.cluster_size``
+    on the occupancy the card reports); the grid is min(tiles, SMs) blocks,
+    or the cluster size times min(tiles, active clusters)."""
+    D, L, H, P, C = (d[k] for k in ("D", "L", "H", "P", "C"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if rows is None:
+        rows = tile_rows(n, d, sms)
+    if rows not in (32, 64) or H % 4 or (
+            shared_memory_bytes(rows, D, L, H, P, C) > MAX_SHARED_MEMORY):
+        raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
+                         f"shared-memory tile of {rows} samples")
+
+    def active(cs):
+        return active_clusters(dev, C, cs, shared_memory_bytes(rows, D, L, H, P, C, cs))
+
+    cluster, grid = cluster_layout(n, rows, sms, active, cluster, what)
+    return rows, cluster, grid
 
 
 def _check_static(what, layer_static, transformer, spline_kw, wh_scale,
@@ -283,7 +356,7 @@ def _check(name, t, shape, device, dtype=torch.float32):
 def maf_train_bwd_cuda(x, gy, glad, weights, layer_static, *, num_blocks,
                        transformer="affine", spline_kw=None, wh_scale=None,
                        context=None, direction="forward", packed=None, grads=None,
-                       rows=None):
+                       rows=None, cluster=None):
     """B10: (x [N, D], gy [N, D], glad [N]) -> (gx [N, D], weight gradients),
     the pull-back of the cotangents through the chain's one-pass direction
     (``direction``, and the context, as in :func:`maf_train_bwd_plain`; with
@@ -294,12 +367,21 @@ def maf_train_bwd_cuda(x, gy, glad, weights, layer_static, *, num_blocks,
     ``pack_weights(weights, ...)``, built here when not given. ``grads``,
     when given, are the tensors the weight gradients are written into
     (zeroed here first). ``rows`` forces the tile size (32 or 64); None
-    chooses by shared memory and SM count."""
-    global bwd_launch_count
+    chooses by shared memory and SM count. ``cluster`` forces the blocks a
+    tile is spread over (1, or one of CLUSTER_SIZES at 32-sample tiles);
+    None chooses (:func:`launch_layout`)."""
     kw = dict(num_blocks=num_blocks, transformer=transformer, spline_kw=spline_kw,
               wh_scale=wh_scale, context=context, direction=direction)
     if x.device.type == "cpu":
         return maf_train_bwd_plain(x, gy, glad, weights, layer_static, **kw)
+    return _launch(x, gy, glad, weights, layer_static, packed=packed, grads=grads, rows=rows,
+                   cluster=cluster, **kw)
+
+
+def _launch(x, gy, glad, weights, layer_static, *, num_blocks, transformer, spline_kw,
+            wh_scale, context, direction, packed, grads, rows, cluster):
+    """B10's launch on CUDA tensors: :func:`maf_train_bwd_cuda` past its CPU
+    branch."""
     what = "maf_train_bwd_cuda"
     _check_static(what, layer_static, transformer, spline_kw, wh_scale, direction)
     maf_flow_kernel._check_context(what, weights, context)
@@ -340,13 +422,7 @@ def maf_train_bwd_cuda(x, gy, glad, weights, layer_static, *, num_blocks,
                              "with pack_weights")
         _check(f"{what}: packed[{k!r}]", packed[k], shape, dev)
     _check(f"{what}: packed['idx']", packed["idx"], (L, 2 * D + 1), dev, torch.int32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if rows is None:
-        rows = tile_rows(n, d, sms)
-    if rows not in (32, 64) or H % 4 or (
-            shared_memory_bytes(rows, D, L, H, P, C) > MAX_SHARED_MEMORY):
-        raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
-                         f"shared-memory tile of {rows} samples")
+    rows, cluster, grid = launch_layout(n, d, dev, rows, cluster, what)
     if grads is None:
         grads = {k: torch.empty(shapes[k], dtype=torch.float32, device=dev) for k in keys}
     for k in keys:
@@ -356,10 +432,14 @@ def maf_train_bwd_cuda(x, gy, glad, weights, layer_static, *, num_blocks,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    lib = _build.load_library("maf_train", _declare)
-    grid = max(1, min(-(-n // rows), sms))
-    # per-block scratch for the kept activations (see csrc/maf_train.cu)
-    stash = torch.empty(grid * L * ((nb2 + 1) * H + Pp) * (rows + 4),
+    if cluster == 1:
+        entry = _build.load_library("maf_train", _declare).maf_train_launch
+    else:
+        entry = _build.load_library("maf_train_cluster",
+                                    _declare_cluster).maf_train_cluster_launch
+    # scratch for the kept activations, one slot a block or a cluster (see
+    # csrc/maf_train.cu)
+    stash = torch.empty(grid // cluster * L * ((nb2 + 1) * H + Pp) * (rows + 4),
                         dtype=torch.float32, device=dev)
     gx = torch.empty_like(x)
     gctx = torch.empty_like(context) if C else None
@@ -367,7 +447,7 @@ def maf_train_bwd_cuda(x, gy, glad, weights, layer_static, *, num_blocks,
                             min_bin_height=0.0, min_derivative=0.0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = lib.maf_train_launch(
+        code = entry(
             x.data_ptr(), ptr(context), gy.data_ptr(), glad.data_ptr(), gx.data_ptr(),
             ptr(gctx), n, D, L, H, D4, P, Pp, nb2, C, C4,
             packed["wi"].data_ptr(), packed["wb"].data_ptr(), packed["wf"].data_ptr(),
@@ -376,12 +456,12 @@ def maf_train_bwd_cuda(x, gy, glad, weights, layer_static, *, num_blocks,
             *(ptr(weights.get(k)) for k in CONTEXT_KEYS), packed["idx"].data_ptr(),
             *(grads[k].data_ptr() for k in WEIGHT_KEYS),
             *(ptr(grads.get(k)) for k in CONTEXT_KEYS),
-            stash.data_ptr(), grid, DIRECTIONS.index(direction),
+            stash.data_ptr(), grid, cluster, DIRECTIONS.index(direction),
             TRANSFORMERS.index(transformer), 1.0 if wh_scale is None else wh_scale,
             skw["num_bins"], skw["tail_bound"], skw["min_bin_width"],
             skw["min_bin_height"], skw["min_derivative"], rows, stream)
-    bwd_launch_count += 1
-    _build.check(code, "maf_train_launch")
+    cluster_launch_count[cluster] += 1
+    _build.check(code, "maf_train_launch" if cluster == 1 else "maf_train_cluster_launch")
     if C:
         grads = {**grads, "ctx": gctx}
     return gx, grads
@@ -424,7 +504,8 @@ def maf_train_apply(weights, x, layer_static, static, wh_scale, packed=None, row
     ``"inverse"`` the sampling direction of an all-wrapped chain (an IAF;
     B9 coming back), where x is the base noise and y the sample. An
     embedding net outside the kernel trains through the context's
-    gradient."""
+    gradient. ``rows`` goes to B10 (:func:`maf_train_bwd_cuda`; None
+    chooses), which chooses its cluster size."""
     _check_static("maf_train_apply", layer_static, static["transformer"],
                   static["spline_kw"], wh_scale, direction)
     maf_flow_kernel._check_context("maf_train_apply", weights, context)

@@ -52,7 +52,14 @@ import numpy as np
 import torch
 
 from nflows_tpu_torch.ops.cuda import _build, nsf_flow_kernel
-from nflows_tpu_torch.ops.cuda._trainer_common import FusedTrainerBase
+from nflows_tpu_torch.ops.cuda._trainer_common import (
+    CLUSTER_SIZES,
+    FusedTrainerBase,
+    cluster_gemm_floats,
+    cluster_layout,
+    cluster_size,
+    query_active_clusters,
+)
 from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
     MAX_SHARED_MEMORY,
     _round4,
@@ -71,10 +78,6 @@ CONTEXT_KEYS = ("wc0", "wcb", "bcb")
 
 loss_grad_launch_count = 0  # B3 launches since the last reset
 bwd_launch_count = 0        # B4 launches since the last reset
-
-# the cluster sizes csrc/nsf_train_cluster.cu instantiates
-CLUSTER_SIZES = (2, 4, 8)
-
 
 def _launch_argtypes():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -122,12 +125,11 @@ def shared_memory_bytes(rows: int, D: int, L: int, H: int, Tid: int, T: int,
                         TM: int, C: int = 0, cluster: int = 1) -> int:
     """Dynamic shared memory of one block of ``rows`` samples
     (csrc/nsf_train.cu: smem_bytes; with ``cluster`` > 1, a block of a
-    cluster, csrc/nsf_train_cluster.cu: smem_bytes, whose GEMM buffer holds
-    a ring of two 128 x 32 weight chunks and the warps' partial tiles
-    [rows / 4][32][rows]); a context of C features adds its tile
+    cluster, csrc/nsf_train_cluster.cu: smem_bytes, whose GEMM buffer is
+    ``cluster_gemm_floats``); a context of C features adds its tile
     [C][rows + 4] and its cotangent's [C][rows]."""
     TB = max(H, _round4(TM), _round4(Tid))
-    gemm = (2 * 128 * 32 + rows // 4 * 32 * rows if cluster > 1
+    gemm = (cluster_gemm_floats(rows) if cluster > 1
             else 2 * nsf_flow_kernel._KC * nsf_flow_kernel._OC)
     return 4 * (gemm + 3 * TB * (rows + 4)
                 + rows * ((L + 4) * D + 2 * T + Tid + 2) + C * (2 * rows + 4))
@@ -144,23 +146,6 @@ def tile_rows(n: int, d: Dict[str, int], sms: int) -> int:
     return 32 if fits(32) else 0
 
 
-def cluster_size(n: int, rows: int, sms: int, active_clusters: Dict[int, int]) -> int:
-    """The blocks a tile of B3/B4 is spread over: the largest cluster size CS
-    of ``active_clusters`` ({CS: the clusters of CS blocks the card holds at
-    once}) whose clusters hold every 32-sample tile in one wave, else 1, one
-    block a tile (``sms`` blocks hold ``sms`` tiles at once)."""
-    tiles = -(-n // rows)
-    best = 1
-    if rows != 32 or tiles >= sms:
-        return best
-    for cs, clusters in sorted(active_clusters.items()):
-        if clusters < 1:
-            raise ValueError(f"no cluster of {cs} blocks fits the card")
-        if clusters >= tiles:
-            best = cs
-    return best
-
-
 _ACTIVE_CLUSTERS = {}  # (device, loss, context, CS, shared memory) -> clusters
 
 
@@ -169,19 +154,13 @@ def active_clusters(dev, loss, context, cs, smem):
     or without a ``context``, in clusters of ``cs`` blocks with ``smem``
     bytes of shared memory a block: queried once and cached; raises where
     it is 0."""
-    key = (dev.index, bool(loss), bool(context), cs, smem)
-    if key not in _ACTIVE_CLUSTERS:
+    def query(found):
         lib = _build.load_library("nsf_train_cluster", _declare_cluster)
-        found = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            code = lib.nsf_train_cluster_occupancy(int(loss), int(bool(context)), cs, smem,
-                                                   ctypes.byref(found))
-        _build.check(code, "nsf_train_cluster_occupancy")
-        if found.value < 1:
-            raise RuntimeError(f"no cluster of {cs} blocks with {smem} bytes of shared "
-                               "memory a block fits the card")
-        _ACTIVE_CLUSTERS[key] = found.value
-    return _ACTIVE_CLUSTERS[key]
+        return lib.nsf_train_cluster_occupancy(int(loss), int(bool(context)), cs, smem, found)
+
+    return query_active_clusters(
+        _ACTIVE_CLUSTERS, (dev.index, bool(loss), bool(context), cs, smem), dev, query,
+        "nsf_train_cluster_occupancy", cs, smem)
 
 
 def launch_layout(loss, n, d, dev, rows=None, cluster=None, what="nsf_train"):
@@ -198,20 +177,12 @@ def launch_layout(loss, n, d, dev, rows=None, cluster=None, what="nsf_train"):
             shared_memory_bytes(rows, D, L, H, Tid, T, TM, C) > MAX_SHARED_MEMORY):
         raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
                          f"shared-memory tile of {rows} samples")
-    tiles = -(-n // rows)
 
     def active(cs):
         return active_clusters(dev, loss, C, cs,
                                shared_memory_bytes(rows, D, L, H, Tid, T, TM, C, cs))
 
-    if cluster is None:
-        idle = rows == 32 and tiles < sms   # where a cluster could help
-        cluster = cluster_size(n, rows, sms, {cs: active(cs) for cs in CLUSTER_SIZES
-                                              if idle and cs <= sms})
-    elif cluster != 1 and (cluster not in CLUSTER_SIZES or rows != 32):
-        raise ValueError(f"{what}: clusters of {cluster} blocks are not built for tiles of "
-                         f"{rows} samples (sizes {CLUSTER_SIZES}, 32-sample tiles)")
-    grid = max(1, min(tiles, sms)) if cluster == 1 else cluster * min(tiles, active(cluster))
+    cluster, grid = cluster_layout(n, rows, sms, active, cluster, what)
     return rows, cluster, grid
 
 

@@ -1,7 +1,8 @@
 """Kernels B1 to B12 on the card, each against its plain PyTorch version
 on the same CUDA tensors, and the serving and training paths through them:
 B2, B3 and B4 for all seven coupling families; B9 and B10 with a context,
-and B10's inverse direction (an IAF trained by reverse KL); B2, B9 and B11
+and B10's inverse direction (an IAF trained by reverse KL); B3, B4 and B10
+on thread-block clusters of every size; B2, B9 and B11
 with bf16 weights, and CompiledFlow(dtype=torch.bfloat16).
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
@@ -748,6 +749,71 @@ def test_b10_with_context_and_inverse_direction_matches_plain(cuda, kind, contex
     if n == 16384:
         _, g32 = maf_train.maf_train_bwd_cuda(*args, folded, tr._layers, rows=32, **kw)
         _maf_grads_close(g32, grads, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind,context", [
+    ("affine", None), ("rq", None), ("affine", 3), ("rq", 3), ("iaf", None), ("iaf", 3)])
+def test_b10_on_every_cluster_size_matches_plain(cuda, kind, context):
+    """B10 at one block a tile (csrc/maf_train.cu) and on clusters of every
+    size (csrc/maf_train_cluster.cu), 32-sample tiles, against its plain
+    version at N = 1, 33, 509, 512 and 2,048 (fewer tiles than clusters, a
+    ragged last tile, several tiles a cluster), on MAF and NSF-AR chains
+    with and without a context and on IAF chains (the inverse direction),
+    in the bands of test_b10_with_context_and_inverse_direction_matches_plain:
+    gx and gctx 2e-4 / N plus 1e-3 relative, or no further from float64 than
+    twice the plain fp32 version (_hold), the gradient stacks 2e-4 plus 1e-3
+    relative, the context stacks' gradients clear of that band; a second
+    launch into the same buffers starts from zero again; one block a tile
+    and clusters of 8 agree within fp32 rounding (the depth of each dot
+    product is split over warps on a cluster): gx x N 1e-4 plus 1e-4
+    relative, the gradients 1e-5 plus 1e-4 relative."""
+    from nflows_tpu_torch.ops.cuda import maf_train
+
+    flow = _cond_ar_flow(cuda, kind, context=context)
+    cls = maf_train.FusedIAFTrainer if kind == "iaf" else maf_train.FusedMAFTrainer
+    tr = cls(flow, 128)
+    folded = {k: v.detach().contiguous() for k, v in tr._fold(tr.weights).items()}
+    f64 = {k: v.double() for k, v in folded.items()}
+    for n in (1, 33, 509, 512, 2048):
+        g = torch.Generator().manual_seed(n + 13)
+        x = (1.5 * torch.randn(n, 5, generator=g)).to(cuda)
+        gy = torch.randn(n, 5, generator=g).to(cuda) / n
+        glad = torch.randn(n, generator=g).to(cuda) / n
+        ctx = None if context is None else torch.randn(n, context, generator=g).to(cuda)
+        kw = dict(wh_scale=tr._wh_scale, context=ctx, direction=tr._direction, **tr._static)
+        p_gx, p_grads = maf_train.maf_train_bwd_plain(x, gy, glad, folded, tr._layers, **kw)
+        d_gx, d_grads = maf_train.maf_train_bwd_plain(
+            x.double(), gy.double(), glad.double(), f64, tr._layers,
+            **{**kw, "context": None if ctx is None else ctx.double()})
+        seen = {}
+        for cluster in (1, *maf_train.CLUSTER_SIZES):
+            before = dict(maf_train.cluster_launch_count)
+            gx, grads = maf_train.maf_train_bwd_cuda(x, gy, glad, folded, tr._layers, rows=32,
+                                                     cluster=cluster, **kw)
+            assert maf_train.cluster_launch_count[cluster] == before[cluster] + 1
+            pairs = [(gx, p_gx, d_gx)] + ([(grads["ctx"], p_grads["ctx"], d_grads["ctx"])]
+                                          if ctx is not None else [])
+            for got, plain, exact in pairs:
+                if not torch.allclose(got, plain, atol=2e-4 / n, rtol=1e-3):
+                    _hold(got * n, plain * n, exact * n, 2e-4)
+            _maf_grads_close(grads, p_grads)
+            for k in ("wci", "bci", "wcb", "bcb") if ctx is not None else ():
+                # the band is at most half the largest entry: a stack of zeros fails
+                assert p_grads[k].abs().max() >= 2 * 2e-4, (k, float(p_grads[k].abs().max()))
+                torch.testing.assert_close(grads[k], p_grads[k], atol=2e-4, rtol=1e-3,
+                                           msg=lambda m: f"{k}: {m}")  # noqa: B023
+            first = {k: v.clone() for k, v in grads.items() if k != "ctx"}
+            _, again = maf_train.maf_train_bwd_cuda(
+                x, gy, glad, folded, tr._layers, rows=32, cluster=cluster,
+                grads={k: grads[k] for k in first}, **kw)
+            for k in first:
+                torch.testing.assert_close(again[k], first[k], atol=1e-5, rtol=1e-4)
+            seen[cluster] = (gx, first)
+        gx1, g1 = seen[1]
+        gx8, g8 = seen[8]
+        torch.testing.assert_close(gx8 * n, gx1 * n, atol=1e-4, rtol=1e-4)
+        for k in g1:
+            torch.testing.assert_close(g8[k], g1[k], atol=1e-5, rtol=1e-4)
 
 
 def test_conditional_maf_serves_and_trains_through_the_kernels(cuda):

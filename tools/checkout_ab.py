@@ -8,11 +8,14 @@ and B3 and B4 at 512, 2,048 and 4,096 on the conditional flagship (context
 10, ``chip_smoke.MOG_CONTEXT``; seed 20). Each side runs the cluster size
 its own wrapper chooses. With ``--family maf``
 it times the autoregressive kernels instead: B9 forward and inverse at
-N = 4,096 and B10 at N = 512 and 4,096 on the full-width MAF
+N = 4,096 and B10 at N = 512, 2,048 and 4,096 on the full-width MAF
 (``chip_smoke.MAF``), and B9 forward and inverse and B10 at 512 on the
 NSF-AR (``chip_smoke.NSF_AR``), unconditional, random weights from seed 0;
 the inverse on whichever kernel each side's wrapper routes it to (the
-degree kernel, where a checkout has one, else the fixed-point kernel).
+degree kernel, where a checkout has one, else the fixed-point kernel), and
+B10 on whichever layout it chooses (a thread-block cluster a tile,
+csrc/maf_train_cluster.cu, where a checkout has it and the tiles leave SMs
+idle, else csrc/maf_train.cu).
 With ``--dtype bfloat16`` it times the serving kernels' bf16-weight
 instantiations instead, on the same models: B2 (forward and inverse on the
 flagship, forward on RealNVP), or with ``--family maf`` B9; both sides must
@@ -110,7 +113,7 @@ print(json.dumps(out))
 """
 
 # The same for the autoregressive kernels; prints {"maf_b9_forward": ms,
-# "maf_b9_inverse": ms, "maf_b10_512": ms, "maf_b10_4096": ms,
+# "maf_b9_inverse": ms, "maf_b10_512": ms, "maf_b10_2048": ms, "maf_b10_4096": ms,
 # "nsf_ar_b9_forward": ms, "nsf_ar_b9_inverse": ms, "nsf_ar_b10_512": ms}.
 TURN_MAF = r"""
 import json, sys
@@ -127,7 +130,7 @@ _build.build_all()
 gen = torch.Generator().manual_seed(1)
 D = cs.MAF["features"]
 out = {}
-for tag, cls, cfg, sizes in (("maf_", MaskedAutoregressiveFlow, cs.MAF, (512, 4096)),
+for tag, cls, cfg, sizes in (("maf_", MaskedAutoregressiveFlow, cs.MAF, (512, 2048, 4096)),
                              ("nsf_ar_", NeuralSplineFlowAR, cs.NSF_AR, (512,))):
     flow = cls(generator=torch.Generator().manual_seed(0), device="cuda", **cfg).eval()
     view = fuse_maf(flow, dtype=DTYPE)
@@ -154,7 +157,9 @@ for tag, cls, cfg, sizes in (("maf_", MaskedAutoregressiveFlow, cs.MAF, (512, 40
         glad = (torch.randn(n, generator=gen) / n).cuda()
         run = lambda: maf_train.maf_train_bwd_cuda(xb, gy, glad, w, trainer._layers,
                                                    packed=packed, grads=grads, **mkw)
-        out[f"{tag}b10_{n}"] = cs.device_ms(torch, run, 20, kernel="maf_train_bwd_kernel")
+        # maf_train_bwd_kernel, or maf_train_bwd_cluster_kernel where a
+        # checkout has it
+        out[f"{tag}b10_{n}"] = cs.device_ms(torch, run, 20, kernel="maf_train_bwd")
 print(json.dumps(out))
 """
 

@@ -2,7 +2,9 @@
 (``nsf_flow_kernel``), the training kernel B3 (``nsf_train``), the
 autoregressive chain B9 (``maf_flow_kernel``, its fixed point forced to
 that kernel with ``schedule="fixed_point"``; ``maf_degree_inverse``, the
-fixed point solved in degree order) or its backward B10 (``maf_train``).
+fixed point solved in degree order) or its backward B10 (``maf_train``,
+one block a tile: csrc/maf_train.cu at every batch, whatever cluster size
+the wrapper would choose).
 
     python3 tools/kernel_ab.py OLD_CSRC_DIR [STEM] [more old dirs]
 
@@ -184,14 +186,14 @@ def maf_turns(torch, kernel, olds, new, use, turns, gen):
         for tag, lib in (*olds, ("new", new)):
             use(lib)
             gx, grads = maf_train.maf_train_bwd_cuda(x, gy, glad, w, layers, packed=packed,
-                                                     **static)
+                                                     cluster=1, **static)
             torch.cuda.synchronize()
             worst = max(cs.max_err(grads[k], p_grads[k]) for k in grads)
             print(f"N={n} {tag}: |gx-plain| * N {n * cs.max_err(gx, p_gx):.3e} "
                   f"|grads-plain| {worst:.3e}")
         grads = {k: torch.empty_like(v) for k, v in w.items()}
         turns(n, "backward", lambda: maf_train.maf_train_bwd_cuda(  # noqa: B023
-            x, gy, glad, w, layers, packed=packed, grads=grads, **static),
+            x, gy, glad, w, layers, packed=packed, grads=grads, cluster=1, **static),
             "maf_train_bwd_kernel")
     return 0
 

@@ -93,15 +93,12 @@ def cotangents(x, gy, glad, w, idx, ctx, kw):
 
 def moved_cotangents(x, gy, glad, w64, idx, ctx64, kw, step):
     """The float64 cotangents (gx, and gctx where there is a context) of one
-    sample (rows [1, .]) moved by -step, +step along each feature in turn:
-    [2 D, .] each."""
-    m = 2 * x.shape[1]
-    moved = x.double().repeat(m, 1)
-    for e in range(m):
-        moved[e, e // 2] += step if e % 2 else -step
-    rows = [t.double().repeat(m, *([1] * (t.dim() - 1))) for t in (gy, glad)]
-    return cotangents(moved, rows[0], rows[1], w64, idx,
-                      None if ctx64 is None else ctx64.repeat(m, 1), kw)
+    sample (rows [1, .]) moved by -step, +step along each feature in turn
+    (``chip_smoke.moved_cotangents``): [2 D, .] each."""
+    gx, grads = chip_smoke.moved_cotangents(
+        lambda *a, **c: nsf_train.nsf_train_bwd_plain(*a, w64, idx, **c, **kw),
+        x, gy, glad, step, ctx64)
+    return gx, grads.get("ctx")
 
 
 def probe(s, x, gy, glad, w, idx, ctx, kw, d, n):
