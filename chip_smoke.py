@@ -104,6 +104,20 @@ bands, and timed at every size at 512, 2,048 and 4,096 beside the
 clusters of each size the card holds at once; the fused MAF, conditional
 MAF and IAF steps (phases 12, 29, 30) check that their B10 ran once at the
 chosen size and print that size at each timed batch.
+B2 has two routes (``nsf_flow_kernel.gemm_route``): the tensor-core
+kernel (csrc/nsf_flow_wgmma.cu, bf16 wgmma or 3xTF32 for fp32 weights),
+which every full-width chain here takes save the fp32 affine couplings,
+and the SIMT kernel (csrc/nsf_flow_kernel.cu), which keeps those and the
+narrow chains. Phase 4 first
+holds one GEMM of the wgmma route alone (``gemm_wgmma``) against
+``gemm()``; phases 4 (the flagship at 4,096, 65,536 and a ragged N), 20
+(the six other stages), 24 (the context path) and 31 (bf16) hold both
+routes, forced by ``gemm=``, against the plain versions in the same
+bands, and time both in the same run; the narrow quadratic chain keeps
+the SIMT route. Every fused serving request checks that its B2 ran on
+the route its shape takes (the route counters ``B2_wgmma``,
+``B2_simt`` and their ``_bf16`` twins); the fused-autograd training step
+runs the SIMT route, whose layout its trainer re-packs in place.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
@@ -126,7 +140,9 @@ torch.profiler or CUDA events gave it), plain time, bound and library time at
 the main path's shape (B2's, B3's and B4's rows carry the other six
 families' numbers under ``families`` and the conditional flagship's, with
 the conditional affine chain's under ``context_families``, as
-``context_*``);
+``context_*``; B2's and B2_bf16's rows carry ``gemm_route``, the route the
+request took, ``simt_ms``, the SIMT kernel's time in the same run, and
+``bound_basis``, with ``cuda_core_bound_ms`` beside B2's bound);
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -236,7 +252,12 @@ JAX kernel, round. The plain versions' own gap is logged as bf16's price.
 Bounds. ``bound_ms`` is the larger of the bytes a function must move over
 3.35 TB/s and the fp32 operations it needs over 67 TFLOP/s; for the bf16
 rows, the same operation count over the dense bf16 tensor-core rate, 989
-TFLOP/s, and the bf16 matrices' bytes. For B9 and B10
+TFLOP/s, and the bf16 matrices' bytes. B2 on its wgmma route runs fp32 as
+3xTF32, three TF32 products for each product, so its bound counts three
+times the operations at the dense TF32 rate, 495 TFLOP/s, with the CUDA-core
+bound beside it (``cuda_core_bound_ms``). One GEMM of the wgmma route alone:
+within 1e-5 of the largest entry of the product (3xTF32 keeps about fp32's
+digits; bf16 products are exact, only the order of the sums differs). For B9 and B10
 the operations are counted from the MADE masks of the model in the run: two
 for every weight a mask leaves, once a sample for B9 in either direction
 (the autoregressive inverse needs each hidden unit and each parameter once,
@@ -271,9 +292,11 @@ import numpy as np
 # H100 SXM data sheet, dense, at the 700 W limit
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12   # dense, on the tensor cores
+PEAK_TF32_FLOPS = 495e12   # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 
 SERVE_BATCH = 4096
+RAGGED = SERVE_BATCH - 95   # leaves a last tile of one sample
 TRAIN_BATCH = 512
 TRAIN_STEPS = 20
 FLAGSHIP = dict(features=6, hidden_features=256, num_layers=10,
@@ -726,6 +749,56 @@ def main() -> int:
                          bound_ms=bound_ms, bound_by=bound_by)
 
     # -- phase 4: B2 against its plain version (full-width flagship) -----------
+    # both routes: the tensor-core kernel (csrc/nsf_flow_wgmma.cu, the route
+    # this shape takes) and the SIMT one (csrc/nsf_flow_kernel.cu), each held
+    # to the plain version and timed in the same run; first one GEMM alone
+    # through the wgmma route's ring (gemm_wgmma) against gemm()
+    B2_KERNEL = {"wgmma": "nsf_flow_wgmma_kernel", "simt": "nsf_flow_kernel"}
+
+    def b2_routes(weights, indices, spline):
+        """The route B2 takes for these weights (of family ``spline``), and
+        beside it the other route where the shape can take the wgmma one
+        (the SIMT kernel, or the wgmma kernel forced on an fp32 affine
+        chain, which keeps the SIMT route)."""
+        route = nsf_flow_kernel.weights_route(weights, indices, spline=spline)
+        if nsf_flow_kernel.weights_route(weights, indices) != "wgmma":
+            return (route,)
+        return (route, "simt" if route == "wgmma" else "wgmma")
+
+    def b2_bound(nops, nbytes, route, dtype=torch.float32):
+        """B2's least time on its route: the operations on the units that
+        route runs them on (bf16: the bf16 tensor cores; fp32 on wgmma:
+        3xTF32, three TF32 products a product, on the TF32 tensor cores;
+        the SIMT route: fp32 on the CUDA cores), or the bytes; with the
+        CUDA-core bound beside it."""
+        io_ms = 1e3 * nbytes / PEAK_BYTES
+        core_ms = 1e3 * nops / PEAK_FP32_FLOPS
+        if dtype == torch.bfloat16:
+            ops_ms, basis = 1e3 * nops / PEAK_BF16_FLOPS, "bf16 tensor cores, 989 TFLOP/s"
+        elif route == "wgmma":
+            ops_ms = 1e3 * 3 * nops / PEAK_TF32_FLOPS
+            basis = "3xTF32: three TF32 products each, 495 TFLOP/s"
+        else:
+            ops_ms, basis = core_ms, "fp32 on the CUDA cores, 67 TFLOP/s"
+        return dict(bound_ms=max(ops_ms, io_ms),
+                    bound_by="operations" if ops_ms >= io_ms else "bytes",
+                    bound_basis=basis, cuda_core_bound_ms=max(core_ms, io_ms))
+
+    gemm_gen = torch.Generator().manual_seed(4)
+    log("one GEMM through the wgmma route's ring against gemm():")
+    for wdt in (torch.float32, torch.bfloat16):
+        for rows_g, depth, outs in ((RAGGED, 256, 256), (SERVE_BATCH, 16, 256),
+                                    (SERVE_BATCH, 256, 128)):
+            a = torch.randn(rows_g, depth, generator=gemm_gen).to(dev)
+            wm = (torch.randn(outs, depth, generator=gemm_gen) / 16).to(dev).to(wdt)
+            got = nsf_flow_kernel.gemm_wgmma(a, wm)
+            plain32 = nsf_flow_kernel.gemm(a, wm)
+            exact = nsf_flow_kernel.gemm(a.double(), wm.double()) if wdt == torch.float32 \
+                else nsf_flow_kernel.gemm(a, wm).double()
+            torch.cuda.synchronize()
+            hold(f"{str(wdt)[6:]} [{rows_g}, {depth}] x [{outs}, {depth}]^T", got, plain32,
+                 exact, 1e-5 * float(exact.abs().max()))
+
     fused = fuse_nsf(flow)
     static, idx = fused._static, fused._indices
     w32 = fused._weights
@@ -735,39 +808,50 @@ def main() -> int:
     TM = T * (3 * K - 1)
     nb = FLAGSHIP["num_blocks_per_layer"]
     weight_bytes = 4 * sum(v.numel() for v in w32.values())
+    flagship_routes = b2_routes(w32, idx, static["spline"])
     b2 = {}
-    for n in (SERVE_BATCH, 1 << 16):
-        x = torch.randn(n, D, generator=gen).to(dev)
+    for n in (SERVE_BATCH, 1 << 16, RAGGED):
+        # the ragged N from a generator of its own: the shared one draws
+        # for every later phase what it drew before this size came
+        draw = torch.Generator().manual_seed(n) if n == RAGGED else gen
+        x = torch.randn(n, D, generator=draw).to(dev)
         log(f"B2 at N={n}:")
         errs = []
-        for inverse in (False, True):
-            kw = dict(inverse=inverse, **static)
-            y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, w32, idx, packed=fused._packed, **kw)
-            p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, w32, idx, **kw)
-            d_y, d_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x.double(), w64, idx, **kw)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-                raise AssertionError("B2 produced non-finite values")
-            tag = "inverse" if inverse else "forward"
-            errs.append(hold(f"{tag} out", y, p_y, d_y, 1e-3))
-            errs.append(hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
+        for gr in flagship_routes:
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, **static)
+                y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, w32, idx, packed=fused._packed,
+                                                              gemm=gr, **kw)
+                p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, w32, idx, **kw)
+                d_y, d_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x.double(), w64, idx, **kw)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                    raise AssertionError(f"B2 ({gr}) produced non-finite values")
+                tag = f"{gr} {'inverse' if inverse else 'forward'}"
+                errs.append(hold(f"{tag} out", y, p_y, d_y, 1e-3))
+                errs.append(hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
+        if n == RAGGED:
+            continue
         kw = dict(inverse=False, **static)
-        run = lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: E731
-            x, w32, idx, packed=fused._packed, **kw)
+        times = {}
+        for gr in flagship_routes:
+            run = lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: E731
+                x, w32, idx, packed=fused._packed, gemm=gr, **kw)  # noqa: B023
+            times[gr] = (device_ms(torch, run, 10, kernel=B2_KERNEL[gr]), device_ms.source)
+            log(f"  {gr}, a call, events: {call_ms(torch, run, 10):.4f} ms")
         run_plain = lambda: nsf_flow_kernel.nsf_flow_kernel_plain(x, w32, idx, **kw)  # noqa: E731
-        ms = device_ms(torch, run, 10, kernel="nsf_flow_kernel")
-        ms_source = device_ms.source
         plain_ms = device_ms(torch, run_plain, 5)
-        log(f"  a call, events: kernel {call_ms(torch, run, 10):.4f} ms  "
-            f"plain {call_ms(torch, run_plain, 5):.4f} ms")
+        ms, ms_source = times[flagship_routes[0]]
         nops = 2 * n * L * (Tid * H + 2 * nb * H * H + H * TM)
-        nbytes = weight_bytes + 4 * n * (2 * D + 1)
-        bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
-        bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-            f"({bound_by}, {nops / 1e9:.1f} GFLOP)  {nops / ms / 1e9:.1f} TFLOP/s")
+        bnd = b2_bound(nops, weight_bytes + 4 * n * (2 * D + 1), flagship_routes[0])
+        log(f"  time: {flagship_routes[0]} kernel {ms:.4f} ms"
+            + (f", simt kernel {times['simt'][0]:.4f} ms" if "simt" in times
+               and flagship_routes[0] != "simt" else "")
+            + f"  plain {plain_ms:.4f} ms  bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+            f"{bnd['bound_basis']}; CUDA cores {bnd['cuda_core_bound_ms']:.4f})  "
+            f"{nops / 1e9:.1f} GFLOP, {nops / ms / 1e9:.1f} TFLOP/s")
         b2[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by)
+                     gemm_route=flagship_routes[0], simt_ms=times["simt"][0], **bnd)
 
     # -- phase 5: serving through CompiledFlow ---------------------------------
     def reset_counts():
@@ -783,6 +867,8 @@ def main() -> int:
             module.launch_count = 0
         for module in (nsf_flow_kernel, maf_flow_kernel, mademog_fused):
             module.bf16_launch_count = 0
+        for route in nsf_flow_kernel.route_launch_count:
+            nsf_flow_kernel.route_launch_count[route] = 0
         for cs in maf_train.cluster_launch_count:
             maf_train.cluster_launch_count[cs] = 0
 
@@ -796,7 +882,20 @@ def main() -> int:
                 "B2_bf16": nsf_flow_kernel.bf16_launch_count,
                 "B9_bf16": maf_flow_kernel.bf16_launch_count,
                 "B9_degree": maf_flow_kernel.degree_launch_count,
-                "B11_bf16": mademog_fused.bf16_launch_count}
+                "B11_bf16": mademog_fused.bf16_launch_count,
+                **{f"B2_{route}": c for route, c in nsf_flow_kernel.route_launch_count.items()}}
+
+    def b2_route_counts(server, requests=1):
+        """The route counters a fused B2 request of ``server`` must move: its
+        weights' route (B2_wgmma, B2_simt and their _bf16 twins), once a
+        request; none for another model."""
+        view = server._fused
+        if not isinstance(view, nsf_fused.FusedNSF):
+            return {}
+        route = nsf_flow_kernel.weights_route(view._weights, view._indices,
+                                              spline=view._static["spline"])
+        bf16 = view._weights["w0"].dtype == torch.bfloat16
+        return {f"B2_{route}{'_bf16' if bf16 else ''}": requests}
 
     def b10_layouts():
         """B10's launches since the last reset by cluster size (1: one block
@@ -860,9 +959,11 @@ def main() -> int:
             log(f"serving {model} ({name}): launches a request {first}, two more requests "
                 f"{rest}")
             if use_fused:
-                expect_counts(f"one fused {model} request", first, **{fused_kernel: 1})
+                expect_counts(f"one fused {model} request", first, **{fused_kernel: 1},
+                              **b2_route_counts(server))
                 expect_counts(f"two fused {model} requests", rest,
-                              **(fused_sample or {fused_kernel: 2}))
+                              **(fused_sample or {fused_kernel: 2}),
+                              **b2_route_counts(sampler, 2))
                 book.setdefault(fused_kernel, first[fused_kernel])
                 if rest["B9_degree"]:
                     # B9's fixed point: the degree kernel, once a sampling request
@@ -1178,7 +1279,10 @@ def main() -> int:
         data = batches(TRAIN_BATCH, TRAIN_STEPS, seed=3)
         ctxs = contexts(TRAIN_BATCH, TRAIN_STEPS, 13, context_features)
         losses = {}
-        for name, expected in (("fused", dict(B3=1)), ("fused-autograd", dict(B2=1, B4=1)),
+        # the fused-autograd route's B2 is the SIMT kernel, which reads the
+        # layout the trainer re-packs in place after each step
+        for name, expected in (("fused", dict(B3=1)),
+                               ("fused-autograd", dict(B2=1, B2_simt=1, B4=1)),
                                ("eager", eager_kernels)):
             reset_counts()
             first = steps[name](data[0], ctxs[0])
@@ -1400,7 +1504,6 @@ def main() -> int:
     iaf = tame(InverseAutoregressiveFlow(**MAF, use_random_permutations=True, **seeded(1)))
     DA, HA, LA = MAF["features"], MAF["hidden_features"], MAF["num_layers"]
     nba = MAF["num_blocks_per_layer"]
-    RAGGED = SERVE_BATCH - 95   # leaves a last tile of one sample
     LARGE_BATCH = 1 << 16
     default_rows = maf_flow_kernel.tile_rows(
         LARGE_BATCH, DA, HA, 2 * DA, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -2074,36 +2177,43 @@ def main() -> int:
         fw64 = {k: v.double() for k, v in fw32.items()}
         ftm = fw32["wf"].shape[1]
         fbytes = 4 * sum(v.numel() for v in fw32.values())
-        log(f"B2 ({fam}, TM {ftm}) at N={SERVE_BATCH}:")
-        stats = {}
+        fam_routes = b2_routes(fw32, fidx, fstatic["spline"])
+        log(f"B2 ({fam}, TM {ftm}) at N={SERVE_BATCH}, routes {fam_routes}:")
+        stats = {"gemm_route": fam_routes[0]}
         for inverse in (False, True):
             kw = dict(inverse=inverse, **fstatic)
-            y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, fw32, fidx, packed=view._packed,
-                                                          **kw)
             p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, fw32, fidx, **kw)
             d_y, d_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x.double(), fw64, fidx, **kw)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-                raise AssertionError(f"B2 ({fam}) produced non-finite values")
             tag = "inverse" if inverse else "forward"
-            err = max(hold(f"{tag} out", y, p_y, d_y, 1e-3),
-                      hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
-            run = lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: E731
-                x, fw32, fidx, packed=view._packed, **kw)  # noqa: B023
+            pre = "inverse_" if inverse else ""
+            times = {}
+            for gr in fam_routes:
+                y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, fw32, fidx, packed=view._packed,
+                                                              gemm=gr, **kw)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                    raise AssertionError(f"B2 ({fam}, {gr}) produced non-finite values")
+                err = max(hold(f"{gr} {tag} out", y, p_y, d_y, 1e-3),
+                          hold(f"{gr} {tag} lad", lad, p_lad, d_lad, 1e-3))
+                run = lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: E731
+                    x, fw32, fidx, packed=view._packed, gemm=gr, **kw)  # noqa: B023
+                times[gr] = device_ms(torch, run, 10, kernel=B2_KERNEL[gr])
+                if gr == fam_routes[0]:
+                    stats.update({pre + "err": err, pre + "ms": times[gr],
+                                  pre + "ms_source": device_ms.source})
+                else:
+                    stats[pre + f"{gr}_ms"] = times[gr]
             run_plain = lambda: nsf_flow_kernel.nsf_flow_kernel_plain(  # noqa: E731
                 x, fw32, fidx, **kw)  # noqa: B023
-            ms = device_ms(torch, run, 10, kernel="nsf_flow_kernel")
-            ms_source = device_ms.source
             plain_ms = device_ms(torch, run_plain, 3)
             nops = 2 * SERVE_BATCH * L * (Tid * H + 2 * nb * H * H + H * ftm)
-            bound_ms, bound_by = bound(nops, fbytes + 4 * SERVE_BATCH * (2 * D + 1))
-            log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-                f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP)  "
-                f"{nops / ms / 1e9:.1f} TFLOP/s")
-            pre = "inverse_" if inverse else ""
-            stats.update({pre + "err": err, pre + "ms": ms, pre + "ms_source": ms_source,
-                          pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
-                          pre + "bound_by": bound_by})
+            bnd = b2_bound(nops, fbytes + 4 * SERVE_BATCH * (2 * D + 1), fam_routes[0])
+            log(f"  {tag} time: " + ", ".join(f"{gr} kernel {t:.4f} ms" for gr, t in times.items())
+                + f"  plain {plain_ms:.4f} ms  bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}, {bnd['bound_basis']}; CUDA cores "
+                f"{bnd['cuda_core_bound_ms']:.4f})  {nops / 1e9:.2f} GFLOP, "
+                f"{nops / times[fam_routes[0]] / 1e9:.1f} TFLOP/s")
+            stats.update({pre + "plain_ms": plain_ms, **{pre + k: v for k, v in bnd.items()}})
         b2_families[fam] = stats
 
     # the narrow quadratic chain with unfolded weights and wh_scale: 2KT = 20
@@ -2217,40 +2327,53 @@ def main() -> int:
         for n in sizes:
             x = torch.randn(n, D, generator=gen).to(dev)
             ctx = torch.randn(n, C, generator=gen).to(dev)
-            log(f"B2 ({model}, context {C}) at N={n}:")
+            ctx_routes = b2_routes(cw32, cidx, cstatic["spline"])
+            log(f"B2 ({model}, context {C}) at N={n}, routes {ctx_routes}:")
+            stats["gemm_route"] = ctx_routes[0]
             for inverse in (False, True):
                 kw = dict(inverse=inverse, **cstatic)
-                y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, cw32, cidx, packed=view._packed,
-                                                              context=ctx, **kw)
                 p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, cw32, cidx, context=ctx,
                                                                    **kw)
                 d_y, d_lad = nsf_flow_kernel.nsf_flow_kernel_plain(
                     x.double(), cw64, cidx, context=ctx.double(), **kw)
-                torch.cuda.synchronize()
-                if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-                    raise AssertionError(f"B2 ({model}, context) produced non-finite values")
                 tag = "inverse" if inverse else "forward"
-                err = max(hold(f"{tag} out", y, p_y, d_y, 1e-3),
-                          hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
-                errs.append(err)
+                pre = "inverse_" if inverse else ""
+                times = {}
+                for gr in ctx_routes:
+                    y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(
+                        x, cw32, cidx, packed=view._packed, context=ctx, gemm=gr, **kw)
+                    torch.cuda.synchronize()
+                    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                        raise AssertionError(f"B2 ({model}, context, {gr}) produced "
+                                             "non-finite values")
+                    err = max(hold(f"{gr} {tag} out", y, p_y, d_y, 1e-3),
+                              hold(f"{gr} {tag} lad", lad, p_lad, d_lad, 1e-3))
+                    errs.append(err)
+                    if n != sizes[0]:
+                        continue
+                    run = lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: E731
+                        x, cw32, cidx, packed=view._packed, context=ctx, gemm=gr,  # noqa: B023
+                        **kw)  # noqa: B023
+                    times[gr] = device_ms(torch, run, 10, kernel=B2_KERNEL[gr])
+                    if gr == ctx_routes[0]:
+                        stats.update({pre + "err": err, pre + "ms": times[gr],
+                                      pre + "ms_source": device_ms.source})
+                    else:
+                        stats[pre + f"{gr}_ms"] = times[gr]
                 if n != sizes[0]:
                     continue
-                run = lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: E731
-                    x, cw32, cidx, packed=view._packed, context=ctx, **kw)  # noqa: B023
                 run_plain = lambda: nsf_flow_kernel.nsf_flow_kernel_plain(  # noqa: E731
                     x, cw32, cidx, context=ctx, **kw)  # noqa: B023
-                ms = device_ms(torch, run, 10, kernel="nsf_flow_kernel")
-                ms_source = device_ms.source
                 plain_ms = device_ms(torch, run_plain, 3)
                 nops = 2 * n * L * (Tid * H + C * H + 2 * nb * H * H + nb * C * H + H * ctm)
-                bound_ms, bound_by = bound(nops, cbytes + 4 * n * (2 * D + 1 + C))
-                log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-                    f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP)  "
-                    f"{nops / ms / 1e9:.1f} TFLOP/s")
-                pre = "inverse_" if inverse else ""
-                stats.update({pre + "err": err, pre + "ms": ms, pre + "ms_source": ms_source,
-                              pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
-                              pre + "bound_by": bound_by})
+                bnd = b2_bound(nops, cbytes + 4 * n * (2 * D + 1 + C), ctx_routes[0])
+                log(f"  {tag} time: "
+                    + ", ".join(f"{gr} kernel {t:.4f} ms" for gr, t in times.items())
+                    + f"  plain {plain_ms:.4f} ms  bound {bnd['bound_ms']:.4f} ms "
+                    f"({bnd['bound_by']}, {bnd['bound_basis']}; CUDA cores "
+                    f"{bnd['cuda_core_bound_ms']:.4f})  {nops / 1e9:.2f} GFLOP, "
+                    f"{nops / times[ctx_routes[0]] / 1e9:.1f} TFLOP/s")
+                stats.update({pre + "plain_ms": plain_ms, **{pre + k: v for k, v in bnd.items()}})
         stats["err"] = max(errs)
         return stats
 
@@ -2689,49 +2812,70 @@ def main() -> int:
         return dict(ms=ms16, ms_source=source, fp32_ms=ms32, plain_ms=device_ms(torch, runp, 3))
 
     def b2_bf16(model, flow_b, sizes, context_features=None):
+        """B2 with bf16 weights on both routes against the bf16 plain
+        version, forward and inverse at each size (and at a ragged N on the
+        flagship); timed at the given sizes beside the fp32 kernel of the
+        same route and the bf16 SIMT kernel."""
         v16, v32 = fuse_nsf(flow_b, dtype=BF16), fuse_nsf(flow_b)
         w16, idx16, st = v16._weights, v16._indices, v16._static
         Tid_b, T_b = len(idx16[0].id_idx), len(idx16[0].tr_idx)
         H_b, TM_b = w16["w0"].shape[1], w16["wf"].shape[1]
         nb_b, L_b, C_b = st["num_blocks"], len(idx16), context_features or 0
+        routes16 = b2_routes(w16, idx16, st["spline"])
+        route32 = nsf_flow_kernel.weights_route(v32._weights, idx16, spline=st["spline"])
         stats = {}
-        for n in sizes:
-            x = torch.randn(n, Tid_b + T_b, generator=gen).to(dev)
-            ctx = None if not C_b else torch.randn(n, C_b, generator=gen).to(dev)
-            log(f"B2 in bf16 ({model}) at N={n}:")
+        for n in sizes + ((RAGGED,) if model == "flagship" else ()):
+            # the ragged N from a generator of its own, as in phase 4
+            draw = torch.Generator().manual_seed(n) if n == RAGGED else gen
+            x = torch.randn(n, Tid_b + T_b, generator=draw).to(dev)
+            ctx = None if not C_b else torch.randn(n, C_b, generator=draw).to(dev)
+            log(f"B2 in bf16 ({model}) at N={n}, routes {routes16}:")
             errs = []
             for inverse in (False, True):
                 kw = dict(inverse=inverse, context=ctx, **st)
-                y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, w16, idx16, packed=v16._packed,
-                                                              **kw)
                 p16 = nsf_flow_kernel.nsf_flow_kernel_plain(x, w16, idx16, **kw)
                 p32 = nsf_flow_kernel.nsf_flow_kernel_plain(x, v32._weights, idx16, **kw)
-                torch.cuda.synchronize()
                 tag = "inverse" if inverse else "forward"
-                errs.append(hold_bf16(f"{tag} out", y, p16[0], p32[0], BF16_OUT))
-                errs.append(hold_bf16(f"{tag} lad", lad, p16[1], p32[1], BF16_LAD))
-            out = {}
+                for gr in routes16:
+                    y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(
+                        x, w16, idx16, packed=v16._packed, gemm=gr, **kw)
+                    torch.cuda.synchronize()
+                    errs.append(hold_bf16(f"{gr} {tag} out", y, p16[0], p32[0], BF16_OUT))
+                    errs.append(hold_bf16(f"{gr} {tag} lad", lad, p16[1], p32[1], BF16_LAD))
+            if n == RAGGED:
+                continue
+            out = {"gemm_route": routes16[0]}
             for inverse in (False, True):
                 kw = dict(inverse=inverse, context=ctx, **st)
-                t = time_pair(
-                    lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: B023
-                        x, w16, idx16, packed=v16._packed, **kw),  # noqa: B023
-                    lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: B023
+                t = {}
+                for gr in routes16:
+                    t["ms" if gr == routes16[0] else f"{gr}_ms"] = device_ms(
+                        torch, lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: B023
+                            x, w16, idx16, packed=v16._packed, gemm=gr, **kw),  # noqa: B023
+                        10, kernel=B2_KERNEL[gr])
+                    if gr == routes16[0]:
+                        t["ms_source"] = device_ms.source
+                t["fp32_ms"] = device_ms(
+                    torch, lambda: nsf_flow_kernel.nsf_flow_kernel_cuda(  # noqa: B023
                         x, v32._weights, idx16, packed=v32._packed, **kw),  # noqa: B023
-                    lambda: nsf_flow_kernel.nsf_flow_kernel_plain(  # noqa: B023
-                        x, w16, idx16, **kw),  # noqa: B023
-                    "nsf_flow_kernel")
+                    10, kernel=B2_KERNEL[route32])
+                t["plain_ms"] = device_ms(
+                    torch, lambda: nsf_flow_kernel.nsf_flow_kernel_plain(  # noqa: B023
+                        x, w16, idx16, **kw), 3)  # noqa: B023
                 out.update(t if not inverse else {f"inverse_{k}": v for k, v in t.items()})
             nops = 2 * n * L_b * (Tid_b * H_b + C_b * H_b + 2 * nb_b * H_b * H_b
                                   + nb_b * C_b * H_b + H_b * TM_b)
             bound_ms, bound_by = bound_bf16(nops, w16, n * (2 * (Tid_b + T_b) + 1 + C_b))
-            log(f"  time (forward / inverse): bf16 kernel {out['ms']:.4f} / "
-                f"{out['inverse_ms']:.4f} ms, fp32 kernel {out['fp32_ms']:.4f} / "
+            simt = (f", bf16 simt kernel {out['simt_ms']:.4f} / {out['inverse_simt_ms']:.4f} ms"
+                    if "simt_ms" in out else "")
+            log(f"  time (forward / inverse): bf16 {routes16[0]} kernel {out['ms']:.4f} / "
+                f"{out['inverse_ms']:.4f} ms{simt}, fp32 {route32} kernel {out['fp32_ms']:.4f} / "
                 f"{out['inverse_fp32_ms']:.4f} ms, bf16 plain {out['plain_ms']:.4f} / "
                 f"{out['inverse_plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
                 f"{nops / 1e9:.2f} GFLOP at 989 TFLOP/s): {100 * bound_ms / out['ms']:.2f}% "
                 "of it")
-            stats[n] = dict(err=max(errs), bound_ms=bound_ms, bound_by=bound_by, **out)
+            stats[n] = dict(err=max(errs), bound_ms=bound_ms, bound_by=bound_by,
+                            bound_basis="bf16 tensor cores, 989 TFLOP/s", **out)
         return stats
 
     b2_bf16_stats = b2_bf16("flagship", flow, (SERVE_BATCH, 1 << 16))
@@ -2853,10 +2997,12 @@ def main() -> int:
         torch.cuda.synchronize()
         rest = read_counts()
         log(f"serving the {model} in bf16: launches a log_prob {first}, a sample {rest}")
-        expect_counts(f"a bf16 {model} log_prob request", first, **{kid: 1})
+        expect_counts(f"a bf16 {model} log_prob request", first, **{kid: 1},
+                      **b2_route_counts(server))
         expect_counts(f"a bf16 {model} sample request", rest,
                       **({kid: 1} if sample_kernel else {}),
-                      **({"B9_degree": 1} if kid == "B9_bf16" else {}))
+                      **({"B9_degree": 1} if kid == "B9_bf16" else {}),
+                      **b2_route_counts(server))
         bf16_launches[kid] = first[kid]
         if kid == "B9_bf16":
             bf16_launches["B9_degree"] = rest["B9_degree"]
@@ -2932,10 +3078,15 @@ def main() -> int:
     for kid, stats, source, replaces, tpu in (
             ("B1", b1[SERVE_BATCH * 3], "nflows_tpu_torch/csrc/rq_spline.cu",
              "nflows_tpu/ops/pallas/rq_spline.py:39", "ops/pallas/rq_spline.py:_kernel"),
-            ("B2", with_context({**b2[SERVE_BATCH], "families": b2_families},
+            ("B2", with_context({**b2[SERVE_BATCH], "families": b2_families,
+                                 "ms_at_65536": b2[1 << 16]["ms"],
+                                 "simt_ms_at_65536": b2[1 << 16]["simt_ms"],
+                                 "simt_source": "nflows_tpu_torch/csrc/nsf_flow_kernel.cu"},
                                 {**b2_ctx, "families": {"affine": b2_ctx_affine}},
                                 context_launches=context_launches["B2"]),
-             "nflows_tpu_torch/csrc/nsf_flow_kernel.cu",
+             "nflows_tpu_torch/csrc/" + ("nsf_flow_wgmma.cu"
+                                         if b2[SERVE_BATCH]["gemm_route"] == "wgmma"
+                                         else "nsf_flow_kernel.cu"),
              "nflows_tpu/ops/pallas/nsf_flow_kernel.py:1095",
              "ops/pallas/nsf_flow_kernel.py:_kernel"),
             ("B3", with_context({**at_training_batch(b3),
@@ -3027,15 +3178,19 @@ def main() -> int:
             **{k: v for k, v in stats.items()
                if k.startswith(("inverse_", "forward_", "schedule_", "context_", "ms_at_",
                                 "families", "cluster_", "ms_by_", "active_", "held_",
-                                "degree_"))},
+                                "degree_", "gemm_route", "simt_", "bound_basis",
+                                "cuda_core_"))},
         })
     for kid, stats, more, stem, replaces, tpu in (
             ("B2", b2_bf16_stats[SERVE_BATCH],
              dict(ms_at_65536=b2_bf16_stats[1 << 16]["ms"],
                   fp32_ms_at_65536=b2_bf16_stats[1 << 16]["fp32_ms"],
+                  simt_ms_at_65536=b2_bf16_stats[1 << 16].get("simt_ms"),
+                  simt_source="nflows_tpu_torch/csrc/nsf_flow_kernel_bf16.cu",
                   families={"affine": b2_bf16_affine},
                   **{f"context_{k}": v for k, v in b2_bf16_ctx.items()}),
-             "nsf_flow_kernel_bf16", "nflows_tpu/ops/pallas/nsf_flow_kernel.py:1095",
+             "nsf_flow_wgmma_bf16" if b2_bf16_stats[SERVE_BATCH]["gemm_route"] == "wgmma"
+             else "nsf_flow_kernel_bf16", "nflows_tpu/ops/pallas/nsf_flow_kernel.py:1095",
              "ops/pallas/nsf_flow_kernel.py:_kernel"),
             ("B9", b9_bf16_stats["MAF"],
              dict(families={"NSF-AR": b9_bf16_stats["NSF-AR"]},
@@ -3055,7 +3210,9 @@ def main() -> int:
             "max_err": stats["err"], "ms": stats["ms"], "kernel_ms": stats["ms"],
             "ms_source": stats["ms_source"], "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"], "library_ms": None,
-            **{k: v for k, v in stats.items() if k.startswith(("inverse_", "fp32_"))}, **more,
+            **{k: v for k, v in stats.items()
+               if k.startswith(("inverse_", "fp32_", "simt_", "gemm_route", "bound_basis"))},
+            **more,
         })
     rows.sort(key=lambda row: (int(row["id"].split("_")[0][1:]), row["id"]))
     print(json.dumps({"kernels": rows}))

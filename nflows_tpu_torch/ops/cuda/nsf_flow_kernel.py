@@ -1,6 +1,17 @@
 """Kernel B2: the whole coupling chain in one launch (counterpart of
-nflows_tpu/ops/pallas/nsf_flow_kernel.py; source ``csrc/nsf_flow_kernel.cu``,
-the coupling stages in ``csrc/coupling_stage.cuh``).
+nflows_tpu/ops/pallas/nsf_flow_kernel.py; sources ``csrc/nsf_flow_wgmma.cu``
+and ``csrc/nsf_flow_kernel.cu``, the coupling stages in
+``csrc/coupling_stage.cuh``).
+
+B2 has two routes (:func:`gemm_route`). ``"wgmma"``
+(``csrc/nsf_flow_wgmma.cuh``) runs every GEMM on Hopper's tensor cores:
+bf16 wgmma for bf16 weights, 3xTF32 for fp32 ones, the weights streamed
+from :func:`pack_weights_wgmma`'s image through a ring of shared-memory
+slots. It takes every chain whose hidden width is a multiple of 64 up to
+256 and whose tile fits in shared memory, save the fp32 affine couplings
+(``FP32_SIMT_FAMILIES``). ``"simt"`` (``csrc/nsf_flow_kernel.cuh``) runs
+fp32 FMAs on the CUDA cores and takes the rest. ``gemm=`` on
+:func:`nsf_flow_kernel_cuda` forces one.
 
 The chain is L layers of [permutation, coupling with a ResidualNet
 conditioner] of one family (``spline=``, as the JAX kernel's ``_SPLINES_TR``
@@ -28,12 +39,15 @@ array.
 
 Samples are rows here: x is [N, D], the context [N, C], and the result is
 (y [N, D], lad [N]). B2 runs fp32 or bf16 weights, with or without a
-context. With bf16 weights (``csrc/nsf_flow_kernel_bf16.cu``, the JAX
-package's default deployment) the matrices w0, wb, wf, wc0 and wcb are
-bf16 and the biases fp32, and every GEMM is the JAX kernel's ``_dot``: the
-activation operand rounded to bf16, the products summed in fp32
-(:func:`gemm`); the packed matrices' output widths are then padded to
-multiples of 8, which a 16-byte copy of bf16 weights needs.
+context, on either route. With bf16 weights (``csrc/nsf_flow_wgmma_bf16.cu``
+and ``csrc/nsf_flow_kernel_bf16.cu``, the JAX package's default
+deployment) the matrices w0, wb, wf, wc0 and wcb are bf16 and the biases
+fp32, and every GEMM is the JAX kernel's ``_dot``: the activation operand
+rounded to bf16, the products summed in fp32 (:func:`gemm`); the SIMT
+route's packed matrices' output widths are then padded to multiples of 8,
+which a 16-byte copy of bf16 weights needs. With fp32 weights the wgmma
+route forms each product as three TF32 products (3xTF32: hi and lo parts
+of both operands), never one, and keeps fp32's bands.
 
 :func:`nsf_flow_kernel_plain` computes the same chain step by step in
 PyTorch on the extracted weights, with the port's plain splines
@@ -59,8 +73,11 @@ from nflows_tpu_torch.ops.splines import quadratic as quadratic_ref
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 
 __all__ = ["nsf_flow_kernel_cuda", "nsf_flow_kernel_plain", "pack_weights",
-           "shared_memory_bytes", "params_per_feature", "stage_floats", "FAMILIES",
-           "gemm", "launch_count", "bf16_launch_count"]
+           "pack_weights_wgmma", "wgmma_positions", "wgmma_gemms", "wgmma_dims",
+           "gemm_route", "weights_route", "gemm_wgmma", "shared_memory_bytes",
+           "FP32_SIMT_FAMILIES", "wgmma_shared_memory_bytes", "params_per_feature",
+           "stage_floats", "FAMILIES", "GEMM_ROUTES", "gemm", "launch_count",
+           "bf16_launch_count", "route_launch_count"]
 
 # the coupling families, in the order of csrc/coupling_stage.cuh's CouplingFamily
 FAMILIES = ("rq", "lrs", "linear", "quadratic", "cubic", "affine", "additive")
@@ -73,14 +90,23 @@ RESCALED_FAMILIES = ("rq", "lrs", "quadratic", "cubic")
 # the packed stacks that are matrices (bf16 with bf16 weights); the rest fp32
 MATRICES = ("w0", "wb", "wf", "wc0", "wcb")
 
-launch_count = 0  # kernel launches since the last reset (fp32 weights)
-bf16_launch_count = 0  # launches of the bf16-weight kernel since the last reset
+launch_count = 0  # kernel launches since the last reset (fp32 weights, either route)
+bf16_launch_count = 0  # launches of a bf16-weight kernel since the last reset
+# launches by route and weight type since the last reset: "simt", "wgmma",
+# "simt_bf16", "wgmma_bf16"
+route_launch_count = {"simt": 0, "wgmma": 0, "simt_bf16": 0, "wgmma_bf16": 0}
+gemm_probe_launch_count = 0  # launches of gemm_wgmma's kernel
 WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+GEMM_ROUTES = ("wgmma", "simt")
 
 # Shared memory a block may use on Hopper (H100/H200), and the layout the
 # kernel carves from it (csrc/nsf_flow_kernel.cuh: smem_bytes).
 MAX_SHARED_MEMORY = 232448
 _KC, _OC = 32, 256
+# the wgmma route's tile (csrc/nsf_flow_wgmma.cuh): 32 samples, a ring of 4
+# slots of 32 KB, one slab's A tile of one wgmma 64 rows x 32 bytes, at
+# most 4 slabs of 64 rows a GEMM
+_WG_ROWS, _WG_SLOT, _WG_STEP, _WG_MAX_ROWS, _WG_SLOTS = 32, 32768, 2048, 256, 4
 
 
 def _round4(n: int) -> int:
@@ -158,6 +184,26 @@ def _declare(lib):
             fn.argtypes = ([p, p, p, ctypes.c_int64] + [i] * 9 + [p] * 7 + [i] * 4 + [f] * 8
                            + [p, i, p, p, p] + [i, p])
             fn.restype = i
+    for fn in (getattr(lib, name, None) for name in ("nsf_wgmma_launch",
+                                                     "nsf_wgmma_launch_bf16")):
+        if fn is not None:
+            fn.argtypes = ([p, p, p, ctypes.c_int64] + [i] * 9 + [p, ctypes.c_int64]
+                           + [p] * 5 + [i] * 4 + [f] * 8 + [p, i, i, p])
+            fn.restype = i
+    for fn in (getattr(lib, name, None) for name in ("wgmma_gemm_launch",
+                                                     "wgmma_gemm_launch_bf16")):
+        if fn is not None:
+            fn.argtypes = [p, p, p, ctypes.c_int64, i, i, p]
+            fn.restype = i
+
+
+def _index_array(layer_indices, device) -> torch.Tensor:
+    """The per-layer index lists as one int32 array [L, 2 Tid + 2 T + 2 D]:
+    id_rows, tr_rows, merge_fwd, id_idx, tr_idx, merge_inv."""
+    return torch.tensor(
+        [list(li.id_rows) + list(li.tr_rows) + list(li.merge_fwd)
+         + list(li.id_idx) + list(li.tr_idx) + list(li.merge_inv)
+         for li in layer_indices], dtype=torch.int32, device=device)
 
 
 def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
@@ -181,10 +227,7 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
         out = dict(
             w0=torch.zeros(L, I4, H, **mat), wb=torch.empty(weights["wb"].shape, **mat),
             wf=torch.zeros(L, H, TMp, **mat), bf=torch.zeros(L, TMp, **f32),
-            idx=torch.tensor(
-                [list(li.id_rows) + list(li.tr_rows) + list(li.merge_fwd)
-                 + list(li.id_idx) + list(li.tr_idx) + list(li.merge_inv)
-                 for li in layer_indices], dtype=torch.int32, device=dev))
+            idx=_index_array(layer_indices, dev))
         if "wc0" in weights:
             out["wc0"] = torch.empty(weights["wc0"].transpose(1, 2).shape, **mat)
             out["wcb"] = torch.empty(weights["wcb"].transpose(2, 3).shape, **mat)
@@ -201,6 +244,213 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_indices: Sequence,
             out["wcb"].copy_(weights["wcb"].transpose(2, 3))
             out["bcb"] = weights["bcb"][..., 0].detach().float().contiguous()
     return out
+
+
+# -- the wgmma route's weight image ------------------------------------------------
+
+
+def _round_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def wgmma_dims(Tid: int, TM: int, C: int = 0) -> dict:
+    """The wgmma route's padded widths: the initial layer's depth Ip and the
+    context's Cp to 16 (one bf16 wgmma step), the final layer's rows TMp to
+    a multiple of 64 (wgmma's M)."""
+    return dict(Ip=_round_to(Tid, 16), Cp=_round_to(C, 16) if C else 0, TMp=_round_to(TM, 64))
+
+
+def wgmma_gemms(num_blocks: int, context: bool) -> list:
+    """One layer's GEMMs in the order the kernel runs them and the image
+    holds them: (stack, index), the index into the stack's second axis for
+    wb and wcb."""
+    out = [("w0", None)] + ([("wc0", None)] if context else [])
+    for j in range(num_blocks):
+        out += [("wb", 2 * j)] + ([("wcb", j)] if context else []) + [("wb", 2 * j + 1)]
+    return out + [("wf", None)]
+
+
+def _chunk_steps(nk: int, ns: int) -> int:
+    """wgmma steps a chunk of a GEMM of ``nk`` steps over ``ns`` slabs
+    holds: the largest power of two up to 8 that a ring slot takes, or
+    ``nk`` (csrc/nsf_flow_wgmma.cuh: chunk_steps)."""
+    per = 8
+    while per * ns * _WG_STEP > _WG_SLOT:
+        per //= 2
+    return min(nk, per)
+
+
+def wgmma_positions(O: int, K: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The layout of one GEMM's matrix in the wgmma route's image: element
+    (o, k) of the padded [O][K] matrix (O a multiple of 64, K of 16; K
+    contiguous, as the weights are extracted) lies at ``pos[o, k]``
+    elements from the GEMM's start. The GEMM is cut into chunks of whole
+    wgmma steps (32 bytes of K) over all its 64-row slabs, a ring slot
+    each (:func:`_chunk_steps`); a chunk holds, slab by slab and step by
+    step, the step's two 16-byte core-matrix columns along K, each eight
+    8-row core matrices of 128 bytes along M: the K-major, unswizzled
+    shared-memory layout the kernel's wgmma descriptors read (LBO 1024,
+    SBO 128). The packer scatters through it and the tests decode through
+    it."""
+    es = torch.empty((), dtype=dtype).element_size()
+    if O % 64 or K % 16:
+        raise ValueError(f"wgmma_positions: O {O} must be a multiple of 64 and K {K} of 16")
+    V = 16 // es                  # elements of a 16-byte core-matrix row
+    step = 2 * V                  # K elements of one wgmma
+    ns, nk = O // 64, K // step
+    kc = _chunk_steps(nk, ns)
+    o = torch.arange(O, device=device)[:, None]
+    k = torch.arange(K, device=device)[None, :]
+    ks = k // step
+    c, kk = ks // kc, ks % kc
+    kn = torch.clamp(nk - c * kc, max=kc)
+    slab_step = _WG_STEP // es     # elements of one slab's step
+    return (c * kc * ns * slab_step + ((o // 64) * kn + kk) * slab_step
+            + ((k % step) // V) * (1024 // es) + ((o % 64) // 8) * (128 // es)
+            + (o % 8) * V + k % V)
+
+
+def pack_weights_wgmma(weights: Dict[str, torch.Tensor],
+                       layer_indices: Sequence) -> Dict[str, torch.Tensor]:
+    """The wgmma route's layout of the extracted weights, built once on the
+    weights' device with tensor operations: ``image``, every layer's
+    matrices (w0, wc0, wb, wcb, wf as :func:`wgmma_gemms` orders them, each
+    zero-padded to :func:`wgmma_dims` and laid out by
+    :func:`wgmma_positions`) one layer after another, in the weights' type
+    (bf16 or fp32; the kernel bulk-copies it chunk by chunk into its ring);
+    ``layer_bytes``, one layer's share; the biases fp32 (b0 [L, H],
+    bb [L, 2 nb, H], bf [L, TMp] zero past TM, bcb [L, nb, H]) and the index
+    lists of :func:`pack_weights`."""
+    w0, wf = weights["w0"], weights["wf"]
+    L, H, Tid = w0.shape
+    TM = wf.shape[1]
+    ctx = "wc0" in weights
+    C = weights["wc0"].shape[2] if ctx else 0
+    nb = weights["wb"].shape[1] // 2
+    dims = wgmma_dims(Tid, TM, C)
+    wdt = torch.bfloat16 if w0.dtype == torch.bfloat16 else torch.float32
+    dev = w0.device
+
+    def padded(t, rows, cols):
+        out = torch.zeros(*t.shape[:-2], rows, cols, dtype=wdt, device=dev)
+        out[..., :t.shape[-2], :t.shape[-1]] = t.detach()
+        return out
+
+    mats = dict(w0=padded(w0, H, dims["Ip"]), wb=weights["wb"].detach().to(wdt),
+                wf=padded(wf, dims["TMp"], H))
+    if ctx:
+        mats.update(wc0=padded(weights["wc0"], H, dims["Cp"]),
+                    wcb=padded(weights["wcb"], H, dims["Cp"]))
+    parts = []
+    for name, j in wgmma_gemms(nb, ctx):
+        m = mats[name] if j is None else mats[name][:, j]
+        flat = torch.empty(L, m.shape[1] * m.shape[2], dtype=wdt, device=dev)
+        flat[:, wgmma_positions(m.shape[1], m.shape[2], wdt, dev).reshape(-1)] = m.reshape(L, -1)
+        parts.append(flat)
+    image = torch.cat(parts, dim=1)
+    with torch.no_grad():
+        bf = torch.zeros(L, dims["TMp"], dtype=torch.float32, device=dev)
+        bf[:, :TM] = weights["bf"][..., 0]
+        out = dict(image=image.reshape(-1).contiguous(),
+                   layer_bytes=image.shape[1] * image.element_size(),
+                   b0=weights["b0"][..., 0].detach().float().contiguous(),
+                   bb=weights["bb"][..., 0].detach().float().contiguous(), bf=bf,
+                   idx=_index_array(layer_indices, dev), **dims)
+        if ctx:
+            out["bcb"] = weights["bcb"][..., 0].detach().float().contiguous()
+    return out
+
+
+def wgmma_shared_memory_bytes(D: int, H: int, Tid: int, T: int, TM: int, C: int = 0,
+                              dtype=torch.float32) -> int:
+    """Dynamic shared memory of a block of the wgmma route
+    (csrc/nsf_flow_wgmma.cuh: wgmma_smem_bytes): the ring, the operand
+    buffer (also P [32][TMp + 4] fp32) and, for fp32, its lo plane, the
+    context operand, the barriers, the state and stage buffers."""
+    es = torch.empty((), dtype=dtype).element_size()
+    split = dtype == torch.float32
+    dims = wgmma_dims(Tid, TM, C)
+    planes = 2 if split else 1
+    KX = max(H, dims["Ip"])
+    op = max(_WG_ROWS * KX * es, _WG_ROWS * (dims["TMp"] + 4) * 4)
+    return (_WG_SLOTS * _WG_SLOT + op + (_WG_ROWS * KX * es if split else 0)
+            + planes * _WG_ROWS * dims["Cp"] * es + 16 * _WG_SLOTS
+            + 4 * _WG_ROWS * (2 * D + 2 * T + 1))
+
+
+# the families whose fp32 chain keeps the SIMT route: the affine coupling's
+# inverse divides by scales down to 1e-3, and there 3xTF32 on the tensor
+# cores (about 4 times fp32's rounding a product on the H100, its
+# accumulation included) missed the fp32 band on an untamed RealNVP
+# (tests/test_torch_cuda.py, PERF.md)
+FP32_SIMT_FAMILIES = ("affine",)
+
+
+def gemm_route(H: int, D: int, Tid: int, T: int, TM: int, C: int = 0,
+               dtype=torch.float32, gemm: str = None, spline: str = None) -> str:
+    """The route B2 takes for a chain of these widths: ``"wgmma"`` where
+    the hidden width is a multiple of 64 up to 256, the final layer's
+    padded rows are at most 256 and the tile fits in shared memory, save
+    the fp32 chains of ``FP32_SIMT_FAMILIES``; else ``"simt"``. ``gemm``
+    forces one; forcing ``"wgmma"`` on a shape it cannot take raises."""
+    fits = (H % 64 == 0 and H <= _WG_MAX_ROWS
+            and wgmma_dims(Tid, TM, C)["TMp"] <= _WG_MAX_ROWS
+            and wgmma_shared_memory_bytes(D, H, Tid, T, TM, C, dtype) <= MAX_SHARED_MEMORY)
+    if gemm is None:
+        keep = dtype == torch.float32 and spline in FP32_SIMT_FAMILIES
+        return "wgmma" if fits and not keep else "simt"
+    if gemm not in GEMM_ROUTES:
+        raise ValueError(f"gemm must be one of {GEMM_ROUTES} or None, got {gemm!r}")
+    if gemm == "wgmma" and not fits:
+        raise ValueError(f"gemm='wgmma' does not take hidden width {H} with {TM} parameter "
+                         "rows: the hidden width must be a multiple of 64 up to 256, the "
+                         "parameter rows at most 256, the tile within shared memory")
+    return gemm
+
+
+def weights_route(weights: Dict[str, torch.Tensor], layer_indices, gemm: str = None,
+                  spline: str = None) -> str:
+    """:func:`gemm_route` for a chain's extracted weights (of family
+    ``spline``)."""
+    L, H, Tid = weights["w0"].shape
+    T = len(layer_indices[0].tr_rows)
+    C = weights["wc0"].shape[2] if "wc0" in weights else 0
+    return gemm_route(H, Tid + T, Tid, T, weights["wf"].shape[1], C, weights["w0"].dtype, gemm,
+                      spline)
+
+
+def gemm_wgmma(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w.T`` through the wgmma route's ring, split and fragment
+    layout, one GEMM alone (a [N, K] fp32; w [O, K], fp32 on 3xTF32 or bf16
+    with ``a`` rounded to bf16; K is padded to 16 and O to 64 here, O at
+    most 256). Its plain version is :func:`gemm`, which a CPU tensor runs."""
+    global gemm_probe_launch_count
+    if a.device.type == "cpu":
+        return gemm(a, w)
+    wdt = w.dtype
+    if wdt not in WEIGHT_DTYPES or a.dtype != torch.float32 or a.ndim != 2 or w.ndim != 2:
+        raise ValueError("gemm_wgmma: a must be [N, K] float32 and w [O, K] float32 or bfloat16")
+    n, K = a.shape
+    O = w.shape[0]
+    Kp, Op = _round_to(K, 16), _round_to(O, 64)
+    if w.shape[1] != K or Op > _WG_MAX_ROWS:
+        raise ValueError(f"gemm_wgmma: w must be [O <= 256, {K}], got {tuple(w.shape)}")
+    wp = torch.zeros(Op, Kp, dtype=wdt, device=a.device)
+    wp[:O, :K] = w
+    image = torch.empty(Op * Kp, dtype=wdt, device=a.device)
+    image[wgmma_positions(Op, Kp, wdt, a.device).reshape(-1)] = wp.reshape(-1)
+    ap = torch.zeros(n, Kp, dtype=torch.float32, device=a.device)
+    ap[:, :K] = a
+    out = torch.empty(Op, n, dtype=torch.float32, device=a.device)
+    bf16 = wdt == torch.bfloat16
+    lib = _build.load_library("nsf_flow_wgmma_bf16" if bf16 else "nsf_flow_wgmma", _declare)
+    fn = lib.wgmma_gemm_launch_bf16 if bf16 else lib.wgmma_gemm_launch
+    with torch.cuda.device(a.device):
+        code = fn(image.data_ptr(), ap.data_ptr(), out.data_ptr(), n, Kp, Op,
+                  torch.cuda.current_stream(a.device).cuda_stream)
+    gemm_probe_launch_count += 1
+    _build.check(code, fn.__name__)
+    return out[:O].T
 
 
 def _affine_stage(x, shift, raw, inverse, scale_act):
@@ -324,23 +574,28 @@ def nsf_flow_kernel_cuda(
     tail_bound: float = None, min_bin_width: float = None, min_bin_height: float = None,
     min_derivative: float = None, min_lambda: float = None, scale_act: str = None,
     packed: Dict[str, torch.Tensor] = None, wh_scale: float = None,
-    context: torch.Tensor = None,
+    context: torch.Tensor = None, gemm: str = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the chain: x [N, D] (and the context [N, C] of a conditional
     chain) -> (y [N, D], logabsdet [N]).
 
     The family's configuration is the ``static`` dict of
-    ``nsf_fused._extract``. ``packed`` is :func:`pack_weights` of
-    ``weights``, built here when not given (callers that launch repeatedly
-    keep it). ``wh_scale``: see :func:`nsf_flow_kernel_plain`; None leaves
-    the parameters as they are. fp32 weights launch the fp32 kernel, bf16
-    weights (w0, wb, wf, wc0, wcb bf16, the biases fp32) the bf16 one; x and
-    the context are fp32 either way."""
-    global launch_count, bf16_launch_count
+    ``nsf_fused._extract``. ``gemm`` forces a route, ``"wgmma"`` or
+    ``"simt"``; None takes :func:`gemm_route`'s. ``packed`` is
+    :func:`pack_weights` of ``weights``, with the wgmma route's
+    :func:`pack_weights_wgmma` under ``"wgmma"``; the route's part is built
+    here when not given (callers that launch repeatedly keep it).
+    ``wh_scale``: see :func:`nsf_flow_kernel_plain`; None leaves the
+    parameters as they are. fp32 weights launch the route's fp32 kernel,
+    bf16 weights (w0, wb, wf, wc0, wcb bf16, the biases fp32) its bf16 one;
+    x and the context are fp32 either way."""
     kw = dict(inverse=inverse, num_blocks=num_blocks, spline=spline, num_bins=num_bins,
               tail_bound=tail_bound, min_bin_width=min_bin_width,
               min_bin_height=min_bin_height, min_derivative=min_derivative,
               min_lambda=min_lambda, scale_act=scale_act, wh_scale=wh_scale)
+    if gemm is not None:
+        # a forced route the shape cannot take raises
+        weights_route(weights, layer_indices, gemm, spline)
     if x.device.type == "cpu":
         return nsf_flow_kernel_plain(x, weights, layer_indices, context=context, **kw)
     _check_context("nsf_flow_kernel_cuda", x, weights, context)
@@ -351,8 +606,6 @@ def nsf_flow_kernel_cuda(
     if spline == "affine" and scale_act not in ("default", "general"):
         raise ValueError("spline='affine' takes scale_act 'default' or 'general', "
                          f"got {scale_act!r}")
-    if packed is None:
-        packed = pack_weights(weights, layer_indices)
     if x.dtype != torch.float32 or not x.is_contiguous() or x.ndim != 2:
         raise ValueError("nsf_flow_kernel_cuda: x must be a contiguous [N, D] float32")
     n, D = x.shape
@@ -360,18 +613,29 @@ def nsf_flow_kernel_cuda(
     Tid = len(layer_indices[0].id_rows)
     T = D - Tid
     TM = T * M
-    H = packed["b0"].shape[1]
+    H = weights["w0"].shape[1]
     C = 0 if context is None else context.shape[1]
+    if C and (context.dtype != torch.float32 or not context.is_contiguous()
+              or context.device != x.device):
+        raise ValueError("nsf_flow_kernel_cuda: context must be a contiguous float32 "
+                         f"tensor on {x.device}")
+    stage = (FAMILIES.index(spline), SCALE_ACTIVATIONS.index(scale_act or "none"), num_bins,
+             1.0 if wh_scale is None else wh_scale,
+             *stage_floats(spline, num_bins, tail_bound, min_bin_width, min_bin_height,
+                           min_derivative, min_lambda))
+    if gemm_route(H, D, Tid, T, TM, C, wdt, gemm, spline) == "wgmma":
+        wp = None if packed is None else packed.get("wgmma")
+        if wp is None:
+            wp = pack_weights_wgmma(weights, layer_indices)
+        return _launch_wgmma(x, context, wp, L, H, Tid, T, TM, num_blocks, inverse, stage)
+    if packed is None:
+        packed = pack_weights(weights, layer_indices)
     TMp = _round_out(TM, wdt)
     expected = dict(w0=(L, _round4(Tid), H), b0=(L, H), wb=(L, 2 * num_blocks, H, H),
                     bb=(L, 2 * num_blocks, H), wf=(L, H, TMp),
                     bf=(L, TMp), idx=(L, 2 * D + 2 * Tid + 2 * T))
     if C:
         expected.update(wc0=(L, C, H), wcb=(L, num_blocks, C, H), bcb=(L, num_blocks, H))
-        if (context.dtype != torch.float32 or not context.is_contiguous()
-                or context.device != x.device):
-            raise ValueError("nsf_flow_kernel_cuda: context must be a contiguous float32 "
-                             f"tensor on {x.device}")
     for name, shape in expected.items():
         t = packed.get(name)
         if t is None:
@@ -405,16 +669,67 @@ def nsf_flow_kernel_cuda(
             packed["w0"].data_ptr(), packed["b0"].data_ptr(),
             packed["wb"].data_ptr(), packed["bb"].data_ptr(),
             packed["wf"].data_ptr(), packed["bf"].data_ptr(),
-            packed["idx"].data_ptr(), int(inverse), FAMILIES.index(spline),
-            SCALE_ACTIVATIONS.index(scale_act or "none"), num_bins,
-            1.0 if wh_scale is None else wh_scale,
-            *stage_floats(spline, num_bins, tail_bound, min_bin_width, min_bin_height,
-                          min_derivative, min_lambda),
+            packed["idx"].data_ptr(), int(inverse), *stage,
             _ptr(context), C, _ptr(packed.get("wc0")), _ptr(packed.get("wcb")),
             _ptr(packed.get("bcb")), rows, stream)
+    _count("simt", bf16)
+    _build.check(code, "nsf_flow_launch_bf16" if bf16 else "nsf_flow_launch")
+    return y, lad
+
+
+def _count(route: str, bf16: bool) -> None:
+    """One launch of ``route``'s kernel: its own counter and the weight
+    type's total."""
+    global launch_count, bf16_launch_count
+    route_launch_count[route + ("_bf16" if bf16 else "")] += 1
     if bf16:
         bf16_launch_count += 1
     else:
         launch_count += 1
-    _build.check(code, "nsf_flow_launch_bf16" if bf16 else "nsf_flow_launch")
+
+
+def _launch_wgmma(x, context, wp, L, H, Tid, T, TM, num_blocks, inverse, stage):
+    """B2 on the wgmma route (csrc/nsf_flow_wgmma.cuh) with
+    :func:`pack_weights_wgmma`'s ``wp``; ``stage`` the family's launch
+    arguments."""
+    n, D = x.shape
+    C = 0 if context is None else context.shape[1]
+    wdt = wp["image"].dtype
+    dims = wgmma_dims(Tid, TM, C)
+    nb = num_blocks
+    expected = dict(b0=((L, H), torch.float32), bb=((L, 2 * nb, H), torch.float32),
+                    bf=((L, dims["TMp"]), torch.float32),
+                    idx=((L, 2 * D + 2 * Tid + 2 * T), torch.int32))
+    if C:
+        expected["bcb"] = ((L, nb, H), torch.float32)
+    for name, (shape, dtype) in expected.items():
+        t = wp.get(name)
+        if (t is None or tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"nsf_flow_kernel_cuda: packed['wgmma'][{name!r}] must be a "
+                             f"contiguous {shape} {dtype} tensor on {x.device}")
+    layer_elems = sum(
+        (dims["TMp"] if name == "wf" else H)
+        * {"w0": dims["Ip"], "wc0": dims["Cp"], "wcb": dims["Cp"]}.get(name, H)
+        for name, _ in wgmma_gemms(nb, bool(C)))
+    image = wp["image"]
+    if (any(wp.get(k) != v for k, v in dims.items()) or image.numel() != L * layer_elems
+            or wp["layer_bytes"] != layer_elems * image.element_size()
+            or image.device != x.device or not image.is_contiguous()):
+        raise ValueError("nsf_flow_kernel_cuda: packed['wgmma'] is not pack_weights_wgmma "
+                         "of these weights")
+    bf16 = wdt == torch.bfloat16
+    lib = _build.load_library("nsf_flow_wgmma_bf16" if bf16 else "nsf_flow_wgmma", _declare)
+    launch = lib.nsf_wgmma_launch_bf16 if bf16 else lib.nsf_wgmma_launch
+    y = torch.empty_like(x)
+    lad = torch.empty(n, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = launch(
+            x.data_ptr(), y.data_ptr(), lad.data_ptr(), n, D, L, H, Tid, dims["Ip"], T, TM,
+            dims["TMp"], nb, image.data_ptr(), wp["layer_bytes"], wp["b0"].data_ptr(),
+            wp["bb"].data_ptr(), wp["bf"].data_ptr(), _ptr(wp.get("bcb")),
+            wp["idx"].data_ptr(), int(inverse), *stage, _ptr(context), C, dims["Cp"], stream)
+    _count("wgmma", bf16)
+    _build.check(code, launch.__name__)
     return y, lad

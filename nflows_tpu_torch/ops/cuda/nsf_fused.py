@@ -277,8 +277,15 @@ class FusedNSF(FusedFlowView):
          self.features, self.context_features) = _extract(flow, dtype)
         self._embedding_net = getattr(flow, "embedding_net", None)
         self.device = self._weights["w0"].device
-        self._packed = (nsf_flow_kernel.pack_weights(self._weights, self._indices)
-                        if self.device.type == "cuda" else None)
+        self._packed = None
+        if self.device.type == "cuda":
+            # both routes' layouts where the shape takes the wgmma route: the
+            # route B2 takes, and the other one for a caller that forces it
+            # (gemm=)
+            self._packed = nsf_flow_kernel.pack_weights(self._weights, self._indices)
+            if nsf_flow_kernel.weights_route(self._weights, self._indices) == "wgmma":
+                self._packed["wgmma"] = nsf_flow_kernel.pack_weights_wgmma(self._weights,
+                                                                           self._indices)
 
     def _run(self, x, inverse, context=None):
         return nsf_flow_kernel.nsf_flow_kernel_cuda(
@@ -292,7 +299,7 @@ def fuse_nsf(flow, dtype=torch.float32) -> FusedNSF:
     ``dtype`` sets the conditioner GEMM precision: torch.float32 (the
     default here) or torch.bfloat16, the JAX package's default, where each
     GEMM takes bf16 operands and sums in fp32 (kernel
-    ``csrc/nsf_flow_kernel_bf16.cu``). Inputs and results are fp32 either
-    way.
-    """
+    ``csrc/nsf_flow_wgmma_bf16.cu``, or ``csrc/nsf_flow_kernel_bf16.cu`` on
+    the widths the tensor-core route does not take). Inputs and results
+    are fp32 either way."""
     return FusedNSF(flow, dtype=dtype)

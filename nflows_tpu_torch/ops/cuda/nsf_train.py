@@ -377,9 +377,11 @@ class _NSFTrainApply(torch.autograd.Function):
             packed = pack_weights(weights, layer_indices)
         ctx.save_for_backward(x, context, *ws)
         ctx.meta = (layer_indices, static, wh_scale, packed, keys)
+        # the SIMT route: it reads pack_weights' layout, which the trainer
+        # re-packs in place after each optimizer step
         return nsf_flow_kernel.nsf_flow_kernel_cuda(
             x, weights, layer_indices, inverse=False, packed=packed, wh_scale=wh_scale,
-            context=context, **static)
+            context=context, gemm="simt", **static)
 
     @staticmethod
     def backward(ctx, gy, glad):

@@ -3,7 +3,10 @@ on the same CUDA tensors, and the serving and training paths through them:
 B2, B3 and B4 for all seven coupling families; B9 and B10 with a context,
 and B10's inverse direction (an IAF trained by reverse KL); B3, B4 and B10
 on thread-block clusters of every size; B2, B9 and B11
-with bf16 weights, and CompiledFlow(dtype=torch.bfloat16).
+with bf16 weights, and CompiledFlow(dtype=torch.bfloat16); B2 on both of
+its routes (the tensor-core kernel and the SIMT one), every family, both
+weight types, with and without a context, and one GEMM of its wgmma
+route alone.
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -183,6 +186,169 @@ def test_compiled_flow_runs_the_kernels(cuda):
     s, slp = fused.sample_and_log_prob(torch.Generator(device=cuda).manual_seed(4))
     assert torch.isfinite(s).all() and torch.isfinite(slp).all()
     _close(slp, fused.log_prob(s), 5e-3)
+
+
+# -- B2's two routes: tensor cores (wgmma) and fp32 FMAs (simt) ---------------
+
+WGMMA_FAMILIES = ("rq", "lrs", "linear", "quadratic", "cubic", "affine", "general", "additive")
+
+
+def _coupling_chain(device, family, hidden=128, context=None, features=6, layers=3, seed=0):
+    """A chain of ``layers`` couplings of ``family`` (RealNVP's affine with
+    the DEFAULT or GENERAL scale activation, or the additive one), each
+    conditioner a 2-block ResidualNet of width ``hidden`` with the context
+    where given; alternating masks, 4 bins, linear tails at 3, final
+    weights x 0.1 (an untamed affine inverse amplifies rounding past any
+    band)."""
+    from nflows_tpu_torch import Flow
+    from nflows_tpu_torch.distributions import StandardNormal
+    from nflows_tpu_torch.nn import nets
+    from nflows_tpu_torch.transforms import (
+        AdditiveCouplingTransform,
+        AffineCouplingTransform,
+        CompositeTransform,
+        PiecewiseCubicCouplingTransform,
+        PiecewiseLinearCouplingTransform,
+        PiecewiseLinearRationalCouplingTransform,
+        PiecewiseQuadraticCouplingTransform,
+        PiecewiseRationalQuadraticCouplingTransform,
+    )
+    from nflows_tpu_torch.utils.masks import create_alternating_binary_mask
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def net(n_in, n_out):
+        return nets.ResidualNet(n_in, n_out, hidden_features=hidden, num_blocks=2,
+                                context_features=context, generator=gen, device=device)
+
+    chain = []
+    for i in range(layers):
+        mask = create_alternating_binary_mask(features, even=bool(i % 2))
+        if family in ("affine", "general"):
+            act = (AffineCouplingTransform.GENERAL_SCALE_ACTIVATION if family == "general"
+                   else AffineCouplingTransform.DEFAULT_SCALE_ACTIVATION)
+            t = AffineCouplingTransform(mask=mask, transform_net_create_fn=net,
+                                        scale_activation=act, device=device)
+        elif family == "additive":
+            t = AdditiveCouplingTransform(mask=mask, transform_net_create_fn=net, device=device)
+        else:
+            cls = {"rq": PiecewiseRationalQuadraticCouplingTransform,
+                   "lrs": PiecewiseLinearRationalCouplingTransform,
+                   "linear": PiecewiseLinearCouplingTransform,
+                   "quadratic": PiecewiseQuadraticCouplingTransform,
+                   "cubic": PiecewiseCubicCouplingTransform}[family]
+            t = cls(mask=mask, transform_net_create_fn=net, num_bins=4, tails="linear",
+                    tail_bound=B, device=device)
+        chain.append(t)
+    flow = Flow(CompositeTransform(chain), StandardNormal([features])).to(device)
+    with torch.no_grad():
+        for t in flow.transform.transforms:
+            t.transform_net.final_layer.weight.mul_(0.1)
+    return flow.eval()
+
+
+def _hold_bf16(kernel, plain16, plain32, band):
+    """A bf16 kernel against its bf16 plain version (chip_smoke.hold_bf16):
+    max |delta| within ``band`` and mean |delta| at most a quarter of the
+    mean |delta| to the fp32 plain version."""
+    diff = (kernel.double() - plain16.double()).abs()
+    mean32 = float((kernel.double() - plain32.double()).abs().mean())
+    assert float(diff.max()) <= band, float(diff.max())
+    assert float(diff.mean()) <= 0.25 * mean32, (float(diff.mean()), mean32)
+
+
+@pytest.mark.parametrize("n", [203, 4096])
+@pytest.mark.parametrize("context", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", WGMMA_FAMILIES)
+def test_b2_both_routes_match_plain(cuda, family, dtype, context, n):
+    """B2's wgmma kernel (the route this width takes) and its SIMT kernel
+    (forced), forward and inverse, each against the plain version in its
+    bands: fp32 as test_b2_matches_plain, bf16 as phase 31 of
+    chip_smoke.py; each launch counted on its route. 203 leaves a ragged
+    last tile."""
+    flow = _coupling_chain(cuda, family, context=context)
+    fused, fused32 = fuse_nsf(flow, dtype=dtype), fuse_nsf(flow)
+    w, idx = fused._weights, fused._indices
+    assert nsf_flow_kernel.weights_route(w, idx) == "wgmma"
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, 6, generator=g).to(cuda)
+    ctx = None if context is None else torch.randn(n, context, generator=g).to(cuda)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    for inverse in (False, True):
+        kw = dict(inverse=inverse, context=ctx, **fused._static)
+        p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, w, idx, **kw)
+        if dtype == torch.float32:
+            d_y, d_lad = nsf_flow_kernel.nsf_flow_kernel_plain(
+                x.double(), {k: v.double() for k, v in w.items()}, idx,
+                **{**kw, "context": None if ctx is None else ctx.double()})
+        else:
+            q_y, q_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, fused32._weights, idx, **kw)
+        for route in ("wgmma", "simt"):
+            before = dict(nsf_flow_kernel.route_launch_count)
+            y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, w, idx, packed=fused._packed,
+                                                          gemm=route, **kw)
+            after = dict(nsf_flow_kernel.route_launch_count)
+            assert after[route + suffix] == before[route + suffix] + 1
+            assert sum(after.values()) == sum(before.values()) + 1
+            assert torch.isfinite(y).all() and torch.isfinite(lad).all()
+            if dtype == torch.float32:
+                _hold(y, p_y, d_y, 1e-3)
+                _hold(lad, p_lad, d_lad, 1e-3)
+            else:
+                _hold_bf16(y, p_y, q_y, 5e-3)
+                _hold_bf16(lad, p_lad, q_lad, 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_wgmma_with_unfolded_weights_and_wh_scale(cuda, dtype):
+    """The wgmma route scales the first min(2 K T, TM) rows of P by
+    wh_scale, as the SIMT kernel and the plain version do, for weights
+    extracted without the softmax 1/sqrt(H) folded in."""
+    from nflows_tpu_torch.ops.cuda import nsf_fused
+
+    flow = _coupling_chain(cuda, "quadratic", hidden=128, features=10)
+    idx, w, static, _, _ = nsf_fused._extract(flow, dtype, fold_wh_scale=False)
+    wh = nsf_train.family_wh_scale(static, 128)
+    x = torch.randn(203, 10, generator=torch.Generator().manual_seed(9)).to(cuda)
+    for inverse in (False, True):
+        kw = dict(inverse=inverse, wh_scale=wh, **static)
+        y, lad = nsf_flow_kernel.nsf_flow_kernel_cuda(x, w, idx, gemm="wgmma", **kw)
+        p_y, p_lad = nsf_flow_kernel.nsf_flow_kernel_plain(x, w, idx, **kw)
+        tol = 1e-4 if dtype == torch.float32 else 5e-3
+        _close(y, p_y, tol)
+        _close(lad, p_lad, 10 * tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,K,O", [(203, 256, 256), (4096, 16, 256), (40, 128, 192), (7, 64, 64)])
+def test_gemm_wgmma_matches_gemm(cuda, dtype, n, K, O):
+    """One GEMM through the wgmma route's ring, split and fragment layout:
+    within 1e-5 of the largest entry of the product (fp32 on 3xTF32 against
+    float64; bf16 against the product of the rounded operands)."""
+    g = torch.Generator().manual_seed(K + O)
+    a = torch.randn(n, K, generator=g).to(cuda)
+    w = (torch.randn(O, K, generator=g) / 16).to(cuda).to(dtype)
+    got = nsf_flow_kernel.gemm_wgmma(a, w)
+    exact = (nsf_flow_kernel.gemm(a.double(), w.double()) if dtype == torch.float32
+             else nsf_flow_kernel.gemm(a, w).double())
+    assert got.shape == (n, O)
+    assert float((got.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+def test_b2_routes_by_shape_and_refuses_a_forced_wgmma(cuda):
+    """A width of 16 keeps the SIMT kernel; forcing wgmma there raises."""
+    flow = _coupling_chain(cuda, "quadratic", hidden=16)
+    fused = fuse_nsf(flow)
+    assert nsf_flow_kernel.weights_route(fused._weights, fused._indices) == "simt"
+    x = torch.randn(64, 6, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = dict(nsf_flow_kernel.route_launch_count)
+    nsf_flow_kernel.nsf_flow_kernel_cuda(x, fused._weights, fused._indices, inverse=False,
+                                         packed=fused._packed, **fused._static)
+    assert nsf_flow_kernel.route_launch_count["simt"] == before["simt"] + 1
+    with pytest.raises(ValueError, match="wgmma"):
+        nsf_flow_kernel.nsf_flow_kernel_cuda(x, fused._weights, fused._indices, inverse=False,
+                                             gemm="wgmma", **fused._static)
 
 
 # -- training kernels B3 and B4 -----------------------------------------------
