@@ -118,15 +118,38 @@ the SIMT route. Every fused serving request checks that its B2 ran on
 the route its shape takes (the route counters ``B2_wgmma``,
 ``B2_simt`` and their ``_bf16`` twins); the fused-autograd training step
 runs the SIMT route, whose layout its trainer re-packs in place.
+B9's one-pass direction (the MAF's and NSF-AR's log_prob, the IAF's
+sample) has the same two routes (``maf_flow_kernel.gemm_route``): the
+tensor-core kernel (csrc/maf_flow_wgmma.cu, _bf16.cu), which every
+full-width chain here takes, and the SIMT kernel (csrc/maf_flow_kernel.cu).
+Phases 9, 27 and 31 hold both (the route and the SIMT kernel forced) on
+the MAF, the NSF-AR and the wrapped IAF chain, with and without a context,
+fp32 and bf16, at 512, 4,096, 65,536 and a ragged N as each phase draws
+them (fp32 also by its relative errors against float64, within
+``ONE_PASS_LIMITS`` of the plain version's, on the MAF and IAF as
+initialised too), and time both in the same run with the wgmma route's bound (3xTF32 or bf16 tensor cores)
+and the dense count it multiplies beside; phases 10, 28 and 32 check that
+a fused log_prob request of the MAF and NSF-AR (an IAF's sample) is one
+launch on its route (``B9_wgmma``, ``B9_simt`` and their ``_bf16``
+twins) and a sample (an IAF's log_prob) one of the degree kernel; the
+fused trainers' B9 runs the SIMT kernel (phases 12 and 29 check
+``B9_simt`` and time the wgmma kernel forced on the trainer's weights).
+Phase 31 also holds the IAFs' log_prob direction (a fixed point on the
+bf16 degree kernel) against its bf16 plain versions, and phase 32 each
+bf16 B9 server's log_prob against its bf16 plain version.
+Phase 24 holds the conditional flagship's B4 tie (``TIE_CTX``) at every
+cluster size.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
-(a serving request for B1, B2, B5-B9 and B11, a train step for B3, B4, B10
-and B12; B9's row also counts a sampling request's launches of the degree
-kernel as ``degree_launches``, and carries the fixed point's times on both
-kernels as ``inverse_ms`` and ``inverse_fixed_point_ms``; B10's row also
+(a serving request for B1, B2, B5-B8, B9_wgmma and B11, a train step for
+B3, B4, B10 and B12; B9's and B9_bf16's rows count the launches of the
+kernels they time, the SIMT kernel's in a train step (``simt_launches``,
+none in bf16) and the degree kernel's in a sampling request
+(``degree_launches``), and carry the fixed point's times on both kernels
+as ``inverse_ms`` and ``inverse_fixed_point_ms``; B10's row also
 counts a reverse-KL step as ``inverse_launches``, and carries its cluster
 layout: ``cluster_source``, the chosen ``cluster_size`` and
 ``ms_by_cluster_size`` at each batch, ``active_clusters``, each phase's
@@ -134,7 +157,9 @@ launches by cluster size (``cluster_launches_by_phase``) and the fused
 steps' cluster size and wall time by batch (``cluster_steps``);
 the rows ``B2_bf16``, ``B9_bf16`` and ``B11_bf16``, the bf16-weight
 instantiations, count a bf16 request through ``CompiledFlow`` and carry
-the fp32 instantiation's time beside theirs as ``fp32_ms``),
+the fp32 instantiation's time beside theirs as ``fp32_ms``; ``B9`` and
+``B9_bf16`` time the SIMT kernel, ``B9_wgmma`` and ``B9_wgmma_bf16`` the
+tensor-core one, each with the other's time beside),
 error against its plain version, device time (``ms_source`` says whether
 torch.profiler or CUDA events gave it), plain time, bound and library time at
 the main path's shape (B2's, B3's and B4's rows carry the other six
@@ -206,7 +231,11 @@ percentile were 1.1 to 1.5 times the plain version's (a 256-term sum in one
 fp32 accumulator against cuBLAS's blocked sums) and its 99th percentile 1.0
 to 1.9 times. The maximum is one sample's rounding at the largest condition
 number, and the ratio of two such draws spreads: 0.6 to 3.5 over the same
-seeds, hence ten. B9 with 32- against
+seeds, hence ten. B9's one pass in fp32 is held by the same quantiles
+besides its band, each within ten times the plain version's
+(``ONE_PASS_LIMITS``): the band (1e-3 on outputs of at most about 1) would
+pass a kernel that rounds its products to TF32, while 3xTF32 lies 1.9 to
+3.0 times as far from float64 as the plain version. B9 with 32- against
 64-sample tiles: 1e-5, a sample's arithmetic does not depend on its tile.
 B10: as B4 (gradient stacks
 2e-4, gx x N 5e-3), save for the one tie B10 has met (``B10_TIE``): on
@@ -295,6 +324,16 @@ PEAK_BF16_FLOPS = 989e12   # dense, on the tensor cores
 PEAK_TF32_FLOPS = 495e12   # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 
+# B9's one pass in fp32, on either route: the kernel's per-sample relative
+# errors against float64 (hold_relative's median, 90%, 99%, max) within ten
+# times the fp32 plain version's. 3xTF32 keeps about 22 of fp32's 24
+# significand bits a product, some 4 times fp32's rounding; the wgmma kernel
+# measured 1.9-3.0 times the plain version's quantiles on the full-width MAF,
+# IAF and conditional MAF as initialised (PERF.md). A single TF32 product
+# keeps 11 bits, 2^13 times fp32's rounding, and misses this bound by orders
+# of magnitude (tests/test_torch_maf_wgmma_pack.py emulates both).
+ONE_PASS_LIMITS = (10.0, 10.0, 10.0, 10.0)
+
 SERVE_BATCH = 4096
 RAGGED = SERVE_BATCH - 95   # leaves a last tile of one sample
 TRAIN_BATCH = 512
@@ -323,6 +362,26 @@ TIE_N = 2048
 # tools/b10_tie_probe.py).
 B10_TIE = dict(model="NSF-AR", n=2048, sample=1927, cluster=1)
 TIE_STEPS = (1e-7, 1e-6, 1e-5)
+# A tie that B4 has met on the cluster path: sample 122 of the conditional
+# flagship's inputs at N = 4,096 in phase 24, as the shared generator drew
+# them when phase 4's ragged batch came from it (tools/smoke_replay.py
+# --case context4096). Its path passes 6.6e-7 from a knot of layer 4's
+# spline, where fp32 rounding moves it by 2.7e-7; B4 on clusters of 2, 4 and
+# 8 lands 0.483 off the float64 gx x N in every launch (one block a tile
+# 1.2e-3 at most over the batch), and the float64 cotangent at the sample
+# moved by 3e-6 along feature 5 jumps by 0.483 (gctx x N by 0.024): the
+# cluster kernel's rounding takes it across the knot (PERF.md §6, ROADMAP.md
+# C5). Held in phase 24 at every cluster size by hold_tie.
+TIE_CTX = dict(
+    n=4096, sample=122,
+    x=("0x1.697df0p-10", "-0x1.f2a5ecp+0", "0x1.0c22b0p+0", "-0x1.e30960p-3",
+       "0x1.371e6ap-1", "0x1.640d6ap-1"),
+    gy=("-0x1.7475c8p-18", "0x1.424c36p-12", "-0x1.1fd968p-12", "-0x1.07650cp-13",
+        "-0x1.c387a8p-13", "0x1.15bf08p-13"),
+    glad="0x1.4c05f4p-15",
+    ctx=("-0x1.c0df66p-3", "-0x1.9a6324p-1", "0x1.2e45e8p+0", "0x1.aca8aap-2",
+         "0x1.4bd32ap+0", "0x1.913d90p-3", "0x1.48bed6p-1", "0x1.001d5ap+1",
+         "0x1.012bf8p+0", "0x1.91fa5cp+0"))
 # the autoregressive family at full width: MAF (affine) and NSF-AR (rq)
 MAF = dict(features=10, hidden_features=256, num_layers=5, num_blocks_per_layer=2)
 NSF_AR = dict(**MAF, num_bins=8, tail_bound=3.0)
@@ -458,35 +517,46 @@ def moved_cotangents(backward, x, gy, glad, step, context=None):
                     context=None if context is None else context.double().repeat(m, 1))
 
 
-def hold_b10_tie(torch, got, plain, exact, backward, x, gy, glad, ind=""):
-    """``hold`` of B10's gx x N on ``B10_TIE``'s batch and cluster size, save
-    for its sample: the other samples as ``hold``; that sample within the
-    band of float64, or a tie: the float64 cotangent at the sample moved by
-    one of ``TIE_STEPS`` along one feature (``moved_cotangents`` of the
-    float64 plain ``backward``) lies within the band of the kernel's and
-    moves by at least half the error there. Returns (max |kernel - plain|
-    over the other samples, what the tie showed)."""
-    n, s, tol = B10_TIE["n"], B10_TIE["sample"], 5e-3
+def hold_tie(torch, what, got, plain, exact, moved, n, s, ind=""):
+    """``hold`` of a cotangent x N (``what``: gx, gctx) on a batch of n
+    samples that holds a tie at sample s: the other samples as ``hold``;
+    that sample within the band of float64, or a tie: the float64
+    cotangent at the sample moved by one of ``TIE_STEPS`` along one feature
+    (``moved(step)``, rows [2 D, .] as ``moved_cotangents`` gives them)
+    lies within the band of the kernel's and moves by at least half the
+    error there. Returns (max |kernel - plain| over the other samples, what
+    the tie showed)."""
+    tol = 5e-3
     rest = torch.arange(n, device=got.device) != s
-    err_kp = hold(f"{ind}gx * N, all samples but {s}", got[rest] * n, plain[rest] * n,
+    err_kp = hold(f"{ind}{what}, all samples but {s}", got[rest] * n, plain[rest] * n,
                   exact[rest] * n, tol)
     err = float((got[s].double() - exact[s]).abs().max()) * n
     seen = []
     for step in TIE_STEPS:
-        m_gx, _ = moved_cotangents(backward, x[s:s + 1], gy[s:s + 1], glad[s:s + 1], step)
-        near = (m_gx - got[s].double()).abs().amax(1) * n
+        m = moved(step)
+        near = (m - got[s].double()).abs().amax(1) * n
         e = int(near.argmin())
-        seen.append((float(near[e]), step, e, float((m_gx[e] - exact[s]).abs().max()) * n))
+        seen.append((float(near[e]), step, e, float((m[e] - exact[s]).abs().max()) * n))
     near, step, e, move = min(seen)
     ok = err <= tol or (near <= tol and move >= 0.5 * err)
-    log(f"  {ind}gx * N, sample {s}: |kernel-f64| {err:.3e}; nearest float64 cotangent at the "
+    log(f"  {ind}{what}, sample {s}: |kernel-f64| {err:.3e}; nearest float64 cotangent at the "
         f"sample moved by {'+' if e % 2 else '-'}{step:.0e} along feature {e // 2}: "
         f"{near:.3e}, which moves by {move:.3e} there; tol {tol:.0e}  "
         f"{('ok' if err <= tol else 'a tie') if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"B10 on the held tie: sample {s} is past the band and is not a tie")
+        raise AssertionError(f"{what} on a held tie: sample {s} is past the band and is not "
+                             "a tie")
     return err_kp, dict(sample=s, err=err, nearest_moved=near, step=step, move=move,
                         tie=err > tol)
+
+
+def hold_b10_tie(torch, got, plain, exact, backward, x, gy, glad, ind=""):
+    """``hold_tie`` of B10's gx x N on ``B10_TIE``'s batch and cluster size
+    (``backward``: the float64 plain backward)."""
+    n, s = B10_TIE["n"], B10_TIE["sample"]
+    return hold_tie(torch, "gx * N", got, plain, exact,
+                    lambda step: moved_cotangents(backward, x[s:s + 1], gy[s:s + 1],
+                                                  glad[s:s + 1], step)[0], n, s, ind)
 
 
 def hold_exact(name, kernel, plain32, plain64, tol):
@@ -499,11 +569,13 @@ def hold_exact(name, kernel, plain32, plain64, tol):
     return err
 
 
-def hold_relative(torch, name, kernel, plain32, plain64):
+def hold_relative(torch, name, kernel, plain32, plain64, limits=(2.0, 2.0, 4.0, 10.0)):
     """Hold a kernel to its plain version where values span many orders of
     magnitude and both fp32 evaluations are far from float64 (see the module
-    doc): per-sample relative errors against float64, the kernel's quantiles
-    against the plain version's."""
+    doc), or where a kernel rounds on other units than the plain version
+    (``ONE_PASS_LIMITS``): per-sample relative errors against float64, the
+    kernel's quantiles (median, 90%, 99%, max) within ``limits`` times the
+    plain version's."""
     def quantiles(t):
         e = (t.double() - plain64).abs() / (1.0 + plain64.abs())
         e = e.reshape(e.shape[0], -1).max(dim=1).values
@@ -511,11 +583,11 @@ def hold_relative(torch, name, kernel, plain32, plain64):
         return [*q.tolist(), float(e.max())]
 
     k, p = quantiles(kernel), quantiles(plain32)
-    limits = (2.0, 2.0, 4.0, 10.0)
     ok = all(a <= f * b for a, b, f in zip(k, p, limits))
     fmt = lambda v: " ".join(f"{x:.2e}" for x in v)  # noqa: E731
     log(f"  {name}, relative error against f64 (median, 90%, 99%, max): kernel {fmt(k)}  "
-        f"plain {fmt(p)}  limits x2 x2 x4 x10  {'ok' if ok else 'FAIL'}")
+        f"plain {fmt(p)}  limits " + " ".join(f"x{f:g}" for f in limits)
+        + f"  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: the kernel's error is not the plain version's rounding")
     return k, p
@@ -665,6 +737,7 @@ def main() -> int:
         mademog_fused,
         mademog_train,
         maf_flow_kernel,
+        maf_fused,
         maf_train,
         nsf_flow_kernel,
         nsf_fused,
@@ -693,9 +766,19 @@ def main() -> int:
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for stem, text in sorted(_build.BUILD_LOG.items()):
+        serialized = {}
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "(C75" not in line and ("registers" in line or "spill" in line):
                 log(f"  {stem}: {line.strip()}")
+            elif "(C75" in line:
+                # ptxas's notes on wgmma (C7511, C7515, C7519, C7520), counted
+                # by note and kernel
+                code = line.split("(C75", 1)[1][:2]
+                kernel = line.rsplit("'", 2)[-2] if line.count("'") >= 2 else "?"
+                key = (f"C75{code}", kernel)
+                serialized[key] = serialized.get(key, 0) + 1
+        for (code, kernel), count in sorted(serialized.items()):
+            log(f"  {stem}: {code} x{count} in {kernel}")
 
     # -- phase 3: B1 against its plain version ---------------------------------
     flow = NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
@@ -867,8 +950,9 @@ def main() -> int:
             module.launch_count = 0
         for module in (nsf_flow_kernel, maf_flow_kernel, mademog_fused):
             module.bf16_launch_count = 0
-        for route in nsf_flow_kernel.route_launch_count:
-            nsf_flow_kernel.route_launch_count[route] = 0
+        for module in (nsf_flow_kernel, maf_flow_kernel):
+            for route in module.route_launch_count:
+                module.route_launch_count[route] = 0
         for cs in maf_train.cluster_launch_count:
             maf_train.cluster_launch_count[cs] = 0
 
@@ -883,7 +967,8 @@ def main() -> int:
                 "B9_bf16": maf_flow_kernel.bf16_launch_count,
                 "B9_degree": maf_flow_kernel.degree_launch_count,
                 "B11_bf16": mademog_fused.bf16_launch_count,
-                **{f"B2_{route}": c for route, c in nsf_flow_kernel.route_launch_count.items()}}
+                **{f"B2_{route}": c for route, c in nsf_flow_kernel.route_launch_count.items()},
+                **{f"B9_{route}": c for route, c in maf_flow_kernel.route_launch_count.items()}}
 
     def b2_route_counts(server, requests=1):
         """The route counters a fused B2 request of ``server`` must move: its
@@ -896,6 +981,23 @@ def main() -> int:
                                               spline=view._static["spline"])
         bf16 = view._weights["w0"].dtype == torch.bfloat16
         return {f"B2_{route}{'_bf16' if bf16 else ''}": requests}
+
+    def b9_route_counts(server, direction, requests=1):
+        """The counters ``requests`` fused B9 requests of ``server`` in
+        ``direction`` ("log_prob" or "sample") must move beside B9's total:
+        the one-pass route of its weights (B9_wgmma, B9_simt and their _bf16
+        twins) where every layer runs one pass that way, else the degree
+        kernel; none for another model."""
+        view = server._fused
+        if not isinstance(view, maf_fused.FusedMAF):
+            return {}
+        bf16 = view._weights["wi"].dtype == torch.bfloat16
+        if not maf_flow_kernel.one_pass(view._static, direction == "sample"):
+            if view._packed["degrees"] is None:
+                return {f"B9_simt{'_bf16' if bf16 else ''}": requests}
+            return {"B9_degree": requests}
+        route = maf_flow_kernel.weights_route(view._weights, view._static, view._num_blocks)
+        return {f"B9_{route}{'_bf16' if bf16 else ''}": requests}
 
     def b10_layouts():
         """B10's launches since the last reset by cluster size (1: one block
@@ -911,7 +1013,7 @@ def main() -> int:
     context_launches = {}  # launches a request or step on the conditional paths
 
     def serve(model, flow, features, fused_kernel, unfused_log_prob, unfused_sample,
-              fused_sample=None, context_features=None, context_rows=None, ties=0):
+              fused_sample=None, context_features=None, context_rows=None, ties=0, draw=None):
         """Serve ``flow`` through CompiledFlow on both paths: a log_prob
         request, then the two sampling requests, with the launches of each
         counted from zero; ``fused_kernel`` must run once a fused log_prob
@@ -925,13 +1027,17 @@ def main() -> int:
         noise). ``ties``: samples that may miss the consistency limit, for a
         density that is piecewise constant (the linear spline's): a sample
         whose inverse lands within rounding of a bin edge takes the
-        neighbouring bin's density on the way back."""
-        x = torch.randn(SERVE_BATCH, features, generator=gen).to(dev)
+        neighbouring bin's density on the way back. ``draw``: the generator
+        of the inputs (default: the shared one). A fused B9 request also
+        moves its route's counter or the degree kernel's
+        (``b9_route_counts``)."""
+        draw = gen if draw is None else draw
+        x = torch.randn(SERVE_BATCH, features, generator=draw).to(dev)
         ctx = (None if context_features is None
-               else torch.randn(SERVE_BATCH, context_features, generator=gen).to(dev))
+               else torch.randn(SERVE_BATCH, context_features, generator=draw).to(dev))
         rows = context_rows or SERVE_BATCH
         few = ctx if context_rows is None else torch.randn(rows, context_features,
-                                                           generator=gen).to(dev)
+                                                           generator=draw).to(dev)
         rep = ctx if context_rows is None else few.repeat_interleave(SERVE_BATCH // rows, 0)
         kw = dict(features=features, context_features=context_features)
         lp_kw = dict(batch_size=SERVE_BATCH, num_samples=None if ctx is None else 1)
@@ -960,14 +1066,17 @@ def main() -> int:
                 f"{rest}")
             if use_fused:
                 expect_counts(f"one fused {model} request", first, **{fused_kernel: 1},
-                              **b2_route_counts(server))
+                              **b2_route_counts(server), **b9_route_counts(server, "log_prob"))
                 expect_counts(f"two fused {model} requests", rest,
                               **(fused_sample or {fused_kernel: 2}),
-                              **b2_route_counts(sampler, 2))
+                              **b2_route_counts(sampler, 2),
+                              **b9_route_counts(sampler, "sample", 2))
                 book.setdefault(fused_kernel, first[fused_kernel])
-                if rest["B9_degree"]:
-                    # B9's fixed point: the degree kernel, once a sampling request
-                    book.setdefault("B9_degree", rest["B9_degree"] // 2)
+                for kid in ("B9_degree", "B9_wgmma"):
+                    # B9's fixed point on the degree kernel, its one pass on
+                    # the tensor cores: once a request
+                    if first[kid] or rest[kid]:
+                        book.setdefault(kid, first[kid] or rest[kid] // 2)
             else:
                 expect_counts(f"one unfused {model} request", first, **unfused_log_prob)
                 expect_counts(f"two unfused {model} requests", rest,
@@ -1519,6 +1628,76 @@ def main() -> int:
         weights' structural zeros are multiplied like any other entry."""
         return 2 * n * LA * (DA * HA + 2 * nba * HA * HA + HA * P)
 
+    # B9's one-pass direction on both routes: the tensor-core kernel
+    # (csrc/maf_flow_wgmma.cu, the route full-width chains take) and the
+    # SIMT one (csrc/maf_flow_kernel.cu, forced), held and timed in one run
+    B9_KERNEL = {"wgmma": "maf_flow_wgmma_kernel", "simt": "maf_flow_kernel"}
+
+    def b9_one_pass(tag, view, x, kw, view32=None):
+        """B9's one-pass direction at x (kw: its arguments) by the route,
+        which must be wgmma, and on the SIMT kernel forced, each against the
+        plain version: fp32 by ``hold`` (1e-3, or twice the plain version's
+        distance from float64) and by ``hold_relative`` within
+        ``ONE_PASS_LIMITS``, which tells 3xTF32 from a lower precision that
+        the absolute band would pass; bf16 weights by ``hold_bf16`` against
+        the bf16 plain version in phase 31's bands (``view32``: the fp32
+        view, for the fp32 plain version). Returns the route's (y, lad) and
+        each route's largest error."""
+        w, st = view._weights, view._static
+        bf16 = w["wi"].dtype == torch.bfloat16
+        ctx = kw.get("context")
+        p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w, st, **kw)
+        if bf16:
+            q_y, q_lad = maf_flow_kernel.maf_flow_kernel_plain(x, view32._weights, st, **kw)
+        else:
+            d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+                x.double(), {k: v.double() for k, v in w.items()}, st,
+                **{**kw, "context": None if ctx is None else ctx.double()})
+        out, errs = None, {}
+        for gr in ("wgmma", "simt"):
+            before = dict(maf_flow_kernel.route_launch_count)
+            y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
+                x, w, st, packed=view._packed, gemm=None if gr == "wgmma" else gr, **kw)
+            torch.cuda.synchronize()
+            key = gr + ("_bf16" if bf16 else "")
+            if maf_flow_kernel.route_launch_count[key] != before[key] + 1:
+                raise AssertionError(f"B9 {tag}: the call did not take the {gr} route")
+            if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
+                raise AssertionError(f"B9 ({gr}) produced non-finite values")
+            if bf16:
+                errs[gr] = max(hold_bf16(f"{gr} {tag} out", y, p_y, q_y, BF16_OUT),
+                               hold_bf16(f"{gr} {tag} lad", lad, p_lad, q_lad, BF16_LAD))
+            else:
+                errs[gr] = max(hold(f"{gr} {tag} out", y, p_y, d_y, 1e-3),
+                               hold(f"{gr} {tag} lad", lad, p_lad, d_lad, 1e-3))
+                for what, got, p32, p64 in (("out", y, p_y, d_y), ("lad", lad, p_lad, d_lad)):
+                    hold_relative(torch, f"{gr} {tag} {what}", got, p32, p64,
+                                  limits=ONE_PASS_LIMITS)
+            out = out or (y, lad)
+        return out, errs
+
+    def b9_route_times(view, x, kw, iters=10):
+        """Device ms of B9's one-pass direction at x on each route."""
+        times = {}
+        for gr in ("wgmma", "simt"):
+            run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
+                x, view._weights, view._static, packed=view._packed, gemm=gr, **kw)  # noqa: B023
+            times[gr] = (device_ms(torch, run, iters, kernel=B9_KERNEL[gr]), device_ms.source)
+        return times
+
+    def b9_route_bound(nops, dense, io_bytes, bf16=False):
+        """B9's least time on the wgmma route: the operations the masks
+        leave (``nops``) on the units it runs them on (bf16: the bf16 tensor
+        cores; fp32: 3xTF32, three TF32 products a product), or the bytes;
+        the dense count the kernel multiplies at the same rate beside it."""
+        rate, mult = (PEAK_BF16_FLOPS, 1) if bf16 else (PEAK_TF32_FLOPS, 3)
+        ops_ms, io_ms = 1e3 * mult * nops / rate, 1e3 * io_bytes / PEAK_BYTES
+        return dict(bound_ms=max(ops_ms, io_ms),
+                    bound_by="operations" if ops_ms >= io_ms else "bytes",
+                    bound_basis=("bf16 tensor cores, 989 TFLOP/s" if bf16 else
+                                 "3xTF32: three TF32 products each, 495 TFLOP/s"),
+                    dense_ms=max(1e3 * mult * dense / rate, io_ms))
+
     # the MAF as initialised, the configuration a user builds: its sampling
     # direction on N(0, 1) noise, held by relative error
     view = fuse_maf(raw_maf)
@@ -1526,19 +1705,34 @@ def main() -> int:
     kw = dict(inverse=True, num_blocks=view._num_blocks, transformer=view._transformer,
               spline_kw=view._spline_kw)
     hold_untamed_inverse("", view, x, kw)
+    # and its one-pass direction on both routes, on the same inputs, with an
+    # IAF's sampling direction as initialised: the fp32 band and the relative
+    # quantiles
+    log(f"B9's one pass on the MAF and the IAF as initialised at N={x.shape[0]}:")
+    b9_untamed = {}
+    for model, ar_flow, inverse in (
+            ("MAF", raw_maf, False),
+            ("IAF", InverseAutoregressiveFlow(**MAF, use_random_permutations=True,
+                                              **seeded(1)).eval(), True)):
+        v = fuse_maf(ar_flow)
+        b9_untamed[model] = b9_one_pass(
+            f"{model} as initialised, {'inverse' if inverse else 'forward'}", v, x,
+            dict(kw, inverse=inverse))[1]
 
-    b9 = {}
+    b9, b9_wgmma = {}, {}
     for model, ar_flow in (("MAF", maf), ("NSF-AR", nsf_ar), ("IAF", iaf)):
         view = fuse_maf(ar_flow)
         w32 = view._weights
-        w64 = {k: v.double() for k, v in w32.items()}
         skw = dict(num_blocks=view._num_blocks, transformer=view._transformer,
                    spline_kw=view._spline_kw)
         P = w32["wf"].shape[0] // LA
         ar_bytes = 4 * sum(v.numel() for v in w32.values())
         need = masked_ops(1, ar_flow)
-        for n in ((SERVE_BATCH,) if model == "IAF" else (SERVE_BATCH, RAGGED)):
-            x = torch.randn(n, DA, generator=gen).to(dev)
+        for n in (SERVE_BATCH, RAGGED):
+            # the IAF's ragged N from a generator of its own: the shared one
+            # draws for every later phase what it drew before that size came
+            draw = torch.Generator().manual_seed(n) if model == "IAF" and n == RAGGED else gen
+            x = torch.randn(n, DA, generator=draw).to(dev)
             log(f"B9 on {model} at N={n}:")
             errs = {}
             for inverse in (False, True):
@@ -1548,49 +1742,46 @@ def main() -> int:
                     y, lad, errs[tag], errs[tag + "_fixed_point"] = hold_fixed_point(
                         tag, view, x, kw)
                 else:
-                    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
-                        x, w32, view._static, packed=view._packed, **kw)
-                    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w32, view._static,
-                                                                       **kw)
-                    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
-                        x.double(), w64, view._static, **kw)
-                    torch.cuda.synchronize()
-                    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-                        raise AssertionError("B9 produced non-finite values")
-                    errs[tag] = max(hold(f"{tag} out", y, p_y, d_y, 1e-3),
-                                    hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
+                    (y, lad), one = b9_one_pass(tag, view, x, kw)
+                    errs[tag], errs[tag + "_simt"] = one["wgmma"], one["simt"]
                 back, lad_back = maf_flow_kernel.maf_flow_kernel_cuda(
                     y, w32, view._static, packed=view._packed, **{**kw, "inverse": not inverse})
                 trip = max(max_err(back, x), max_err(lad_back, -lad))
                 log(f"  {tag} then back: {trip:.3e} from the input (limit 5e-3)")
                 if trip > 5e-3:
                     raise AssertionError(f"B9 {model}: the round trip does not close")
-            if model == "IAF" or n != SERVE_BATCH:
+            if n != SERVE_BATCH:
                 continue
-            stats = dict(err=errs["forward"], inverse_err=errs["inverse"],
-                         inverse_fixed_point_err=errs["inverse_fixed_point"])
-            # forward
-            kw = dict(inverse=False, **skw)
-            run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
-                x, w32, view._static, packed=view._packed, **kw)
-            run_plain = lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: E731
-                x, w32, view._static, **kw)
-            ms = device_ms(torch, run, 10, kernel="maf_flow_kernel")
-            ms_source = device_ms.source
-            plain_ms = device_ms(torch, run_plain, 3)
-            log(f"  a call, events: kernel {call_ms(torch, run, 10):.4f} ms  "
-                f"plain {call_ms(torch, run_plain, 3):.4f} ms")
-            # the bound counts what the function needs: the weights the masks
-            # leave, once, in either direction (see the module doc)
+            # the one-pass direction on both routes: time, bound on each
+            # route's units, the dense count the tensor cores multiply
+            kw = dict(inverse=model == "IAF", **skw)
             nops = n * need
             run_ops = dense_ops(n, P)
             io_bytes = ar_bytes + 4 * n * (2 * DA + 1)
+            times = b9_route_times(view, x, kw)
+            run_plain = lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: E731
+                x, w32, view._static, **kw)
+            plain_ms = device_ms(torch, run_plain, 3)
             bound_ms, bound_by = bound(nops, io_bytes)
-            log(f"  forward time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-                f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
-                f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
-                f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
-                f"{run_ops / ms / 1e9:.1f} TFLOP/s")
+            wb = b9_route_bound(nops, run_ops, io_bytes)
+            tag = "inverse" if model == "IAF" else "forward"
+            log(f"  {tag} time: wgmma kernel {times['wgmma'][0]:.4f} ms, simt kernel "
+                f"{times['simt'][0]:.4f} ms  plain {plain_ms:.4f} ms; bound on the wgmma route "
+                f"{wb['bound_ms']:.4f} ms ({wb['bound_by']}, {wb['bound_basis']}; the dense "
+                f"{run_ops / 1e9:.1f} GFLOP it multiplies {wb['dense_ms']:.4f} ms), on the CUDA "
+                f"cores {bound_ms:.4f} ms ({nops / 1e9:.2f} GFLOP needed)")
+            b9_wgmma[model] = dict(err=errs[tag], ms=times["wgmma"][0],
+                                   ms_source=times["wgmma"][1], simt_ms=times["simt"][0],
+                                   plain_ms=plain_ms, **wb,
+                                   untamed_err=b9_untamed.get(model, {}).get("wgmma"))
+            if model == "IAF":
+                continue
+            stats = dict(err=errs["forward_simt"], inverse_err=errs["inverse"],
+                         inverse_fixed_point_err=errs["inverse_fixed_point"])
+            ms, ms_source = times["simt"]
+            log(f"  a call, events: simt kernel "
+                f"{call_ms(torch, lambda: maf_flow_kernel.maf_flow_kernel_cuda(x, w32, view._static, packed=view._packed, gemm='simt', **kw), 10):.4f} ms  "  # noqa: E501
+                f"plain {call_ms(torch, run_plain, 3):.4f} ms")
             stats.update(ms=ms, ms_source=ms_source, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, schedule_ms=bound(run_ops, io_bytes)[0])
             # the inverse: both kernels of the fixed point
@@ -1613,19 +1804,32 @@ def main() -> int:
                 if gap > 1e-5:
                     raise AssertionError(f"B9 {model}: the result depends on the tile")
             xt = x[:TRAIN_BATCH].contiguous()
-            ms512 = device_ms(torch, lambda: maf_flow_kernel.maf_flow_kernel_cuda(
-                xt, w32, view._static, packed=view._packed, inverse=False, **skw), 10,
-                kernel="maf_flow_kernel")
-            log(f"  forward at N={TRAIN_BATCH}: kernel {ms512:.4f} ms  bound "
-                f"{bound(TRAIN_BATCH * need, ar_bytes)[0]:.4f} ms")
+            fkw = dict(inverse=False, **skw)
+            b9_one_pass(f"forward at N={TRAIN_BATCH}", view, xt, fkw)
+            t512 = b9_route_times(view, xt, fkw)
+            ms512 = t512["simt"][0]
+            b9_wgmma[model].update(ms_at_512=t512["wgmma"][0], simt_ms_at_512=ms512,
+                                   **{f"{k}_at_512": v for k, v in b9_route_bound(
+                                       TRAIN_BATCH * need, dense_ops(TRAIN_BATCH, P),
+                                       ar_bytes + 4 * TRAIN_BATCH * (2 * DA + 1)).items()
+                                      if k.endswith("_ms")})
+            log(f"  forward at N={TRAIN_BATCH}: wgmma kernel {t512['wgmma'][0]:.4f} ms, simt "
+                f"kernel {ms512:.4f} ms; bound {bound(TRAIN_BATCH * need, ar_bytes)[0]:.4f} ms "
+                f"on the CUDA cores, {b9_wgmma[model]['bound_ms_at_512']:.4f} on the wgmma "
+                "route")
             # at a large batch: the forward at the wrapper's tile (64 samples,
             # once that gives every SM a tile) against 32; the inverse on the
             # degree kernel at 16- and 32-sample tiles against the fixed-point
             # kernel at its own choice
             xl = torch.randn(LARGE_BATCH, DA, generator=gen).to(dev)
+            b9_one_pass(f"forward at N={LARGE_BATCH}", view, xl, fkw)
+            tl = b9_route_times(view, xl, fkw, iters=3)
+            b9_wgmma[model].update(ms_at_65536=tl["wgmma"][0], simt_ms_at_65536=tl["simt"][0])
+            log(f"  forward at N={LARGE_BATCH}: wgmma kernel {tl['wgmma'][0]:.4f} ms, simt "
+                f"kernel {tl['simt'][0]:.4f} ms")
             large = {}
             for tag, name, inverse, variants in (
-                    ("forward", "maf_flow_kernel", False, ((32, None), (None, None))),
+                    ("forward", "maf_flow_kernel", False, ((32, None), (64, None))),
                     ("inverse", "maf_degree_inverse", True, ((16, None), (32, None))),
                     ("inverse", "maf_flow_kernel", True, ((None, "fixed_point"),))):
                 for rows, schedule in variants:
@@ -1646,10 +1850,15 @@ def main() -> int:
     # the unfused MAF launches no kernel of the port (its transformer is plain
     # tensor code); the unfused NSF-AR runs B1 once a MADE pass: LA a log_prob,
     # LA x DA a sampling request
-    # a fused sampling request is one B9 launch, of the degree kernel
-    ar_sample = dict(B9=2, B9_degree=2)
+    # a fused log_prob request is one B9 launch, on the tensor cores
+    # (B9_wgmma), a fused sampling request one of the degree kernel; the
+    # IAF's the other way round (b9_route_counts), its inputs from a
+    # generator of their own
+    ar_sample = dict(B9=2)
     serve("MAF", maf, DA, "B9", {}, {}, fused_sample=ar_sample)
     serve("NSF-AR", nsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA), fused_sample=ar_sample)
+    serve("IAF", iaf, DA, "B9", {}, {}, fused_sample=ar_sample,
+          draw=torch.Generator().manual_seed(10))
 
     # -- phase 11: B10 against its plain version (full-width MAF and NSF-AR) --------
     def b10_occupancy(d):
@@ -1758,6 +1967,7 @@ def main() -> int:
 
     # -- phase 12: training the MAF on the card ----------------------------------------
     b10_phase_launches = {}   # B10's launches a fused step by cluster size, by phase
+    b9_trainer_weights = {}   # B9's wgmma kernel forced on a trainer's weights, by model
     b10_step_clusters = {}    # B10's cluster size and the fused step's ms by batch
 
     def b10_step_layout(phase, trainer, n):
@@ -1816,7 +2026,9 @@ def main() -> int:
         start = {k: v.detach().clone() for k, v in fused_tr.weights.items()}
         data = ar_batches(TRAIN_BATCH, TRAIN_STEPS, 6, context_features)
         losses = {}
-        for name, expected in (("fused", dict(B9=1, B10=1)), ("eager", {})):
+        # the fused step's B9 is the SIMT kernel (the trainer re-packs its
+        # weights every step)
+        for name, expected in (("fused", dict(B9=1, B9_simt=1, B10=1)), ("eager", {})):
             reset_counts()
             first = steps[name](*data[0])
             torch.cuda.synchronize()
@@ -1824,8 +2036,8 @@ def main() -> int:
             log(f"training {model} ({name}): launches a step {counts}")
             expect_counts(f"one {name} {model} step", counts, **expected)
             if name == "fused":
-                (launches if context_features is None else context_launches)["B10"] = \
-                    counts["B10"]
+                book = launches if context_features is None else context_launches
+                book["B10"], book["B9_simt"] = counts["B10"], counts["B9_simt"]
                 b10_step_layout(f"{model} train", fused_tr, TRAIN_BATCH)
             rest = [steps[name](*batch) for batch in data[1:]]
             curve = losses[name] = [float(v) for v in [first, *rest]]
@@ -1863,6 +2075,35 @@ def main() -> int:
             raise AssertionError(f"the trained {model} served disagrees with the trainer")
         log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
             f"{max_err(served_lp, state.flow.log_prob(held, held_c).detach()):.3e}")
+        # B9 on the tensor cores, forced, on the trainer's folded weights
+        # (wh_scale unfolded) at the training batch, beside the SIMT kernel
+        # the step runs: nothing routes it there, the trainer re-packs its
+        # weights every step
+        folded = {k: v.detach() for k, v in fused_tr._fold(fused_tr.weights).items()}
+        tkw = dict(inverse=False, wh_scale=fused_tr._wh_scale, context=held_c,
+                   **fused_tr._static)
+        nb_ = fused_tr._static["num_blocks"]
+        tpacked = {**maf_flow_kernel.pack_weights(folded, fused_tr._layers, nb_),
+                   "wgmma": maf_flow_kernel.pack_weights_wgmma(folded, fused_tr._layers, nb_)}
+
+        def run_route(gr):
+            return maf_flow_kernel.maf_flow_kernel_cuda(held, folded, fused_tr._layers,
+                                                        packed=tpacked, gemm=gr, **tkw)
+
+        y_w, lad_w = run_route("wgmma")
+        p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(held, folded, fused_tr._layers, **tkw)
+        d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
+            held.double(), {k: v.double() for k, v in folded.items()}, fused_tr._layers,
+            **{**tkw, "context": None if held_c is None else held_c.double()})
+        torch.cuda.synchronize()
+        err_w = max(hold("B9 (wgmma, forced) on the trainer's weights, out", y_w, p_y, d_y, 1e-3),
+                    hold("B9 (wgmma, forced) on the trainer's weights, lad", lad_w, p_lad, d_lad,
+                         1e-3))
+        t_w, t_s = (device_ms(torch, lambda: run_route(gr), 10, kernel=B9_KERNEL[gr])  # noqa: B023
+                    for gr in ("wgmma", "simt"))
+        log(f"  B9 on the trainer's weights at N={TRAIN_BATCH}: wgmma (forced) {t_w:.4f} ms, "
+            f"the step's simt kernel {t_s:.4f} ms")
+        b9_trainer_weights[model] = dict(err=err_w, wgmma_ms=t_w, simt_ms=t_s)
 
         def timed_routes(n):
             steps, fused_tr, _ = routes(n)
@@ -2403,6 +2644,48 @@ def main() -> int:
     b2_ctx = hold_b2_context("conditional NSF", lively, (SERVE_BATCH, RAGGED))
     log(f"B3 and B4 on the conditional NSF (context {C}):")
     b3_ctx, b4_ctx = hold_training_kernels(fused_trainer(lively, TRAIN_BATCH), TRAIN_SIZES)
+
+    # the held tie of the conditional flagship (TIE_CTX): B4 at its N on
+    # inputs from a generator of their own with the tie's row at its sample,
+    # at one block a tile and at every cluster size; gx and gctx of every
+    # other sample hold the band, the tie's hold it or are a tie (hold_tie)
+    n_t, s_t = TIE_CTX["n"], TIE_CTX["sample"]
+    log(f"B4 on the held tie (the conditional flagship, TIE_CTX: sample {s_t} at N={n_t}):")
+    ctie_tr = fused_trainer(lively, TRAIN_BATCH)
+    ctie_w = {k: v.detach() for k, v in ctie_tr.weights.items()}
+    ctie_w64, ctie_idx = {k: v.double() for k, v in ctie_w.items()}, ctie_tr._indices
+    ctie_kw = dict(wh_scale=ctie_tr._wh_scale, **ctie_tr._static)
+    g_t = torch.Generator().manual_seed(n_t + 1)
+    x = 1.5 * torch.randn(n_t, D, generator=g_t)
+    ctx_t = torch.randn(n_t, C, generator=g_t)
+    gy = torch.randn(n_t, D, generator=g_t) / n_t
+    glad = torch.randn(n_t, generator=g_t) / n_t
+    x[s_t] = torch.tensor([float.fromhex(v) for v in TIE_CTX["x"]])
+    gy[s_t] = torch.tensor([float.fromhex(v) for v in TIE_CTX["gy"]])
+    ctx_t[s_t] = torch.tensor([float.fromhex(v) for v in TIE_CTX["ctx"]])
+    glad[s_t] = float.fromhex(TIE_CTX["glad"])
+    x, gy, glad, ctx_t = x.to(dev), gy.to(dev), glad.to(dev), ctx_t.to(dev)
+
+    def back64(*a, **kw):
+        return nsf_train.nsf_train_bwd_plain(*a, ctie_w64, ctie_idx, **kw, **ctie_kw)
+
+    p_gx, p_g = nsf_train.nsf_train_bwd_plain(x, gy, glad, ctie_w, ctie_idx, context=ctx_t,
+                                              **ctie_kw)
+    d_gx, d_g = back64(x.double(), gy.double(), glad.double(), context=ctx_t.double())
+    moved = {step: moved_cotangents(back64, x[s_t:s_t + 1], gy[s_t:s_t + 1],
+                                    glad[s_t:s_t + 1], step, ctx_t[s_t:s_t + 1])
+             for step in TIE_STEPS}
+    ctx_tie = {}
+    for c in (1, *nsf_train.CLUSTER_SIZES):
+        gx, g_c = nsf_train.nsf_train_bwd_cuda(x, gy, glad, ctie_w, ctie_idx, rows=32,
+                                               cluster=c, context=ctx_t, **ctie_kw)
+        torch.cuda.synchronize()
+        log(f"  cluster size {c}:")
+        ctx_tie[c] = {
+            "gx": hold_tie(torch, "gx * N", gx, p_gx, d_gx, lambda st: moved[st][0], n_t, s_t,
+                           "  ")[1],
+            "gctx": hold_tie(torch, "gctx * N", g_c["ctx"], p_g["ctx"], d_g["ctx"],
+                             lambda st: moved[st][1]["ctx"], n_t, s_t, "  ")[1]}
     cond_affine = lively_blocks(realnvp_flow("affine", dev, seed=22, context_features=C), seed=23)
     b2_ctx_affine = hold_b2_context("conditional affine chain", cond_affine, (SERVE_BATCH,))
     log(f"B3 and B4 on the conditional affine chain (context {C}):")
@@ -2464,12 +2747,31 @@ def main() -> int:
     kw = dict(inverse=True, context=ctx, num_blocks=view._num_blocks,
               transformer=view._transformer, spline_kw=view._spline_kw)
     hold_untamed_inverse(f" with context {C}", view, x, kw)
+    log(f"B9's one pass on the conditional MAF as initialised at N={x.shape[0]}:")
+    b9_untamed["conditional MAF"] = b9_one_pass("conditional MAF as initialised, forward",
+                                                view, x, dict(kw, inverse=False))[1]
+    # the conditional IAF's sampling direction (its one pass) on both
+    # routes, on inputs from a generator of their own
+    g_i = torch.Generator().manual_seed(27)
+    view = fuse_maf(ciaf)
+    for n in (SERVE_BATCH, RAGGED):
+        x = torch.randn(n, DA, generator=g_i).to(dev)
+        ctx = torch.randn(n, C, generator=g_i).to(dev)
+        kw = dict(inverse=True, context=ctx, num_blocks=view._num_blocks,
+                  transformer=view._transformer, spline_kw=view._spline_kw)
+        log(f"B9 on the conditional IAF (context {C}) at N={n}, its sampling direction:")
+        _, one = b9_one_pass("inverse", view, x, kw)
+        if n == SERVE_BATCH:
+            times = b9_route_times(view, x, kw)
+            b9_wgmma["conditional IAF"] = dict(err=one["wgmma"], simt_err=one["simt"],
+                                               ms=times["wgmma"][0], simt_ms=times["simt"][0])
+            log(f"  time: wgmma kernel {times['wgmma'][0]:.4f} ms, simt kernel "
+                f"{times['simt'][0]:.4f} ms")
 
     b9_ctx = {}
     for model, ar_flow in (("conditional MAF", cmaf), ("conditional NSF-AR", cnsf_ar)):
         view = fuse_maf(ar_flow)
         w32 = view._weights
-        w64 = {k: v.double() for k, v in w32.items()}
         skw = dict(num_blocks=view._num_blocks, transformer=view._transformer,
                    spline_kw=view._spline_kw)
         P = w32["wf"].shape[0] // LA
@@ -2486,17 +2788,8 @@ def main() -> int:
                 if inverse:
                     y, lad, err, fp_err = hold_fixed_point(tag, view, x, kw)
                 else:
-                    y, lad = maf_flow_kernel.maf_flow_kernel_cuda(
-                        x, w32, view._static, packed=view._packed, **kw)
-                    p_y, p_lad = maf_flow_kernel.maf_flow_kernel_plain(x, w32, view._static,
-                                                                       **kw)
-                    d_y, d_lad = maf_flow_kernel.maf_flow_kernel_plain(
-                        x.double(), w64, view._static, **{**kw, "context": ctx.double()})
-                    torch.cuda.synchronize()
-                    if not (torch.isfinite(y).all() and torch.isfinite(lad).all()):
-                        raise AssertionError("B9 with context produced non-finite values")
-                    err = max(hold(f"{tag} out", y, p_y, d_y, 1e-3),
-                              hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
+                    (y, lad), one = b9_one_pass(tag, view, x, kw)
+                    err, err_simt = one["wgmma"], one["simt"]
                 back, lad_back = maf_flow_kernel.maf_flow_kernel_cuda(
                     y, w32, view._static, packed=view._packed, **{**kw, "inverse": not inverse})
                 trip = max(max_err(back, x), max_err(lad_back, -lad))
@@ -2513,23 +2806,26 @@ def main() -> int:
                                                     (dense_ops(n, P) + context_ops(n))
                                                     * (DA + 1)))
                     continue
-                run = lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: E731
-                    x, w32, view._static, packed=view._packed, **kw)  # noqa: B023
                 run_plain = lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: E731
                     x, w32, view._static, **kw)  # noqa: B023
-                ms = device_ms(torch, run, 10, kernel="maf_flow_kernel")
-                ms_source = device_ms.source
+                times = b9_route_times(view, x, kw)
+                ms, ms_source = times["simt"]
                 plain_ms = device_ms(torch, run_plain, 3)
                 run_ops = dense_ops(n, P) + context_ops(n)
                 bound_ms, bound_by = bound(nops, io_bytes)
-                log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
-                    f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP needed); the "
-                    f"kernel's schedule multiplies {run_ops / 1e9:.1f} GFLOP "
-                    f"({bound(run_ops, io_bytes)[0]:.4f} ms at the peak rate), "
-                    f"{run_ops / ms / 1e9:.1f} TFLOP/s")
-                stats.update(err=err, ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                wb = b9_route_bound(nops, run_ops, io_bytes)
+                log(f"  {tag} time: wgmma kernel {times['wgmma'][0]:.4f} ms, simt kernel "
+                    f"{ms:.4f} ms  plain {plain_ms:.4f} ms; bound on the wgmma route "
+                    f"{wb['bound_ms']:.4f} ms ({wb['bound_by']}, {wb['bound_basis']}; the dense "
+                    f"{run_ops / 1e9:.1f} GFLOP it multiplies {wb['dense_ms']:.4f} ms), on the "
+                    f"CUDA cores {bound_ms:.4f} ms ({nops / 1e9:.2f} GFLOP needed)")
+                stats.update(err=err_simt, ms=ms, ms_source=ms_source, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              schedule_ms=bound(run_ops, io_bytes)[0])
+                b9_wgmma[model] = dict(err=err, ms=times["wgmma"][0],
+                                       ms_source=times["wgmma"][1], simt_ms=ms,
+                                       plain_ms=plain_ms, **wb,
+                                       untamed_err=b9_untamed.get(model, {}).get("wgmma"))
         b9_ctx[model] = stats
 
     def hold_b10(model, trainer, n, context_features, draw):
@@ -2628,6 +2924,8 @@ def main() -> int:
           context_features=C, context_rows=16)
     serve("conditional NSF-AR", cnsf_ar, DA, "B9", dict(B1=LA), dict(B1=LA * DA),
           fused_sample=ar_sample, context_features=C, context_rows=16)
+    serve("conditional IAF", ciaf, DA, "B9", {}, {}, fused_sample=ar_sample,
+          context_features=C, context_rows=16, draw=torch.Generator().manual_seed(28))
 
     # -- phase 29: training the conditional MAF on the card ----------------------------
     train_ar("conditional MAF", cmaf, context_features=C)
@@ -2688,7 +2986,7 @@ def main() -> int:
     steps, iaf_tr = iaf_routes(iaf_full, TRAIN_BATCH)
     start_moments = moments(iaf_tr)
     vi_losses = {}
-    for name, expected in (("fused", dict(B9=1, B10=1)), ("eager", {})):
+    for name, expected in (("fused", dict(B9=1, B9_simt=1, B10=1)), ("eager", {})):
         gens = [torch.Generator(device=dev).manual_seed(50 + i) for i in range(TRAIN_STEPS)]
         reset_counts()
         first = steps[name](gens[0])
@@ -2747,7 +3045,7 @@ def main() -> int:
     first = cstep(cgen, cctx)
     torch.cuda.synchronize()
     counts = read_counts()
-    expect_counts("one conditional IAF step", counts, B9=1, B10=1)
+    expect_counts("one conditional IAF step", counts, B9=1, B9_simt=1, B10=1)
     b10_step_layout("conditional IAF reverse-KL", ctr, TRAIN_BATCH)
     closs = [float(first)] + [float(cstep(cgen, cctx)) for _ in range(TRAIN_STEPS - 1)]
     log(f"training the conditional IAF (context {C}) by reverse KL: launches a step {counts}; "
@@ -2883,6 +3181,35 @@ def main() -> int:
     b2_bf16_ctx = b2_bf16("conditional flagship", cond_flow, (SERVE_BATCH,),
                           context_features=C)[SERVE_BATCH]
 
+    def hold_bf16_fixed_point(tag, v16, v32, x, kw):
+        """B9's fixed point with bf16 weights (a MAF's sample, an IAF's
+        log_prob) by the route, which must be the bf16 degree kernel,
+        against the bf16 plain version and the bf16 degree plain, whose
+        schedule it shares; the bf16 fixed-point kernel, forced, against the
+        bf16 plain version beside. Returns the route's (y, lad) and its
+        largest error."""
+        st, w16 = v16._static, v16._weights
+        before = maf_flow_kernel.degree_launch_count
+        y, lad = maf_flow_kernel.maf_flow_kernel_cuda(x, w16, st, packed=v16._packed, **kw)
+        torch.cuda.synchronize()
+        if maf_flow_kernel.degree_launch_count != before + 1:
+            raise AssertionError(f"B9 {tag}: the call did not take the degree kernel")
+        p16 = maf_flow_kernel.maf_flow_kernel_plain(x, w16, st, **kw)
+        p32 = maf_flow_kernel.maf_flow_kernel_plain(x, v32._weights, st, **kw)
+        q16 = maf_flow_kernel.maf_flow_kernel_plain(x, w16, st, schedule="degrees",
+                                                    masks=v16._masks, **kw)
+        f16 = maf_flow_kernel.maf_flow_kernel_cuda(x, w16, st, packed=v16._packed,
+                                                   schedule="fixed_point", **kw)
+        torch.cuda.synchronize()
+        errs = [hold_bf16(f"{tag} out", y, p16[0], p32[0], BF16_OUT),
+                hold_bf16(f"{tag} lad", lad, p16[1], p32[1], BF16_LAD),
+                hold_bf16(f"{tag} out, against the degree plain", y, q16[0], p32[0], BF16_OUT),
+                hold_bf16(f"{tag} lad, against the degree plain", lad, q16[1], p32[1],
+                          BF16_LAD)]
+        hold_bf16(f"{tag} out, fixed-point kernel", f16[0], p16[0], p32[0], BF16_OUT)
+        hold_bf16(f"{tag} lad, fixed-point kernel", f16[1], p16[1], p32[1], BF16_LAD)
+        return (y, lad), max(errs)
+
     def b9_bf16(model, ar_flow, context_features=None):
         v16, v32 = fuse_maf(ar_flow, dtype=BF16), fuse_maf(ar_flow)
         st = v16._static
@@ -2894,30 +3221,15 @@ def main() -> int:
         for inverse in (False, True):
             kw = dict(inverse=inverse, context=ctx, num_blocks=v16._num_blocks,
                       transformer=v16._transformer, spline_kw=v16._spline_kw)
-            y, lad = maf_flow_kernel.maf_flow_kernel_cuda(x, v16._weights, st,
-                                                          packed=v16._packed, **kw)
-            p16 = maf_flow_kernel.maf_flow_kernel_plain(x, v16._weights, st, **kw)
-            p32 = maf_flow_kernel.maf_flow_kernel_plain(x, v32._weights, st, **kw)
-            torch.cuda.synchronize()
             tag = "inverse" if inverse else "forward"
-            errs.append(hold_bf16(f"{tag} out", y, p16[0], p32[0], BF16_OUT))
-            errs.append(hold_bf16(f"{tag} lad", lad, p16[1], p32[1], BF16_LAD))
-            if inverse:
-                # the route is the bf16 degree kernel: against the bf16 degree
-                # plain too, and the bf16 fixed-point kernel beside it
-                q16 = maf_flow_kernel.maf_flow_kernel_plain(x, v16._weights, st,
-                                                            schedule="degrees",
-                                                            masks=v16._masks, **kw)
-                f16 = maf_flow_kernel.maf_flow_kernel_cuda(x, v16._weights, st,
-                                                           packed=v16._packed,
-                                                           schedule="fixed_point", **kw)
-                torch.cuda.synchronize()
-                errs.append(hold_bf16("inverse out, against the degree plain", y, q16[0],
-                                      p32[0], BF16_OUT))
-                errs.append(hold_bf16("inverse lad, against the degree plain", lad, q16[1],
-                                      p32[1], BF16_LAD))
-                hold_bf16("inverse out, fixed-point kernel", f16[0], p16[0], p32[0], BF16_OUT)
-                hold_bf16("inverse lad, fixed-point kernel", f16[1], p16[1], p32[1], BF16_LAD)
+            if not inverse:
+                # the one pass on both routes: the bf16 wgmma kernel (the
+                # route) and the bf16 SIMT kernel, forced
+                _, one = b9_one_pass(tag, v16, x, kw, view32=v32)
+                errs.append(one["wgmma"])
+                out.update(wgmma_err=one["wgmma"], simt_err=one["simt"])
+            else:
+                errs.append(hold_bf16_fixed_point(tag, v16, v32, x, kw)[1])
             t = time_pair(
                 lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: B023
                     x, v16._weights, st, packed=v16._packed, **kw),  # noqa: B023
@@ -2925,7 +3237,13 @@ def main() -> int:
                     x, v32._weights, st, packed=v32._packed, **kw),  # noqa: B023
                 lambda: maf_flow_kernel.maf_flow_kernel_plain(  # noqa: B023
                     x, v16._weights, st, **kw),  # noqa: B023
-                "maf_degree_inverse" if inverse else "maf_flow_kernel", iters=10)
+                "maf_degree_inverse" if inverse else "maf_flow_wgmma_kernel", iters=10)
+            if not inverse:
+                for key, v in (("simt_ms", v16), ("fp32_simt_ms", v32)):
+                    t[key] = device_ms(
+                        torch, lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: B023
+                            x, v._weights, st, packed=v._packed, gemm="simt",  # noqa: B023
+                            **kw), 10, kernel="maf_flow_kernel")  # noqa: B023
             if inverse:
                 t["fixed_point_ms"] = device_ms(
                     torch, lambda: maf_flow_kernel.maf_flow_kernel_cuda(  # noqa: B023
@@ -2936,15 +3254,39 @@ def main() -> int:
                                                    if context_features else 0)
         bound_ms, bound_by = bound_bf16(nops, v16._weights,
                                         SERVE_BATCH * (2 * DA + 1 + (context_features or 0)))
-        log(f"  time (forward / inverse): bf16 kernel {out['ms']:.4f} / {out['inverse_ms']:.4f} "
-            f"ms (the bf16 fixed-point kernel {out['inverse_fixed_point_ms']:.4f} ms), fp32 kernel {out['fp32_ms']:.4f} / {out['inverse_fp32_ms']:.4f} ms, bf16 "
+        dense = (dense_ops(SERVE_BATCH, v16._weights["wf"].shape[0] // LA)
+                 + (context_ops(SERVE_BATCH) if context_features else 0))
+        log(f"  time (forward / inverse): bf16 kernel {out['ms']:.4f} (wgmma; simt "
+            f"{out['simt_ms']:.4f}) / {out['inverse_ms']:.4f} "
+            f"ms (the bf16 fixed-point kernel {out['inverse_fixed_point_ms']:.4f} ms), fp32 "
+            f"kernel {out['fp32_ms']:.4f} (wgmma; simt {out['fp32_simt_ms']:.4f}) / "
+            f"{out['inverse_fp32_ms']:.4f} ms, bf16 "
             f"plain {out['plain_ms']:.4f} / {out['inverse_plain_ms']:.4f} ms; bound "
             f"{bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.2f} GFLOP the masks leave, at 989 "
-            f"TFLOP/s): {100 * bound_ms / out['ms']:.2f}% of it forward")
-        return dict(err=max(errs), bound_ms=bound_ms, bound_by=bound_by, **out)
+            f"TFLOP/s): {100 * bound_ms / out['ms']:.2f}% of it forward on the wgmma route; "
+            f"the dense count {dense / 1e9:.2f} GFLOP at that rate "
+            f"{1e3 * dense / PEAK_BF16_FLOPS:.4f} ms")
+        return dict(err=max(errs), bound_ms=bound_ms, bound_by=bound_by,
+                    dense_ms=1e3 * dense / PEAK_BF16_FLOPS, **out)
 
     b9_bf16_stats = {"MAF": b9_bf16("MAF", maf), "NSF-AR": b9_bf16("NSF-AR", nsf_ar),
                      "conditional MAF": b9_bf16("conditional MAF", cmaf, C)}
+    # the IAFs in bf16, on inputs from a generator of their own: the
+    # sampling direction (one pass) on both routes, and the log_prob
+    # direction (a fixed point on wrapped layers) on the degree kernel
+    g_b = torch.Generator().manual_seed(31)
+    for model, ar_flow, cf in (("IAF", iaf, None), ("conditional IAF", ciaf, C)):
+        v16, v32 = fuse_maf(ar_flow, dtype=BF16), fuse_maf(ar_flow)
+        x = torch.randn(SERVE_BATCH, DA, generator=g_b).to(dev)
+        ctx = None if cf is None else torch.randn(SERVE_BATCH, cf, generator=g_b).to(dev)
+        kw = dict(context=ctx, num_blocks=v16._num_blocks, transformer=v16._transformer,
+                  spline_kw=v16._spline_kw)
+        log(f"B9 in bf16 ({model}) at N={SERVE_BATCH}, its sampling direction:")
+        b9_bf16_stats[model] = dict(zip(("err", "simt_err"), b9_one_pass(
+            "inverse", v16, x, dict(inverse=True, **kw), view32=v32)[1].values()))
+        log(f"B9 in bf16 ({model}) at N={SERVE_BATCH}, its log_prob direction:")
+        b9_bf16_stats[model]["forward_err"] = hold_bf16_fixed_point(
+            "forward", v16, v32, x, dict(inverse=False, **kw))[1]
 
     b11_bf16_stats = {}
     for model, dist, cf in mog_models:
@@ -2982,11 +3324,15 @@ def main() -> int:
     bf16_launches = {}
     for model, dist, features, kid, sample_kernel in (
             ("NSF", flow, D, "B2_bf16", True), ("MAF", maf, DA, "B9_bf16", True),
-            ("MoG-MADE", mog, DM, "B11_bf16", False)):
+            ("MoG-MADE", mog, DM, "B11_bf16", False), ("NSF-AR", nsf_ar, DA, "B9_bf16", True),
+            ("IAF", iaf, DA, "B9_bf16", True)):
         server = CompiledFlow(dist, batch_size=SERVE_BATCH, features=features, dtype=BF16)
         if not server.is_fused:
             raise AssertionError(f"CompiledFlow(dtype=bfloat16) did not fuse the {model}")
-        x = torch.randn(SERVE_BATCH, features, generator=gen).to(dev).to(BF16)
+        # the NSF-AR's and the IAF's inputs from a generator of their own
+        draw = gen if model in ("NSF", "MAF", "MoG-MADE") else torch.Generator().manual_seed(
+            len(model))
+        x = torch.randn(SERVE_BATCH, features, generator=draw).to(dev).to(BF16)
         g = torch.Generator(device=dev).manual_seed(3)
         reset_counts()
         lp = server.log_prob(x)
@@ -2998,14 +3344,15 @@ def main() -> int:
         rest = read_counts()
         log(f"serving the {model} in bf16: launches a log_prob {first}, a sample {rest}")
         expect_counts(f"a bf16 {model} log_prob request", first, **{kid: 1},
-                      **b2_route_counts(server))
+                      **b2_route_counts(server), **b9_route_counts(server, "log_prob"))
         expect_counts(f"a bf16 {model} sample request", rest,
                       **({kid: 1} if sample_kernel else {}),
-                      **({"B9_degree": 1} if kid == "B9_bf16" else {}),
-                      **b2_route_counts(server))
-        bf16_launches[kid] = first[kid]
-        if kid == "B9_bf16":
+                      **b2_route_counts(server), **b9_route_counts(server, "sample"))
+        bf16_launches.setdefault(kid, first[kid])
+        if model == "MAF":
             bf16_launches["B9_degree"] = rest["B9_degree"]
+            bf16_launches["B9_wgmma_bf16"] = first["B9_wgmma_bf16"]
+            bf16_launches["B9_simt_bf16"] = first["B9_simt_bf16"] + rest["B9_simt_bf16"]
         if (tuple(lp.shape) != (SERVE_BATCH,) or lp.dtype != torch.float32
                 or not torch.isfinite(lp).all() or tuple(s.shape) != (SERVE_BATCH, features)
                 or not torch.isfinite(s).all()):
@@ -3013,10 +3360,30 @@ def main() -> int:
         with torch.no_grad():
             lp32 = CompiledFlow(dist, batch_size=SERVE_BATCH, features=features).log_prob(
                 x.float())
-        gap = max_err(lp, lp32)
+        gap, price = max_err(lp, lp32), None
+        v16 = server._fused
+        if isinstance(v16, maf_fused.FusedMAF):
+            # B9's served log_prob against its bf16 plain version on the same
+            # request; bf16's own price is the bf16 plain version's distance
+            # from the fp32 server
+            kw = dict(inverse=False, num_blocks=v16._num_blocks,
+                      transformer=v16._transformer, spline_kw=v16._spline_kw)
+            v32 = fuse_maf(dist)
+            y16, lad16 = maf_flow_kernel.maf_flow_kernel_plain(x.float(), v16._weights,
+                                                               v16._static, **kw)
+            y32, lad32 = maf_flow_kernel.maf_flow_kernel_plain(x.float(), v32._weights,
+                                                               v32._static, **kw)
+            p16, p32 = v16._log_base(y16) + lad16, v32._log_base(y32) + lad32
+            hold_bf16("log_prob against the bf16 plain version", lp, p16, p32, BF16_LAD)
+            price = max_err(p16, lp32)
+        # the 0.5 limit holds the kernel where bf16's price lies inside it;
+        # where the bf16 plain version itself is further (an IAF's fixed
+        # point), the hold against that plain version above is the check
         log(f"  log_prob against the fp32 server on the same bf16 inputs: max |delta| "
-            f"{gap:.3e} (bf16's price; limit 0.5)")
-        if gap > 0.5:
+            f"{gap:.3e} (bf16's price" + ("" if price is None else
+                                          f"; the bf16 plain version's {price:.3e}")
+            + "; limit 0.5 where the bf16 plain version is within it)")
+        if gap > 0.5 and not (price is not None and price > 0.5):
             raise AssertionError(f"bf16 {model}: log_prob is far from the fp32 server's")
         for endpoint, fn in (("log_prob", lambda: server.log_prob(x)),  # noqa: B023
                              ("sample", lambda: server.sample(  # noqa: B023
@@ -3074,6 +3441,13 @@ def main() -> int:
         return out
 
     uncond, cond = (m for m, _, _ in mog_models)
+    # the B9 rows count the launches of the kernels they time: the SIMT kernel
+    # (a fused training step's forward; no bf16 request takes it) and the
+    # degree kernel (a sampling request), split in simt_ and degree_launches;
+    # a log_prob request's launch is the B9_wgmma rows'
+    row_launches = {**launches, "B9": launches["B9_simt"] + launches["B9_degree"]}
+    bf16_row_launches = {**bf16_launches, "B9_bf16": (bf16_launches["B9_simt_bf16"]
+                                                      + bf16_launches["B9_degree"])}
     rows = []
     for kid, stats, source, replaces, tpu in (
             ("B1", b1[SERVE_BATCH * 3], "nflows_tpu_torch/csrc/rq_spline.cu",
@@ -3111,6 +3485,7 @@ def main() -> int:
                                  "held_tie": tie,
                                  "families": at_both_batches(b4_families)},
                                 {**at_training_batch(b4_ctx),
+                                 "held_tie": ctx_tie,
                                  f"ms_at_{SERVE_BATCH}": b4_ctx[SERVE_BATCH]["ms"],
                                  f"bound_ms_at_{SERVE_BATCH}": b4_ctx[SERVE_BATCH]["bound_ms"],
                                  "families": {"affine": at_training_batch(b4_ctx_affine)}},
@@ -3120,7 +3495,10 @@ def main() -> int:
              "nflows_tpu/ops/pallas/nsf_train.py:163",
              "ops/pallas/nsf_train.py:_bwd_kernel"),
             ("B9", with_context(b9["MAF"], b9_ctx["conditional MAF"],
-                                context_launches=context_launches["B9"],
+                                simt_launches=launches["B9_simt"],
+                                context_launches=(context_launches["B9_simt"]
+                                                  + context_launches["B9_degree"]),
+                                context_simt_launches=context_launches["B9_simt"],
                                 context_degree_launches=context_launches["B9_degree"],
                                 context_families={"NSF-AR": b9_ctx["conditional NSF-AR"]},
                                 families={"NSF-AR": b9["NSF-AR"]},
@@ -3170,7 +3548,7 @@ def main() -> int:
         rows.append({
             "name": names[kid], "id": kid,
             "route": "cuda", "source": source, "replaces": replaces, "tpu": tpu,
-            "launches": launches[kid], "max_abs_err": stats["err"], "max_err": stats["err"],
+            "launches": row_launches[kid], "max_abs_err": stats["err"], "max_err": stats["err"],
             "ms": stats["ms"], "kernel_ms": stats["ms"], "ms_source": stats["ms_source"],
             "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
@@ -3192,8 +3570,11 @@ def main() -> int:
              "nsf_flow_wgmma_bf16" if b2_bf16_stats[SERVE_BATCH]["gemm_route"] == "wgmma"
              else "nsf_flow_kernel_bf16", "nflows_tpu/ops/pallas/nsf_flow_kernel.py:1095",
              "ops/pallas/nsf_flow_kernel.py:_kernel"),
-            ("B9", b9_bf16_stats["MAF"],
+            ("B9", {**b9_bf16_stats["MAF"], "err": b9_bf16_stats["MAF"]["simt_err"],
+                    "ms": b9_bf16_stats["MAF"]["simt_ms"],
+                    "wgmma_ms": b9_bf16_stats["MAF"]["ms"]},
              dict(families={"NSF-AR": b9_bf16_stats["NSF-AR"]},
+                  simt_launches=bf16_launches["B9_simt_bf16"],
                   degree_launches=bf16_launches["B9_degree"],
                   degree_source="nflows_tpu_torch/csrc/maf_degree_inverse_bf16.cu",
                   **{f"context_{k}": v for k, v in b9_bf16_stats["conditional MAF"].items()}),
@@ -3206,12 +3587,41 @@ def main() -> int:
         rows.append({
             "name": f"{names[kid]}_bf16", "id": f"{kid}_bf16", "dtype": "bfloat16",
             "route": "cuda", "source": f"nflows_tpu_torch/csrc/{stem}.cu", "replaces": replaces,
-            "tpu": tpu, "launches": bf16_launches[f"{kid}_bf16"], "max_abs_err": stats["err"],
+            "tpu": tpu, "launches": bf16_row_launches[f"{kid}_bf16"],
+            "max_abs_err": stats["err"],
             "max_err": stats["err"], "ms": stats["ms"], "kernel_ms": stats["ms"],
             "ms_source": stats["ms_source"], "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"], "library_ms": None,
             **{k: v for k, v in stats.items()
                if k.startswith(("inverse_", "fp32_", "simt_", "gemm_route", "bound_basis"))},
+            **more,
+        })
+    # B9's one pass on the tensor cores, both weight types (csrc/maf_flow_wgmma.cuh)
+    w9, w16 = b9_wgmma["MAF"], b9_bf16_stats["MAF"]
+    for kid, stem, stats, n_launch, more in (
+            ("B9_wgmma", "maf_flow_wgmma", w9, launches["B9_wgmma"], dict(
+                families={m: b9_wgmma[m] for m in ("NSF-AR", "IAF")},
+                **{f"context_{k}": v for k, v in b9_wgmma["conditional MAF"].items()},
+                context_families={m: b9_wgmma[m]
+                                  for m in ("conditional NSF-AR", "conditional IAF")},
+                context_launches=context_launches["B9_wgmma"],
+                untamed_err=b9_untamed, trainer_weights=b9_trainer_weights)),
+            ("B9_wgmma_bf16", "maf_flow_wgmma_bf16",
+             {**w16, "err": w16["wgmma_err"]}, bf16_launches["B9_wgmma_bf16"], dict(
+                 dtype="bfloat16",
+                 families={m: b9_bf16_stats[m] for m in ("NSF-AR", "IAF", "conditional IAF")},
+                 **{f"context_{k}": v for k, v in b9_bf16_stats["conditional MAF"].items()}))):
+        rows.append({
+            "name": stem, "id": kid, "route": "cuda",
+            "source": f"nflows_tpu_torch/csrc/{stem}.cu",
+            "replaces": "nflows_tpu/ops/pallas/maf_flow_kernel.py:99",
+            "tpu": "ops/pallas/maf_flow_kernel.py:_kernel", "launches": n_launch,
+            "max_abs_err": stats["err"], "max_err": stats["err"], "ms": stats["ms"],
+            "kernel_ms": stats["ms"], "ms_source": stats["ms_source"],
+            "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+            "bound_by": stats["bound_by"], "library_ms": None,
+            **{k: v for k, v in stats.items()
+               if k.startswith(("simt_", "fp32_", "dense_", "bound_basis", "ms_at_"))},
             **more,
         })
     rows.sort(key=lambda row: (int(row["id"].split("_")[0][1:]), row["id"]))

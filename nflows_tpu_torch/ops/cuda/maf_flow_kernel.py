@@ -1,6 +1,7 @@
 """Kernel B9: a whole autoregressive flow (MAF, NSF-AR, IAF) in one launch
-(counterpart of nflows_tpu/ops/pallas/maf_flow_kernel.py; source
-``csrc/maf_flow_kernel.cu``).
+(counterpart of nflows_tpu/ops/pallas/maf_flow_kernel.py; sources
+``csrc/maf_flow_wgmma.cu``, ``csrc/maf_flow_kernel.cu`` and
+``csrc/maf_degree_inverse.cu``).
 
 Forward (the log_prob direction) is one MADE pass a layer. The inverse
 (ancestral sampling) is, per layer, the D-step fixed point the unfused
@@ -49,6 +50,20 @@ kernel when every layer is a fixed point in the requested direction, the
 masks are in degree form and its stage buffers fit a tile of 16 or 32
 samples, else the fixed-point kernel. ``schedule=`` forces one.
 
+The one-pass direction (every layer one MADE pass: unwrapped layers going
+forward, a MAF's or NSF-AR's log_prob; wrapped ones coming back, an IAF's
+sample) has two routes (:func:`gemm_route`, like B2's). ``"wgmma"``
+(``csrc/maf_flow_wgmma.cuh``) runs every GEMM on Hopper's tensor cores,
+bf16 wgmma for bf16 weights and 3xTF32 for fp32 ones, the weights streamed
+from :func:`pack_weights_wgmma`'s image (B2's layout,
+``nsf_flow_kernel.wgmma_positions``) through a ring of shared-memory
+slots. It takes every such chain whose hidden width is a multiple of 64 up
+to 256, whose padded parameter rows are at most 256 and whose tile fits.
+``"simt"``
+(``csrc/maf_flow_kernel.cuh``) runs fp32 FMAs and takes the rest, and the
+trainers' forward, whose weights move every step. ``gemm=`` on
+:func:`maf_flow_kernel_cuda` forces one.
+
 Samples are rows here: x is [N, D], the context [N, C], and the result is
 (y [N, D], lad [N]), with fp32 or bf16 weights, with or without a context.
 With bf16 weights (``csrc/maf_flow_kernel_bf16.cu``, the JAX package's
@@ -75,23 +90,37 @@ from nflows_tpu_torch.ops.cuda import _build
 from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
     _KC,
     _OC,
+    _WG_MAX_ROWS,
+    _WG_ROWS,
+    _WG_SLOT,
+    _WG_SLOTS,
+    GEMM_ROUTES,
     MAX_SHARED_MEMORY,
     WEIGHT_DTYPES,
     _out_align,
+    _ptr,
     _round4,
     _round_out,
+    _round_to,
     gemm,
+    wgmma_positions,
 )
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 
-__all__ = ["CONTEXT_KEYS", "MAFLayerStatic", "SCHEDULES", "degree_order",
-           "degree_shared_memory_bytes", "degree_tile_rows", "maf_flow_kernel_cuda",
-           "maf_flow_kernel_plain", "pack_degree_order", "pack_weights", "shared_memory_bytes",
-           "tile_rows", "launch_count", "bf16_launch_count", "degree_launch_count"]
+__all__ = ["CONTEXT_KEYS", "MAFLayerStatic", "SCHEDULES",
+           "degree_order", "degree_shared_memory_bytes", "degree_tile_rows", "gemm_route",
+           "maf_flow_kernel_cuda", "maf_flow_kernel_plain", "one_pass", "pack_degree_order",
+           "pack_weights", "pack_weights_wgmma", "shared_memory_bytes", "tile_rows",
+           "weights_route", "wgmma_dims", "wgmma_gemms", "wgmma_shared_memory_bytes",
+           "launch_count", "bf16_launch_count", "degree_launch_count", "route_launch_count"]
 
-launch_count = 0  # kernel launches since the last reset (fp32 weights)
-bf16_launch_count = 0  # launches of the bf16-weight kernel since the last reset
+launch_count = 0  # kernel launches since the last reset (fp32 weights, every kernel)
+bf16_launch_count = 0  # launches of a bf16-weight kernel since the last reset
 degree_launch_count = 0  # launches of the degree-ordered inverse (either weight type)
+# launches of the one-pass kernels by route and weight type since the last
+# reset: "wgmma" (csrc/maf_flow_wgmma.cu), "simt" (csrc/maf_flow_kernel.cu,
+# in either direction) and their "_bf16" twins
+route_launch_count = {"simt": 0, "wgmma": 0, "simt_bf16": 0, "wgmma_bf16": 0}
 
 _EPSILON = 1e-3  # MaskedAffineAutoregressiveTransform._EPSILON
 TRANSFORMERS = ("affine", "rq")
@@ -394,6 +423,157 @@ def pack_weights(weights: Dict[str, torch.Tensor], layer_static: Sequence,
     return out
 
 
+# -- the one-pass direction's wgmma route -----------------------------------------
+
+
+def _declare_wgmma(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn in (getattr(lib, name, None) for name in ("maf_wgmma_launch",
+                                                     "maf_wgmma_launch_bf16")):
+        if fn is not None:
+            fn.argtypes = ([p, p, p, p, ctypes.c_int64] + [i] * 9 + [p, ctypes.c_int64]
+                           + [p] * 6 + [i, i, f, i] + [f] * 4 + [p])
+            fn.restype = i
+
+
+def _pad_depth(n: int) -> int:
+    """A GEMM's depth on the wgmma route: 16, 32 or a multiple of 64, so that
+    an fp32 GEMM's ring chunks are 2, 4 or 8 wgmma steps
+    (``nsf_flow_kernel._chunk_steps``; csrc/wgmma_chain.cuh)."""
+    return 16 if n <= 16 else 32 if n <= 32 else _round_to(n, 64)
+
+
+def wgmma_dims(D: int, P: int, C: int = 0) -> dict:
+    """The wgmma route's padded widths: the initial layer's depth Ip and the
+    context's Cp (:func:`_pad_depth`), the final layer's rows TMp to a
+    multiple of 64 (wgmma's M)."""
+    return dict(Ip=_pad_depth(D), Cp=_pad_depth(C) if C else 0, TMp=_round_to(P, 64))
+
+
+def wgmma_gemms(num_blocks: int, context: bool) -> list:
+    """One layer's GEMMs in the order the kernel runs them and the image
+    holds them: (stack, index), the index a block's for wb (2 j, 2 j + 1)
+    and wcb (j). Under a context the initial layer's projection comes
+    first (its relu'd result is h's start) and each block's rides its first
+    linear."""
+    out = ([("wci", None)] if context else []) + [("wi", None)]
+    for j in range(num_blocks):
+        out += [("wb", 2 * j)] + ([("wcb", j)] if context else []) + [("wb", 2 * j + 1)]
+    return out + [("wf", None)]
+
+
+def pack_weights_wgmma(weights: Dict[str, torch.Tensor], layer_static: Sequence,
+                       num_blocks: int) -> Dict[str, torch.Tensor]:
+    """The wgmma route's layout of the (mask-folded) stacks, built once on
+    the weights' device with tensor operations: ``image``, each layer's
+    matrices (as :func:`wgmma_gemms` orders them, each [out, in] zero-padded
+    to :func:`wgmma_dims` and laid out by ``nsf_flow_kernel.wgmma_positions``)
+    one layer after another in layer order, in the weights' type (bf16 or
+    fp32; the kernel bulk-copies it chunk by chunk into its ring);
+    ``layer_bytes``, one layer's share; the biases fp32 (bi [L, H],
+    bb [L, 2 nb, H], bf [L, TMp] zero past P, bci [L, H], bcb [L, nb, H]),
+    :func:`pack_weights`' index array and the padded widths."""
+    d = _dims(weights, layer_static, num_blocks)
+    L, H, D, P, nb2, C = (d[k] for k in ("L", "H", "D", "P", "nb2", "C"))
+    nb = nb2 // 2
+    dims = wgmma_dims(D, P, C)
+    wdt = torch.bfloat16 if weights["wi"].dtype == torch.bfloat16 else torch.float32
+    dev = weights["wi"].device
+
+    def padded(t, shape, rows, cols):
+        t = t.detach().reshape(*shape)
+        out = torch.zeros(*shape[:-2], rows, cols, dtype=wdt, device=dev)
+        out[..., :shape[-2], :shape[-1]] = t
+        return out
+
+    mats = dict(wi=padded(weights["wi"], (L, H, D), H, dims["Ip"]),
+                wb=weights["wb"].detach().to(wdt).reshape(L, nb2, H, H),
+                wf=padded(weights["wf"], (L, P, H), dims["TMp"], H))
+    if C:
+        mats.update(wci=padded(weights["wci"], (L, H, C), H, dims["Cp"]),
+                    wcb=padded(weights["wcb"], (L, nb, H, C), H, dims["Cp"]))
+    parts = []
+    for name, j in wgmma_gemms(nb, bool(C)):
+        m = mats[name] if j is None else mats[name][:, j]
+        flat = torch.empty(L, m.shape[1] * m.shape[2], dtype=wdt, device=dev)
+        flat[:, wgmma_positions(m.shape[1], m.shape[2], wdt, dev).reshape(-1)] = m.reshape(L, -1)
+        parts.append(flat)
+    image = torch.cat(parts, dim=1)
+    f32 = lambda name, *shape: weights[name].detach().float().reshape(*shape).contiguous()  # noqa: E731
+    bf = torch.zeros(L, dims["TMp"], dtype=torch.float32, device=dev)
+    bf[:, :P] = weights["bf"].detach().float().reshape(L, P)
+    out = dict(image=image.reshape(-1).contiguous(),
+               layer_bytes=image.shape[1] * image.element_size(),
+               bi=f32("bi", L, H), bb=f32("bb", L, nb2, H), bf=bf,
+               idx=torch.tensor([list(ls.perm_rows) + list(ls.inv_perm_rows) + [int(ls.wrapped)]
+                                 for ls in layer_static], dtype=torch.int32, device=dev),
+               **dims)
+    if C:
+        out.update(bci=f32("bci", L, H), bcb=f32("bcb", L, nb, H))
+    return out
+
+
+def wgmma_shared_memory_bytes(D: int, H: int, P: int, C: int = 0,
+                              dtype=torch.float32) -> int:
+    """Dynamic shared memory of a block of the wgmma route
+    (csrc/maf_flow_wgmma.cuh: maf_wgmma_smem_bytes): the ring, the operand
+    buffer (also P [32][TMp + 4] fp32) and, for fp32, its lo plane, the
+    context operand, the barriers, the state, the AR op's input, the
+    elementwise logabsdets and their sum."""
+    es = torch.empty((), dtype=dtype).element_size()
+    split = dtype == torch.float32
+    dims = wgmma_dims(D, P, C)
+    KX = max(H, dims["Ip"])
+    op = max(_WG_ROWS * KX * es, _WG_ROWS * (dims["TMp"] + 4) * 4)
+    return (_WG_SLOTS * _WG_SLOT + op + (_WG_ROWS * KX * es if split else 0)
+            + (2 if split else 1) * _WG_ROWS * dims["Cp"] * es + 16 * _WG_SLOTS
+            + 4 * _WG_ROWS * (3 * D + 1))
+
+
+def one_pass(layer_static: Sequence, inverse: bool) -> bool:
+    """Every layer runs one MADE pass in this direction: unwrapped layers
+    going forward, wrapped (IAF) layers coming back."""
+    return all(bool(inverse) == bool(ls.wrapped) for ls in layer_static)
+
+
+def gemm_route(H: int, D: int, P: int, C: int = 0, dtype=torch.float32,
+               gemm: str = None) -> str:
+    """The route B9's one-pass direction takes for a chain of these widths:
+    ``"wgmma"`` where the hidden width is a multiple of 64 up to 256, the
+    final layer's padded rows are at most 256 and the tile fits in shared
+    memory; else ``"simt"``. ``gemm`` forces one; forcing ``"wgmma"`` on a
+    shape it cannot take raises.
+
+    Both transformers take wgmma in fp32 too (B2 keeps some coupling
+    families on SIMT there): 3xTF32, each chunk's products summed apart
+    (csrc/wgmma_chain.cuh: gemm_folded), holds the fp32 band (1e-3) on every
+    check of the card, on the full-width MAF as initialised 5.6e-7 from
+    float64 (the fp32 plain version 2.3e-7), on the trained MAF's weights
+    1.2e-5 (1.3e-6), the served trained conditional MAF 2.0e-4 from its
+    trainer (chip_smoke.py phases 9, 12, 29 on an NVIDIA H100; PERF.md). The
+    affine transformer only multiplies in the one-pass direction, where B2's
+    affine coupling divides."""
+    fits = (H % 64 == 0 and H <= _WG_MAX_ROWS
+            and wgmma_dims(D, P, C)["TMp"] <= _WG_MAX_ROWS
+            and wgmma_shared_memory_bytes(D, H, P, C, dtype) <= MAX_SHARED_MEMORY)
+    if gemm is None:
+        return "wgmma" if fits else "simt"
+    if gemm not in GEMM_ROUTES:
+        raise ValueError(f"gemm must be one of {GEMM_ROUTES} or None, got {gemm!r}")
+    if gemm == "wgmma" and not fits:
+        raise ValueError(f"gemm='wgmma' does not take hidden width {H} with {P} parameter "
+                         "rows: the hidden width must be a multiple of 64 up to 256, the "
+                         "parameter rows at most 256, the tile within shared memory")
+    return gemm
+
+
+def weights_route(weights: Dict[str, torch.Tensor], layer_static: Sequence, num_blocks: int,
+                  gemm: str = None) -> str:
+    """:func:`gemm_route` for a chain's stacks."""
+    d = _dims(weights, layer_static, num_blocks)
+    return gemm_route(d["H"], d["D"], d["P"], d["C"], weights["wi"].dtype, gemm)
+
+
 def maf_flow_kernel_plain(
     x: torch.Tensor, weights: Dict[str, torch.Tensor], layer_static,
     *, inverse: bool, num_blocks: int, transformer: str = "affine",
@@ -541,6 +721,7 @@ def maf_flow_kernel_cuda(
     *, inverse: bool, num_blocks: int, transformer: str = "affine",
     spline_kw: dict = None, wh_scale: float = None, context: torch.Tensor = None,
     packed: Dict[str, torch.Tensor] = None, rows: int = None, schedule: str = None,
+    gemm: str = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the chain: x [N, D] (and context [N, C] for a conditional flow)
     -> (y [N, D], logabsdet [N]).
@@ -548,7 +729,15 @@ def maf_flow_kernel_cuda(
     ``packed`` is :func:`pack_weights` of ``weights``, built here when not
     given (callers that launch repeatedly keep it); its entry ``"degrees"``,
     where there is one, is :func:`pack_degree_order` of the model, or None
-    for masks not in degree form. ``schedule`` picks the kernel of a fixed
+    for masks not in degree form; its entry ``"wgmma"`` is
+    :func:`pack_weights_wgmma`, built here when the wgmma route runs
+    without it. ``gemm`` picks the route of a chain whose every layer runs
+    one pass in this direction (see the module doc): None takes
+    :func:`gemm_route`'s, ``"wgmma"`` or ``"simt"`` forces one; a forced
+    ``"wgmma"`` raises on a shape it cannot take, on a chain with a fixed
+    point in this direction and beside ``schedule`` or ``rows``; ``"simt"``
+    leaves fixed points to ``schedule``; ``rows`` (a tile of the other
+    kernels) keeps them. ``schedule`` picks the kernel of a fixed
     point (see the module doc): None routes by shape, ``"degrees"`` or
     ``"fixed_point"`` forces one; a forced ``"degrees"`` that cannot run
     (a one-pass layer, masks out of degree form, stage buffers too large)
@@ -569,15 +758,35 @@ def maf_flow_kernel_cuda(
               spline_kw=spline_kw, wh_scale=wh_scale, context=context)
     _check_transformer(transformer, spline_kw, wh_scale)
     _check_context("maf_flow_kernel_cuda", weights, context)
+    wgmma = _wgmma_route(weights, layer_static, inverse, num_blocks, schedule, rows, gemm)
     if x.device.type == "cpu":
         if schedule is not None:
             _route(weights, layer_static, inverse, num_blocks, schedule, rows, packed)
         return maf_flow_kernel_plain(x, weights, layer_static, schedule=schedule or "fixed_point",
                                      **kw)
+    if wgmma:
+        wp = None if packed is None else packed.get("wgmma")
+        if wp is None:
+            wp = pack_weights_wgmma(weights, layer_static, num_blocks)
+        return _launch_wgmma(x, weights, layer_static, wp, **kw)
     route, order = _route(weights, layer_static, inverse, num_blocks, schedule, rows, packed)
     if route == "degrees":
         return _launch_degrees(x, weights, layer_static, packed, order, rows, **kw)
     return _launch_fixed_point(x, weights, layer_static, packed, rows, **kw)
+
+
+def _wgmma_route(weights, layer_static, inverse, num_blocks, schedule, rows, gemm):
+    """True where this call takes the wgmma route; raises on a forced
+    ``"wgmma"`` that cannot run (see maf_flow_kernel_cuda)."""
+    if gemm is not None and gemm not in GEMM_ROUTES:
+        raise ValueError(f"gemm must be one of {GEMM_ROUTES} or None, got {gemm!r}")
+    passes = one_pass(layer_static, inverse)
+    if gemm == "wgmma" and not (passes and schedule is None and rows is None):
+        raise ValueError("gemm='wgmma' runs chains whose every layer is one MADE pass in this "
+                         "direction, with schedule=None and rows=None")
+    if not passes or schedule is not None or rows is not None:
+        return False
+    return weights_route(weights, layer_static, num_blocks, gemm) == "wgmma"
 
 
 def _route(weights, layer_static, inverse, num_blocks, schedule, rows, packed):
@@ -692,7 +901,6 @@ def _launch_degrees(x, weights, layer_static, packed, order, rows, *,
 
 def _launch_fixed_point(x, weights, layer_static, packed, rows, *, inverse, num_blocks,
                         transformer, spline_kw, wh_scale, context):
-    global launch_count, bf16_launch_count
     wdt = weights["wi"].dtype
     if wdt not in WEIGHT_DTYPES:
         raise ValueError(f"maf_flow_kernel_cuda: weights must be float32 or bfloat16, got {wdt}")
@@ -743,9 +951,68 @@ def _launch_fixed_point(x, weights, layer_static, packed, rows, *, inverse, num_
             *(0 if C == 0 else packed[k].data_ptr() for k in CONTEXT_KEYS),
             packed["idx"].data_ptr(), int(inverse), TRANSFORMERS.index(transformer),
             1.0 if wh_scale is None else wh_scale, *_spline_args(spline_kw), rows, stream)
+    _count("simt", bf16)
+    _build.check(code, "maf_flow_launch_bf16" if bf16 else "maf_flow_launch")
+    return y, lad
+
+
+def _count(route: str, bf16: bool) -> None:
+    """One launch of a one-pass kernel of ``route``: its own counter and the
+    weight type's total."""
+    global launch_count, bf16_launch_count
+    route_launch_count[route + ("_bf16" if bf16 else "")] += 1
     if bf16:
         bf16_launch_count += 1
     else:
         launch_count += 1
-    _build.check(code, "maf_flow_launch_bf16" if bf16 else "maf_flow_launch")
+
+
+def _launch_wgmma(x, weights, layer_static, wp, *, inverse, num_blocks, transformer,
+                  spline_kw, wh_scale, context):
+    """B9's one-pass chain on the wgmma route (csrc/maf_flow_wgmma.cuh) with
+    :func:`pack_weights_wgmma`'s ``wp``."""
+    what = "maf_flow_kernel_cuda (wgmma)"
+    d = _dims(weights, layer_static, num_blocks)
+    L, H, D, P, C, nb = d["L"], d["H"], d["D"], d["P"], d["C"], num_blocks
+    _check_rows(x, context, C)
+    if x.shape[1] != D:
+        raise ValueError(f"{what}: x has {x.shape[1]} features, the weights {D}")
+    dims = wgmma_dims(D, P, C)
+    f32 = torch.float32
+    expected = dict(bi=((L, H), f32), bb=((L, 2 * nb, H), f32), bf=((L, dims["TMp"]), f32),
+                    idx=((L, 2 * D + 1), torch.int32))
+    if C:
+        expected.update(bci=((L, H), f32), bcb=((L, nb, H), f32))
+    for name, (shape, dtype) in expected.items():
+        if name not in wp:
+            raise ValueError(f"{what}: packed['wgmma'] has no {name}")
+        _check_tensor(what, f"packed['wgmma'][{name!r}]", wp[name], shape, dtype, x.device)
+    image, wdt = wp["image"], weights["wi"].dtype
+    layer_elems = sum(
+        (dims["TMp"] if name == "wf" else H)
+        * {"wi": dims["Ip"], "wci": dims["Cp"], "wcb": dims["Cp"]}.get(name, H)
+        for name, _ in wgmma_gemms(nb, bool(C)))
+    if (any(wp.get(k) != v for k, v in dims.items()) or image.dtype != wdt
+            or image.numel() != L * layer_elems
+            or wp["layer_bytes"] != layer_elems * image.element_size()
+            or image.device != x.device or not image.is_contiguous()):
+        raise ValueError(f"{what}: packed['wgmma'] is not pack_weights_wgmma of these weights")
+    bf16 = wdt == torch.bfloat16
+    lib = _build.load_library("maf_flow_wgmma_bf16" if bf16 else "maf_flow_wgmma",
+                              _declare_wgmma)
+    launch = lib.maf_wgmma_launch_bf16 if bf16 else lib.maf_wgmma_launch
+    n = x.shape[0]
+    y = torch.empty_like(x)
+    lad = torch.empty(n, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = launch(
+            x.data_ptr(), _ptr(context), y.data_ptr(), lad.data_ptr(), n, D, L, H, dims["Ip"],
+            P, dims["TMp"], nb, C, dims["Cp"], image.data_ptr(), wp["layer_bytes"],
+            wp["bi"].data_ptr(), wp["bb"].data_ptr(), wp["bf"].data_ptr(), _ptr(wp.get("bci")),
+            _ptr(wp.get("bcb")), wp["idx"].data_ptr(), int(inverse),
+            TRANSFORMERS.index(transformer), 1.0 if wh_scale is None else wh_scale,
+            *_spline_args(spline_kw), stream)
+    _count("wgmma", bf16)
+    _build.check(code, launch.__name__)
     return y, lad

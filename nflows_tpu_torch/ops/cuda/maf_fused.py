@@ -265,6 +265,12 @@ class FusedMAF(FusedFlowView):
                 maf_flow_kernel.pack_degree_order(self._weights, self._static,
                                                   self._num_blocks, order=order)
                 if order is not None and uniform else None)
+            # the one-pass direction's wgmma image (a MAF's or NSF-AR's
+            # log_prob, an IAF's sample) where the shape takes that route
+            if uniform and maf_flow_kernel.weights_route(
+                    self._weights, self._static, self._num_blocks) == "wgmma":
+                self._packed["wgmma"] = maf_flow_kernel.pack_weights_wgmma(
+                    self._weights, self._static, self._num_blocks)
 
     def _run(self, x, inverse, context=None):
         return maf_flow_kernel.maf_flow_kernel_cuda(
@@ -278,8 +284,10 @@ def fuse_maf(flow, dtype=torch.float32) -> FusedMAF:
 
     ``dtype`` sets the MADE GEMM precision: torch.float32 (the default
     here) or torch.bfloat16, the JAX package's default, where each GEMM
-    takes bf16 operands and sums in fp32 (kernel
-    ``csrc/maf_flow_kernel_bf16.cu``). Inputs and results are fp32 either
-    way.
+    takes bf16 operands and sums in fp32 (kernels
+    ``csrc/maf_flow_wgmma_bf16.cu`` for the one-pass direction at widths
+    the tensor cores take, ``csrc/maf_flow_kernel_bf16.cu`` and
+    ``csrc/maf_degree_inverse_bf16.cu``). Inputs and results are fp32
+    either way.
     """
     return FusedMAF(flow, dtype=dtype)

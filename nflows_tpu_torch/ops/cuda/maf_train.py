@@ -468,8 +468,10 @@ def _launch(x, gy, glad, weights, layer_static, *, num_blocks, transformer, spli
 
 
 class _MAFTrainApply(torch.autograd.Function):
-    """forward: B9 in the one-pass direction, with ``wh_scale``; backward:
-    B10. On CPU tensors both wrappers run their plain versions."""
+    """forward: B9 in the one-pass direction on its SIMT kernel (the
+    trainer re-packs its weights in place every step; the wgmma route would
+    pack an image too), with ``wh_scale``; backward: B10. On CPU tensors
+    both wrappers run their plain versions."""
 
     @staticmethod
     def forward(ctx, x, context, meta, *ws):
@@ -481,7 +483,7 @@ class _MAFTrainApply(torch.autograd.Function):
         ctx.meta = (layer_static, static, wh_scale, packed, rows, direction, keys)
         return maf_flow_kernel.maf_flow_kernel_cuda(
             x, weights, layer_static, inverse=direction == "inverse", wh_scale=wh_scale,
-            context=context, packed=packed, **static)
+            context=context, packed=packed, gemm="simt", **static)
 
     @staticmethod
     def backward(ctx, gy, glad):
