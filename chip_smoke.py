@@ -104,6 +104,14 @@ bands, and timed at every size at 512, 2,048 and 4,096 beside the
 clusters of each size the card holds at once; the fused MAF, conditional
 MAF and IAF steps (phases 12, 29, 30) check that their B10 ran once at the
 chosen size and print that size at each timed batch.
+B12 likewise (phase 15: the MoG-MADE and its conditional twin): at 512,
+2,048, 4,096 and the ragged N at the cluster size its wrapper chooses and
+at every other one (one block a tile, csrc/mademog_train.cu; clusters of
+2, 4 and 8 blocks, csrc/mademog_train_cluster.cu), each held to the plain
+version and float64 in the same bands, and timed at every size at 512,
+2,048 and 4,096 beside the clusters of each size the card holds at once;
+the fused steps (phase 16) check that their B12 ran once at the chosen
+size, and keep that size and the step's wall and busy time by batch.
 B2 has two routes (``nsf_flow_kernel.gemm_route``): the tensor-core
 kernel (csrc/nsf_flow_wgmma.cu, bf16 wgmma or 3xTF32 for fp32 weights),
 which every full-width chain here takes save the fp32 affine couplings,
@@ -154,7 +162,8 @@ counts a reverse-KL step as ``inverse_launches``, and carries its cluster
 layout: ``cluster_source``, the chosen ``cluster_size`` and
 ``ms_by_cluster_size`` at each batch, ``active_clusters``, each phase's
 launches by cluster size (``cluster_launches_by_phase``) and the fused
-steps' cluster size and wall time by batch (``cluster_steps``);
+steps' cluster size and wall time by batch (``cluster_steps``); B12's row
+carries the same keys (and the steps' busy time);
 the rows ``B2_bf16``, ``B9_bf16`` and ``B11_bf16``, the bf16-weight
 instantiations, count a bf16 request through ``CompiledFlow`` and carry
 the fp32 instantiation's time beside theirs as ``fp32_ms``; ``B9`` and
@@ -945,7 +954,6 @@ def main() -> int:
         maf_flow_kernel.launch_count = 0
         maf_flow_kernel.degree_launch_count = 0
         mademog_fused.launch_count = 0
-        mademog_train.bwd_launch_count = 0
         for module in (lrs_spline, linear_spline, quadratic_spline, cubic_spline):
             module.launch_count = 0
         for module in (nsf_flow_kernel, maf_flow_kernel, mademog_fused):
@@ -953,8 +961,9 @@ def main() -> int:
         for module in (nsf_flow_kernel, maf_flow_kernel):
             for route in module.route_launch_count:
                 module.route_launch_count[route] = 0
-        for cs in maf_train.cluster_launch_count:
-            maf_train.cluster_launch_count[cs] = 0
+        for module in (maf_train, mademog_train):
+            for cs in module.cluster_launch_count:
+                module.cluster_launch_count[cs] = 0
 
     def read_counts():
         return {"B1": rq_spline.launch_count, "B2": nsf_flow_kernel.launch_count,
@@ -1341,6 +1350,8 @@ def main() -> int:
         }
         return steps, fused_tr, state
 
+    step_busy = {}   # device busy ms a step by (title, route, batch)
+
     def time_steps(title, make_routes, family, extra):
         """Time a step of each route at batches 512, 2,048 and 4,096: the wall
         time over 20 steps ending in a synchronise, after 3 warm-up steps,
@@ -1350,7 +1361,8 @@ def main() -> int:
         fused trainer); ``extra(n, trainer, steps, args)`` measures more at
         each size. Logs the batches the fused route wins at beside the
         floor ``fused_trainer(auto=True)`` keeps for ``family``; returns
-        the wall times by (route, batch)."""
+        the wall times by (route, batch), and keeps the device busy times
+        in ``step_busy`` by (title, route, batch)."""
         log(f"{title} step times (host clock over 20 steps ending in a synchronise; device "
             "busy from torch.profiler):")
         sizes = (TRAIN_BATCH, 2048, SERVE_BATCH)
@@ -1369,6 +1381,7 @@ def main() -> int:
                 busy = device_ms(torch, lambda: step(*args[0]),  # noqa: B023
                                  3 if name == "eager" else 10)
                 times[(name, n)] = wall
+                step_busy[(title, name, n)] = busy
                 log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
                     f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
             extra(n, trainer, steps, args)
@@ -2189,6 +2202,16 @@ def main() -> int:
           context_features=MOG_CONTEXT)
 
     # -- phase 15: B12 against its plain version (full-width MADEMoG) -------------------
+    # at the cluster size its wrapper chooses and at every other one: one
+    # block a tile (csrc/mademog_train.cu) and clusters of 2, 4 and 8 blocks
+    # (csrc/mademog_train_cluster.cu), each held in the same bands and timed
+    def b12_occupancy(cf):
+        """The clusters of each size of B12's cluster kernel the card holds
+        at once, at the MADEMoG's shared memory (context ``cf`` or None)."""
+        return {c: mademog_train.active_clusters(dev, cf, c, mademog_train.shared_memory_bytes(
+            DM, cf or 0, MOG["num_mixture_components"], MOG["hidden_features"], c))
+            for c in mademog_train.CLUSTER_SIZES}
+
     b12 = {}
     gstacks = mademog_fused.WEIGHT_KEYS + mademog_fused.CONTEXT_KEYS
     for model, dist, cf in mog_models:
@@ -2199,34 +2222,50 @@ def main() -> int:
         f64 = {k: v.double() for k, v in f32.items()}
         mpacked = mademog_fused.pack_weights(f32, mtr._static)
         mog_bytes = 4 * sum(v.numel() for v in f32.values())
-        for n in (TRAIN_BATCH, SERVE_BATCH, RAGGED):
-            log(f"B12 on the {model} at N={n}:")
-            x = (1.5 * torch.randn(n, DM, generator=gen)).to(dev)
-            c = None if cf is None else torch.randn(n, cf, generator=gen).to(dev)
-            glp = (torch.randn(n, generator=gen) / n).to(dev)
-            gx, gctx, grads = mademog_train.mademog_train_bwd_cuda(x, glp, f32, mtr._static, c)
+        active = b12_occupancy(cf)
+        # the inputs at 2,048 come from a generator of their own, so that the
+        # shared one draws what it drew before that size was added
+        for n in (TRAIN_BATCH, 2048, SERVE_BATCH, RAGGED):
+            draw = torch.Generator().manual_seed(n) if n == 2048 else gen
+            x = (1.5 * torch.randn(n, DM, generator=draw)).to(dev)
+            c = None if cf is None else torch.randn(n, cf, generator=draw).to(dev)
+            glp = (torch.randn(n, generator=draw) / n).to(dev)
+            chosen, grid = mademog_train.launch_layout(n, mtr._static, cf, dev)
+            log(f"B12 on the {model} at N={n}: {-(-n // 32)} tiles of 32 samples, cluster size "
+                f"{chosen} (grid {grid}); active clusters by size {active}")
             p_gx, p_gctx, p_grads = mademog_train.mademog_train_bwd_plain(
                 x, glp, f32, mtr._static, c)
             d_gx, d_gctx, d_grads = mademog_train.mademog_train_bwd_plain(
                 x.double(), glp.double(), f64, mtr._static, None if c is None else c.double())
-            torch.cuda.synchronize()
-            outs = [gx, *grads.values()] + ([] if gctx is None else [gctx])
-            if not all(torch.isfinite(t).all() for t in outs):
-                raise AssertionError("B12 produced non-finite values")
             log(f"  largest |gx * N|: {float((d_gx * n).abs().max()):.3f}")
-            errs = [hold("gx * N", gx * n, p_gx * n, d_gx * n, 5e-3)]
-            if cf is not None:
-                errs.append(hold("gctx * N", gctx * n, p_gctx * n, d_gctx * n, 5e-3))
-            errs += [hold(f"g{k}", grads[k], p_grads[k], d_grads[k], 2e-4)
-                     for k in gstacks if k in grads]
+            errs = []
+            for cs in (chosen, *(s for s in (1, *mademog_train.CLUSTER_SIZES) if s != chosen)):
+                ind = "" if cs == chosen else "  "
+                if cs != chosen:
+                    log(f"  cluster size {cs}:")
+                gx, gctx, grads = mademog_train.mademog_train_bwd_cuda(
+                    x, glp, f32, mtr._static, c, cluster=cs)
+                torch.cuda.synchronize()
+                outs = [gx, *grads.values()] + ([] if gctx is None else [gctx])
+                if not all(torch.isfinite(t).all() for t in outs):
+                    raise AssertionError(f"B12 at cluster size {cs} produced non-finite values")
+                errs.append(hold(f"{ind}gx * N", gx * n, p_gx * n, d_gx * n, 5e-3))
+                if cf is not None:
+                    errs.append(hold(f"{ind}gctx * N", gctx * n, p_gctx * n, d_gctx * n, 5e-3))
+                errs += [hold(f"{ind}g{k}", grads[k], p_grads[k], d_grads[k], 2e-4)
+                         for k in gstacks if k in grads]
             if n == RAGGED:
                 continue
             run = lambda: mademog_train.mademog_train_bwd_cuda(  # noqa: E731
                 x, glp, f32, mtr._static, c, packed=mpacked, grads=grads)  # noqa: B023
             run_plain = lambda: mademog_train.mademog_train_bwd_plain(  # noqa: E731
                 x, glp, f32, mtr._static, c)  # noqa: B023
-            ms = device_ms(torch, run, 10, kernel="mademog_train_bwd_kernel")
+            ms = device_ms(torch, run, 10, kernel="mademog_train_bwd")
             ms_source = device_ms.source
+            by_cluster = {cs: device_ms(torch, lambda: mademog_train.mademog_train_bwd_cuda(
+                x, glp, f32, mtr._static, c, packed=mpacked, grads=grads,  # noqa: B023
+                cluster=cs), 10, kernel="mademog_train_bwd")  # noqa: B023
+                for cs in (1, *mademog_train.CLUSTER_SIZES)}
             plain_ms = device_ms(torch, run_plain, 3)
             # recompute, input cotangents and weight gradients, each over the
             # weights the masks leave and the context weights; the kernel runs
@@ -2234,13 +2273,17 @@ def main() -> int:
             need, dense = (3 * v for v in mog_ops(dist, n))
             io_bytes = 2 * mog_bytes + 4 * n * (2 * DM + 2 * (cf or 0) + 1)
             bound_ms, bound_by = bound(need, io_bytes)
-            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by}, {need / 1e9:.2f} GFLOP needed); the kernel's schedule "
-                f"multiplies {dense / 1e9:.2f} GFLOP ({bound(dense, io_bytes)[0]:.4f} ms at "
-                f"the peak rate), {dense / ms / 1e9:.1f} TFLOP/s")
+            log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain {plain_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by}, {need / 1e9:.2f} GFLOP needed); the "
+                f"kernel's schedule multiplies {dense / 1e9:.2f} GFLOP "
+                f"({bound(dense, io_bytes)[0]:.4f} ms at the peak rate), "
+                f"{dense / ms / 1e9:.1f} TFLOP/s; by cluster size "
+                f"{json.dumps({cs: round(v, 4) for cs, v in by_cluster.items()})}, one block a "
+                f"tile {by_cluster[1]:.4f} ms")
             b12[(model, n)] = dict(err=max(errs), ms=ms, ms_source=ms_source,
                                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                   schedule_ms=bound(dense, io_bytes)[0])
+                                   schedule_ms=bound(dense, io_bytes)[0], cluster_size=chosen,
+                                   ms_by_cluster_size=by_cluster, active_clusters=active)
 
     # -- phase 16: training the mixture-density models on the card --------------------
     def mog_routes(dist, n):
@@ -2250,6 +2293,16 @@ def main() -> int:
         steps = {"fused": fused_tr.make_train_step(fused_tr.init_opt(adam)),
                  "eager": lambda batch, c=None: eager_step(state, batch, c)[1]["loss"]}
         return steps, fused_tr, state
+
+    b12_phase_launches = {}   # B12's launches a fused step by cluster size, by model
+    b12_step_clusters = {}    # B12's cluster size and the fused step's ms by batch
+
+    def b12_step_cluster(n, trainer):
+        chosen, grid = mademog_train.launch_layout(n, trainer._static,
+                                                   trainer.context_features, dev)
+        log(f"  batch {n}: the fused step's B12 runs {-(-n // 32)} tiles of 32 samples at "
+            f"cluster size {chosen} (grid {grid})")
+        return chosen
 
     for model, dist, cf in mog_models:
         steps, fused_tr, state = mog_routes(dist, TRAIN_BATCH)
@@ -2265,6 +2318,14 @@ def main() -> int:
             expect_counts(f"one {name} {model} step", counts, **expected)
             if name == "fused":
                 launches.setdefault("B12", counts["B12"])
+                # B12 ran once, at the cluster size its wrapper chooses
+                by_size = {cs: v for cs, v in mademog_train.cluster_launch_count.items() if v}
+                chosen = b12_step_cluster(TRAIN_BATCH, fused_tr)
+                log(f"  its B12: launches by cluster size {by_size}")
+                if by_size != {chosen: 1}:
+                    raise AssertionError(f"the {model} step ran B12 {by_size}, expected once at "
+                                         f"cluster size {chosen}")
+                b12_phase_launches[f"{model} train"] = by_size
             rest = [steps[name](*batch) for batch in data[1:]]
             losses[name] = [float(v) for v in [first, *rest]]
             log(f"  {TRAIN_STEPS} Adam steps (lr 3e-4, batch {TRAIN_BATCH}): loss "
@@ -2302,13 +2363,20 @@ def main() -> int:
             steps, fused_tr, _ = mog_routes(dist, n)
             return steps, ar_batches(n, 4, 11, cf), fused_tr
 
-        def fold(n, fused_tr, steps, args, cf=cf):
+        def fold(n, fused_tr, steps, args, cf=cf, model=model):
             ms = device_ms(torch, lambda: fused_tr._repack(fused_tr._fold(fused_tr.weights)), 20)
             log(f"  batch {n}: folding the masks and re-packing the weights {ms:.4f} ms a step")
+            b12_step_clusters[f"{model} train"][n] = {
+                "cluster_size": b12_step_cluster(n, fused_tr)}
             if n == TRAIN_BATCH and cf is None:
                 host_ops(lambda: steps["fused"](*args[0]))
 
-        time_steps(f"{model} train", timed_routes, "mademog", extra=fold)
+        title = f"{model} train"
+        b12_step_clusters[title] = {}
+        walls = time_steps(title, timed_routes, "mademog", extra=fold)
+        for n, layout in b12_step_clusters[title].items():
+            layout.update(fused_step_ms=walls[("fused", n)],
+                          fused_step_busy_ms=step_busy[(title, "fused", n)])
 
     # -- phase 17: B5-B8 against their plain versions (the other spline families) ----
     # family -> (kernel id, wrapper module, wrapper, plain version, kernel name,
@@ -3427,10 +3495,10 @@ def main() -> int:
                 "cluster_size_at_2048": per_n[2048]["cluster_size"],
                 "ms_by_cluster_size_at_2048": per_n[2048]["ms_by_cluster_size"]}
 
-    def b10_at_batches(stats, model):
-        """B10's numbers on ``model`` at the training batch, with its time,
-        cluster size and times by cluster size at 2,048 and the serving
-        batch where it was run there."""
+    def cluster_at_batches(stats, model):
+        """A cluster-layout training kernel's numbers (B10, B12) on ``model``
+        at the training batch, with its time, cluster size and times by
+        cluster size at 2,048 and the serving batch where it was run there."""
         out = dict(stats[(model, TRAIN_BATCH)])
         for n in (2048, SERVE_BATCH):
             if (model, n) in stats:
@@ -3508,15 +3576,15 @@ def main() -> int:
              "nflows_tpu/ops/pallas/maf_flow_kernel.py:99",
              "ops/pallas/maf_flow_kernel.py:_kernel"),
             ("B10", with_context(
-                {**b10_at_batches(b10, "MAF"),
+                {**cluster_at_batches(b10, "MAF"),
                  **{f"inverse_{k}": v
-                    for k, v in b10_at_batches(b10_inv, "IAF").items()},
+                    for k, v in cluster_at_batches(b10_inv, "IAF").items()},
                  "inverse_launches": vi_launches,
-                 "families": {"NSF-AR": b10_at_batches(b10, "NSF-AR")}},
-                b10_at_batches(b10_ctx, "conditional MAF"),
+                 "families": {"NSF-AR": cluster_at_batches(b10, "NSF-AR")}},
+                cluster_at_batches(b10_ctx, "conditional MAF"),
                 context_launches=context_launches["B10"],
-                context_families={"NSF-AR": b10_at_batches(b10_ctx, "conditional NSF-AR"),
-                                  "IAF": b10_at_batches(b10_inv, "conditional IAF")},
+                context_families={"NSF-AR": cluster_at_batches(b10_ctx, "conditional NSF-AR"),
+                                  "IAF": cluster_at_batches(b10_inv, "conditional IAF")},
                 cluster_source="nflows_tpu_torch/csrc/maf_train_cluster.cu",
                 held_tie={f"{m} at N={n}, cluster size {c}": t
                           for (m, n, c), t in b10_tie.items()},
@@ -3530,8 +3598,10 @@ def main() -> int:
              "nflows_tpu_torch/csrc/mademog_fused.cu",
              "nflows_tpu/ops/pallas/mademog_fused.py:169",
              "ops/pallas/mademog_fused.py:_kernel"),
-            ("B12", with_context(b12[(uncond, TRAIN_BATCH)], b12[(cond, TRAIN_BATCH)],
-                                 ms_at_4096=b12[(uncond, SERVE_BATCH)]["ms"]),
+            ("B12", with_context(cluster_at_batches(b12, uncond), cluster_at_batches(b12, cond),
+                                 cluster_source="nflows_tpu_torch/csrc/mademog_train_cluster.cu",
+                                 cluster_launches_by_phase=b12_phase_launches,
+                                 cluster_steps=b12_step_clusters),
              "nflows_tpu_torch/csrc/mademog_train.cu",
              "nflows_tpu/ops/pallas/mademog_train.py:88",
              "ops/pallas/mademog_train.py:_bwd_kernel"),

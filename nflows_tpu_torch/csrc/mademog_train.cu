@@ -16,7 +16,9 @@
 // 2 blocks, 10 components, context 10.
 //
 // Design: B10's (maf_train.cu), with the mixture head's adjoint in place of
-// the transformer's.
+// the transformer's. This is the layout of one block a tile; where the
+// tiles would leave SMs idle, mademog_train_cluster.cu spreads each tile
+// over a thread-block cluster (ops/cuda/mademog_train.py: launch_layout).
 // - The TPU kernel differentiates the model with jax.vjp traced inside the
 //   kernel. Here the adjoint is written out (mademog_train.py, whose plain
 //   version derives it). Per (feature, sample), with g = glp: the head
@@ -49,14 +51,13 @@
 #include <stdint.h>
 
 #include "mademog.cuh"
+#include "mademog_train.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
 using nflows::KC;
 using nflows::MogDims;
-using nflows::MogFeature;
-using nflows::MogWeights;
 using nflows::OC;
 using nflows::tile_bgrad;
 using nflows::tile_gemm;
@@ -66,58 +67,10 @@ constexpr int ROWS = 32;
 constexpr int NT = ROWS * 8;
 constexpr int RS = ROWS + 4;
 
-struct MogTrainArgs {
-  const float* x;    // [n][D]
-  const float* ctx;  // [n][C], null when C = 0
-  const float* glp;  // [n]
-  float* gx;         // [n][D]
-  float* gctx;       // [n][C], null when C = 0
-  int64_t n;
-  int TB;            // rows of the X, Y, Z buffers: max(H, Pp)
-  MogDims d;
-  MogWeights pw;     // forward weights, in-major and padded (mademog_fused.py:pack_weights)
-  // the extracted layout, [out][in], mask folded
-  const float* wi;   // [H][D]
-  const float* wb;   // [2 nb][H][H]
-  const float* wf;   // [P][H]
-  const float* wci;  // [H][C]
-  const float* wcb;  // [nb][H][C]
-  // gradients, in the extracted layout, zeroed by the caller
-  float *gwi, *gbi, *gwb, *gbb, *gwf, *gbf, *gwci, *gbci, *gwcb, *gbcb;
-  float* stash;      // [grid][2 + 2 nb][H][RS]
-};
-
-// rows x [RS] floats from the block's scratch in global memory into shared
-// memory, relu'd on the way if asked. Read past L1: another tile of this
-// block wrote the same addresses before.
-__device__ __forceinline__ void restore(float* dst, const float* src, int rows, bool relu) {
-  for (int e = threadIdx.x; e < rows * (RS / 4); e += NT) {
-    float4 v = __ldcg(reinterpret_cast<const float4*>(src) + e);
-    if (relu) {
-      v.x = fmaxf(v.x, 0.0f); v.y = fmaxf(v.y, 0.0f);
-      v.z = fmaxf(v.z, 0.0f); v.w = fmaxf(v.w, 0.0f);
-    }
-    reinterpret_cast<float4*>(dst)[e] = v;
-  }
-}
-
-// gc[c][s] += sum_o W[o][c] g[o][s]: the cotangent of the C context
-// features through a projection W [H][C]. Each (c, s) belongs to one thread
-// in every call, so gc needs no barrier of its own.
-__device__ __forceinline__ void context_cotangent(const float* W, const float* g, int H, int C,
-                                                  float* gc) {
-  for (int e = threadIdx.x; e < C * ROWS; e += NT) {
-    const int c = e / ROWS, s = e % ROWS;
-    float sum = 0.0f;
-    for (int o = 0; o < H; ++o) sum += W[o * C + c] * g[o * RS + s];
-    gc[c * RS + s] += sum;
-  }
-}
-
 __global__ void __launch_bounds__(NT) mademog_train_bwd_kernel(MogTrainArgs a) {
   extern __shared__ __align__(16) float smem[];
   const MogDims& d = a.d;
-  const int D = d.D, C = d.C, K = d.K, H = d.H, P = d.P, nb = d.nb;
+  const int D = d.D, C = d.C, H = d.H, P = d.P, nb = d.nb;
   float* wst = smem;                  // [2][KC][OC]
   float* X = wst + 2 * KC * OC;       // [TB][RS]
   float* Y = X + a.TB * RS;           // [TB][RS]
@@ -153,28 +106,7 @@ __global__ void __launch_bounds__(NT) mademog_train_bwd_kernel(MogTrainArgs a) {
     nflows::mog_made_forward<ROWS, RS>(d, a.pw, xs, cs, X, Y, wst, st);
 
     // ---- the head's adjoint: gP into Z, x's direct cotangent into gxd ----------
-    for (int e = tid; e < D * ROWS; e += NT) {
-      const int t = e / ROWS, s = e % ROWS;
-      const int ks = D * RS;
-      const MogFeature f(Y + t * RS + s, K, ks, d.eps, xs[t * RS + s]);
-      const float cm = f.max_component();
-      float sc = 0.0f;
-      for (int k = 0; k < K; ++k) sc += expf(f.component(k) - cm);
-      const float g = glp[s];
-      float* G = Z + t * RS + s;
-      float gx = 0.0f;
-      for (int k = 0; k < K; ++k) {
-        const float r = expf(f.component(k) - cm) / sc;
-        const float sd = f.sdev(k);
-        const float z = (f.x - f.mean(k)) / sd;
-        const float grz = g * r * z / sd;
-        G[k * ks] = g * (r - expf(f.log_coef(k)));
-        G[(K + k) * ks] = grz;
-        G[(2 * K + k) * ks] = g * r * (z * z - 1.0f) / sd * nflows::mog_sigmoid(f.ustd(k));
-        gx -= grz;
-      }
-      gxd[t * RS + s] = gx;
-    }
+    head_adjoint<ROWS>(d, Y, xs, glp, Z, gxd);
     __syncthreads();
 
     // ---- final layer: gWf += gP h^T, gbf += gP 1, Y = g_h = Wf^T gP -------------
@@ -185,7 +117,8 @@ __global__ void __launch_bounds__(NT) mademog_train_bwd_kernel(MogTrainArgs a) {
     // ---- residual blocks, last first; Y holds g_h --------------------------------
     for (int j = nb - 1; j >= 0; --j) {
       const size_t m = 2 * (size_t)j;
-      restore(X, st + (2 + nb + j) * HR, H, false);  // t_j = relu(W0 relu(h_j) + b0 [+ c_j])
+      // t_j = relu(W0 relu(h_j) + b0 [+ c_j])
+      restore<ROWS>(X, st + (2 + nb + j) * HR, H, false);
       __syncthreads();
       tile_wgrad<ROWS, RS>(Y, H, X, H, a.gwb + (m + 1) * H * H, H);
       tile_bgrad<ROWS, RS>(Y, H, a.gbb + (m + 1) * H);
@@ -195,9 +128,9 @@ __global__ void __launch_bounds__(NT) mademog_train_bwd_kernel(MogTrainArgs a) {
       if (C) {
         tile_wgrad<ROWS, RS>(Z, H, cs, C, a.gwcb + (size_t)j * H * C, C);
         tile_bgrad<ROWS, RS>(Z, H, a.gbcb + (size_t)j * H);
-        context_cotangent(a.wcb + (size_t)j * H * C, Z, H, C, gcs);
+        context_cotangent<ROWS>(a.wcb + (size_t)j * H * C, Z, H, C, gcs);
       }
-      restore(X, st + (1 + j) * HR, H, true);  // relu(h_j)
+      restore<ROWS>(X, st + (1 + j) * HR, H, true);  // relu(h_j)
       __syncthreads();
       tile_wgrad<ROWS, RS>(Z, H, X, H, a.gwb + m * H * H, H);
       tile_bgrad<ROWS, RS>(Z, H, a.gbb + m * H);
@@ -207,7 +140,7 @@ __global__ void __launch_bounds__(NT) mademog_train_bwd_kernel(MogTrainArgs a) {
 
     // ---- initial layer, and the context projection added to it; Y = g_h0 ---------
     if (C) {
-      restore(X, st, H, false);  // c_init = relu(Wci c + bci)
+      restore<ROWS>(X, st, H, false);  // c_init = relu(Wci c + bci)
       __syncthreads();
       for (int e = tid; e < H * ROWS; e += NT) {
         const int o = e / ROWS, s = e % ROWS;
@@ -216,7 +149,7 @@ __global__ void __launch_bounds__(NT) mademog_train_bwd_kernel(MogTrainArgs a) {
       __syncthreads();
       tile_wgrad<ROWS, RS>(Z, H, cs, C, a.gwci, C);
       tile_bgrad<ROWS, RS>(Z, H, a.gbci);
-      context_cotangent(a.wci, Z, H, C, gcs);
+      context_cotangent<ROWS>(a.wci, Z, H, C, gcs);
     }
     tile_wgrad<ROWS, RS>(Y, H, xs, D, a.gwi, D);
     tile_bgrad<ROWS, RS>(Y, H, a.gbi);
@@ -244,35 +177,19 @@ size_t smem_bytes(const MogTrainArgs& a) {
 
 // C = 0: no context (ctx, gctx and the context weights and gradients may be
 // null). P = 3 K D, Pp = P rounded up to a multiple of 4. grid: blocks to
-// launch; stash holds grid x (2 + 2 nb) x H x 36 floats. Returns a
-// cudaError_t value (0 on success).
-extern "C" int mademog_train_launch(
-    const float* x, const float* ctx, const float* glp, float* gx, float* gctx, int64_t n, int D,
-    int C, int K, int H, int P, int Pp, int nb, float eps, const float* pwi, const float* bi,
-    const float* pwb, const float* bb, const float* pwf, const float* pbf, const float* pwci,
-    const float* bci, const float* pwcb, const float* bcb, const float* wi, const float* wb,
-    const float* wf, const float* wci, const float* wcb, float* gwi, float* gbi, float* gwb,
-    float* gbb, float* gwf, float* gbf, float* gwci, float* gbci, float* gwcb, float* gbcb,
-    float* stash, int grid, void* stream) {
+// launch; stash holds grid x (2 + 2 nb) x H x 36 floats; cluster_size: 1
+// (mademog_train_cluster.cu takes the others). Returns a cudaError_t value
+// (0 on success).
+extern "C" int mademog_train_launch(MOG_TRAIN_LAUNCH_PARAMS) {
   if (n == 0) return 0;
-  if (H % 4 || Pp % 4 || Pp < P || P != 3 * K * D || C < 0 || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  if (C > 0 && !(ctx && gctx && pwci && bci && pwcb && bcb && wci && wcb && gwci && gbci &&
-                 gwcb && gbcb))
-    return (int)cudaErrorInvalidValue;
   MogTrainArgs a;
-  a.x = x; a.ctx = ctx; a.glp = glp; a.gx = gx; a.gctx = gctx; a.n = n;
-  a.TB = H > Pp ? H : Pp;
-  a.d = MogDims{D, C, K, H, P, Pp, nb, eps};
-  a.pw = MogWeights{pwi, bi, pwb, bb, pwf, pbf, pwci, bci, pwcb, bcb};
-  a.wi = wi; a.wb = wb; a.wf = wf; a.wci = wci; a.wcb = wcb;
-  a.gwi = gwi; a.gbi = gbi; a.gwb = gwb; a.gbb = gbb; a.gwf = gwf; a.gbf = gbf;
-  a.gwci = gwci; a.gbci = gbci; a.gwcb = gwcb; a.gbcb = gbcb;
-  a.stash = stash;
+  const int err = pack_mog_train_args(a, MOG_TRAIN_LAUNCH_NAMES);
+  if (err) return err;
+  if (cluster_size != 1) return (int)cudaErrorInvalidValue;
   const size_t bytes = smem_bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(mademog_train_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t e = cudaFuncSetAttribute(mademog_train_bwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
   mademog_train_bwd_kernel<<<(unsigned)grid, NT, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,8 @@ nflows_tpu/ops/pallas/_trainer_common.py, its single-device part).
 
 ``FusedTrainerBase`` owns what a fused trainer of any family shares: batch
 validation, the conditionality guard, the NLL loss on the fused apply, and
-the train steps; and the rule by which the training kernels B3, B4 and B10
-spread a tile over a thread-block cluster (:func:`cluster_size`,
+the train steps; and the rule by which the training kernels B3, B4, B10
+and B12 spread a tile over a thread-block cluster (:func:`cluster_size`,
 :func:`cluster_layout`, :func:`query_active_clusters`). Subclasses set
 ``weights`` (a dict of leaf tensors that require grad), ``features``,
 ``context_features``, ``device`` and ``_has_ctx``, and provide:
@@ -38,8 +38,9 @@ from nflows_tpu_torch.ops.cuda import _build
 __all__ = ["FusedTrainerBase", "CLUSTER_SIZES", "cluster_gemm_floats", "cluster_size",
            "cluster_layout", "query_active_clusters"]
 
-# the cluster sizes the cluster layouts of B3/B4 (csrc/nsf_train_cluster.cu)
-# and B10 (csrc/maf_train_cluster.cu) instantiate
+# the cluster sizes the cluster layouts of B3/B4 (csrc/nsf_train_cluster.cu),
+# B10 (csrc/maf_train_cluster.cu) and B12 (csrc/mademog_train_cluster.cu)
+# instantiate
 CLUSTER_SIZES = (2, 4, 8)
 
 

@@ -1,10 +1,16 @@
 """Fused training of the mixture-density family (MADEMoG,
 MixtureOfGaussiansMADE): kernel B12 (counterpart of
-nflows_tpu/ops/pallas/mademog_train.py; source ``csrc/mademog_train.cu``).
+nflows_tpu/ops/pallas/mademog_train.py; sources ``csrc/mademog_train.cu``
+and ``csrc/mademog_train_cluster.cu``).
 
 - :func:`mademog_train_bwd_cuda` (B12): recomputes B11's MADE pass and
-  mixture head for a tile of samples and pulls the cotangent of lp back to
-  the inputs, the context and every weight.
+  mixture head for a tile of 32 samples and pulls the cotangent of lp back
+  to the inputs, the context and every weight. It has two layouts: a tile a
+  block (``csrc/mademog_train.cu``) and, where the tiles would leave SMs
+  idle, a tile a thread-block cluster of 2, 4 or 8 blocks
+  (``csrc/mademog_train_cluster.cu``), chosen by :func:`launch_layout` with
+  the rule of B3, B4 and B10 (``_trainer_common.cluster_size``);
+  ``cluster=`` forces one.
 - :func:`mademog_train_apply` is the ``torch.autograd.Function`` whose
   forward is B11 (``mademog_fused.py``) and whose backward is B12: a fused
   step is these two launches.
@@ -48,7 +54,13 @@ import numpy as np
 import torch
 
 from nflows_tpu_torch.ops.cuda import _build, mademog_fused
-from nflows_tpu_torch.ops.cuda._trainer_common import FusedTrainerBase
+from nflows_tpu_torch.ops.cuda._trainer_common import (
+    CLUSTER_SIZES,
+    FusedTrainerBase,
+    cluster_gemm_floats,
+    cluster_layout,
+    query_active_clusters,
+)
 from nflows_tpu_torch.ops.cuda.mademog_fused import (
     CONTEXT_KEYS,
     MASKED_KEYS,
@@ -70,9 +82,19 @@ from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
 )
 
 __all__ = ["FusedMADEMoGTrainer", "mademog_train_bwd_cuda", "mademog_train_bwd_plain",
-           "mademog_train_apply", "shared_memory_bytes", "bwd_launch_count"]
+           "mademog_train_apply", "shared_memory_bytes", "launch_layout", "active_clusters",
+           "CLUSTER_SIZES", "bwd_launch_count", "cluster_launch_count"]
 
-bwd_launch_count = 0  # B12 launches since the last reset
+# B12 launches since the last reset by cluster size (1: one block a tile)
+cluster_launch_count = {1: 0, **{cs: 0 for cs in CLUSTER_SIZES}}
+
+
+def __getattr__(name):
+    # bwd_launch_count: every B12 launch since the last reset, the name the
+    # other training modules give their counts
+    if name == "bwd_launch_count":
+        return sum(cluster_launch_count.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _keys(weights):
@@ -151,22 +173,74 @@ def mademog_train_bwd_plain(x, glp, weights, static, context=None):
 # -- the kernel ---------------------------------------------------------------
 
 
-def shared_memory_bytes(D: int, C: int, K: int, H: int) -> int:
-    """Dynamic shared memory of one block (csrc/mademog_train.cu: smem_bytes)."""
+def shared_memory_bytes(D: int, C: int, K: int, H: int, cluster: int = 1) -> int:
+    """Dynamic shared memory of one block (csrc/mademog_train.cu: smem_bytes;
+    with ``cluster`` > 1, a block of a cluster, csrc/mademog_train_cluster.cu:
+    smem_bytes, whose GEMM buffer is ``cluster_gemm_floats``)."""
     TB = max(H, _round4(3 * K * D))
     RS = ROWS + 4
-    return 4 * (2 * _KC * _OC + RS * (3 * TB + 2 * D + 2 * C) + ROWS)
+    gemm = cluster_gemm_floats(ROWS) if cluster > 1 else 2 * _KC * _OC
+    return 4 * (gemm + RS * (3 * TB + 2 * D + 2 * C) + ROWS)
+
+
+def _launch_argtypes():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return ([p] * 5 + [ctypes.c_int64] + [i] * 7 + [f] + [p] * 10 + [p] * 5 + [p] * 10
+            + [p, i, i, p])
 
 
 def _declare(lib):
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mademog_train_launch.argtypes = (
-        [p] * 5 + [ctypes.c_int64] + [i] * 7 + [f] + [p] * 10 + [p] * 5 + [p] * 10
-        + [p, i, p])
-    lib.mademog_train_launch.restype = i
+    lib.mademog_train_launch.argtypes = _launch_argtypes()
+    lib.mademog_train_launch.restype = ctypes.c_int
 
 
-def mademog_train_bwd_cuda(x, glp, weights, static, context=None, packed=None, grads=None):
+def _declare_cluster(lib):
+    lib.mademog_train_cluster_launch.argtypes = _launch_argtypes()
+    lib.mademog_train_cluster_launch.restype = ctypes.c_int
+    lib.mademog_train_cluster_occupancy.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    lib.mademog_train_cluster_occupancy.restype = ctypes.c_int
+
+
+_ACTIVE_CLUSTERS = {}  # (device, context, CS, shared memory) -> clusters
+
+
+def active_clusters(dev, context, cs, smem):
+    """cudaOccupancyMaxActiveClusters of B12's cluster kernel, with or
+    without a ``context``, in clusters of ``cs`` blocks with ``smem`` bytes
+    of shared memory a block: queried once and cached; raises where it is
+    0."""
+    def query(found):
+        lib = _build.load_library("mademog_train_cluster", _declare_cluster)
+        return lib.mademog_train_cluster_occupancy(int(bool(context)), cs, smem, found)
+
+    return query_active_clusters(_ACTIVE_CLUSTERS, (dev.index, bool(context), cs, smem), dev,
+                                 query, "mademog_train_cluster_occupancy", cs, smem)
+
+
+def launch_layout(n, static, context_features, dev, cluster=None,
+                  what="mademog_train_bwd_cuda"):
+    """(cluster size, grid) of a B12 launch over ``n`` samples of a model of
+    ``static`` dims (with ``context_features``, or None) on ``dev``:
+    ``cluster`` as given (1, or one of CLUSTER_SIZES), or chosen by
+    ``_trainer_common.cluster_size`` on the occupancy the card reports; the
+    grid is min(tiles, SMs) blocks, or the cluster size times min(tiles,
+    active clusters)."""
+    D, K, H = static["D"], static["K"], static["H"]
+    C = context_features or 0
+    if H % 4 or shared_memory_bytes(D, C, K, H) > MAX_SHARED_MEMORY:
+        raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
+                         "shared-memory tile")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def active(cs):
+        return active_clusters(dev, C, cs, shared_memory_bytes(D, C, K, H, cs))
+
+    return cluster_layout(n, ROWS, sms, active, cluster, what)
+
+
+def mademog_train_bwd_cuda(x, glp, weights, static, context=None, packed=None, grads=None,
+                           cluster=None):
     """B12: (x [N, D], glp [N], context [N, C] or None) -> (gx [N, D], gctx
     [N, C] or None, weight gradients), the pull-back of glp through B11.
 
@@ -174,10 +248,16 @@ def mademog_train_bwd_cuda(x, glp, weights, static, context=None, packed=None, g
     them by the masks for the unfolded weights' gradients). ``packed`` is
     ``pack_weights(weights, static)``, built here when not given. ``grads``,
     when given, are the tensors the gradients are written into (zeroed here
-    first)."""
-    global bwd_launch_count
+    first). ``cluster`` forces the blocks a tile is spread over (1, or one
+    of CLUSTER_SIZES); None chooses (:func:`launch_layout`)."""
     if x.device.type == "cpu":
         return mademog_train_bwd_plain(x, glp, weights, static, context)
+    return _launch(x, glp, weights, static, context, packed, grads, cluster)
+
+
+def _launch(x, glp, weights, static, context, packed, grads, cluster):
+    """B12's launch on CUDA tensors: :func:`mademog_train_bwd_cuda` past its
+    CPU branch."""
     what = "mademog_train_bwd_cuda"
     dev = x.device
     Cf = weights["wci"].shape[1] if "wci" in weights else None
@@ -201,9 +281,7 @@ def mademog_train_bwd_cuda(x, glp, weights, static, context=None, packed=None, g
     if packed is None:
         packed = pack_weights(weights, static)
     check_packed(what, packed, static, Cf, dev)
-    if H % 4 or shared_memory_bytes(D, C, K, H) > MAX_SHARED_MEMORY:
-        raise ValueError(f"{what}: hidden width {H} does not fit the kernel's "
-                         "shared-memory tile")
+    cluster, grid = launch_layout(n, static, Cf, dev, cluster, what)
     if grads is None:
         grads = {k: torch.empty(shapes[k], dtype=torch.float32, device=dev) for k in shapes}
     for k in shapes:
@@ -213,24 +291,30 @@ def mademog_train_bwd_cuda(x, glp, weights, static, context=None, packed=None, g
                              f"tensor on {dev}")
         grads[k].zero_()  # the kernel adds into them
 
-    lib = _build.load_library("mademog_train", _declare)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(-(-n // ROWS), sms))
-    # per-block scratch for the kept activations (see csrc/mademog_train.cu)
-    stash = torch.empty(grid * (2 + 2 * nb) * H * (ROWS + 4), dtype=torch.float32, device=dev)
+    if cluster == 1:
+        entry = _build.load_library("mademog_train", _declare).mademog_train_launch
+    else:
+        entry = _build.load_library("mademog_train_cluster",
+                                    _declare_cluster).mademog_train_cluster_launch
+    # scratch for the kept activations, one slot a block or a cluster (see
+    # csrc/mademog_train.cu)
+    stash = torch.empty(grid // cluster * (2 + 2 * nb) * H * (ROWS + 4), dtype=torch.float32,
+                        device=dev)
     gx = torch.empty_like(x)
-    gctx = None if context is None else torch.empty_like(context)
+    # the cluster kernel's blocks add their partial sums into gctx
+    gctx = None if context is None else (torch.empty_like(context) if cluster == 1
+                                         else torch.zeros_like(context))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = lib.mademog_train_launch(
+        code = entry(
             x.data_ptr(), data_ptr(context), glp.data_ptr(), gx.data_ptr(), data_ptr(gctx),
             n, D, C, K, H, 3 * K * D, _round4(3 * K * D), nb, static["epsilon"],
             *(data_ptr(packed.get(k)) for k in WEIGHT_KEYS + CONTEXT_KEYS),
             *(data_ptr(weights.get(k)) for k in ("wi", "wb", "wf", "wci", "wcb")),
             *(data_ptr(grads.get(k)) for k in WEIGHT_KEYS + CONTEXT_KEYS),
-            stash.data_ptr(), grid, stream)
-    bwd_launch_count += 1
-    _build.check(code, "mademog_train_launch")
+            stash.data_ptr(), grid, cluster, stream)
+    cluster_launch_count[cluster] += 1
+    _build.check(code, "mademog_train_launch" if cluster == 1 else "mademog_train_cluster_launch")
     return gx, gctx, grads
 
 

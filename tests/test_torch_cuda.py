@@ -1,8 +1,8 @@
 """Kernels B1 to B12 on the card, each against its plain PyTorch version
 on the same CUDA tensors, and the serving and training paths through them:
 B2, B3 and B4 for all seven coupling families; B9 and B10 with a context,
-and B10's inverse direction (an IAF trained by reverse KL); B3, B4 and B10
-on thread-block clusters of every size; B2, B9 and B11
+and B10's inverse direction (an IAF trained by reverse KL); B3, B4, B10
+and B12 on thread-block clusters of every size; B2, B9 and B11
 with bf16 weights, and CompiledFlow(dtype=torch.bfloat16); B2 on both of
 its routes (the tensor-core kernel and the SIMT one), every family, both
 weight types, with and without a context, and one GEMM of its wgmma
@@ -1272,6 +1272,58 @@ def test_b12_matches_plain(cuda, case, n):
     assert all(again[k] is grads[k] for k in again)
     for k in grads:
         torch.testing.assert_close(again[k], first[k], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(MOG_CASES))
+def test_b12_on_every_cluster_size_matches_plain(cuda, case):
+    """B12 at one block a tile (csrc/mademog_train.cu) and on clusters of
+    every size (csrc/mademog_train_cluster.cu) against its plain version at
+    N = 1, 33, 509, 512 and 2,048 (fewer tiles than clusters, a ragged last
+    tile, several tiles a cluster), with and without a context, in the
+    bands of test_b12_matches_plain: gx and gctx 2e-4 / N plus 1e-3
+    relative, the gradients 2e-4 plus 1e-3 relative; a second launch into
+    the same buffers starts from zero again; one block a tile and clusters
+    of 8 agree within fp32 rounding (the depth of each dot product is split
+    over warps on a cluster): gx and gctx x N 1e-4 plus 1e-4 relative, the
+    gradients 1e-5 plus 1e-4 relative."""
+    from nflows_tpu_torch.ops.cuda import mademog_train
+
+    tr = mademog_train.FusedMADEMoGTrainer(_mog(cuda, case), 128)
+    folded = {k: v.detach().contiguous() for k, v in tr._fold(tr.weights).items()}
+    for n in (1, 33, 509, 512, 2048):
+        x, c = _mog_inputs(cuda, case, n, seed=n + 17)
+        glp = torch.randn(n, generator=torch.Generator().manual_seed(n + 18)).to(cuda) / n
+        p_gx, p_gctx, p_grads = mademog_train.mademog_train_bwd_plain(x, glp, folded,
+                                                                      tr._static, c)
+        seen = {}
+        for cluster in (1, *mademog_train.CLUSTER_SIZES):
+            before = dict(mademog_train.cluster_launch_count)
+            gx, gctx, grads = mademog_train.mademog_train_bwd_cuda(x, glp, folded, tr._static, c,
+                                                                   cluster=cluster)
+            assert mademog_train.cluster_launch_count[cluster] == before[cluster] + 1
+            torch.testing.assert_close(gx, p_gx, atol=2e-4 / n, rtol=1e-3)
+            if c is None:
+                assert gctx is None
+            else:
+                torch.testing.assert_close(gctx, p_gctx, atol=2e-4 / n, rtol=1e-3)
+            assert sorted(grads) == sorted(p_grads)
+            for k in grads:
+                torch.testing.assert_close(grads[k], p_grads[k], atol=2e-4, rtol=1e-3,
+                                           msg=lambda m: f"{k}: {m}")  # noqa: B023
+            first = {k: v.clone() for k, v in grads.items()}
+            _, again_ctx, again = mademog_train.mademog_train_bwd_cuda(
+                x, glp, folded, tr._static, c, grads=grads, cluster=cluster)
+            for k in grads:
+                torch.testing.assert_close(again[k], first[k], atol=1e-5, rtol=1e-4)
+            if c is not None:
+                torch.testing.assert_close(again_ctx * n, gctx * n, atol=1e-5, rtol=1e-4)
+            seen[cluster] = (gx, gctx, first)
+        (gx1, gctx1, g1), (gx8, gctx8, g8) = seen[1], seen[8]
+        torch.testing.assert_close(gx8 * n, gx1 * n, atol=1e-4, rtol=1e-4)
+        if c is not None:
+            torch.testing.assert_close(gctx8 * n, gctx1 * n, atol=1e-4, rtol=1e-4)
+        for k in g1:
+            torch.testing.assert_close(g8[k], g1[k], atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("case", ["narrow", "narrow_context"])
