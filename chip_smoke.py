@@ -145,6 +145,21 @@ fused trainers' B9 runs the SIMT kernel (phases 12 and 29 check
 Phase 31 also holds the IAFs' log_prob direction (a fixed point on the
 bf16 degree kernel) against its bf16 plain versions, and phase 32 each
 bf16 B9 server's log_prob against its bf16 plain version.
+B11 has the same two routes (``mademog_fused.gemm_route``): the
+tensor-core kernel (csrc/mademog_wgmma.cu, _bf16.cu; the final layer's 300
+rows in two passes), which both full-width mixture models take, and the
+SIMT kernel (csrc/mademog_fused.cu), which the fused trainer's forward and
+the widths the tensor cores do not take keep. Phases 13 (fp32) and 31
+(bf16) hold both (the SIMT kernel forced) on the MoG-MADE and the
+conditional MADEMoG at 4,096, 65,536 and a ragged N, fp32 also by its
+relative errors against float64 within ``ONE_PASS_LIMITS``, and on the
+weights phase 16 trains; phase 13 times both at 512, 4,096 and 65,536,
+phase 31 at 4,096 and 65,536 beside the fp32 kernel of each route.
+Phases 14 and 32 check that a fused log_prob request is one launch on the
+wgmma route (``B11_wgmma``, ``B11_wgmma_bf16``) and keep each endpoint's
+wall and busy time; phase 16 that the fused step's forward is the SIMT
+kernel (``B11_simt``); phase 32 serves a MoG-MADE at hidden 96 in bf16,
+one launch of the bf16 SIMT kernel (``B11_simt_bf16``).
 Phase 24 holds the conditional flagship's B4 tie (``TIE_CTX``) at every
 cluster size.
 Every phase raises on failure, so the exit code is non-zero. Each report
@@ -152,8 +167,9 @@ line starts with the seconds since the script began.
 
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
-(a serving request for B1, B2, B5-B8, B9_wgmma and B11, a train step for
-B3, B4, B10 and B12; B9's and B9_bf16's rows count the launches of the
+(a serving request for B1, B2, B5-B8, B9_wgmma and B11_wgmma, a train step for
+B3, B4, B10, B11 (its SIMT kernel) and B12, a bf16 request of the MoG-MADE at
+hidden 96 for B11_bf16; B9's and B9_bf16's rows count the launches of the
 kernels they time, the SIMT kernel's in a train step (``simt_launches``,
 none in bf16) and the degree kernel's in a sampling request
 (``degree_launches``), and carry the fixed point's times on both kernels
@@ -168,7 +184,11 @@ the rows ``B2_bf16``, ``B9_bf16`` and ``B11_bf16``, the bf16-weight
 instantiations, count a bf16 request through ``CompiledFlow`` and carry
 the fp32 instantiation's time beside theirs as ``fp32_ms``; ``B9`` and
 ``B9_bf16`` time the SIMT kernel, ``B9_wgmma`` and ``B9_wgmma_bf16`` the
-tensor-core one, each with the other's time beside),
+tensor-core one, each with the other's time beside; ``B11`` and
+``B11_bf16`` likewise time B11's SIMT kernel, ``B11_wgmma`` and
+``B11_wgmma_bf16`` its tensor-core one, with ``simt_ms``, the times at 512
+and 65,536, the ragged N's and the trained weights' errors, and the
+serving requests' wall and busy times under ``serving``),
 error against its plain version, device time (``ms_source`` says whether
 torch.profiler or CUDA events gave it), plain time, bound and library time at
 the main path's shape (B2's, B3's and B4's rows carry the other six
@@ -274,7 +294,9 @@ zeros would pass 2e-4. The conditional MAF trains with the MAF's checks
 of the last five under that of the first five), the IAF with the first
 three losses 2e-3 apart and the mean of the last five under the first five.
 B11: 1e-3 on lp, as B2 (fp32 GEMMs in another order than cuBLAS, then a
-logsumexp a feature summed over 10 features). B12: as B10, and gctx x N
+logsumexp a feature summed over 10 features), and on either route in fp32
+its relative-error quantiles within ``ONE_PASS_LIMITS`` of the plain
+version's, as B9's one pass (3xTF32 on the wgmma route). B12: as B10, and gctx x N
 5e-3 like gx x N. B5-B8 as B1: on the values the main path hands them
 (each flow's first coupling) 1e-4 on outputs and 1e-3 on the logabsdet; on
 N(0, 1) parameters 1e-2, or within twice the plain fp32 version's own
@@ -308,7 +330,9 @@ context both counts add the projections, 2 N L (1 + nb) C H a pass (three
 times for B10), and the bytes the context and its cotangent. B11 and
 B12 count the same way: two FLOP for every MADE weight the masks leave and
 every context weight, once a sample for B11 and three times for B12; their
-rows carry the conditional twin's numbers as ``context_*``. B2 with a context
+rows carry the conditional twin's numbers as ``context_*``. B11 on its
+wgmma route counts as B9's: 3 M over 495 TFLOP/s (3xTF32) or M over 989
+(bf16), the dense count it multiplies beside (``dense_ms``). B2 with a context
 counts F = 2 N L (Tid H + C H + 4 H^2 + nb C H + H TM) and the context's
 bytes, B3 and B4 3 F. B5-B8 count
 x, the parameters and two outputs an element (136, 44, 72 and 84 bytes at
@@ -432,11 +456,37 @@ def call_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(torch, fn, iters):
+    """:func:`call_ms` with the calls queued behind a spin of the card
+    (``torch.cuda._sleep``) long enough for the host to issue them all, so
+    that the events time the card's work and not the host's time to issue
+    each call, which exceeds a short kernel's (B11's bf16 kernel read 0.0706
+    ms by plain events against 0.0244 ms of device busy time a request, on
+    an NVIDIA H100 80GB HBM3 at 700 W). A call that waits on the card itself
+    gains nothing from the queue."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # about 2e9 cycles a second on the H100; twice the host's issue time
+    torch.cuda._sleep(min(int(4e9 * issue_s * iters), int(2e9)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def device_ms(torch, fn, iters, kernel=None):
     """Mean device time of one call of ``fn``: the summed duration of the
     kernels it runs (those whose name contains ``kernel``, of which ``fn``
     launches one a call; or all), from torch.profiler's CUDA trace. Falls
-    back to :func:`call_ms` if the trace holds no device time or not every
+    back to :func:`queued_ms` if the trace holds no device time or not every
     launch of the named kernel. ``device_ms.source`` says which of the two
     the last reading came from: ``"profiler"`` or ``"events"``."""
     from torch.profiler import ProfilerActivity, profile
@@ -461,9 +511,9 @@ def device_ms(torch, fn, iters, kernel=None):
             seen += evt.count
     if total_us <= 0.0 or (kernel is not None and seen != iters):
         log(f"  (the profiler's trace is incomplete: {seen} records of {kernel or 'any kernel'} "
-            f"for {iters} calls; timing with CUDA events)")
+            f"for {iters} calls; timing with CUDA events, the calls queued)")
         device_ms.source = "events"
-        return call_ms(torch, fn, iters)
+        return queued_ms(torch, fn, iters)
     device_ms.source = "profiler"
     return total_us / 1e3 / iters
 
@@ -958,7 +1008,7 @@ def main() -> int:
             module.launch_count = 0
         for module in (nsf_flow_kernel, maf_flow_kernel, mademog_fused):
             module.bf16_launch_count = 0
-        for module in (nsf_flow_kernel, maf_flow_kernel):
+        for module in (nsf_flow_kernel, maf_flow_kernel, mademog_fused):
             for route in module.route_launch_count:
                 module.route_launch_count[route] = 0
         for module in (maf_train, mademog_train):
@@ -977,7 +1027,8 @@ def main() -> int:
                 "B9_degree": maf_flow_kernel.degree_launch_count,
                 "B11_bf16": mademog_fused.bf16_launch_count,
                 **{f"B2_{route}": c for route, c in nsf_flow_kernel.route_launch_count.items()},
-                **{f"B9_{route}": c for route, c in maf_flow_kernel.route_launch_count.items()}}
+                **{f"B9_{route}": c for route, c in maf_flow_kernel.route_launch_count.items()},
+                **{f"B11_{route}": c for route, c in mademog_fused.route_launch_count.items()}}
 
     def b2_route_counts(server, requests=1):
         """The route counters a fused B2 request of ``server`` must move: its
@@ -1008,6 +1059,17 @@ def main() -> int:
         route = maf_flow_kernel.weights_route(view._weights, view._static, view._num_blocks)
         return {f"B9_{route}{'_bf16' if bf16 else ''}": requests}
 
+    def b11_route_counts(server, requests=1):
+        """The route counters ``requests`` fused B11 requests of ``server``
+        must move beside B11's total: its weights' route (B11_wgmma,
+        B11_simt and their _bf16 twins); none for another model."""
+        view = server._fused
+        if not isinstance(view, mademog_fused.FusedMADEMoG) or not requests:
+            return {}
+        route = mademog_fused.weights_route(view._weights, view._static)
+        bf16 = view._weights["wi"].dtype == torch.bfloat16
+        return {f"B11_{route}{'_bf16' if bf16 else ''}": requests}
+
     def b10_layouts():
         """B10's launches since the last reset by cluster size (1: one block
         a tile, csrc/maf_train.cu; 2, 4, 8: csrc/maf_train_cluster.cu)."""
@@ -1020,6 +1082,7 @@ def main() -> int:
 
     launches = {}
     context_launches = {}  # launches a request or step on the conditional paths
+    serve_times = {}       # "model, path, endpoint" -> a request's wall and busy ms
 
     def serve(model, flow, features, fused_kernel, unfused_log_prob, unfused_sample,
               fused_sample=None, context_features=None, context_rows=None, ties=0, draw=None):
@@ -1039,7 +1102,8 @@ def main() -> int:
         neighbouring bin's density on the way back. ``draw``: the generator
         of the inputs (default: the shared one). A fused B9 request also
         moves its route's counter or the degree kernel's
-        (``b9_route_counts``)."""
+        (``b9_route_counts``), a fused B11 request its (``b11_route_counts``).
+        Each endpoint's wall and device busy time go to ``serve_times``."""
         draw = gen if draw is None else draw
         x = torch.randn(SERVE_BATCH, features, generator=draw).to(dev)
         ctx = (None if context_features is None
@@ -1075,13 +1139,15 @@ def main() -> int:
                 f"{rest}")
             if use_fused:
                 expect_counts(f"one fused {model} request", first, **{fused_kernel: 1},
-                              **b2_route_counts(server), **b9_route_counts(server, "log_prob"))
+                              **b2_route_counts(server), **b9_route_counts(server, "log_prob"),
+                              **b11_route_counts(server))
                 expect_counts(f"two fused {model} requests", rest,
                               **(fused_sample or {fused_kernel: 2}),
                               **b2_route_counts(sampler, 2),
-                              **b9_route_counts(sampler, "sample", 2))
+                              **b9_route_counts(sampler, "sample", 2),
+                              **b11_route_counts(sampler, (fused_sample or {}).get("B11", 0)))
                 book.setdefault(fused_kernel, first[fused_kernel])
-                for kid in ("B9_degree", "B9_wgmma"):
+                for kid in ("B9_degree", "B9_wgmma", "B11_wgmma"):
                     # B9's fixed point on the degree kernel, its one pass on
                     # the tensor cores: once a request
                     if first[kid] or rest[kid]:
@@ -1122,6 +1188,7 @@ def main() -> int:
                 busy = device_ms(torch, fn, 10 if use_fused else 3)
                 log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
                     f"device busy {busy:.3f} ms")
+                serve_times[f"{model}, {name}, {endpoint}"] = dict(wall_ms=wall, busy_ms=busy)
         compared = ("log_prob", "samples", "more samples", "their log_prob")
         for i, what in enumerate(compared[:1] if context_rows is None else compared):
             gap = max_err(out["fused"][i], out["unfused"][i])
@@ -2154,44 +2221,96 @@ def main() -> int:
         need = sum(int(m.sum()) for m in masks.values()) + ctx_weights
         return 2 * n * need, 2 * n * dense
 
-    b11 = {}
+    # B11 on both routes: the tensor-core kernel (csrc/mademog_wgmma.cu, the
+    # route full-width models take) and the SIMT one (csrc/mademog_fused.cu,
+    # forced), held and timed in one run
+    B11_KERNEL = {"wgmma": "mademog_wgmma_kernel", "simt": "mademog_log_prob_kernel"}
+
+    def b11_routes(tag, view, x, c, view32=None):
+        """B11 at x (context c) by the route, which must be wgmma, and on the
+        SIMT kernel forced, each against the plain version: fp32 by ``hold``
+        (1e-3, or twice the plain version's distance from float64) and by
+        ``hold_relative`` within ``ONE_PASS_LIMITS``, which tells 3xTF32
+        from a lower precision that the band would pass; bf16 weights by
+        ``hold_bf16`` against the bf16 plain version in phase 31's bands
+        (``view32``: the fp32 view). Returns each route's largest error."""
+        w, st = view._weights, view._static
+        bf16 = w["wi"].dtype == torch.bfloat16
+        p_lp = mademog_fused.mademog_log_prob_plain(x, w, st, c)
+        if bf16:
+            q_lp = mademog_fused.mademog_log_prob_plain(x, view32._weights, st, c)
+        else:
+            d_lp = mademog_fused.mademog_log_prob_plain(
+                x.double(), {k: v.double() for k, v in w.items()}, st,
+                None if c is None else c.double())
+        errs = {}
+        for gr in ("wgmma", "simt"):
+            before = dict(mademog_fused.route_launch_count)
+            lp = mademog_fused.mademog_log_prob_cuda(x, w, st, c, packed=view._packed,
+                                                     gemm=None if gr == "wgmma" else gr)
+            torch.cuda.synchronize()
+            key = gr + ("_bf16" if bf16 else "")
+            if mademog_fused.route_launch_count[key] != before[key] + 1:
+                raise AssertionError(f"B11 {tag}: the call did not take the {gr} route")
+            if tuple(lp.shape) != (x.shape[0],) or not torch.isfinite(lp).all():
+                raise AssertionError(f"B11 ({gr}) produced non-finite values")
+            if bf16:
+                errs[gr] = hold_bf16(f"{gr} {tag} lp", lp, p_lp, q_lp, BF16_LAD)
+            else:
+                errs[gr] = hold(f"{gr} {tag} lp", lp, p_lp, d_lp, 1e-3)
+                hold_relative(torch, f"{gr} {tag} lp", lp, p_lp, d_lp, limits=ONE_PASS_LIMITS)
+        return errs
+
+    def b11_route_times(view, x, c, iters=10):
+        """Device ms of B11 at x on each route."""
+        return {gr: (device_ms(torch, lambda: mademog_fused.mademog_log_prob_cuda(  # noqa: B023
+            x, view._weights, view._static, c, packed=view._packed, gemm=gr),  # noqa: B023
+            iters, kernel=B11_KERNEL[gr]), device_ms.source) for gr in ("wgmma", "simt")}
+
+    b11, b11_wgmma = {}, {}
     for model, dist, cf in mog_models:
         view = mademog_fused.fuse_mademog(dist)
         w32 = view._weights
-        w64 = {k: v.double() for k, v in w32.items()}
         mog_bytes = 4 * sum(v.numel() for v in w32.values())
         for n in (SERVE_BATCH, LARGE_BATCH, RAGGED):
             x = (1.5 * torch.randn(n, DM, generator=gen)).to(dev)
             c = None if cf is None else torch.randn(n, cf, generator=gen).to(dev)
-            log(f"B11 on the {model} at N={n}:")
-            lp = mademog_fused.mademog_log_prob_cuda(x, w32, view._static, c,
-                                                     packed=view._packed)
-            p_lp = mademog_fused.mademog_log_prob_plain(x, w32, view._static, c)
-            d_lp = mademog_fused.mademog_log_prob_plain(
-                x.double(), w64, view._static, None if c is None else c.double())
-            torch.cuda.synchronize()
-            if not torch.isfinite(lp).all():
-                raise AssertionError("B11 produced non-finite values")
-            err = hold("lp", lp, p_lp, d_lp, 1e-3)
+            log(f"B11 on the {model} at N={n}, routes wgmma and simt:")
+            errs = b11_routes(f"N={n}", view, x, c)
             if n == RAGGED:
+                b11_wgmma[(model, n)] = dict(err=errs["wgmma"], simt_err=errs["simt"])
                 continue
-            run = lambda: mademog_fused.mademog_log_prob_cuda(  # noqa: E731
-                x, w32, view._static, c, packed=view._packed)  # noqa: B023
+            iters = 10 if n == SERVE_BATCH else 3
+            times = b11_route_times(view, x, c, iters)
             run_plain = lambda: mademog_fused.mademog_log_prob_plain(  # noqa: E731
                 x, w32, view._static, c)  # noqa: B023
-            ms = device_ms(torch, run, 10, kernel="mademog_log_prob_kernel")
-            ms_source = device_ms.source
-            plain_ms = device_ms(torch, run_plain, 5)
+            plain_ms = device_ms(torch, run_plain, 5 if n == SERVE_BATCH else 2)
             need, dense = mog_ops(dist, n)
             io_bytes = mog_bytes + 4 * n * (DM + (cf or 0) + 1)
             bound_ms, bound_by = bound(need, io_bytes)
-            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by}, {need / 1e9:.2f} GFLOP needed); the kernel's schedule "
-                f"multiplies {dense / 1e9:.2f} GFLOP ({bound(dense, io_bytes)[0]:.4f} ms at "
-                f"the peak rate), {dense / ms / 1e9:.1f} TFLOP/s")
-            b11[(model, n)] = dict(err=err, ms=ms, ms_source=ms_source, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by,
+            wb = b9_route_bound(need, dense, io_bytes)
+            (ms, ms_source), (simt_ms, simt_source) = times["wgmma"], times["simt"]
+            log(f"  time: wgmma kernel {ms:.4f} ms, simt kernel {simt_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms; bound on the wgmma route {wb['bound_ms']:.4f} ms "
+                f"({wb['bound_by']}, {wb['bound_basis']}; the dense {dense / 1e9:.2f} GFLOP it "
+                f"multiplies {wb['dense_ms']:.4f} ms), on the CUDA cores {bound_ms:.4f} ms "
+                f"({bound_by}, {need / 1e9:.2f} GFLOP needed; the SIMT kernel's schedule "
+                f"{bound(dense, io_bytes)[0]:.4f} ms, {dense / simt_ms / 1e9:.1f} TFLOP/s)")
+            b11[(model, n)] = dict(err=errs["simt"], ms=simt_ms, ms_source=simt_source,
+                                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                    schedule_ms=bound(dense, io_bytes)[0])
+            b11_wgmma[(model, n)] = dict(err=errs["wgmma"], ms=ms, ms_source=ms_source,
+                                         simt_ms=simt_ms, plain_ms=plain_ms, **wb)
+            if n == SERVE_BATCH:
+                # a tile's latency: the first 512 samples of the same inputs
+                xs, cs = x[:TRAIN_BATCH].contiguous(), None if c is None else c[
+                    :TRAIN_BATCH].contiguous()
+                b11_routes(f"N={TRAIN_BATCH}", view, xs, cs)
+                t512 = b11_route_times(view, xs, cs)
+                b11_wgmma[(model, n)].update(ms_at_512=t512["wgmma"][0],
+                                             simt_ms_at_512=t512["simt"][0])
+                log(f"  at N={TRAIN_BATCH}: wgmma kernel {t512['wgmma'][0]:.4f} ms, simt kernel "
+                    f"{t512['simt'][0]:.4f} ms")
 
     # -- phase 14: serving the mixture-density models through CompiledFlow ------------
     # log_prob is one B11 launch; sample runs the model's sequential sampler
@@ -2295,6 +2414,8 @@ def main() -> int:
         return steps, fused_tr, state
 
     b12_phase_launches = {}   # B12's launches a fused step by cluster size, by model
+    b11_trainer_weights = {}  # B11 on both routes on the trained weights, by model
+    mog_trained = {}          # the trained model, its held batch and context, by model
     b12_step_clusters = {}    # B12's cluster size and the fused step's ms by batch
 
     def b12_step_cluster(n, trainer):
@@ -2309,7 +2430,7 @@ def main() -> int:
         start = {k: v.detach().clone() for k, v in fused_tr.weights.items()}
         data = ar_batches(TRAIN_BATCH, TRAIN_STEPS, 9, cf)
         losses = {}
-        for name, expected in (("fused", dict(B11=1, B12=1)), ("eager", {})):
+        for name, expected in (("fused", dict(B11=1, B11_simt=1, B12=1)), ("eager", {})):
             reset_counts()
             first = steps[name](*data[0])
             torch.cuda.synchronize()
@@ -2318,6 +2439,9 @@ def main() -> int:
             expect_counts(f"one {name} {model} step", counts, **expected)
             if name == "fused":
                 launches.setdefault("B12", counts["B12"])
+                # the step's forward is B11's SIMT kernel (the trainer re-packs
+                # its weights every step)
+                launches.setdefault("B11_simt", counts["B11_simt"])
                 # B12 ran once, at the cluster size its wrapper chooses
                 by_size = {cs: v for cs, v in mademog_train.cluster_launch_count.items() if v}
                 chosen = b12_step_cluster(TRAIN_BATCH, fused_tr)
@@ -2358,6 +2482,19 @@ def main() -> int:
             raise AssertionError(f"the trained {model} served disagrees with the trainer")
         log(f"  fused-trained vs eager-trained log_prob after {TRAIN_STEPS} steps: "
             f"{max_err(served_lp, state.flow.log_prob(held, held_c).detach()):.3e}")
+        # B11 on both routes on the trained model, as it is served (the wgmma
+        # route) and as the step runs it (SIMT), at the training batch; its
+        # bf16 view is held in phase 31
+        trained_view = mademog_fused.fuse_mademog(trained)
+        mog_trained[model] = (trained, held, held_c)
+        log(f"B11 on the trained {model} at N={TRAIN_BATCH}:")
+        t_errs = b11_routes("trained", trained_view, held, held_c)
+        t_times = b11_route_times(trained_view, held, held_c)
+        log(f"  wgmma kernel {t_times['wgmma'][0]:.4f} ms, simt kernel "
+            f"{t_times['simt'][0]:.4f} ms")
+        b11_trainer_weights[model] = dict(err=t_errs["wgmma"], simt_err=t_errs["simt"],
+                                          wgmma_ms=t_times["wgmma"][0],
+                                          simt_ms=t_times["simt"][0])
 
         def timed_routes(n, dist=dist, cf=cf):
             steps, fused_tr, _ = mog_routes(dist, n)
@@ -3356,33 +3493,58 @@ def main() -> int:
         b9_bf16_stats[model]["forward_err"] = hold_bf16_fixed_point(
             "forward", v16, v32, x, dict(inverse=False, **kw))[1]
 
-    b11_bf16_stats = {}
+    # B11 in bf16 on both routes, timed beside the fp32 kernels of each
+    # route: at 4,096 on the shared generator's draw, at 65,536 and the
+    # ragged N on draws of their own, and on the trained weights of phase 16
+    b11_bf16_stats, b11_wgmma_bf16 = {}, {}
     for model, dist, cf in mog_models:
         v16, v32 = mademog_fused.fuse_mademog(dist, dtype=BF16), mademog_fused.fuse_mademog(dist)
-        x = (1.5 * torch.randn(SERVE_BATCH, DM, generator=gen)).to(dev)
-        c = None if cf is None else torch.randn(SERVE_BATCH, cf, generator=gen).to(dev)
-        log(f"B11 in bf16 ({model}) at N={SERVE_BATCH}:")
-        lp = mademog_fused.mademog_log_prob_cuda(x, v16._weights, v16._static, c,
-                                                 packed=v16._packed)
-        p16 = mademog_fused.mademog_log_prob_plain(x, v16._weights, v16._static, c)
-        p32 = mademog_fused.mademog_log_prob_plain(x, v32._weights, v32._static, c)
-        torch.cuda.synchronize()
-        err = hold_bf16("lp", lp, p16, p32, BF16_LAD)
-        t = time_pair(
-            lambda: mademog_fused.mademog_log_prob_cuda(  # noqa: B023
-                x, v16._weights, v16._static, c, packed=v16._packed),  # noqa: B023
-            lambda: mademog_fused.mademog_log_prob_cuda(  # noqa: B023
-                x, v32._weights, v32._static, c, packed=v32._packed),  # noqa: B023
-            lambda: mademog_fused.mademog_log_prob_plain(  # noqa: B023
-                x, v16._weights, v16._static, c),  # noqa: B023
-            "mademog_log_prob_kernel")
-        need, _ = mog_ops(dist, SERVE_BATCH)
-        bound_ms, bound_by = bound_bf16(need, v16._weights, SERVE_BATCH * (DM + (cf or 0) + 1))
-        log(f"  time: bf16 kernel {t['ms']:.4f} ms, fp32 kernel {t['fp32_ms']:.4f} ms, bf16 "
-            f"plain {t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{need / 1e9:.2f} GFLOP the masks leave, at 989 TFLOP/s): "
-            f"{100 * bound_ms / t['ms']:.2f}% of it")
-        b11_bf16_stats[model] = dict(err=err, bound_ms=bound_ms, bound_by=bound_by, **t)
+        g_b = torch.Generator().manual_seed(LARGE_BATCH + (cf or 0))
+        for n in (SERVE_BATCH, LARGE_BATCH, RAGGED):
+            draw = gen if n == SERVE_BATCH else g_b
+            x = (1.5 * torch.randn(n, DM, generator=draw)).to(dev)
+            c = None if cf is None else torch.randn(n, cf, generator=draw).to(dev)
+            log(f"B11 in bf16 ({model}) at N={n}, routes wgmma and simt:")
+            errs = b11_routes(f"bf16 N={n}", v16, x, c, view32=v32)
+            if n == RAGGED:
+                b11_bf16_stats[model]["ragged_err"] = errs["simt"]
+                b11_wgmma_bf16[model]["ragged_err"] = errs["wgmma"]
+                continue
+            iters = 10 if n == SERVE_BATCH else 3
+            t16, t32 = b11_route_times(v16, x, c, iters), b11_route_times(v32, x, c, iters)
+            plain_ms = device_ms(torch, lambda: mademog_fused.mademog_log_prob_plain(  # noqa: B023
+                x, v16._weights, v16._static, c), 3 if n == SERVE_BATCH else 2)  # noqa: B023
+            need, dense = mog_ops(dist, n)
+            bound_ms, bound_by = bound_bf16(need, v16._weights, n * (DM + (cf or 0) + 1))
+            log(f"  time: bf16 wgmma kernel {t16['wgmma'][0]:.4f} ms (fp32 {t32['wgmma'][0]:.4f}), "
+                f"bf16 simt kernel {t16['simt'][0]:.4f} ms (fp32 {t32['simt'][0]:.4f}), bf16 "
+                f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{need / 1e9:.2f} GFLOP the masks leave, at 989 TFLOP/s): "
+                f"{100 * bound_ms / t16['wgmma'][0]:.2f}% of it on the wgmma route; the dense "
+                f"{dense / 1e9:.2f} GFLOP {1e3 * dense / PEAK_BF16_FLOPS:.4f} ms")
+            if n == SERVE_BATCH:
+                b11_bf16_stats[model] = dict(
+                    err=errs["simt"], ms=t16["simt"][0], ms_source=t16["simt"][1],
+                    fp32_ms=t32["simt"][0], plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
+                b11_wgmma_bf16[model] = dict(
+                    err=errs["wgmma"], ms=t16["wgmma"][0], ms_source=t16["wgmma"][1],
+                    simt_ms=t16["simt"][0], fp32_ms=t32["wgmma"][0], plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    bound_basis="bf16 tensor cores, 989 TFLOP/s",
+                    dense_ms=1e3 * dense / PEAK_BF16_FLOPS)
+            else:
+                b11_bf16_stats[model].update(ms_at_65536=t16["simt"][0],
+                                             fp32_ms_at_65536=t32["simt"][0])
+                b11_wgmma_bf16[model].update(ms_at_65536=t16["wgmma"][0],
+                                             simt_ms_at_65536=t16["simt"][0],
+                                             fp32_ms_at_65536=t32["wgmma"][0])
+        trained, held, held_c = mog_trained[model]
+        log(f"B11 in bf16 on the trained {model} at N={TRAIN_BATCH}:")
+        t_errs = b11_routes("bf16 trained", mademog_fused.fuse_mademog(trained, dtype=BF16),
+                            held, held_c, view32=mademog_fused.fuse_mademog(trained))
+        b11_bf16_stats[model]["trained_err"] = t_errs["simt"]
+        b11_wgmma_bf16[model]["trained_err"] = t_errs["wgmma"]
 
     # -- phase 32: serving in bf16 through CompiledFlow(dtype=torch.bfloat16) -------
     # the flagship, the MAF and the MoG-MADE at 4,096, bf16 requests: a log_prob
@@ -3412,11 +3574,14 @@ def main() -> int:
         rest = read_counts()
         log(f"serving the {model} in bf16: launches a log_prob {first}, a sample {rest}")
         expect_counts(f"a bf16 {model} log_prob request", first, **{kid: 1},
-                      **b2_route_counts(server), **b9_route_counts(server, "log_prob"))
+                      **b2_route_counts(server), **b9_route_counts(server, "log_prob"),
+                      **b11_route_counts(server))
         expect_counts(f"a bf16 {model} sample request", rest,
                       **({kid: 1} if sample_kernel else {}),
                       **b2_route_counts(server), **b9_route_counts(server, "sample"))
         bf16_launches.setdefault(kid, first[kid])
+        if model == "MoG-MADE":
+            bf16_launches["B11_wgmma_bf16"] = first["B11_wgmma_bf16"]
         if model == "MAF":
             bf16_launches["B9_degree"] = rest["B9_degree"]
             bf16_launches["B9_wgmma_bf16"] = first["B9_wgmma_bf16"]
@@ -3444,6 +3609,13 @@ def main() -> int:
             p16, p32 = v16._log_base(y16) + lad16, v32._log_base(y32) + lad32
             hold_bf16("log_prob against the bf16 plain version", lp, p16, p32, BF16_LAD)
             price = max_err(p16, lp32)
+        if isinstance(v16, mademog_fused.FusedMADEMoG):
+            # B11's served log_prob against its bf16 plain version
+            v32 = mademog_fused.fuse_mademog(dist)
+            p16 = mademog_fused.mademog_log_prob_plain(x.float(), v16._weights, v16._static)
+            p32 = mademog_fused.mademog_log_prob_plain(x.float(), v32._weights, v32._static)
+            hold_bf16("log_prob against the bf16 plain version", lp, p16, p32, BF16_LAD)
+            price = max_err(p16, lp32)
         # the 0.5 limit holds the kernel where bf16's price lies inside it;
         # where the bf16 plain version itself is further (an IAF's fixed
         # point), the hold against that plain version above is the check
@@ -3466,6 +3638,26 @@ def main() -> int:
             busy = device_ms(torch, fn, 10)
             log(f"  {endpoint}: {wall:.3f} ms a request of {SERVE_BATCH} (host clock), "
                 f"device busy {busy:.3f} ms")
+            serve_times[f"{model}, bf16, {endpoint}"] = dict(wall_ms=wall, busy_ms=busy)
+    # B11's SIMT kernel serves in bf16 the widths the tensor cores do not
+    # take: a log_prob request of the MoG-MADE at hidden 96 is one launch of it
+    narrow = MixtureOfGaussiansMADE(**{**MOG, "hidden_features": 96}, **seeded(2)).eval()
+    server = CompiledFlow(narrow, batch_size=SERVE_BATCH, features=DM, dtype=BF16)
+    x = torch.randn(SERVE_BATCH, DM, generator=torch.Generator().manual_seed(96)).to(dev)
+    reset_counts()
+    lp = server.log_prob(x.to(BF16))
+    torch.cuda.synchronize()
+    first = read_counts()
+    log(f"serving the MoG-MADE at hidden 96 in bf16: launches a log_prob {first}")
+    expect_counts("a bf16 MoG-MADE log_prob request at hidden 96", first, B11_bf16=1,
+                  B11_simt_bf16=1)
+    bf16_launches["B11_simt_bf16"] = first["B11_simt_bf16"]
+    v16, v32 = server._fused, mademog_fused.fuse_mademog(narrow)
+    hold_bf16("log_prob against the bf16 plain version", lp,
+              mademog_fused.mademog_log_prob_plain(x.to(BF16).float(), v16._weights,
+                                                   v16._static),
+              mademog_fused.mademog_log_prob_plain(x.to(BF16).float(), v32._weights,
+                                                   v32._static), BF16_LAD)
 
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
@@ -3513,9 +3705,14 @@ def main() -> int:
     # (a fused training step's forward; no bf16 request takes it) and the
     # degree kernel (a sampling request), split in simt_ and degree_launches;
     # a log_prob request's launch is the B9_wgmma rows'
-    row_launches = {**launches, "B9": launches["B9_simt"] + launches["B9_degree"]}
+    # B11's SIMT rows count their kernel's launches: a fused training step's
+    # forward (fp32) and a bf16 request at hidden 96; a full-width log_prob
+    # request's launch is the B11_wgmma rows'
+    row_launches = {**launches, "B9": launches["B9_simt"] + launches["B9_degree"],
+                    "B11": launches["B11_simt"]}
     bf16_row_launches = {**bf16_launches, "B9_bf16": (bf16_launches["B9_simt_bf16"]
-                                                      + bf16_launches["B9_degree"])}
+                                                      + bf16_launches["B9_degree"]),
+                         "B11_bf16": bf16_launches["B11_simt_bf16"]}
     rows = []
     for kid, stats, source, replaces, tpu in (
             ("B1", b1[SERVE_BATCH * 3], "nflows_tpu_torch/csrc/rq_spline.cu",
@@ -3594,7 +3791,8 @@ def main() -> int:
              "nflows_tpu/ops/pallas/maf_train.py:161",
              "ops/pallas/maf_train.py:_bwd_kernel"),
             ("B11", with_context(b11[(uncond, SERVE_BATCH)], b11[(cond, SERVE_BATCH)],
-                                 ms_at_65536=b11[(uncond, LARGE_BATCH)]["ms"]),
+                                 ms_at_65536=b11[(uncond, LARGE_BATCH)]["ms"],
+                                 context_ms_at_65536=b11[(cond, LARGE_BATCH)]["ms"]),
              "nflows_tpu_torch/csrc/mademog_fused.cu",
              "nflows_tpu/ops/pallas/mademog_fused.py:169",
              "ops/pallas/mademog_fused.py:_kernel"),
@@ -3663,7 +3861,8 @@ def main() -> int:
             "ms_source": stats["ms_source"], "plain_ms": stats["plain_ms"],
             "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"], "library_ms": None,
             **{k: v for k, v in stats.items()
-               if k.startswith(("inverse_", "fp32_", "simt_", "gemm_route", "bound_basis"))},
+               if k.startswith(("inverse_", "fp32_", "simt_", "gemm_route", "bound_basis",
+                                "ms_at_", "ragged_", "trained_"))},
             **more,
         })
     # B9's one pass on the tensor cores, both weight types (csrc/maf_flow_wgmma.cuh)
@@ -3692,6 +3891,40 @@ def main() -> int:
             "bound_by": stats["bound_by"], "library_ms": None,
             **{k: v for k, v in stats.items()
                if k.startswith(("simt_", "fp32_", "dense_", "bound_basis", "ms_at_"))},
+            **more,
+        })
+    # B11 on the tensor cores, both weight types (csrc/mademog_wgmma.cuh)
+    w11, w11c = b11_wgmma[(uncond, SERVE_BATCH)], b11_wgmma[(cond, SERVE_BATCH)]
+    serving = {k: v for k, v in serve_times.items() if k.startswith((uncond, cond))}
+    for kid, stem, stats, n_launch, more in (
+            ("B11_wgmma", "mademog_wgmma", w11, launches["B11_wgmma"], dict(
+                ms_at_65536=b11_wgmma[(uncond, LARGE_BATCH)]["ms"],
+                simt_ms_at_65536=b11_wgmma[(uncond, LARGE_BATCH)]["simt_ms"],
+                ragged_err=b11_wgmma[(uncond, RAGGED)]["err"],
+                **{f"context_{k}": v for k, v in w11c.items()},
+                context_ms_at_65536=b11_wgmma[(cond, LARGE_BATCH)]["ms"],
+                context_simt_ms_at_65536=b11_wgmma[(cond, LARGE_BATCH)]["simt_ms"],
+                context_ragged_err=b11_wgmma[(cond, RAGGED)]["err"],
+                context_launches=context_launches["B11_wgmma"],
+                trainer_weights=b11_trainer_weights, serving=serving)),
+            ("B11_wgmma_bf16", "mademog_wgmma_bf16", b11_wgmma_bf16[uncond],
+             bf16_launches["B11_wgmma_bf16"], dict(
+                 dtype="bfloat16",
+                 **{f"context_{k}": v for k, v in b11_wgmma_bf16[cond].items()},
+                 serving={k: v for k, v in serve_times.items()
+                          if k.startswith(f"{uncond}, bf16")}))):
+        rows.append({
+            "name": stem, "id": kid, "route": "cuda",
+            "source": f"nflows_tpu_torch/csrc/{stem}.cu",
+            "replaces": "nflows_tpu/ops/pallas/mademog_fused.py:169",
+            "tpu": "ops/pallas/mademog_fused.py:_kernel", "launches": n_launch,
+            "max_abs_err": stats["err"], "max_err": stats["err"], "ms": stats["ms"],
+            "kernel_ms": stats["ms"], "ms_source": stats["ms_source"],
+            "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+            "bound_by": stats["bound_by"], "library_ms": None,
+            **{k: v for k, v in stats.items()
+               if k.startswith(("simt_", "fp32_", "dense_", "bound_basis", "ms_at_", "ragged_",
+                                "trained_"))},
             **more,
         })
     rows.sort(key=lambda row: (int(row["id"].split("_")[0][1:]), row["id"]))

@@ -1,5 +1,6 @@
 """Kernel B11: the log-density of a MixtureOfGaussiansMADE / MADEMoG in one
-launch (counterpart of nflows_tpu/ops/pallas/mademog_fused.py; source
+launch (counterpart of nflows_tpu/ops/pallas/mademog_fused.py; sources
+``csrc/mademog_wgmma.cu``, ``csrc/mademog_wgmma_bf16.cu`` and
 ``csrc/mademog_fused.cu``).
 
 The density is one masked residual MADE pass and a per-feature
@@ -28,6 +29,18 @@ bf16 and the biases fp32, and every GEMM rounds its operand, the context
 included, to bf16 and sums the exact products in fp32
 (``nsf_flow_kernel.gemm``; JAX ``mademog_fused.py:194-202``).
 
+B11 has two routes (:func:`gemm_route`, like B2's and B9's). ``"wgmma"``
+(``csrc/mademog_wgmma.cuh``) runs every GEMM on Hopper's tensor cores,
+bf16 wgmma for bf16 weights and 3xTF32 for fp32 ones, the weights streamed
+from :func:`pack_weights_wgmma`'s image (B2's layout,
+``nsf_flow_kernel.wgmma_positions``) through a ring of shared-memory
+slots; the final layer's rows, more than one GEMM's 256, run as passes of
+at most 256 over the same operand. It takes every model whose hidden width
+is a multiple of 64 up to 256, whose padded parameter rows are at most 512
+and whose tile fits. ``"simt"`` (``csrc/mademog_fused.cu``) runs fp32
+FMAs and takes the rest, and the fused trainer's forward, whose weights
+move every step. ``gemm=`` on :func:`mademog_log_prob_cuda` forces one.
+
 Sampling stays on the module (``MixtureOfGaussiansMADE.sample``: D
 sequential MADE passes with categorical and normal draws), as in the JAX
 package; ``FusedMADEMoG.sample`` delegates to it.
@@ -43,31 +56,48 @@ import numpy as np
 import torch
 
 from nflows_tpu_torch.ops.cuda import _build
+from nflows_tpu_torch.ops.cuda.maf_flow_kernel import _pad_depth
 from nflows_tpu_torch.ops.cuda.maf_fused import _is_relu
 from nflows_tpu_torch.ops.cuda.nsf_flow_kernel import (
     _KC,
     _OC,
+    _WG_MAX_ROWS,
+    _WG_ROWS,
+    _WG_SLOT,
+    _WG_SLOTS,
+    GEMM_ROUTES,
     MAX_SHARED_MEMORY,
     WEIGHT_DTYPES,
     _out_align,
     _round_out,
+    _round_to,
     gemm,
+    wgmma_positions,
 )
 from nflows_tpu_torch.ops.splines import rational_quadratic as rq_ref
 from nflows_tpu_torch.utils import shapes as shapeutils
 
 __all__ = ["FusedMADEMoG", "fuse_mademog", "can_fuse_mademog", "mademog_log_prob_cuda",
-           "mademog_log_prob_plain", "pack_weights", "shared_memory_bytes",
-           "launch_count", "bf16_launch_count"]
+           "mademog_log_prob_plain", "pack_weights", "shared_memory_bytes", "final_passes",
+           "gemm_route", "pack_weights_wgmma", "weights_route", "wgmma_dims", "wgmma_gemms",
+           "wgmma_shared_memory_bytes", "launch_count", "bf16_launch_count",
+           "route_launch_count"]
 
-launch_count = 0  # B11 launches since the last reset (fp32 weights)
-bf16_launch_count = 0  # launches of B11's bf16-weight kernel since the last reset
+launch_count = 0  # B11 launches since the last reset (fp32 weights, either route)
+bf16_launch_count = 0  # launches of a bf16-weight B11 kernel since the last reset
+# launches by route and weight type since the last reset: "wgmma"
+# (csrc/mademog_wgmma.cu), "simt" (csrc/mademog_fused.cu) and their "_bf16"
+# twins
+route_launch_count = {"simt": 0, "wgmma": 0, "simt_bf16": 0, "wgmma_bf16": 0}
 
 ROWS = 32                # samples a block holds
 WEIGHT_KEYS = ("wi", "bi", "wb", "bb", "wf", "bf")
 CONTEXT_KEYS = ("wci", "bci", "wcb", "bcb")
 MASKED_KEYS = ("wi", "wb", "wf")
 MATRICES = ("wi", "wb", "wf", "wci", "wcb")  # bf16 with bf16 weights; the rest fp32
+# csrc/mademog_wgmma.cuh: the final layer runs as kMaxPasses passes of at
+# most kPassRows (four 64-row slabs)
+_WG_MAX_FINAL_ROWS = 2 * _WG_MAX_ROWS
 
 
 def can_fuse_mademog(dist) -> bool:
@@ -275,6 +305,142 @@ def _declare(lib):
         fn.restype = i
 
 
+# -- the wgmma route -----------------------------------------------------------------
+
+
+def _declare_wgmma(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn in (getattr(lib, name, None) for name in ("mademog_wgmma_launch",
+                                                     "mademog_wgmma_launch_bf16")):
+        if fn is not None:
+            fn.argtypes = [p, p, p, ctypes.c_int64] + [i] * 8 + [f] + [p] * 6 + [p]
+            fn.restype = i
+
+
+def wgmma_dims(D: int, K: int, C: int = 0) -> dict:
+    """The wgmma route's padded widths: the initial layer's depth Ip and the
+    context's Cp (``maf_flow_kernel._pad_depth``: 16, 32 or a multiple of
+    64), the final layer's 3 K D rows TMp to a multiple of 64 (wgmma's M)."""
+    return dict(Ip=_pad_depth(D), Cp=_pad_depth(C) if C else 0, TMp=_round_to(3 * K * D, 64))
+
+
+def final_passes(TMp: int) -> list:
+    """The final layer's passes on the wgmma route: (first row, rows) of
+    each, at most four 64-row slabs (256 rows) a pass, over the same
+    operand h (csrc/mademog_wgmma.cuh)."""
+    return [(r, min(_WG_MAX_ROWS, TMp - r)) for r in range(0, TMp, _WG_MAX_ROWS)]
+
+
+def wgmma_gemms(num_blocks: int, context: bool, TMp: int) -> list:
+    """The GEMMs in the order the kernel runs them and the image holds
+    them: (stack, index), the index a block's for wb (2 j, 2 j + 1) and wcb
+    (j), a pass of :func:`final_passes` for wf. Under a context the initial
+    layer's projection comes first (its relu'd result is h's start) and each
+    block's rides its first linear."""
+    out = ([("wci", None)] if context else []) + [("wi", None)]
+    for j in range(num_blocks):
+        out += [("wb", 2 * j)] + ([("wcb", j)] if context else []) + [("wb", 2 * j + 1)]
+    return out + [("wf", p) for p in range(len(final_passes(TMp)))]
+
+
+def pack_weights_wgmma(weights: Dict[str, torch.Tensor], static: dict) -> Dict[str, torch.Tensor]:
+    """The wgmma route's layout of the (mask-folded) stacks, built once on
+    the weights' device with tensor operations: ``image``, the matrices as
+    :func:`wgmma_gemms` orders them, each [out, in] zero-padded to
+    :func:`wgmma_dims` (the final layer cut into :func:`final_passes`) and
+    laid out by ``nsf_flow_kernel.wgmma_positions``, in the weights' type
+    (bf16 or fp32; the kernel bulk-copies it chunk by chunk into its ring);
+    the biases fp32 (bi [H], bb [2 nb, H], bf [TMp] zero past 3 K D,
+    bci [H], bcb [nb, H]) and the padded widths."""
+    D, K, H, nb = static["D"], static["K"], static["H"], static["num_blocks"]
+    C = weights["wci"].shape[1] if "wci" in weights else 0
+    dims = wgmma_dims(D, K, C)
+    wdt = torch.bfloat16 if weights["wi"].dtype == torch.bfloat16 else torch.float32
+    dev = weights["wi"].device
+
+    def padded(t, shape, rows, cols):
+        t = t.detach().reshape(*shape)
+        out = torch.zeros(*shape[:-2], rows, cols, dtype=wdt, device=dev)
+        out[..., :shape[-2], :shape[-1]] = t
+        return out
+
+    P = 3 * K * D
+    mats = dict(wi=padded(weights["wi"], (H, D), H, dims["Ip"]),
+                wb=weights["wb"].detach().to(wdt).reshape(2 * nb, H, H),
+                wf=padded(weights["wf"], (P, H), dims["TMp"], H))
+    if C:
+        mats.update(wci=padded(weights["wci"], (H, C), H, dims["Cp"]),
+                    wcb=padded(weights["wcb"], (nb, H, C), H, dims["Cp"]))
+    passes = final_passes(dims["TMp"])
+    parts = []
+    for name, j in wgmma_gemms(nb, bool(C), dims["TMp"]):
+        if name == "wf":
+            r0, rows = passes[j]
+            m = mats["wf"][r0:r0 + rows]
+        else:
+            m = mats[name] if j is None else mats[name][j]
+        flat = torch.empty(m.numel(), dtype=wdt, device=dev)
+        flat[wgmma_positions(m.shape[0], m.shape[1], wdt, dev).reshape(-1)] = m.reshape(-1)
+        parts.append(flat)
+    f32 = lambda name, *shape: weights[name].detach().float().reshape(*shape).contiguous()  # noqa: E731
+    bf = torch.zeros(dims["TMp"], dtype=torch.float32, device=dev)
+    bf[:P] = weights["bf"].detach().float().reshape(P)
+    out = dict(image=torch.cat(parts).contiguous(), bi=f32("bi", H), bb=f32("bb", 2 * nb, H),
+               bf=bf, **dims)
+    if C:
+        out.update(bci=f32("bci", H), bcb=f32("bcb", nb, H))
+    return out
+
+
+def _image_elems(H: int, nb: int, dims: dict) -> int:
+    """Elements of :func:`pack_weights_wgmma`'s image."""
+    Cp = dims["Cp"]
+    return H * (dims["Ip"] + Cp + nb * (2 * H + Cp) + dims["TMp"])
+
+
+def wgmma_shared_memory_bytes(D: int, K: int, H: int, C: int = 0,
+                              dtype=torch.float32) -> int:
+    """Dynamic shared memory of a block of the wgmma route
+    (csrc/mademog_wgmma.cuh: mog_wgmma_smem_bytes): the ring, the operand
+    planes (hi, and lo for fp32) or P [32][TMp + 4] fp32 over them, whichever
+    is larger, the context operand, the barriers, x and the per-feature
+    log-densities."""
+    es = torch.empty((), dtype=dtype).element_size()
+    planes = 2 if dtype == torch.float32 else 1
+    dims = wgmma_dims(D, K, C)
+    KX = max(H, dims["Ip"])
+    op = max(planes * _WG_ROWS * KX * es, _WG_ROWS * (dims["TMp"] + 4) * 4)
+    return (_WG_SLOTS * _WG_SLOT + op + planes * _WG_ROWS * dims["Cp"] * es + 16 * _WG_SLOTS
+            + 4 * _WG_ROWS * 2 * D)
+
+
+def gemm_route(D: int, K: int, H: int, C: int = 0, dtype=torch.float32,
+               gemm: str = None) -> str:
+    """The route B11 takes for a model of these widths: ``"wgmma"`` where the
+    hidden width is a multiple of 64 up to 256, the final layer's padded
+    rows are at most 512 (two passes) and the tile fits in shared memory;
+    else ``"simt"``. ``gemm`` forces one; forcing ``"wgmma"`` on a shape it
+    cannot take raises."""
+    fits = (H % 64 == 0 and H <= _WG_MAX_ROWS
+            and wgmma_dims(D, K, C)["TMp"] <= _WG_MAX_FINAL_ROWS
+            and wgmma_shared_memory_bytes(D, K, H, C, dtype) <= MAX_SHARED_MEMORY)
+    if gemm is None:
+        return "wgmma" if fits else "simt"
+    if gemm not in GEMM_ROUTES:
+        raise ValueError(f"gemm must be one of {GEMM_ROUTES} or None, got {gemm!r}")
+    if gemm == "wgmma" and not fits:
+        raise ValueError(f"gemm='wgmma' does not take hidden width {H} with {3 * K * D} "
+                         "parameter rows: the hidden width must be a multiple of 64 up to 256, "
+                         "the parameter rows at most 512, the tile within shared memory")
+    return gemm
+
+
+def weights_route(weights: Dict[str, torch.Tensor], static: dict, gemm: str = None) -> str:
+    """:func:`gemm_route` for a model's stacks."""
+    C = weights["wci"].shape[1] if "wci" in weights else 0
+    return gemm_route(static["D"], static["K"], static["H"], C, weights["wi"].dtype, gemm)
+
+
 def check_inputs(what, x, context, static, context_features):
     """Shapes and types the kernels take: x [N, D] and, for a conditional
     model, context [N, C], contiguous float32 on one device."""
@@ -320,15 +486,21 @@ def data_ptr(t):
 
 def mademog_log_prob_cuda(x: torch.Tensor, weights: Dict[str, torch.Tensor], static: dict,
                           context: Optional[torch.Tensor] = None,
-                          packed: Dict[str, torch.Tensor] = None) -> torch.Tensor:
+                          packed: Dict[str, torch.Tensor] = None,
+                          gemm: str = None) -> torch.Tensor:
     """B11: x [N, D] (and the context [N, C]) -> lp [N].
 
     ``weights`` are the mask-folded stacks of :func:`_extract`; ``packed``
-    is :func:`pack_weights` of them, built here when not given (callers that
-    launch repeatedly keep it). fp32 weights launch the fp32 kernel, bf16
-    weights (the matrices bf16, the biases fp32) the bf16 one; x and the
-    context are fp32 either way."""
-    global launch_count, bf16_launch_count
+    is :func:`pack_weights` of them, and its entry ``"wgmma"``
+    :func:`pack_weights_wgmma`, each built here when its route runs
+    without it (callers that launch repeatedly keep them). ``gemm`` picks
+    the route (see the module doc): None takes :func:`gemm_route`'s,
+    ``"wgmma"`` or ``"simt"`` forces one; a forced ``"wgmma"`` raises on a
+    shape it cannot take, on the CPU too. fp32 weights launch an fp32
+    kernel, bf16 weights (the matrices bf16, the biases fp32) a bf16 one; x
+    and the context are fp32 either way. A CPU tensor runs the plain
+    version."""
+    route = weights_route(weights, static, gemm)
     if x.device.type == "cpu":
         return mademog_log_prob_plain(x, weights, static, context)
     what = "mademog_log_prob_cuda"
@@ -338,6 +510,11 @@ def mademog_log_prob_cuda(x: torch.Tensor, weights: Dict[str, torch.Tensor], sta
     if wdt not in WEIGHT_DTYPES:
         raise ValueError(f"{what}: weights must be float32 or bfloat16, got {wdt}")
     bf16 = wdt == torch.bfloat16
+    if route == "wgmma":
+        wp = None if packed is None else packed.get("wgmma")
+        if wp is None:
+            wp = pack_weights_wgmma(weights, static)
+        return _launch_wgmma(x, weights, static, context, wp)
     if packed is None:
         packed = pack_weights(weights, static)
     check_packed(what, packed, static, Cf, x.device, wdt)
@@ -355,11 +532,59 @@ def mademog_log_prob_cuda(x: torch.Tensor, weights: Dict[str, torch.Tensor], sta
             x.data_ptr(), data_ptr(context), lp.data_ptr(), n, D, Cf or 0, K, H, 3 * K * D,
             _round_out(3 * K * D, wdt), nb, static["epsilon"],
             *(data_ptr(packed.get(k)) for k in WEIGHT_KEYS + CONTEXT_KEYS), stream)
+    _count("simt", bf16)
+    _build.check(code, "mademog_log_prob_launch_bf16" if bf16 else "mademog_log_prob_launch")
+    return lp
+
+
+def _count(route: str, bf16: bool) -> None:
+    """One launch of B11 on ``route``: its own counter and the weight type's
+    total."""
+    global launch_count, bf16_launch_count
+    route_launch_count[route + ("_bf16" if bf16 else "")] += 1
     if bf16:
         bf16_launch_count += 1
     else:
         launch_count += 1
-    _build.check(code, "mademog_log_prob_launch_bf16" if bf16 else "mademog_log_prob_launch")
+
+
+def _launch_wgmma(x, weights, static, context, wp):
+    """B11 on the wgmma route (csrc/mademog_wgmma.cuh) with
+    :func:`pack_weights_wgmma`'s ``wp``."""
+    what = "mademog_log_prob_cuda (wgmma)"
+    D, K, H, nb = static["D"], static["K"], static["H"], static["num_blocks"]
+    C = context.shape[1] if context is not None else 0
+    dims = wgmma_dims(D, K, C)
+    f32 = torch.float32
+    expected = dict(bi=(H,), bb=(2 * nb, H), bf=(dims["TMp"],))
+    if C:
+        expected.update(bci=(H,), bcb=(nb, H))
+    for name, shape in expected.items():
+        t = wp.get(name)
+        if t is None or tuple(t.shape) != shape or t.dtype != f32 or t.device != x.device or (
+                not t.is_contiguous()):
+            raise ValueError(f"{what}: packed['wgmma'][{name!r}] must be a contiguous {shape} "
+                             f"float32 tensor on {x.device}")
+    image, wdt = wp["image"], weights["wi"].dtype
+    if (any(wp.get(k) != v for k, v in dims.items()) or image.dtype != wdt
+            or image.numel() != _image_elems(H, nb, dims) or image.device != x.device
+            or not image.is_contiguous()):
+        raise ValueError(f"{what}: packed['wgmma'] is not pack_weights_wgmma of these weights")
+    bf16 = wdt == torch.bfloat16
+    lib = _build.load_library("mademog_wgmma_bf16" if bf16 else "mademog_wgmma",
+                              _declare_wgmma)
+    launch = lib.mademog_wgmma_launch_bf16 if bf16 else lib.mademog_wgmma_launch
+    n = x.shape[0]
+    lp = torch.empty(n, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = launch(
+            x.data_ptr(), data_ptr(context), lp.data_ptr(), n, D, C, K, H, dims["Ip"],
+            dims["Cp"], dims["TMp"], nb, static["epsilon"], image.data_ptr(),
+            wp["bi"].data_ptr(), wp["bb"].data_ptr(), wp["bf"].data_ptr(),
+            data_ptr(wp.get("bci")), data_ptr(wp.get("bcb")), stream)
+    _count("wgmma", bf16)
+    _build.check(code, "mademog_wgmma_launch_bf16" if bf16 else "mademog_wgmma_launch")
     return lp
 
 
@@ -377,8 +602,13 @@ class FusedMADEMoG:
         self._dist = dist
         self.features = self._static["D"]
         self.device = self._weights["wi"].device
-        self._packed = (pack_weights(self._weights, self._static)
-                        if self.device.type == "cuda" else None)
+        self._packed = None
+        if self.device.type == "cuda":
+            # both routes' layouts: the SIMT one for an explicit
+            # gemm="simt", the wgmma image where the shape takes that route
+            self._packed = pack_weights(self._weights, self._static)
+            if weights_route(self._weights, self._static) == "wgmma":
+                self._packed["wgmma"] = pack_weights_wgmma(self._weights, self._static)
 
     def log_prob(self, inputs, context=None):
         n = inputs.shape[0]
@@ -415,6 +645,8 @@ def fuse_mademog(dist, dtype=torch.float32) -> FusedMADEMoG:
 
     ``dtype`` sets the MADE GEMM precision: torch.float32 (the default
     here) or torch.bfloat16, the JAX package's default, where each GEMM takes
-    bf16 operands and sums in fp32. Inputs, contexts and results are fp32
-    either way (a bf16 input or context is widened first)."""
+    bf16 operands and sums in fp32 (kernels ``csrc/mademog_wgmma_bf16.cu``
+    at widths the tensor cores take, else ``csrc/mademog_fused.cu``).
+    Inputs, contexts and results are fp32 either way (a bf16 input or
+    context is widened first)."""
     return FusedMADEMoG(dist, dtype=dtype)

@@ -12,8 +12,9 @@ and ``csrc/mademog_train_cluster.cu``).
   the rule of B3, B4 and B10 (``_trainer_common.cluster_size``);
   ``cluster=`` forces one.
 - :func:`mademog_train_apply` is the ``torch.autograd.Function`` whose
-  forward is B11 (``mademog_fused.py``) and whose backward is B12: a fused
-  step is these two launches.
+  forward is B11 (``mademog_fused.py``, on its SIMT route: the wgmma
+  route's image would be re-packed every step) and whose backward is B12:
+  a fused step is these two launches.
 - :class:`FusedMADEMoGTrainer` owns the UNFOLDED fp32 kernel-layout weights
   as the trainable tensors, plus the MADE masks in kernel layout, and folds
   ``w * mask`` every step under autograd, as ``FusedMAFTrainer`` does: the
@@ -319,8 +320,8 @@ def _launch(x, glp, weights, static, context, packed, grads, cluster):
 
 
 class _MADEMoGTrainApply(torch.autograd.Function):
-    """forward: B11; backward: B12. On CPU tensors both wrappers run their
-    plain versions."""
+    """forward: B11 (SIMT route); backward: B12. On CPU tensors both
+    wrappers run their plain versions."""
 
     @staticmethod
     def forward(ctx, x, context, meta, *ws):
@@ -331,7 +332,7 @@ class _MADEMoGTrainApply(torch.autograd.Function):
         ctx.save_for_backward(x, context, *ws)
         ctx.meta = (static, keys, packed)
         return mademog_fused.mademog_log_prob_cuda(x, weights, static, context=context,
-                                                   packed=packed)
+                                                   packed=packed, gemm="simt")
 
     @staticmethod
     def backward(ctx, glp):

@@ -7,7 +7,9 @@ with bf16 weights, and CompiledFlow(dtype=torch.bfloat16); B2 on both of
 its routes (the tensor-core kernel and the SIMT one), every family, both
 weight types, with and without a context, and one GEMM of its wgmma
 route alone; B9's one-pass direction on both of its routes (MAF, NSF-AR and
-IAF, both weight types, with and without a context).
+IAF, both weight types, with and without a context); B11 on both of its
+routes (both weight types, with and without a context, the final layer in
+one pass and in two).
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -1239,6 +1241,105 @@ def test_b11_matches_plain(cuda, case, n):
     if c is not None:
         with pytest.raises(ValueError, match="context"):
             mademog_fused.mademog_log_prob_cuda(x, fused._weights, fused._static)
+
+
+# B11's two routes: tensor cores (wgmma) and fp32 FMAs (simt). "two_pass":
+# 300 parameter rows at hidden 64, the final layer in two passes of the
+# wgmma route (256 rows, then 64); the narrow cases' 60 rows take one.
+B11_ROUTE_CASES = {**MOG_CASES,
+                   "two_pass": dict(features=10, hidden_features=64, num_mixture_components=10,
+                                    context_features=None)}
+
+
+@pytest.mark.parametrize("n", [203, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(B11_ROUTE_CASES))
+def test_b11_both_routes_match_plain(cuda, case, dtype, n):
+    """B11 on the wgmma kernel (the route these widths take) and on the SIMT
+    kernel (forced), each against the plain version: fp32 within 1e-3 or
+    twice the plain version's distance from float64, and by its relative
+    errors within ONE_PASS_LIMITS; bf16 in the bf16 bands against the bf16
+    plain version; each launch counted on its route, and a relaunch of
+    the wgmma kernel bit-equal. 203 leaves a ragged last tile."""
+    from nflows_tpu_torch import MixtureOfGaussiansMADE
+    from nflows_tpu_torch.ops.cuda import mademog_fused
+
+    cfg = B11_ROUTE_CASES[case]
+    model = MixtureOfGaussiansMADE(num_blocks=2, generator=torch.Generator().manual_seed(7),
+                                   rng=np.random.default_rng(7), device=cuda, **cfg).eval()
+    fused = mademog_fused.fuse_mademog(model, dtype=dtype)
+    w, st = fused._weights, fused._static
+    assert mademog_fused.weights_route(w, st) == "wgmma" and "wgmma" in fused._packed
+    g = torch.Generator().manual_seed(n)
+    x = (1.5 * torch.randn(n, cfg["features"], generator=g)).to(cuda)
+    cf = cfg["context_features"]
+    c = None if cf is None else torch.randn(n, cf, generator=g).to(cuda)
+    plain = mademog_fused.mademog_log_prob_plain(x, w, st, c)
+    if dtype == torch.float32:
+        exact = mademog_fused.mademog_log_prob_plain(
+            x.double(), {k: v.double() for k, v in w.items()}, st,
+            None if c is None else c.double())
+    else:
+        w32 = mademog_fused.fuse_mademog(model)._weights
+        plain32 = mademog_fused.mademog_log_prob_plain(x, w32, st, c)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    for route in ("wgmma", "simt"):
+        before = dict(mademog_fused.route_launch_count)
+        lp = mademog_fused.mademog_log_prob_cuda(x, w, st, c, packed=fused._packed,
+                                                 gemm=None if route == "wgmma" else route)
+        after = dict(mademog_fused.route_launch_count)
+        assert after[route + suffix] == before[route + suffix] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        assert lp.shape == (n,) and torch.isfinite(lp).all()
+        if dtype == torch.float32:
+            _hold(lp, plain, exact, 1e-3)
+            _hold_relative(lp, plain, exact, limits=ONE_PASS_LIMITS)
+        else:
+            _bf16_hold(lp, plain, plain32, BF16_LAD)
+        if route == "wgmma":
+            again = mademog_fused.mademog_log_prob_cuda(x, w, st, c, gemm="wgmma")
+            assert torch.equal(lp, again)       # no atomics: the same bits every launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compiled_flow_b11_routes(cuda, dtype):
+    """A MoG-MADE's log_prob request is one wgmma launch of its weight type;
+    the fused trainer's step launches the SIMT kernel; a width the tensor
+    cores do not take stays on SIMT, and forcing wgmma there raises."""
+    from nflows_tpu_torch import MixtureOfGaussiansMADE
+    from nflows_tpu_torch.ops.cuda import mademog_fused
+
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    model = _mog(cuda, "narrow_context")
+    server = CompiledFlow(model, batch_size=256, features=5, context_features=3, dtype=dtype)
+    assert server.is_fused
+    g = torch.Generator().manual_seed(22)
+    x, c = torch.randn(256, 5, generator=g).to(cuda), torch.randn(256, 3, generator=g).to(cuda)
+    before = dict(mademog_fused.route_launch_count)
+    lp = server.log_prob(x.to(dtype) if dtype == torch.bfloat16 else x, c)
+    moved = {r: mademog_fused.route_launch_count[r] - before[r] for r in before}
+    assert torch.isfinite(lp).all()
+    assert moved == {r: int(r == "wgmma" + suffix) for r in before}, moved
+    tr = fused_trainer(model, 128)
+    step = tr.make_train_step(tr.init_opt(lambda p: torch.optim.Adam(p, lr=1e-3)))
+    before = dict(mademog_fused.route_launch_count)
+    step(x[:128].contiguous(), c[:128].contiguous())
+    moved = {r: mademog_fused.route_launch_count[r] - before[r] for r in before}
+    assert moved == {"simt": 1, "wgmma": 0, "simt_bf16": 0, "wgmma_bf16": 0}
+    narrow = mademog_fused.fuse_mademog(MixtureOfGaussiansMADE(
+        features=5, hidden_features=32, num_blocks=2, num_mixture_components=4,
+        generator=torch.Generator().manual_seed(23), rng=np.random.default_rng(23),
+        device=cuda).eval(), dtype=dtype)
+    assert mademog_fused.weights_route(narrow._weights, narrow._static) == "simt"
+    assert "wgmma" not in narrow._packed
+    before = dict(mademog_fused.route_launch_count)
+    lp = mademog_fused.mademog_log_prob_cuda(x, narrow._weights, narrow._static,
+                                             packed=narrow._packed)
+    assert mademog_fused.route_launch_count["simt" + suffix] == before["simt" + suffix] + 1
+    _close(lp, mademog_fused.mademog_log_prob_plain(x, narrow._weights, narrow._static),
+           1e-3 if dtype == torch.float32 else BF16_LAD)
+    with pytest.raises(ValueError, match="wgmma"):
+        mademog_fused.mademog_log_prob_cuda(x, narrow._weights, narrow._static, gemm="wgmma")
 
 
 @pytest.mark.parametrize("case", sorted(MOG_CASES))
