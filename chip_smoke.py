@@ -165,6 +165,10 @@ cluster size.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
+Phase 3 also reads the card's floor for one launch, a one-element fill
+(``launch_floor_ms`` in the rows of B1 and B5-B8), and times B1 in both
+directions at 12,288 and 1,048,575 elements, as phase 17 times B5-B8.
+
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
 (a serving request for B1, B2, B5-B8, B9_wgmma and B11_wgmma, a train step for
@@ -212,7 +216,12 @@ N(0, 1) parameters, a stress case: 1e-2 against float64 on both, because
 such parameters make bins ~1e-2 wide with slopes down to 1e-3, where a
 one-ulp error of a bin edge moves the inverse by up to ~1e3 ulps; there
 the plain fp32 version itself moves by several 1e-4, and the run prints
-both. B2: 1e-3 on outputs and logabsdet at random init (ten layers of
+both. B1 and B7 at every layout of their group of lanes (``hold_layouts``:
+``B1_LAYOUT_BINS`` and ``B7_LAYOUT_BINS``, K = 1 or 2 to 200, which reach
+each of the six instantiations of each kernel, on 1,001 and 140,001
+elements, 0.5 N(0, 1) parameters from a generator seeded 19): as on the main path's values, 1e-4
+and 1e-3 or twice the plain fp32 version's distance from float64 (at
+K = 200 that version lies up to 5.9e-4 from float64 on the logabsdet). B2: 1e-3 on outputs and logabsdet at random init (ten layers of
 fp32 GEMMs and splines, summed over 30 elements).
 B2's other stages as its rq stage (1e-3, or within twice the plain fp32
 version's distance from float64: the affine inverse divides by scales down
@@ -416,6 +425,13 @@ TIE_CTX = dict(
          "0x1.4bd32ap+0", "0x1.913d90p-3", "0x1.48bed6p-1", "0x1.001d5ap+1",
          "0x1.012bf8p+0", "0x1.91fa5cp+0"))
 # the autoregressive family at full width: MAF (affine) and NSF-AR (rq)
+# the K at which phases 3 and 17 hold B1 and B7 on their group of lanes
+# (csrc/spline_lanes.cuh: G = lanes_for(ceil(K / 4)) lanes of 4 bins, past 128
+# bins the whole warp in chunks): each of the six instantiations of each
+# kernel, G = 2, 4, 8, 16, 32 and 32 chunked, at a K whose rows take 16-byte
+# loads (K % 4 == 0) and, where the layout allows, at one that does not
+B1_LAYOUT_BINS = (1, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
+B7_LAYOUT_BINS = (2, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
 MAF = dict(features=10, hidden_features=256, num_layers=5, num_blocks_per_layer=2)
 NSF_AR = dict(**MAF, num_bins=8, tail_bound=3.0)
 # the mixture-density family: "a typical neural-density-estimation config"
@@ -652,6 +668,37 @@ def hold_relative(torch, name, kernel, plain32, plain64, limits=(2.0, 2.0, 4.0, 
     return k, p
 
 
+def hold_layouts(torch, kid, wrapper, plain, widths, bins, device):
+    """Hold an elementwise spline kernel of the group-of-lanes layout (B1,
+    B7) at each K of ``bins`` (``widths(K)``: its parameters' widths) on
+    1,001 and 140,001 elements (one round a warp, and full warps of
+    rounds), both directions, 0.5 N(0, 1) parameters and inputs
+    at and past the tail bound 3, as ``hold`` holds the main path's values
+    (1e-4 on outputs, 1e-3 on the logabsdet, or twice the plain version's
+    distance from float64). The draws come from a generator of their own,
+    seeded 19, so that the shared generator's draws for later phases stay
+    as they were. Returns the largest |kernel - plain|."""
+    rng = np.random.default_rng(19)
+    worst = 0.0
+    for K in bins:
+        for n in (1001, 140001):
+            x = (2.5 * rng.standard_normal(n)).astype(np.float32)
+            x[:4] = [3.0, -3.0, 3.5, -3.5]
+            args = [torch.from_numpy(a).to(device) for a in
+                    [x] + [(0.5 * rng.standard_normal((n, p))).astype(np.float32)
+                           for p in widths(K)]]
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, tail_bound=3.0)
+                out, lad = wrapper(*args, **kw)
+                p_out, p_lad = plain(*args, **kw)
+                d_out, d_lad = plain(*[t.double() for t in args], **kw)
+                torch.cuda.synchronize()
+                tag = f"{kid} K={K} at {n} elements, {'inverse' if inverse else 'forward'}"
+                worst = max(worst, hold(f"{tag} out", out, p_out, d_out, 1e-4),
+                            hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3))
+    return worst
+
+
 def family_inputs(family, flow, x):
     """What the first coupling of ``flow`` hands its spline kernel for inputs
     ``x``: the transformed features, then the spline parameters in the
@@ -855,7 +902,7 @@ def main() -> int:
                                  for t in args[1:])]
             n = args[0].numel()
             log(f"B1 at {n} elements (flagship coupling 1, then N(0,1) parameters):")
-            errs = []
+            errs, stats = [], {}
             for inverse in (False, True):
                 kw = dict(inverse=inverse, tail_bound=B)
                 tag = "inverse" if inverse else "forward"
@@ -873,22 +920,40 @@ def main() -> int:
                 torch.cuda.synchronize()
                 hold_exact(f"stress {tag} out", out, p_out, d_out, 1e-2)
                 hold_exact(f"stress {tag} lad", lad, p_lad, d_lad, 1e-2)
-            run = lambda: rq_spline.rq_spline_cuda(*args, tail_bound=B)  # noqa: E731
-            run_plain = lambda: rq.unconstrained_rational_quadratic_spline_plain(  # noqa: E731
-                *args, tail_bound=B)
-            ms = device_ms(torch, run, 100, kernel="rq_spline_kernel")
-            ms_source = device_ms.source
-            plain_ms = device_ms(torch, run_plain, 10)
-            log(f"  a call, events: kernel {call_ms(torch, run, 100):.4f} ms  "
-                f"plain {call_ms(torch, run_plain, 10):.4f} ms")
-            nbytes = 4 * n * (1 + 2 * K + (K - 1) + 2)  # x, widths, heights, derivs; out, lad
-            nops = n * (12 * K + 60)                     # compares, exps, sums, RQ evaluation
-            bound_ms = 1e3 * max(nbytes / PEAK_BYTES, nops / PEAK_FP32_FLOPS)
-            bound_by = "bytes" if nbytes / PEAK_BYTES >= nops / PEAK_FP32_FLOPS else "operations"
-            log(f"  time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms "
-                f"({bound_by})")
-            b1[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+                run = lambda: rq_spline.rq_spline_cuda(*args, **kw)  # noqa: E731
+                run_plain = lambda: rq.unconstrained_rational_quadratic_spline_plain(  # noqa: E731
+                    *args, **kw)
+                ms = device_ms(torch, run, 100, kernel="rq_spline_kernel")
+                ms_source = device_ms.source
+                plain_ms = device_ms(torch, run_plain, 10)
+                log(f"  {tag} a call, events: kernel {call_ms(torch, run, 100):.4f} ms  "
+                    f"plain {call_ms(torch, run_plain, 10):.4f} ms")
+                nbytes = 4 * n * (1 + 2 * K + (K - 1) + 2)  # x, widths, heights, derivs; out, lad
+                nops = n * (12 * K + 60)                     # compares, exps, sums, RQ evaluation
+                bound_ms = 1e3 * max(nbytes / PEAK_BYTES, nops / PEAK_FP32_FLOPS)
+                bound_by = ("bytes" if nbytes / PEAK_BYTES >= nops / PEAK_FP32_FLOPS
+                            else "operations")
+                log(f"  {tag} time: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+                    f"{bound_ms:.5f} ms ({bound_by})")
+                pre = "inverse_" if inverse else ""
+                stats.update({pre + "ms": ms, pre + "ms_source": ms_source,
+                              pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
+                              pre + "bound_by": bound_by})
+            b1[n] = dict(err=max(errs), **stats)
+    # the card's floor for one launch, a one-element fill (as device_ms pads
+    # its traces with), read once the card runs at its clocks under load:
+    # after an idle spell the fill read twice as long
+    pad = torch.empty(1, device=dev)
+    launch_floor_ms = device_ms(torch, pad.zero_, 100)
+    log(f"one launch's floor (a one-element fill): {launch_floor_ms:.5f} ms, beside B1's bounds "
+        + ", ".join(f"{b1[n]['bound_ms']:.5f} at {n}" for n in b1))
+    for n in list(b1):
+        b1[n]["launch_floor_ms"] = launch_floor_ms
+    # every group layout of B1 (csrc/spline_lanes.cuh): 2 to 32 lanes of 4
+    # bins, chunks past 128 bins, one round a warp and full warps of rounds
+    b1["layouts_err"] = hold_layouts(torch, "B1", rq_spline.rq_spline_cuda,
+                                     rq.unconstrained_rational_quadratic_spline_plain,
+                                     lambda k: (k, k, k - 1), B1_LAYOUT_BINS, dev)
 
     # -- phase 4: B2 against its plain version (full-width flagship) -----------
     # both routes: the tensor-core kernel (csrc/nsf_flow_wgmma.cu, the route
@@ -2579,7 +2644,11 @@ def main() -> int:
                     stats.update({pre + "ms": ms, pre + "ms_source": ms_source,
                                   pre + "plain_ms": plain_ms, pre + "bound_ms": bound_ms,
                                   pre + "bound_by": bound_by})
-                family_stats[kid][n] = dict(err=max(errs), **stats)
+                family_stats[kid][n] = dict(err=max(errs), launch_floor_ms=launch_floor_ms,
+                                            **stats)
+        if kid == "B7":
+            family_stats[kid]["layouts_err"] = hold_layouts(
+                torch, kid, wrapper, plain, lambda k: (k, k - 1), B7_LAYOUT_BINS, dev)
         # gradients through the autograd Function: kernel forward, plain backward
         args = family_inputs(fam, flow_f, torch.randn(SERVE_BATCH, D, generator=gen).to(dev))
         for inverse in (False, True):
@@ -3715,7 +3784,10 @@ def main() -> int:
                          "B11_bf16": bf16_launches["B11_simt_bf16"]}
     rows = []
     for kid, stats, source, replaces, tpu in (
-            ("B1", b1[SERVE_BATCH * 3], "nflows_tpu_torch/csrc/rq_spline.cu",
+            ("B1", {**b1[SERVE_BATCH * 3], "ms_at_1048575": b1[(1 << 20) // 3 * 3]["ms"],
+                    "inverse_ms_at_1048575": b1[(1 << 20) // 3 * 3]["inverse_ms"],
+                    "layouts_err": b1["layouts_err"]},
+             "nflows_tpu_torch/csrc/rq_spline.cu",
              "nflows_tpu/ops/pallas/rq_spline.py:39", "ops/pallas/rq_spline.py:_kernel"),
             ("B2", with_context({**b2[SERVE_BATCH], "families": b2_families,
                                  "ms_at_65536": b2[1 << 16]["ms"],
@@ -3805,7 +3877,9 @@ def main() -> int:
              "ops/pallas/mademog_train.py:_bwd_kernel"),
             *((kid, {**family_stats[kid][SERVE_BATCH * 3],
                      f"ms_at_{big}": family_stats[kid][big]["ms"],
-                     f"inverse_ms_at_{big}": family_stats[kid][big]["inverse_ms"]},
+                     f"inverse_ms_at_{big}": family_stats[kid][big]["inverse_ms"],
+                     **({"layouts_err": family_stats[kid]["layouts_err"]}
+                        if "layouts_err" in family_stats[kid] else {})},
                f"nflows_tpu_torch/csrc/{stem}.cu", f"nflows_tpu/ops/pallas/{stem}.py:{line}",
                f"ops/pallas/{stem}.py:_kernel")
               for kid, stem, line, big in (
@@ -3825,7 +3899,7 @@ def main() -> int:
                if k.startswith(("inverse_", "forward_", "schedule_", "context_", "ms_at_",
                                 "families", "cluster_", "ms_by_", "active_", "held_",
                                 "degree_", "gemm_route", "simt_", "bound_basis",
-                                "cuda_core_"))},
+                                "cuda_core_", "launch_floor_", "layouts_"))},
         })
     for kid, stats, more, stem, replaces, tpu in (
             ("B2", b2_bf16_stats[SERVE_BATCH],

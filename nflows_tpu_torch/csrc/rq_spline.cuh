@@ -1,8 +1,9 @@
 // Rational-quadratic spline with linear tails, for one element.
 //
-// The one source of the RQ math on the card: the elementwise kernel
-// (rq_spline.cu, B1) and the whole-chain kernel (nsf_flow_kernel.cu, B2)
-// both call rq_spline_eval, so a fix lands once. Mirrors the TPU kernel's
+// The RQ math of the whole-chain kernels (B2's coupling stage, B9, B10),
+// one element a thread; the elementwise kernel B1 (rq_spline.cu) runs the
+// same steps on a group of lanes an element and repeats this evaluation of
+// the selected bin (rq_bin): a fix to it goes in both. Mirrors the TPU kernel's
 // arithmetic (nflows_tpu/ops/pallas/rq_spline.py:_kernel and
 // _spline_common.py:53-109): softmax with min-bin mixing, cumulative edges
 // pinned to +-B, softplus derivatives, sum-of-ge bin search, RQ evaluation
@@ -10,8 +11,8 @@
 // logabsdet outside [-B, B].
 //
 // The K parameters of one element are read with a stride, so the same
-// function reads B1's [..., K] rows (stride 1) and B2's K-major shared
-// memory tile (stride T). Nothing is held in a K-long register array:
+// function reads [..., K] rows (stride 1) and B2's K-major shared memory
+// tile (stride T). Nothing is held in a K-long register array:
 // K is a run-time value and a dynamically indexed array would go to local
 // memory. The parameters are read three times instead (maxima, softmax
 // sums, edge walk), from L1 or shared memory.

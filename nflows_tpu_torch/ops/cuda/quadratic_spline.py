@@ -27,6 +27,8 @@ def _launch(inputs, uw, uh, inverse, tail_bound, min_bin_width, min_bin_height):
     global launch_count
     K = uw.shape[-1]
     sc.check_inputs("quadratic_spline_cuda", inputs, widths=(uw, K), heights=(uh, K - 1))
+    if K < 2:
+        raise ValueError("quadratic_spline_cuda: needs at least 2 bins (K - 1 heights)")
     if min_bin_width * K > 1.0:
         raise ValueError("Minimal bin width too large for the number of bins")
     if min_bin_height * K > 1.0:

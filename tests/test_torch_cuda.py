@@ -29,7 +29,11 @@ by atomics in another order than autograd's); two launches on the same
 inputs agree within 1e-5 plus 1e-4 relative (only the order of the atomic
 adds differs). B5-B8 as B1: outputs 1e-4 and logabsdet 1e-3 against their
 plain versions (the plain fp32 versions are within 2.4e-5 of float64 on
-these inputs), gradients 1e-4 absolute and relative. The bf16-weight
+these inputs), gradients 1e-4 absolute and relative. B1 and B7 at every
+layout of their group of lanes (K from 1 to 200, 1 to 140,001 elements):
+the same bands, or twice the plain fp32 version's distance from float64
+(at K = 200 that version lies up to 5.9e-4 from float64 on the
+logabsdet). The bf16-weight
 instantiations of B2, B9 and B11, at full width, against their bf16 plain
 versions: the bands of benchmarks/hw_numerics.py:68-123 (5e-3 on outputs,
 2e-2 on logabsdet and log_prob), and a mean |delta| at most a quarter of
@@ -1576,6 +1580,52 @@ def test_b5_to_b8_wrappers_refuse_what_the_kernels_do_not_take(cuda, family):
         wrapper(args[0].t(), *[t.transpose(0, 1) for t in args[1:]], tail_bound=B)
     with pytest.raises(ValueError):
         wrapper(args[0][:-1].contiguous(), *args[1:], tail_bound=B)
+
+
+# B1 and B7 run a group of lanes an element (csrc/spline_lanes.cuh): K sets
+# the group, G = lanes_for(ceil(K / 4)) lanes of 4 bins each, and past 128
+# bins the warp's chunks; n sets the elements a warp takes (in rounds) and
+# need not fill the last block. GROUP_BINS reaches each instantiation, with
+# rows that take 16-byte loads (K % 4 == 0) and rows that do not: G = 2 at
+# K = 1 to 8, G = 4 at 9 to 16, G = 8 at 17 to 32, G = 16 at 33 to 64, the
+# whole warp at 65 to 128, and in chunks past 128
+GROUP_BINS = (1, 2, 5, 8, 12, 13, 16, 24, 27, 32, 33, 40, 100, 127, 128, 129, 200)
+GROUP_SPLINES = {
+    "rq": (lambda K: (K, K, K - 1), rq_spline, rq_spline.rq_spline_cuda,
+           rq.unconstrained_rational_quadratic_spline_plain),
+    "quadratic": SPLINE_FAMILIES["quadratic"],
+}
+
+
+@pytest.mark.parametrize("family,K", [(f, K) for f in sorted(GROUP_SPLINES)
+                                      for K in GROUP_BINS
+                                      if not (f == "quadratic" and K == 1)])
+@pytest.mark.parametrize("n", [1, 1001, 140001])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_b1_b7_every_group_size_matches_plain(cuda, family, K, n, inverse):
+    widths, module, wrapper, plain = GROUP_SPLINES[family]
+    rng = np.random.default_rng(1000 * K + n)
+    x = (2.5 * rng.standard_normal(n)).astype(np.float32)
+    x[:4] = np.array([B, -B, B + 0.5, -B - 0.5], np.float32)[:n]
+    args = [torch.from_numpy(a).to(cuda) for a in
+            [x] + [(0.5 * rng.standard_normal((n, p))).astype(np.float32) for p in widths(K)]]
+    before = module.launch_count
+    out, lad = wrapper(*args, inverse=inverse, tail_bound=B)
+    torch.cuda.synchronize()
+    assert module.launch_count == before + 1
+    p_out, p_lad = plain(*args, inverse=inverse, tail_bound=B)
+    d_out, d_lad = plain(*[t.double() for t in args], inverse=inverse, tail_bound=B)
+    _hold(out, p_out, d_out, 1e-4)
+    _hold(lad, p_lad, d_lad, 1e-3)
+    outside = args[0].abs() > B
+    assert torch.equal(out[outside], args[0][outside]) and not lad[outside].any()
+
+
+def test_b7_refuses_a_single_bin(cuda):
+    x = torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError):
+        quadratic_spline.quadratic_spline_cuda(x, torch.zeros(4, 1, device=cuda),
+                                               torch.zeros(4, 0, device=cuda), tail_bound=B)
 
 
 def _family_flow(device, family, features=6, hidden=32, layers=10, bins=8):

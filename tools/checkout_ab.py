@@ -16,12 +16,20 @@ degree kernel, where a checkout has one, else the fixed-point kernel), and
 B10 on whichever layout it chooses (a thread-block cluster a tile,
 csrc/maf_train_cluster.cu, where a checkout has it and the tiles leave SMs
 idle, else csrc/maf_train.cu).
+With ``--family unfused`` it times what a user of the unfused chains waits
+for instead: ``CompiledFlow(use_fused=False)`` ``log_prob`` and ``sample``
+requests of 4,096 on the full-width flagship NSF (ten B1 launches a
+request) and on its quadratic twin (``chip_smoke.family_flow``, ten B7),
+random weights from seed 0, each request's wall on the host's clock (the
+median of five means of ten requests, after three) and its device busy
+time (``chip_smoke.device_ms``); each side builds only B1's and B7's
+sources, which is all those chains launch.
 With ``--dtype bfloat16`` it times the serving kernels' bf16-weight
 instantiations instead, on the same models: B2 (forward and inverse on the
 flagship, forward on RealNVP), or with ``--family maf`` B9; both sides must
 have them (the training kernels are fp32 only and are left out).
 
-    python3 tools/checkout_ab.py OLD_CHECKOUT [NEW_CHECKOUT] [--rounds R] [--family maf]
+    python3 tools/checkout_ab.py OLD_CHECKOUT [NEW_CHECKOUT] [--rounds R] [--family maf|unfused]
         [--dtype bfloat16]
 
 Where ``tools/kernel_ab.py`` swaps one kernel library inside one process
@@ -163,6 +171,50 @@ for tag, cls, cfg, sizes in (("maf_", MaskedAutoregressiveFlow, cs.MAF, (512, 20
 print(json.dumps(out))
 """
 
+# The unfused requests; prints {"flagship_log_prob_wall": ms, "flagship_log_prob_busy":
+# ms, "flagship_sample_wall": ms, ..., "quadratic_sample_busy": ms}.
+TURN_UNFUSED = r"""
+import json, statistics, sys, time
+sys.path.insert(0, ".")
+import numpy as np, torch
+import chip_smoke as cs
+from nflows_tpu_torch import NeuralSplineFlow
+from nflows_tpu_torch.ops.cuda import _build
+from nflows_tpu_torch.serving import CompiledFlow
+cs.log = lambda *args: None
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+# the unfused chains launch B1 and B7 only: build those two sources
+_sources = _build._sources
+_build._sources = lambda: [p for p in _sources() if p.stem in ("rq_spline", "quadratic_spline")]
+D, N = cs.FLAGSHIP["features"], cs.SERVE_BATCH
+flows = {"flagship": NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
+                                      rng=np.random.default_rng(0), device="cuda",
+                                      **cs.FLAGSHIP).eval(),
+         "quadratic": cs.family_flow("quadratic", "cuda", seed=0)}
+x = torch.randn(N, D, generator=torch.Generator().manual_seed(1)).cuda()
+out = {}
+for tag, flow in flows.items():
+    server = CompiledFlow(flow, batch_size=N, features=D, use_fused=False)
+    assert not server.is_fused
+    for endpoint, fn in (
+            ("log_prob", lambda: server.log_prob(x)),
+            ("sample", lambda: server.sample(torch.Generator(device="cuda").manual_seed(2)))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        means = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            means.append(1e3 * (time.perf_counter() - t0) / 10)
+        out[f"{tag}_{endpoint}_wall"] = statistics.median(means)
+        out[f"{tag}_{endpoint}_busy"] = cs.device_ms(torch, fn, 3)
+print(json.dumps(out))
+"""
+
 
 def turn(checkout: str, code: str) -> dict:
     done = subprocess.run([sys.executable, "-c", code], cwd=checkout, check=True,
@@ -181,10 +233,11 @@ def main(argv) -> int:
     argv, rounds = _option(argv, "--rounds", "2")
     argv, family = _option(argv, "--family", "coupling")
     argv, dtype = _option(argv, "--dtype", "float32")
-    if (not 1 <= len(argv) <= 2 or family not in ("coupling", "maf")
+    if (not 1 <= len(argv) <= 2 or family not in ("coupling", "maf", "unfused")
             or dtype not in ("float32", "bfloat16")):
         sys.exit(__doc__)
-    code = (TURN_MAF if family == "maf" else TURN).replace("__DTYPE__", dtype)
+    code = {"maf": TURN_MAF, "unfused": TURN_UNFUSED}.get(family, TURN).replace(
+        "__DTYPE__", dtype)
     old = os.path.abspath(argv[0])
     new = os.path.abspath(argv[1]) if len(argv) == 2 else ROOT
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -195,10 +248,13 @@ def main(argv) -> int:
             times = turn(checkout, code)
             seen[tag].append(times)
             print(json.dumps({"round": r, "side": tag, **times}), flush=True)
-    # medians of each side's turns, and the new side's change
+    # medians and ranges of each side's turns, and the new side's change
     for key in seen["old"][0]:
         med = {tag: statistics.median(t[key] for t in turns) for tag, turns in seen.items()}
+        span = {tag: [min(t[key] for t in turns), max(t[key] for t in turns)]
+                for tag, turns in seen.items()}
         print(json.dumps({"key": key, "old_ms": med["old"], "new_ms": med["new"],
+                          "old_range": span["old"], "new_range": span["new"],
                           "change_percent": 100.0 * (med["new"] / med["old"] - 1.0)}))
     return 0
 

@@ -1,15 +1,16 @@
-"""A/B two versions of a whole-chain kernel on one card: B2
-(``nsf_flow_kernel``), the training kernel B3 (``nsf_train``), the
-autoregressive chain B9 (``maf_flow_kernel``, its fixed point forced to
-that kernel with ``schedule="fixed_point"``; ``maf_degree_inverse``, the
-fixed point solved in degree order) or its backward B10 (``maf_train``,
-one block a tile: csrc/maf_train.cu at every batch, whatever cluster size
-the wrapper would choose).
+"""A/B two versions of a kernel on one card: B2 (``nsf_flow_kernel``), the
+training kernel B3 (``nsf_train``), the autoregressive chain B9
+(``maf_flow_kernel``, its fixed point forced to that kernel with
+``schedule="fixed_point"``; ``maf_degree_inverse``, the fixed point solved in
+degree order), its backward B10 (``maf_train``, one block a tile:
+csrc/maf_train.cu at every batch, whatever cluster size the wrapper would
+choose), or the elementwise splines B1 (``rq_spline``) and B7
+(``quadratic_spline``).
 
     python3 tools/kernel_ab.py OLD_CSRC_DIR [STEM] [more old dirs]
 
 STEM is one of nsf_flow_kernel (the default), nsf_train, maf_flow_kernel,
-maf_degree_inverse, maf_train.
+maf_degree_inverse, maf_train, rq_spline, quadratic_spline.
 
 Builds ``OLD_CSRC_DIR/<kernel>.cu`` beside the checkout's own
 ``nflows_tpu_torch/csrc/<kernel>.cu`` (same nvcc flags), holds both against
@@ -17,13 +18,19 @@ the kernel's plain version on the full-width flagship (random weights from
 seed 0), and times them in turns (old, new, new, old) with torch.profiler
 device time: B2 at N = 4,096 and 65,536, B3 at N = 512 and 4,096, B9 forward
 and inverse at N = 4,096 (the inverse on either of its kernels, the other
-one's time printed beside) and B10 at N = 512 and 4,096 on the full-width MAF
+one's time printed beside), B10 at N = 512 and 4,096 on the full-width MAF
 (features 10, hidden 256, 5 layers, final-layer weights scaled as in
-chip_smoke.py). Further
+chip_smoke.py), and B1 and B7 forward and inverse on what the first coupling
+of the flagship (rq) or of its quadratic twin hands its spline kernel for
+4,096 and 349,525 samples (12,288 and 1,048,575 elements, chip_smoke.py's
+phases 3 and 17), with the card's floor for one launch (a one-element
+fill) beside. Further
 directories are timed as well, each in turns with the checkout's kernel.
 The old source must have the checkout's C interface. Make OLD_CSRC_DIR with
 ``git archive <commit> nflows_tpu_torch/csrc | tar -x -C <dir>`` into a
-directory that .gitignore lists.
+directory that .gitignore lists. For B1 and B7 a copy of the checkout's
+``csrc/`` with ``constexpr int V = 1;`` in ``spline_lanes.cuh`` builds the
+layout of one bin a lane (G the power of two at least K) to time beside.
 """
 
 from __future__ import annotations
@@ -50,14 +57,16 @@ def main(kernel: str, old_dirs) -> int:
     from nflows_tpu_torch.ops.cuda import _build
     from nflows_tpu_torch.ops.cuda import nsf_flow_kernel as nfk
     from nflows_tpu_torch.ops.cuda import maf_flow_kernel as mfk
-    from nflows_tpu_torch.ops.cuda import maf_train, nsf_train
+    from nflows_tpu_torch.ops.cuda import _spline_common, maf_train, nsf_train
     from nflows_tpu_torch.ops.cuda.nsf_fused import fuse_nsf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line())
     declare = {"nsf_flow_kernel": nfk._declare, "nsf_train": nsf_train._declare,
                "maf_flow_kernel": mfk._declare, "maf_degree_inverse": mfk._declare_degrees,
-               "maf_train": maf_train._declare}[kernel]
+               "maf_train": maf_train._declare,
+               **{stem: _spline_common._declare(stem, params, floats)
+                  for stem, (_, params, floats) in SPLINES.items()}}[kernel]
     new = _build.build_all()[kernel]
     declare(new)
     olds = []
@@ -92,6 +101,8 @@ def main(kernel: str, old_dirs) -> int:
 
     if kernel in ("maf_flow_kernel", "maf_degree_inverse", "maf_train"):
         return maf_turns(torch, kernel, olds, new, use, turns, gen)
+    if kernel in SPLINES:
+        return spline_turns(torch, kernel, olds, new, use, turns, flow, gen)
 
     if kernel == "nsf_flow_kernel":
         fused = fuse_nsf(flow)
@@ -130,6 +141,50 @@ def main(kernel: str, old_dirs) -> int:
         grads = {k: torch.empty_like(v) for k, v in w.items()}
         turns(n, "loss and gradients", lambda: nsf_train.nsf_loss_grad_cuda(  # noqa: B023
             x, w, trainer._indices, packed=packed, grads=grads, **kw), "nsf_loss_grad_kernel")
+    return 0
+
+
+# stem -> (chip_smoke's family, parameter tensors, float arguments of the C entry point)
+SPLINES = {"rq_spline": ("rq", 3, 5), "quadratic_spline": ("quadratic", 2, 3)}
+
+
+def spline_turns(torch, kernel, olds, new, use, turns, flow, gen):
+    """B1 or B7 on the first coupling's values: each library against the
+    plain version, then the timed turns, both directions, at 12,288 and
+    1,048,575 elements."""
+    import chip_smoke as cs
+    from nflows_tpu_torch.ops.cuda import quadratic_spline, rq_spline
+    from nflows_tpu_torch.ops.splines import quadratic, rational_quadratic
+
+    family = SPLINES[kernel][0]
+    wrapper, plain = {
+        "rq": (rq_spline.rq_spline_cuda,
+               rational_quadratic.unconstrained_rational_quadratic_spline_plain),
+        "quadratic": (quadratic_spline.quadratic_spline_cuda,
+                      quadratic.unconstrained_quadratic_spline_plain)}[family]
+    if family != "rq":
+        flow = cs.family_flow(family, "cuda", seed=0)
+    B, D = cs.FLAGSHIP["tail_bound"], cs.FLAGSHIP["features"]
+    with torch.no_grad():
+        for samples in (4096, (1 << 20) // 3):
+            args = cs.family_inputs(family, flow,
+                                    torch.randn(samples, D, generator=gen).cuda())
+            n = args[0].numel()
+            for inverse in (False, True):
+                kw = dict(inverse=inverse, tail_bound=B)
+                p_out, p_lad = plain(*args, **kw)
+                for tag, lib in (*olds, ("new", new)):
+                    use(lib)
+                    out, lad = wrapper(*args, **kw)
+                    torch.cuda.synchronize()
+                    print(f"N={n} inverse={inverse} {tag}: |out-plain| "
+                          f"{cs.max_err(out, p_out):.3e} |lad-plain| {cs.max_err(lad, p_lad):.3e}")
+                turns(n, "inverse" if inverse else "forward",
+                      lambda: wrapper(*args, **kw), f"{kernel}_kernel")  # noqa: B023
+    # after the turns, with the card at its clocks under load
+    pad = torch.empty(1, device="cuda")
+    print(f"one launch's floor (a one-element fill): {cs.device_ms(torch, pad.zero_, 100):.5f} "
+          "device ms")
     return 0
 
 
@@ -221,7 +276,7 @@ def clocks_under_load(torch, fn, seconds=1.0):
 
 if __name__ == "__main__":
     STEMS = ("nsf_flow_kernel", "nsf_train", "maf_flow_kernel", "maf_degree_inverse",
-             "maf_train")
+             "maf_train", *SPLINES)
     dirs = [a for a in sys.argv[1:] if a not in STEMS]
     kernels = [a for a in sys.argv[1:] if a in STEMS]
     if not dirs or len(kernels) > 1:
