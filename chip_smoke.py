@@ -216,11 +216,12 @@ N(0, 1) parameters, a stress case: 1e-2 against float64 on both, because
 such parameters make bins ~1e-2 wide with slopes down to 1e-3, where a
 one-ulp error of a bin edge moves the inverse by up to ~1e3 ulps; there
 the plain fp32 version itself moves by several 1e-4, and the run prints
-both. B1 and B7 at every layout of their group of lanes (``hold_layouts``:
-``B1_LAYOUT_BINS`` and ``B7_LAYOUT_BINS``, K = 1 or 2 to 200, which reach
+both. B1, B5, B7 and B8 at every layout of their group of lanes
+(``hold_layouts``: ``B1_LAYOUT_BINS``, ``B5_LAYOUT_BINS``,
+``B7_LAYOUT_BINS`` and ``B8_LAYOUT_BINS``, K = 1 or 2 to 200, which reach
 each of the six instantiations of each kernel, on 1,001 and 140,001
-elements, 0.5 N(0, 1) parameters from a generator seeded 19): as on the main path's values, 1e-4
-and 1e-3 or twice the plain fp32 version's distance from float64 (at
+elements, 0.5 N(0, 1) parameters from a generator seeded 19): as on the
+main path's values, 1e-4 and 1e-3 or twice the plain fp32 version's distance from float64 (at
 K = 200 that version lies up to 5.9e-4 from float64 on the logabsdet). B2: 1e-3 on outputs and logabsdet at random init (ten layers of
 fp32 GEMMs and splines, summed over 30 elements).
 B2's other stages as its rq stage (1e-3, or within twice the plain fp32
@@ -425,13 +426,17 @@ TIE_CTX = dict(
          "0x1.4bd32ap+0", "0x1.913d90p-3", "0x1.48bed6p-1", "0x1.001d5ap+1",
          "0x1.012bf8p+0", "0x1.91fa5cp+0"))
 # the autoregressive family at full width: MAF (affine) and NSF-AR (rq)
-# the K at which phases 3 and 17 hold B1 and B7 on their group of lanes
+# the K at which phases 3 and 17 hold B1, B5, B7 and B8 on their group of lanes
 # (csrc/spline_lanes.cuh: G = lanes_for(ceil(K / 4)) lanes of 4 bins, past 128
 # bins the whole warp in chunks): each of the six instantiations of each
 # kernel, G = 2, 4, 8, 16, 32 and 32 chunked, at a K whose rows take 16-byte
 # loads (K % 4 == 0) and, where the layout allows, at one that does not
 B1_LAYOUT_BINS = (1, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
 B7_LAYOUT_BINS = (2, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
+# ... and B5 and B8 on the same layout (B8's K = 129: bin 128, whose size
+# the knot derivative of bin 127 needs, lies in the next chunk)
+B5_LAYOUT_BINS = (1, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
+B8_LAYOUT_BINS = (1, 5, 8, 13, 16, 27, 32, 40, 100, 127, 129, 200)
 MAF = dict(features=10, hidden_features=256, num_layers=5, num_blocks_per_layer=2)
 NSF_AR = dict(**MAF, num_bins=8, tail_bound=3.0)
 # the mixture-density family: "a typical neural-density-estimation config"
@@ -670,7 +675,7 @@ def hold_relative(torch, name, kernel, plain32, plain64, limits=(2.0, 2.0, 4.0, 
 
 def hold_layouts(torch, kid, wrapper, plain, widths, bins, device):
     """Hold an elementwise spline kernel of the group-of-lanes layout (B1,
-    B7) at each K of ``bins`` (``widths(K)``: its parameters' widths) on
+    B5, B7, B8) at each K of ``bins`` (``widths(K)``: its parameters' widths) on
     1,001 and 140,001 elements (one round a warp, and full warps of
     rounds), both directions, 0.5 N(0, 1) parameters and inputs
     at and past the tail bound 3, as ``hold`` holds the main path's values
@@ -1486,7 +1491,8 @@ def main() -> int:
 
     def time_steps(title, make_routes, family, extra):
         """Time a step of each route at batches 512, 2,048 and 4,096: the wall
-        time over 20 steps ending in a synchronise, after 3 warm-up steps,
+        time over 20 steps (the eager route's over 5, each some hundred
+        milliseconds) ending in a synchronise, after 3 warm-up steps,
         and the device busy time of one (torch.profiler; three profiled
         steps on the eager route, some thousand launches each).
         ``make_routes(n)`` gives (name -> step, four argument tuples, the
@@ -1495,8 +1501,8 @@ def main() -> int:
         floor ``fused_trainer(auto=True)`` keeps for ``family``; returns
         the wall times by (route, batch), and keeps the device busy times
         in ``step_busy`` by (title, route, batch)."""
-        log(f"{title} step times (host clock over 20 steps ending in a synchronise; device "
-            "busy from torch.profiler):")
+        log(f"{title} step times (host clock over 20 steps, the eager route's over 5, ending "
+            "in a synchronise; device busy from torch.profiler):")
         sizes = (TRAIN_BATCH, 2048, SERVE_BATCH)
         times = {}
         for n in sizes:
@@ -1505,11 +1511,12 @@ def main() -> int:
                 for a in args[:3]:
                     step(*a)
                 torch.cuda.synchronize()
+                reps = 5 if name == "eager" else 20
                 t0 = time.perf_counter()
-                for i in range(20):
+                for i in range(reps):
                     step(*args[i % 4])
                 torch.cuda.synchronize()
-                wall = 1e3 * (time.perf_counter() - t0) / 20
+                wall = 1e3 * (time.perf_counter() - t0) / reps
                 busy = device_ms(torch, lambda: step(*args[0]),  # noqa: B023
                                  3 if name == "eager" else 10)
                 times[(name, n)] = wall
@@ -2597,6 +2604,10 @@ def main() -> int:
                   cubic.unconstrained_cubic_spline_plain, "cubic_spline_kernel",
                   2 * K + 2, 12 * K + 80, 12 * K + 80 + 9 * cubic.BISECTION_STEPS),
     }
+    # phase 17's kernels on B1's group of lanes: their parameters' widths, the K held
+    group_layouts = {"B5": (lambda k: (k, k, k - 1, k), B5_LAYOUT_BINS),
+                     "B7": (lambda k: (k, k - 1), B7_LAYOUT_BINS),
+                     "B8": (lambda k: (k, k, 1, 1), B8_LAYOUT_BINS)}
     family_flows = {"lrs": NeuralSplineFlow(spline="lrs", **seeded(0), **FLAGSHIP).eval()}
     for fam in ("linear", "quadratic", "cubic"):
         family_flows[fam] = family_flow(fam, dev, seed=0)
@@ -2646,9 +2657,10 @@ def main() -> int:
                                   pre + "bound_by": bound_by})
                 family_stats[kid][n] = dict(err=max(errs), launch_floor_ms=launch_floor_ms,
                                             **stats)
-        if kid == "B7":
+        if kid in group_layouts:
+            widths, held_bins = group_layouts[kid]
             family_stats[kid]["layouts_err"] = hold_layouts(
-                torch, kid, wrapper, plain, lambda k: (k, k - 1), B7_LAYOUT_BINS, dev)
+                torch, kid, wrapper, plain, widths, held_bins, dev)
         # gradients through the autograd Function: kernel forward, plain backward
         args = family_inputs(fam, flow_f, torch.randn(SERVE_BATCH, D, generator=gen).to(dev))
         for inverse in (False, True):

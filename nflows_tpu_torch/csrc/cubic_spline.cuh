@@ -31,6 +31,50 @@ __device__ __forceinline__ float sign0(float v) {
   return (v > 0.0f) ? 1.0f : ((v < 0.0f) ? -1.0f : 0.0f);
 }
 
+// Steffen's derivative at the knot between two bins of slopes sp, sn and
+// widths wp, wn (sign(0) = 0)
+__device__ __forceinline__ float steffen_derivative(float sp, float sn, float wp, float wn) {
+  const float m1 = fminf(fabsf(sp), fabsf(sn));
+  const float m2 = 0.5f * (wn * sp + wp * sn) / (wp + wn);
+  return fminf(m1, m2) * (sign0(sp) + sign0(sn));
+}
+
+// The cubic a t^3 + b t^2 + c t + d of the selected bin, t = x - left_w,
+// from x normalised to [0, 1], the bin's knots left_w, right_w: forward, or
+// the inverse by bisection of [0, right_w - left_w] and one Newton step.
+// cubic_spline_eval ends here, and so does B8 (cubic_spline.cu), which finds
+// the bin on a group of lanes.
+__device__ __forceinline__ void cubic_bin_eval(float x_orig, bool inside, float x, float a,
+                                               float b, float c, float d, float left_w,
+                                               float right_w, bool inverse, float B, float* out,
+                                               float* lad) {
+  float shifted, out01, l;
+  if (inverse) {
+    float lo = 0.0f, hi = right_w - left_w;
+    for (int i = 0; i < kCubicBisectionSteps; ++i) {
+      const float mid = 0.5f * (lo + hi);
+      const float fmid = ((a * mid + b) * mid + c) * mid + d - x;
+      const bool go_right = fmid < 0.0f;
+      lo = go_right ? mid : lo;
+      hi = go_right ? hi : mid;
+    }
+    const float t = 0.5f * (lo + hi);
+    const float deriv = 3.0f * a * (t * t) + 2.0f * b * t + c;
+    const float f = ((a * t + b) * t + c) * t + d - x;
+    shifted = t - f / deriv;
+    out01 = shifted + left_w;
+    l = -logf(3.0f * a * (shifted * shifted) + 2.0f * b * shifted + c);
+  } else {
+    shifted = x - left_w;
+    out01 = a * (shifted * shifted * shifted) + b * (shifted * shifted) + c * shifted + d;
+    l = logf(3.0f * a * (shifted * shifted) + 2.0f * b * shifted + c);
+  }
+  out01 = fminf(fmaxf(out01, 0.0f), 1.0f);
+  *out = inside ? out01 * (2.0f * B) - B : x_orig;
+  *lad = inside ? l : 0.0f;
+}
+
+
 // uw, uh: K values at [k * stride]; dl, dr: the two boundary parameters.
 __device__ __forceinline__ void cubic_spline_eval(
     float x_orig, const float* uw, const float* uh, float dl, float dr,
@@ -70,9 +114,7 @@ __device__ __forceinline__ void cubic_spline_eval(
     if (k == K) return sigmoid(dr) * 3.0f * slope(K - 1);
     const float sp = slope(k - 1), sn = slope(k);
     const float wp = width(k - 1), wn = width(k);
-    const float m1 = fminf(fabsf(sp), fabsf(sn));
-    const float m2 = 0.5f * (wn * sp + wp * sn) / (wp + wn);
-    return fminf(m1, m2) * (sign0(sp) + sign0(sn));
+    return steffen_derivative(sp, sn, wp, wn);
   };
   const float ws = width(sel), ss = slope(sel);
   const float d0 = derivative(sel), d1 = derivative(sel + 1);
@@ -81,30 +123,7 @@ __device__ __forceinline__ void cubic_spline_eval(
   const float c = d0;
   const float d = sel_ch;
 
-  float shifted, out01, l;
-  if (inverse) {
-    float lo = 0.0f, hi = right_w - left_w;
-    for (int i = 0; i < kCubicBisectionSteps; ++i) {
-      const float mid = 0.5f * (lo + hi);
-      const float fmid = ((a * mid + b) * mid + c) * mid + d - x;
-      const bool go_right = fmid < 0.0f;
-      lo = go_right ? mid : lo;
-      hi = go_right ? hi : mid;
-    }
-    const float t = 0.5f * (lo + hi);
-    const float deriv = 3.0f * a * (t * t) + 2.0f * b * t + c;
-    const float f = ((a * t + b) * t + c) * t + d - x;
-    shifted = t - f / deriv;
-    out01 = shifted + left_w;
-    l = -logf(3.0f * a * (shifted * shifted) + 2.0f * b * shifted + c);
-  } else {
-    shifted = x - left_w;
-    out01 = a * (shifted * shifted * shifted) + b * (shifted * shifted) + c * shifted + d;
-    l = logf(3.0f * a * (shifted * shifted) + 2.0f * b * shifted + c);
-  }
-  out01 = fminf(fmaxf(out01, 0.0f), 1.0f);
-  *out = inside ? out01 * (2.0f * B) - B : x_orig;
-  *lad = inside ? l : 0.0f;
+  cubic_bin_eval(x_orig, inside, x, a, b, c, d, left_w, right_w, inverse, B, out, lad);
 }
 
 }  // namespace nflows

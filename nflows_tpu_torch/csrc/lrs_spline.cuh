@@ -31,6 +31,55 @@ struct LRSConfig {
   float edge_derivative; // min_derivative + softplus(pad constant)
 };
 
+// The two Möbius pieces of the selected bin, from x (clamped into
+// [-B, B]): the bin's lower edges x0, y0, its width and height w, h, the
+// derivatives d0, d1 at its knots and its lambda. lrs_spline_eval ends
+// here, and so does B5 (lrs_spline.cu), which finds the bin on a group of
+// lanes.
+__device__ __forceinline__ void lrs_bin_eval(float x_orig, bool inside, float x, float x0,
+                                             float y0, float w, float h, float d0, float d1,
+                                             float lam, bool inverse, float* out, float* lad) {
+  const float y1 = y0 + h;
+  const float wb = sqrtf(d0 / d1);
+  const float ym = ((1.0f - lam) * y0 + lam * wb * y1) / ((1.0f - lam) + lam * wb);
+  const float wm = d0 * lam * w / (ym - y0);
+
+  float theta;
+  bool use_a;
+  if (inverse) {
+    use_a = x <= ym;
+    if (use_a) {
+      const float ya = fminf(x, ym);
+      theta = lam * (ya - y0) / (wm * (ym - ya) + (ya - y0));
+    } else {
+      const float yb = fmaxf(x, ym);
+      theta = (wm * (ym - yb) + wb * lam * (yb - y1)) / (wm * (ym - yb) + wb * (yb - y1));
+    }
+  } else {
+    theta = (x - x0) / w;
+    use_a = theta <= lam;
+  }
+
+  float y, l;
+  if (use_a) {
+    const float ta = fminf(theta, lam);
+    const float den = (lam - ta) + wm * ta;
+    y = (y0 * (lam - ta) + wm * ym * ta) / den;
+    l = logf(wm) + logf(lam) + logf(ym - y0) - 2.0f * logf(den) - logf(w);
+  } else {
+    const float tb = fmaxf(theta, lam);
+    const float den = wm * (1.0f - tb) + wb * (tb - lam);
+    y = (wm * ym * (1.0f - tb) + wb * y1 * (tb - lam)) / den;
+    l = logf(wm) + logf(wb) + log1pf(-lam) + logf(y1 - ym) - 2.0f * logf(den) - logf(w);
+  }
+  if (inverse) {
+    y = x0 + theta * w;
+    l = -l;
+  }
+  *out = inside ? y : x_orig;
+  *lad = inside ? l : 0.0f;
+}
+
 // uw, uh, ul: K values at [k * stride]; ud: K-1 interior derivatives.
 __device__ __forceinline__ void lrs_spline_eval(
     float x_orig, const float* uw, const float* uh, const float* ud,
@@ -71,45 +120,7 @@ __device__ __forceinline__ void lrs_spline_eval(
   const float lam = cfg.min_lambda +
                     (1.0f - 2.0f * cfg.min_lambda) * sigmoid(ul[sel * stride]);
 
-  const float y1 = y0 + h;
-  const float wb = sqrtf(d0 / d1);
-  const float ym = ((1.0f - lam) * y0 + lam * wb * y1) / ((1.0f - lam) + lam * wb);
-  const float wm = d0 * lam * w / (ym - y0);
-
-  float theta;
-  bool use_a;
-  if (inverse) {
-    use_a = x <= ym;
-    if (use_a) {
-      const float ya = fminf(x, ym);
-      theta = lam * (ya - y0) / (wm * (ym - ya) + (ya - y0));
-    } else {
-      const float yb = fmaxf(x, ym);
-      theta = (wm * (ym - yb) + wb * lam * (yb - y1)) / (wm * (ym - yb) + wb * (yb - y1));
-    }
-  } else {
-    theta = (x - x0) / w;
-    use_a = theta <= lam;
-  }
-
-  float y, l;
-  if (use_a) {
-    const float ta = fminf(theta, lam);
-    const float den = (lam - ta) + wm * ta;
-    y = (y0 * (lam - ta) + wm * ym * ta) / den;
-    l = logf(wm) + logf(lam) + logf(ym - y0) - 2.0f * logf(den) - logf(w);
-  } else {
-    const float tb = fmaxf(theta, lam);
-    const float den = wm * (1.0f - tb) + wb * (tb - lam);
-    y = (wm * ym * (1.0f - tb) + wb * y1 * (tb - lam)) / den;
-    l = logf(wm) + logf(wb) + log1pf(-lam) + logf(y1 - ym) - 2.0f * logf(den) - logf(w);
-  }
-  if (inverse) {
-    y = x0 + theta * w;
-    l = -l;
-  }
-  *out = inside ? y : x_orig;
-  *lad = inside ? l : 0.0f;
+  lrs_bin_eval(x_orig, inside, x, x0, y0, w, h, d0, d1, lam, inverse, out, lad);
 }
 
 }  // namespace nflows

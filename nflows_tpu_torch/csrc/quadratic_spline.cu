@@ -19,8 +19,8 @@
 // the bin by a ballot of the interior knots and the selected bin's knots by
 // shuffles from the lanes of bins sel and sel - 1. A warp takes up to 32
 // elements in rounds, each lane keeping one element's bin, and then every
-// lane evaluates the quadratic of its element's bin (quadratic_spline_eval's
-// arithmetic) and writes out and lad. Where K > 128 the warp walks the bins
+// lane evaluates the quadratic of its element's bin (quadratic_bin_eval,
+// where quadratic_spline_eval ends too) and writes out and lad. Where K > 128 the warp walks the bins
 // in chunks of 128, recomputing each chunk's exps and softplus in each of
 // its passes and the chunk of the selected bin once more, and evaluates
 // each element within its round.
@@ -54,7 +54,7 @@ struct Selected {
   float loc, cdf, w, h0, h1;
 };
 
-// quadratic_spline_eval's evaluation of element i in its bin s
+// element i in its bin s (quadratic_bin_eval, as quadratic_spline_eval ends)
 __device__ __forceinline__ void quadratic_bin(const float* __restrict__ x, int64_t i, float B,
                                               int inverse, const Selected& s,
                                               float* __restrict__ out,
@@ -62,23 +62,8 @@ __device__ __forceinline__ void quadratic_bin(const float* __restrict__ x, int64
   const float x_orig = __ldg(x + i);
   const bool inside = (x_orig >= -B) && (x_orig <= B);
   const float xn = (fminf(fmaxf(x_orig, -B), B) + B) / (2.0f * B);
-  const float a = 0.5f * (s.h1 - s.h0) * s.w;
-  const float b = s.h0 * s.w;
-  const float c = s.cdf;
-  float out01, l;
-  if (inverse) {
-    const float c_ = c - xn;
-    const float disc = fmaxf(b * b - 4.0f * a * c_, 0.0f);
-    const float alpha = (-2.0f * c_) / (b + sqrtf(disc));
-    out01 = fminf(fmaxf(alpha * s.w + s.loc, 0.0f), 1.0f);
-    l = -logf(alpha * (s.h1 - s.h0) + s.h0);
-  } else {
-    const float alpha = (xn - s.loc) / s.w;
-    out01 = fminf(fmaxf(a * alpha * alpha + b * alpha + c, 0.0f), 1.0f);
-    l = logf(alpha * (s.h1 - s.h0) + s.h0);
-  }
-  out[i] = inside ? out01 * (2.0f * B) - B : x_orig;
-  lad[i] = inside ? l : 0.0f;
+  nflows::quadratic_bin_eval(x_orig, inside, xn, s.loc, s.cdf, s.w, s.h0, s.h1, inverse != 0, B,
+                             out + i, lad + i);
 }
 
 template <int G, bool CHUNKED>

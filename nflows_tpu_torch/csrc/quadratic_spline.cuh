@@ -27,6 +27,33 @@ struct QuadraticConfig {
   float min_bin_height;
 };
 
+// The quadratic in its selected bin, from x normalised to [0, 1]: the
+// bin's lower location and CDF knots loc, cdf, its width w and the heights
+// h0, h1 at its knots. quadratic_spline_eval ends here, and so does B7
+// (quadratic_spline.cu), which finds the bin on a group of lanes.
+__device__ __forceinline__ void quadratic_bin_eval(float x_orig, bool inside, float x,
+                                                   float sel_loc, float sel_cdf, float sel_w,
+                                                   float sel_h0, float sel_h1, bool inverse,
+                                                   float B, float* out, float* lad) {
+  const float a = 0.5f * (sel_h1 - sel_h0) * sel_w;
+  const float b = sel_h0 * sel_w;
+  const float c = sel_cdf;
+  float out01, l;
+  if (inverse) {
+    const float c_ = c - x;
+    const float disc = fmaxf(b * b - 4.0f * a * c_, 0.0f);
+    const float alpha = (-2.0f * c_) / (b + sqrtf(disc));
+    out01 = fminf(fmaxf(alpha * sel_w + sel_loc, 0.0f), 1.0f);
+    l = -logf(alpha * (sel_h1 - sel_h0) + sel_h0);
+  } else {
+    const float alpha = (x - sel_loc) / sel_w;
+    out01 = fminf(fmaxf(a * alpha * alpha + b * alpha + c, 0.0f), 1.0f);
+    l = logf(alpha * (sel_h1 - sel_h0) + sel_h0);
+  }
+  *out = inside ? out01 * (2.0f * B) - B : x_orig;
+  *lad = inside ? l : 0.0f;
+}
+
 // uw: K unnormalised widths at uw[k * stride]; uh: K-1 unnormalised heights.
 __device__ __forceinline__ void quadratic_spline_eval(
     float x_orig, const float* uw, const float* uh, int stride, bool inverse,
@@ -81,23 +108,8 @@ __device__ __forceinline__ void quadratic_spline_eval(
     h0 = h1;
   }
 
-  const float a = 0.5f * (sel_h1 - sel_h0) * sel_w;
-  const float b = sel_h0 * sel_w;
-  const float c = sel_cdf;
-  float out01, l;
-  if (inverse) {
-    const float c_ = c - x;
-    const float disc = fmaxf(b * b - 4.0f * a * c_, 0.0f);
-    const float alpha = (-2.0f * c_) / (b + sqrtf(disc));
-    out01 = fminf(fmaxf(alpha * sel_w + sel_loc, 0.0f), 1.0f);
-    l = -logf(alpha * (sel_h1 - sel_h0) + sel_h0);
-  } else {
-    const float alpha = (x - sel_loc) / sel_w;
-    out01 = fminf(fmaxf(a * alpha * alpha + b * alpha + c, 0.0f), 1.0f);
-    l = logf(alpha * (sel_h1 - sel_h0) + sel_h0);
-  }
-  *out = inside ? out01 * (2.0f * B) - B : x_orig;
-  *lad = inside ? l : 0.0f;
+  quadratic_bin_eval(x_orig, inside, x, sel_loc, sel_cdf, sel_w, sel_h0, sel_h1, inverse, B, out,
+                     lad);
 }
 
 }  // namespace nflows

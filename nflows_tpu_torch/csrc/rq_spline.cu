@@ -19,8 +19,8 @@
 // the interior edges, and the selected bin's edges and slopes by shuffles
 // from the lanes of bins sel and sel - 1. A warp takes up to 32 elements in
 // rounds, each lane keeping one element's bin, and then every lane
-// evaluates the RQ spline of its element's bin (rq_spline_eval's
-// arithmetic, rq_bin) and writes out and lad. The boundary derivative is
+// evaluates the RQ spline of its element's bin (rq_bin_eval, where
+// rq_spline_eval ends too) and writes out and lad. The boundary derivative is
 // passed in (min_derivative + softplus(pad constant), computed by the
 // wrapper), so no padded derivative tensor is built. Where K > 128 the warp
 // walks the bins in chunks of 128, carrying the running sums, computes the
@@ -50,40 +50,15 @@ struct Selected {
   float cw, ch, ew, eh, d0, d1;
 };
 
-// rq_spline_eval's evaluation of element i in its bin s
+// element i in its bin s (rq_bin_eval, as rq_spline_eval ends)
 __device__ __forceinline__ void rq_bin(const float* __restrict__ x, int64_t i, float B,
                                        int inverse, const Selected& s,
                                        float* __restrict__ out, float* __restrict__ lad) {
   const float x_orig = __ldg(x + i);
   const bool inside = (x_orig >= -B) && (x_orig <= B);
   const float xc = fminf(fmaxf(x_orig, -B), B);
-  const float sel_xw = s.ew - s.cw, sel_xh = s.eh - s.ch;
-  const float d0 = s.d0, d1 = s.d1;
-  const float delta = sel_xh / sel_xw;
-  const float d_sum = d0 + d1 - 2.0f * delta;
-  float theta, y;
-  if (inverse) {
-    const float y_rel = xc - s.ch;
-    const float a = y_rel * d_sum + sel_xh * (delta - d0);
-    const float b = sel_xh * d0 - y_rel * d_sum;
-    const float c = -delta * y_rel;
-    const float disc = fmaxf(b * b - 4.0f * a * c, 0.0f);
-    theta = (2.0f * c) / (-b - sqrtf(disc));
-    y = theta * sel_xw + s.cw;
-  } else {
-    theta = (xc - s.cw) / sel_xw;
-    const float num = sel_xh * (delta * theta * theta + d0 * theta * (1.0f - theta));
-    const float den = delta + d_sum * theta * (1.0f - theta);
-    y = s.ch + num / den;
-  }
-  const float tomt = theta * (1.0f - theta);
-  const float denominator = delta + d_sum * tomt;
-  const float deriv_num = delta * delta *
-      (d1 * theta * theta + 2.0f * delta * tomt + d0 * (1.0f - theta) * (1.0f - theta));
-  float l = logf(deriv_num) - 2.0f * logf(denominator);
-  if (inverse) l = -l;
-  out[i] = inside ? y : x_orig;
-  lad[i] = inside ? l : 0.0f;
+  nflows::rq_bin_eval(x_orig, inside, xc, s.cw, s.ch, s.ew - s.cw, s.eh - s.ch, s.d0, s.d1,
+                      inverse != 0, out + i, lad + i);
 }
 
 template <int G, bool CHUNKED>

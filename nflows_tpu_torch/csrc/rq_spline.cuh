@@ -2,8 +2,8 @@
 //
 // The RQ math of the whole-chain kernels (B2's coupling stage, B9, B10),
 // one element a thread; the elementwise kernel B1 (rq_spline.cu) runs the
-// same steps on a group of lanes an element and repeats this evaluation of
-// the selected bin (rq_bin): a fix to it goes in both. Mirrors the TPU kernel's
+// same steps on a group of lanes an element and ends in the same evaluation
+// of the selected bin (rq_bin_eval). Mirrors the TPU kernel's
 // arithmetic (nflows_tpu/ops/pallas/rq_spline.py:_kernel and
 // _spline_common.py:53-109): softmax with min-bin mixing, cumulative edges
 // pinned to +-B, softplus derivatives, sum-of-ge bin search, RQ evaluation
@@ -40,6 +40,41 @@ struct RQConfig {
 __device__ __forceinline__ float softplus(float v) {
   return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
 }
+
+// The RQ spline in its selected bin, from x (clamped into [-B, B]): the
+// bin's lower edges cw, ch, its width and height xw, xh, the derivatives d0,
+// d1 at its knots. rq_spline_eval ends here, and so does B1 (rq_spline.cu),
+// which finds the bin on a group of lanes.
+__device__ __forceinline__ void rq_bin_eval(float x_orig, bool inside, float x, float sel_cw,
+                                            float sel_ch, float sel_xw, float sel_xh, float d0,
+                                            float d1, bool inverse, float* out, float* lad) {
+  const float delta = sel_xh / sel_xw;
+  const float d_sum = d0 + d1 - 2.0f * delta;
+  float theta, y;
+  if (inverse) {
+    const float y_rel = x - sel_ch;
+    const float a = y_rel * d_sum + sel_xh * (delta - d0);
+    const float b = sel_xh * d0 - y_rel * d_sum;
+    const float c = -delta * y_rel;
+    const float disc = fmaxf(b * b - 4.0f * a * c, 0.0f);
+    theta = (2.0f * c) / (-b - sqrtf(disc));
+    y = theta * sel_xw + sel_cw;
+  } else {
+    theta = (x - sel_cw) / sel_xw;
+    const float num = sel_xh * (delta * theta * theta + d0 * theta * (1.0f - theta));
+    const float den = delta + d_sum * theta * (1.0f - theta);
+    y = sel_ch + num / den;
+  }
+  const float tomt = theta * (1.0f - theta);
+  const float denominator = delta + d_sum * tomt;
+  const float deriv_num = delta * delta *
+      (d1 * theta * theta + 2.0f * delta * tomt + d0 * (1.0f - theta) * (1.0f - theta));
+  float l = logf(deriv_num) - 2.0f * logf(denominator);
+  if (inverse) l = -l;
+  *out = inside ? y : x_orig;
+  *lad = inside ? l : 0.0f;
+}
+
 
 // uw, uh: K unnormalised widths / heights at w[k * stride];
 // ud: K-1 interior unnormalised derivatives at ud[k * stride].
@@ -91,32 +126,7 @@ __device__ __forceinline__ void rq_spline_eval(
   const float d1 = (sel == K - 1) ? cfg.edge_derivative
                                   : cfg.min_derivative + softplus(ud[sel * stride]);
 
-  const float delta = sel_xh / sel_xw;
-  const float d_sum = d0 + d1 - 2.0f * delta;
-  float theta, y;
-  if (inverse) {
-    const float y_rel = x - sel_ch;
-    const float a = y_rel * d_sum + sel_xh * (delta - d0);
-    const float b = sel_xh * d0 - y_rel * d_sum;
-    const float c = -delta * y_rel;
-    const float disc = fmaxf(b * b - 4.0f * a * c, 0.0f);
-    theta = (2.0f * c) / (-b - sqrtf(disc));
-    y = theta * sel_xw + sel_cw;
-  } else {
-    theta = (x - sel_cw) / sel_xw;
-    const float num = sel_xh * (delta * theta * theta + d0 * theta * (1.0f - theta));
-    const float den = delta + d_sum * theta * (1.0f - theta);
-    y = sel_ch + num / den;
-  }
-  const float tomt = theta * (1.0f - theta);
-  const float denominator = delta + d_sum * tomt;
-  const float deriv_num = delta * delta *
-      (d1 * theta * theta + 2.0f * delta * tomt + d0 * (1.0f - theta) * (1.0f - theta));
-  float l = logf(deriv_num) - 2.0f * logf(denominator);
-  if (inverse) l = -l;
-
-  *out = inside ? y : x_orig;
-  *lad = inside ? l : 0.0f;
+  rq_bin_eval(x_orig, inside, x, sel_cw, sel_ch, sel_xw, sel_xh, d0, d1, inverse, out, lad);
 }
 
 }  // namespace nflows

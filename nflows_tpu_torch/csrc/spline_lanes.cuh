@@ -1,5 +1,6 @@
 // A group of lanes an element, for the elementwise spline kernels B1
-// (rq_spline.cu) and B7 (quadratic_spline.cu).
+// (rq_spline.cu), B5 (lrs_spline.cu), B7 (quadratic_spline.cu) and B8
+// (cubic_spline.cu).
 //
 // The TPU kernels lay each bin out as a lane-dense plane
 // (nflows_tpu/ops/pallas/_spline_common.py): every K-loop is a row of
@@ -19,20 +20,23 @@
 // - running sums: each lane's total in order, an inclusive Hillis-Steele
 //   scan of the totals with __shfl_up_sync (log2 G steps, lane j adding
 //   the partial sum of lane j - 2^s at step s), and within a lane the
-//   scan of the lanes before plus its own running sum (running());
+//   scan of the lanes before plus its own running sum (running(); B8's
+//   searched knots compensated, running_compensated());
 // - the bin search: __ballot_sync, for each of a lane's V bins, of "x at
 //   or above the upper edge of this bin" over the bins 0..K-2 (the
 //   interior edges), masked to the group; the summed popcounts are the TPU
 //   kernel's sum-of-ge index (bin_index_ge), which needs no prefix
 //   property of the edges;
 // - the selected bin's values: __shfl_sync from the lane that holds it,
-//   and the lower edges from the lane of the bin before (Gather).
+//   the lower edges from the lane of the bin before and, for B8's knot
+//   derivatives, the sizes of the bin after from its lane (Gather).
 //
 // Every shuffle names the full warp: no lane leaves a kernel before its
 // last shuffle, and groups past the last element take part on row 0 and
 // store nothing. The sums are taken in another order than the plain version's
 // sequential ones; tests/test_torch_spline_lanes.py repeats this order on
-// the CPU and holds it against the TPU kernels in interpret mode.
+// the CPU (tests/test_torch_spline_lanes_lrs_cubic.py for B5 and B8) and
+// holds it against the TPU kernels in interpret mode.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,6 +81,16 @@ __device__ __forceinline__ void load_bins(const float* __restrict__ row, int K, 
 // whether rows of K floats at p can be read 16 bytes at a time
 __device__ __forceinline__ bool rows_of_float4(const float* p, int K) {
   return K % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// a + b, and its rounding error in err (Knuth's TwoSum, exact in
+// round-to-nearest; __fadd_rn and __fsub_rn keep the compiler from
+// contracting or reordering the steps)
+__device__ __forceinline__ float two_sum(float a, float b, float& err) {
+  const float s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  err = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+  return s;
 }
 
 // The group of G lanes (2 to 32, a power of two) that holds the calling
@@ -141,6 +155,58 @@ struct Group {
     out[V - 1] = CARRY ? carry + incl : incl;
   }
 
+  // running() with each addition's rounding error carried beside its sum
+  // (two_sum) and added once at the end, so that every out lies within
+  // about an ulp of the exact running sum of x whatever the order of the
+  // additions: B8's knots, where an ulp of a knot can move the logabsdet by
+  // 1e-3 (a steep cubic in a narrow bin: 6 a t + 2 b about 1e4 times the
+  // derivative)
+  template <bool CARRY>
+  __device__ __forceinline__ void running_compensated(const float (&x)[V], float carry,
+                                                      float (&out)[V]) const {
+    float own[V], own_err[V];
+    own[0] = x[0];
+    own_err[0] = 0.0f;
+#pragma unroll
+    for (int v = 1; v < V; ++v) {
+      float e;
+      own[v] = two_sum(own[v - 1], x[v], e);
+      own_err[v] = own_err[v - 1] + e;
+    }
+    // the inclusive scan of the lanes' (sum, error) pairs in lane order
+    float hi = own[V - 1], lo = own_err[V - 1];
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) {
+      const float t_hi = __shfl_up_sync(kFullWarp, hi, o, G);
+      const float t_lo = __shfl_up_sync(kFullWarp, lo, o, G);
+      if (j >= o) {
+        float e;
+        hi = two_sum(t_hi, hi, e);
+        lo = (t_lo + lo) + e;
+      }
+    }
+    float before_hi = __shfl_up_sync(kFullWarp, hi, 1, G);
+    float before_lo = __shfl_up_sync(kFullWarp, lo, 1, G);
+    if (j == 0) before_hi = before_lo = 0.0f;
+    // carry + (s + err), rounded once
+    auto finish = [&](float s, float err) {
+      if constexpr (CARRY) {
+        float e;
+        const float t = two_sum(carry, s, e);
+        return t + (err + e);
+      } else {
+        return s + err;
+      }
+    };
+#pragma unroll
+    for (int v = 0; v < V - 1; ++v) {
+      float e;
+      const float t = two_sum(before_hi, own[v], e);
+      out[v] = finish(t, (before_lo + own_err[v]) + e);
+    }
+    out[V - 1] = finish(hi, lo);
+  }
+
   // lane j - 1's value (lane 0 gets its own)
   __device__ __forceinline__ float up(float v) const {
     return __shfl_up_sync(kFullWarp, v, 1, G);
@@ -197,22 +263,27 @@ struct Rounds {
 
 // Gathers, in a round, what the group working on this lane's element holds
 // of its selected bin sel (the group's own sel, the same in its lanes; an
-// index into the chunk that holds it): from the lane of bin sel, and of
-// bin sel - 1 from its lane, or, where sel is the chunk's first bin, the
-// value below the chunk (lo0). Each lane offers the values its own group
-// asks for.
+// index into the chunk that holds it): from the lane of bin sel; of bin
+// sel - 1 from its lane, or, where sel is the chunk's first bin, the value
+// below the chunk (lo0); of bin sel + 1 from its lane, or, where sel is the
+// chunk's last bin, the value above the chunk (hi0). Each lane offers the
+// values its own group asks for. bin is the selected bin of this lane's
+// element, counted from bin 0.
 template <int G>
 struct Gather {
   static constexpr int kBins = G * V;
-  int src, src_below, own;
-  bool first;
+  int bin, src, src_below, src_above, own;
+  bool first, last;
 
   __device__ __forceinline__ Gather(const Rounds<G>& w, int sel) {
     const int base = w.group_of_mine();
-    const int s = __shfl_sync(kFullWarp, sel, base) % kBins;
+    bin = __shfl_sync(kFullWarp, sel, base);
+    const int s = bin % kBins;
     src = base + s / V;
     src_below = s % V ? src : src - 1;
+    src_above = s % V < V - 1 ? src : src + 1;
     first = s == 0;
+    last = s == kBins - 1;
     own = sel % kBins % V;
   }
   __device__ __forceinline__ float at(const float (&a)[V]) const {
@@ -222,6 +293,11 @@ struct Gather {
     const float offer = own ? pick(a, own - 1) : a[V - 1];
     const float t = __shfl_sync(kFullWarp, offer, src_below);
     return first ? lo0 : t;
+  }
+  __device__ __forceinline__ float above(const float (&a)[V], float hi0) const {
+    const float offer = own < V - 1 ? pick(a, own + 1) : a[0];
+    const float t = __shfl_sync(kFullWarp, offer, src_above);
+    return last ? hi0 : t;
   }
 };
 

@@ -1,7 +1,8 @@
 """The order of sums of the group-of-lanes spline kernels B1
 (``csrc/rq_spline.cu``) and B7 (``csrc/quadratic_spline.cu``), repeated on
 the CPU, against the JAX Pallas kernels in interpret mode and the port's
-plain versions.
+plain versions (B5 and B8: ``tests/test_torch_spline_lanes_lrs_cubic.py``,
+on this file's helpers).
 
 The kernels give each element a group of G lanes (``csrc/spline_lanes.cuh``:
 lane j holds the 4 bins 4 j to 4 j + 3, G is the power of two at least
@@ -155,12 +156,16 @@ class Lanes:
             run = cum[-1][:, -1:]
         return torch.stack(out, 1)
 
-    def select(self, x, upper, *values):
-        """The ballot: bin = count of the bins b < K - 1 with x at or above
-        their upper edge; the selected bin's values."""
+    def bin(self, x, upper):
+        """The ballot: the count of the bins b < K - 1 with x at or above
+        their upper edge, [N, 1]."""
         b = self.b.reshape(-1)
         hit = (b < self.K - 1) & (x[:, None] >= upper.reshape(x.shape[0], -1))
-        sel = hit.sum(-1, keepdim=True)
+        return hit.sum(-1, keepdim=True)
+
+    def select(self, x, upper, *values):
+        """The selected bin's values (the bin of :meth:`bin`)."""
+        sel = self.bin(x, upper)
         return [torch.gather(v.reshape(x.shape[0], -1), 1, sel)[:, 0] for v in values]
 
     def below(self, hi, first):
@@ -385,9 +390,10 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("where", ["BINS", "B1_LAYOUT_BINS", "B7_LAYOUT_BINS"])
+@pytest.mark.parametrize("where", ["BINS", "B1_LAYOUT_BINS", "B5_LAYOUT_BINS", "B7_LAYOUT_BINS",
+                                   "B8_LAYOUT_BINS"])
 def test_held_bins_reach_every_layout(where):
-    """This file's BINS and the K at which chip_smoke.py holds B1 and B7 on
-    the card each reach every instantiation of the kernels."""
+    """This file's BINS and the K at which chip_smoke.py holds B1, B5, B7
+    and B8 on the card each reach every instantiation of the kernels."""
     bins = BINS if where == "BINS" else getattr(_chip_smoke(), where)
     assert {(Lanes(K).G, Lanes(K).C > 1) for K in bins} == EVERY_LAYOUT

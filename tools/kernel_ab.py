@@ -4,13 +4,14 @@ training kernel B3 (``nsf_train``), the autoregressive chain B9
 ``schedule="fixed_point"``; ``maf_degree_inverse``, the fixed point solved in
 degree order), its backward B10 (``maf_train``, one block a tile:
 csrc/maf_train.cu at every batch, whatever cluster size the wrapper would
-choose), or the elementwise splines B1 (``rq_spline``) and B7
-(``quadratic_spline``).
+choose), or the elementwise splines B1 (``rq_spline``), B5 (``lrs_spline``),
+B7 (``quadratic_spline``) and B8 (``cubic_spline``).
 
     python3 tools/kernel_ab.py OLD_CSRC_DIR [STEM] [more old dirs]
 
 STEM is one of nsf_flow_kernel (the default), nsf_train, maf_flow_kernel,
-maf_degree_inverse, maf_train, rq_spline, quadratic_spline.
+maf_degree_inverse, maf_train, rq_spline, lrs_spline, quadratic_spline,
+cubic_spline.
 
 Builds ``OLD_CSRC_DIR/<kernel>.cu`` beside the checkout's own
 ``nflows_tpu_torch/csrc/<kernel>.cu`` (same nvcc flags), holds both against
@@ -20,15 +21,15 @@ device time: B2 at N = 4,096 and 65,536, B3 at N = 512 and 4,096, B9 forward
 and inverse at N = 4,096 (the inverse on either of its kernels, the other
 one's time printed beside), B10 at N = 512 and 4,096 on the full-width MAF
 (features 10, hidden 256, 5 layers, final-layer weights scaled as in
-chip_smoke.py), and B1 and B7 forward and inverse on what the first coupling
-of the flagship (rq) or of its quadratic twin hands its spline kernel for
-4,096 and 349,525 samples (12,288 and 1,048,575 elements, chip_smoke.py's
-phases 3 and 17), with the card's floor for one launch (a one-element
-fill) beside. Further
+chip_smoke.py), and B1, B5, B7 and B8 forward and inverse on what the first
+coupling of the flagship (rq), of its LRS twin or of its quadratic or cubic
+coupling chain hands its spline kernel for 4,096 and 349,525 samples (12,288
+and 1,048,575 elements, chip_smoke.py's phases 3 and 17), with the card's
+floor for one launch (a one-element fill) beside. Further
 directories are timed as well, each in turns with the checkout's kernel.
 The old source must have the checkout's C interface. Make OLD_CSRC_DIR with
 ``git archive <commit> nflows_tpu_torch/csrc | tar -x -C <dir>`` into a
-directory that .gitignore lists. For B1 and B7 a copy of the checkout's
+directory that .gitignore lists. For B1, B5, B7 and B8 a copy of the checkout's
 ``csrc/`` with ``constexpr int V = 1;`` in ``spline_lanes.cuh`` builds the
 layout of one bin a lane (G the power of two at least K) to time beside.
 """
@@ -145,24 +146,34 @@ def main(kernel: str, old_dirs) -> int:
 
 
 # stem -> (chip_smoke's family, parameter tensors, float arguments of the C entry point)
-SPLINES = {"rq_spline": ("rq", 3, 5), "quadratic_spline": ("quadratic", 2, 3)}
+SPLINES = {"rq_spline": ("rq", 3, 5), "lrs_spline": ("lrs", 4, 6),
+           "quadratic_spline": ("quadratic", 2, 3), "cubic_spline": ("cubic", 4, 3)}
 
 
 def spline_turns(torch, kernel, olds, new, use, turns, flow, gen):
-    """B1 or B7 on the first coupling's values: each library against the
-    plain version, then the timed turns, both directions, at 12,288 and
-    1,048,575 elements."""
+    """B1, B5, B7 or B8 on the first coupling's values: each library
+    against the plain version, then the timed turns, both directions, at
+    12,288 and 1,048,575 elements."""
     import chip_smoke as cs
-    from nflows_tpu_torch.ops.cuda import quadratic_spline, rq_spline
-    from nflows_tpu_torch.ops.splines import quadratic, rational_quadratic
+    from nflows_tpu_torch import NeuralSplineFlow
+    from nflows_tpu_torch.ops.cuda import cubic_spline, lrs_spline, quadratic_spline, rq_spline
+    from nflows_tpu_torch.ops.splines import cubic, linear_rational, quadratic, rational_quadratic
 
     family = SPLINES[kernel][0]
     wrapper, plain = {
         "rq": (rq_spline.rq_spline_cuda,
                rational_quadratic.unconstrained_rational_quadratic_spline_plain),
+        "lrs": (lrs_spline.lrs_spline_cuda,
+                linear_rational.unconstrained_linear_rational_spline_plain),
         "quadratic": (quadratic_spline.quadratic_spline_cuda,
-                      quadratic.unconstrained_quadratic_spline_plain)}[family]
-    if family != "rq":
+                      quadratic.unconstrained_quadratic_spline_plain),
+        "cubic": (cubic_spline.cubic_spline_cuda,
+                  cubic.unconstrained_cubic_spline_plain)}[family]
+    if family == "lrs":  # chip_smoke.py phase 17's LRS NSF
+        flow = NeuralSplineFlow(spline="lrs", generator=torch.Generator().manual_seed(0),
+                                rng=np.random.default_rng(0), device="cuda",
+                                **cs.FLAGSHIP).eval()
+    elif family != "rq":
         flow = cs.family_flow(family, "cuda", seed=0)
     B, D = cs.FLAGSHIP["tail_bound"], cs.FLAGSHIP["features"]
     with torch.no_grad():
