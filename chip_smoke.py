@@ -216,9 +216,10 @@ N(0, 1) parameters, a stress case: 1e-2 against float64 on both, because
 such parameters make bins ~1e-2 wide with slopes down to 1e-3, where a
 one-ulp error of a bin edge moves the inverse by up to ~1e3 ulps; there
 the plain fp32 version itself moves by several 1e-4, and the run prints
-both. B1, B5, B7 and B8 at every layout of their group of lanes
+both. B1, B5, B6, B7 and B8 at every layout of their group of lanes
 (``hold_layouts``: ``B1_LAYOUT_BINS``, ``B5_LAYOUT_BINS``,
-``B7_LAYOUT_BINS`` and ``B8_LAYOUT_BINS``, K = 1 or 2 to 200, which reach
+``B6_LAYOUT_BINS``, ``B7_LAYOUT_BINS`` and ``B8_LAYOUT_BINS``, K = 1 or 2
+to 200, which reach
 each of the six instantiations of each kernel, on 1,001 and 140,001
 elements, 0.5 N(0, 1) parameters from a generator seeded 19): as on the
 main path's values, 1e-4 and 1e-3 or twice the plain fp32 version's distance from float64 (at
@@ -426,16 +427,17 @@ TIE_CTX = dict(
          "0x1.4bd32ap+0", "0x1.913d90p-3", "0x1.48bed6p-1", "0x1.001d5ap+1",
          "0x1.012bf8p+0", "0x1.91fa5cp+0"))
 # the autoregressive family at full width: MAF (affine) and NSF-AR (rq)
-# the K at which phases 3 and 17 hold B1, B5, B7 and B8 on their group of lanes
+# the K at which phases 3 and 17 hold B1, B5, B6, B7 and B8 on their group of lanes
 # (csrc/spline_lanes.cuh: G = lanes_for(ceil(K / 4)) lanes of 4 bins, past 128
 # bins the whole warp in chunks): each of the six instantiations of each
 # kernel, G = 2, 4, 8, 16, 32 and 32 chunked, at a K whose rows take 16-byte
 # loads (K % 4 == 0) and, where the layout allows, at one that does not
 B1_LAYOUT_BINS = (1, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
 B7_LAYOUT_BINS = (2, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
-# ... and B5 and B8 on the same layout (B8's K = 129: bin 128, whose size
+# ... and B5, B6 and B8 on the same layout (B8's K = 129: bin 128, whose size
 # the knot derivative of bin 127 needs, lies in the next chunk)
 B5_LAYOUT_BINS = (1, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
+B6_LAYOUT_BINS = (1, 5, 8, 13, 16, 27, 32, 40, 100, 127, 200)
 B8_LAYOUT_BINS = (1, 5, 8, 13, 16, 27, 32, 40, 100, 127, 129, 200)
 MAF = dict(features=10, hidden_features=256, num_layers=5, num_blocks_per_layer=2)
 NSF_AR = dict(**MAF, num_bins=8, tail_bound=3.0)
@@ -675,7 +677,7 @@ def hold_relative(torch, name, kernel, plain32, plain64, limits=(2.0, 2.0, 4.0, 
 
 def hold_layouts(torch, kid, wrapper, plain, widths, bins, device):
     """Hold an elementwise spline kernel of the group-of-lanes layout (B1,
-    B5, B7, B8) at each K of ``bins`` (``widths(K)``: its parameters' widths) on
+    B5, B6, B7, B8) at each K of ``bins`` (``widths(K)``: its parameters' widths) on
     1,001 and 140,001 elements (one round a warp, and full warps of
     rounds), both directions, 0.5 N(0, 1) parameters and inputs
     at and past the tail bound 3, as ``hold`` holds the main path's values
@@ -2606,6 +2608,7 @@ def main() -> int:
     }
     # phase 17's kernels on B1's group of lanes: their parameters' widths, the K held
     group_layouts = {"B5": (lambda k: (k, k, k - 1, k), B5_LAYOUT_BINS),
+                     "B6": (lambda k: (k,), B6_LAYOUT_BINS),
                      "B7": (lambda k: (k, k - 1), B7_LAYOUT_BINS),
                      "B8": (lambda k: (k, k, 1, 1), B8_LAYOUT_BINS)}
     family_flows = {"lrs": NeuralSplineFlow(spline="lrs", **seeded(0), **FLAGSHIP).eval()}

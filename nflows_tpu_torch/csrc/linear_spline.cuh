@@ -20,6 +20,30 @@ struct LinearConfig {
   float log_inv_bins;  // log(1/K), as the plain version's constant rounds it
 };
 
+// The bin's evaluation, which linear_spline_eval and B6 (linear_spline.cu,
+// which finds the bin on a group of lanes) both run. Each branch has its
+// own: linear_spline_eval joining the two into one function moved the
+// registers of the training kernels that inline it (coupling_stage.cuh).
+//
+// The forward in its bin, at alpha = x K - bin: the bin's lower CDF knot lo
+// and its pdf give out01 on [0, 1] and the logabsdet l.
+__device__ __forceinline__ void linear_forward_bin(float alpha, float lo, float pdf,
+                                                   const LinearConfig& cfg, float& out01,
+                                                   float& l) {
+  out01 = fminf(fmaxf(lo + alpha * pdf, 0.0f), 1.0f);
+  l = logf(pdf) - cfg.log_inv_bins;
+}
+
+// The inverse in its bin sel, from x on [0, 1]: the bin's CDF knots lo and hi
+// give the slope and offset as the TPU kernel computes them.
+__device__ __forceinline__ void linear_inverse_bin(float x, int sel, float lo, float hi, int K,
+                                                   float& out01, float& l) {
+  const float slope = (hi - lo) * (float)K;
+  const float offset = hi - slope * ((float)(sel + 1) / (float)K);
+  out01 = fminf(fmaxf((x - offset) / slope, 0.0f), 1.0f);
+  l = -logf(slope);
+}
+
 // up: K unnormalised pdf values at up[k * stride].
 __device__ __forceinline__ void linear_spline_eval(
     float x_orig, const float* up, int stride, bool inverse,
@@ -46,10 +70,7 @@ __device__ __forceinline__ void linear_spline_eval(
       }
       lo = hi;
     }
-    const float slope = (sel_hi - sel_lo) * (float)K;
-    const float offset = sel_hi - slope * ((float)(sel + 1) / (float)K);
-    out01 = fminf(fmaxf((x - offset) / slope, 0.0f), 1.0f);
-    l = -logf(slope);
+    linear_inverse_bin(x, sel, sel_lo, sel_hi, K, out01, l);
   } else {
     const float bin_pos = x * (float)K;
     const float fidx = fminf(fmaxf(floorf(bin_pos), 0.0f), (float)(K - 1));
@@ -57,9 +78,7 @@ __device__ __forceinline__ void linear_spline_eval(
     const int idx = (int)fidx;
     float cdf = 0.0f;
     for (int k = 0; k < idx; ++k) cdf += softmax_at(up, k, stride, sp);
-    const float pdf = softmax_at(up, idx, stride, sp);
-    out01 = fminf(fmaxf(cdf + alpha * pdf, 0.0f), 1.0f);
-    l = logf(pdf) - cfg.log_inv_bins;
+    linear_forward_bin(alpha, cdf, softmax_at(up, idx, stride, sp), cfg, out01, l);
   }
   *out = inside ? out01 * (2.0f * B) - B : x_orig;
   *lad = inside ? l : 0.0f;

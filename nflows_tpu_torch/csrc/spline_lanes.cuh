@@ -1,6 +1,6 @@
 // A group of lanes an element, for the elementwise spline kernels B1
-// (rq_spline.cu), B5 (lrs_spline.cu), B7 (quadratic_spline.cu) and B8
-// (cubic_spline.cu).
+// (rq_spline.cu), B5 (lrs_spline.cu), B6 (linear_spline.cu), B7
+// (quadratic_spline.cu) and B8 (cubic_spline.cu).
 //
 // The TPU kernels lay each bin out as a lane-dense plane
 // (nflows_tpu/ops/pallas/_spline_common.py): every K-loop is a row of
@@ -35,7 +35,8 @@
 // last shuffle, and groups past the last element take part on row 0 and
 // store nothing. The sums are taken in another order than the plain version's
 // sequential ones; tests/test_torch_spline_lanes.py repeats this order on
-// the CPU (tests/test_torch_spline_lanes_lrs_cubic.py for B5 and B8) and
+// the CPU (tests/test_torch_spline_lanes_lrs_cubic.py for B5 and B8,
+// tests/test_torch_spline_lanes_linear.py for B6) and
 // holds it against the TPU kernels in interpret mode.
 #pragma once
 

@@ -1582,7 +1582,7 @@ def test_b5_to_b8_wrappers_refuse_what_the_kernels_do_not_take(cuda, family):
         wrapper(args[0][:-1].contiguous(), *args[1:], tail_bound=B)
 
 
-# B1, B5, B7 and B8 run a group of lanes an element (csrc/spline_lanes.cuh): K sets
+# B1, B5, B6, B7 and B8 run a group of lanes an element (csrc/spline_lanes.cuh): K sets
 # the group, G = lanes_for(ceil(K / 4)) lanes of 4 bins each, and past 128
 # bins the warp's chunks; n sets the elements a warp takes (in rounds) and
 # need not fill the last block. GROUP_BINS reaches each instantiation, with
@@ -1594,6 +1594,7 @@ GROUP_SPLINES = {
     "rq": (lambda K: (K, K, K - 1), rq_spline, rq_spline.rq_spline_cuda,
            rq.unconstrained_rational_quadratic_spline_plain),
     "lrs": SPLINE_FAMILIES["lrs"],
+    "linear": SPLINE_FAMILIES["linear"],
     "quadratic": SPLINE_FAMILIES["quadratic"],
     "cubic": SPLINE_FAMILIES["cubic"],
 }
@@ -1604,7 +1605,7 @@ GROUP_SPLINES = {
                                       if not (f == "quadratic" and K == 1)])
 @pytest.mark.parametrize("n", [1, 1001, 140001])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_b1_b5_b7_b8_every_group_size_matches_plain(cuda, family, K, n, inverse):
+def test_b1_b5_b6_b7_b8_every_group_size_matches_plain(cuda, family, K, n, inverse):
     widths, module, wrapper, plain = GROUP_SPLINES[family]
     rng = np.random.default_rng(1000 * K + n)
     x = (2.5 * rng.standard_normal(n)).astype(np.float32)

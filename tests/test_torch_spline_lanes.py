@@ -2,7 +2,7 @@
 (``csrc/rq_spline.cu``) and B7 (``csrc/quadratic_spline.cu``), repeated on
 the CPU, against the JAX Pallas kernels in interpret mode and the port's
 plain versions (B5 and B8: ``tests/test_torch_spline_lanes_lrs_cubic.py``,
-on this file's helpers).
+B6: ``tests/test_torch_spline_lanes_linear.py``, on this file's helpers).
 
 The kernels give each element a group of G lanes (``csrc/spline_lanes.cuh``:
 lane j holds the 4 bins 4 j to 4 j + 3, G is the power of two at least
@@ -390,10 +390,10 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("where", ["BINS", "B1_LAYOUT_BINS", "B5_LAYOUT_BINS", "B7_LAYOUT_BINS",
-                                   "B8_LAYOUT_BINS"])
+@pytest.mark.parametrize("where", ["BINS", "B1_LAYOUT_BINS", "B5_LAYOUT_BINS", "B6_LAYOUT_BINS",
+                                   "B7_LAYOUT_BINS", "B8_LAYOUT_BINS"])
 def test_held_bins_reach_every_layout(where):
-    """This file's BINS and the K at which chip_smoke.py holds B1, B5, B7
-    and B8 on the card each reach every instantiation of the kernels."""
+    """This file's BINS and the K at which chip_smoke.py holds B1, B5, B6,
+    B7 and B8 on the card each reach every instantiation of the kernels."""
     bins = BINS if where == "BINS" else getattr(_chip_smoke(), where)
     assert {(Lanes(K).G, Lanes(K).C > 1) for K in bins} == EVERY_LAYOUT

@@ -5,13 +5,13 @@ training kernel B3 (``nsf_train``), the autoregressive chain B9
 degree order), its backward B10 (``maf_train``, one block a tile:
 csrc/maf_train.cu at every batch, whatever cluster size the wrapper would
 choose), or the elementwise splines B1 (``rq_spline``), B5 (``lrs_spline``),
-B7 (``quadratic_spline``) and B8 (``cubic_spline``).
+B6 (``linear_spline``), B7 (``quadratic_spline``) and B8 (``cubic_spline``).
 
     python3 tools/kernel_ab.py OLD_CSRC_DIR [STEM] [more old dirs]
 
 STEM is one of nsf_flow_kernel (the default), nsf_train, maf_flow_kernel,
-maf_degree_inverse, maf_train, rq_spline, lrs_spline, quadratic_spline,
-cubic_spline.
+maf_degree_inverse, maf_train, rq_spline, lrs_spline, linear_spline,
+quadratic_spline, cubic_spline.
 
 Builds ``OLD_CSRC_DIR/<kernel>.cu`` beside the checkout's own
 ``nflows_tpu_torch/csrc/<kernel>.cu`` (same nvcc flags), holds both against
@@ -21,15 +21,16 @@ device time: B2 at N = 4,096 and 65,536, B3 at N = 512 and 4,096, B9 forward
 and inverse at N = 4,096 (the inverse on either of its kernels, the other
 one's time printed beside), B10 at N = 512 and 4,096 on the full-width MAF
 (features 10, hidden 256, 5 layers, final-layer weights scaled as in
-chip_smoke.py), and B1, B5, B7 and B8 forward and inverse on what the first
-coupling of the flagship (rq), of its LRS twin or of its quadratic or cubic
-coupling chain hands its spline kernel for 4,096 and 349,525 samples (12,288
-and 1,048,575 elements, chip_smoke.py's phases 3 and 17), with the card's
+chip_smoke.py), and B1, B5, B6, B7 and B8 forward and inverse on what the
+first coupling of the flagship (rq), of its LRS twin or of its linear,
+quadratic or cubic coupling chain hands its spline kernel for 4,096 and
+349,525 samples (12,288 and 1,048,575 elements, chip_smoke.py's phases 3
+and 17), with the card's
 floor for one launch (a one-element fill) beside. Further
 directories are timed as well, each in turns with the checkout's kernel.
 The old source must have the checkout's C interface. Make OLD_CSRC_DIR with
 ``git archive <commit> nflows_tpu_torch/csrc | tar -x -C <dir>`` into a
-directory that .gitignore lists. For B1, B5, B7 and B8 a copy of the checkout's
+directory that .gitignore lists. For B1, B5, B6, B7 and B8 a copy of the checkout's
 ``csrc/`` with ``constexpr int V = 1;`` in ``spline_lanes.cuh`` builds the
 layout of one bin a lane (G the power of two at least K) to time beside.
 """
@@ -147,17 +148,20 @@ def main(kernel: str, old_dirs) -> int:
 
 # stem -> (chip_smoke's family, parameter tensors, float arguments of the C entry point)
 SPLINES = {"rq_spline": ("rq", 3, 5), "lrs_spline": ("lrs", 4, 6),
-           "quadratic_spline": ("quadratic", 2, 3), "cubic_spline": ("cubic", 4, 3)}
+           "linear_spline": ("linear", 1, 2), "quadratic_spline": ("quadratic", 2, 3),
+           "cubic_spline": ("cubic", 4, 3)}
 
 
 def spline_turns(torch, kernel, olds, new, use, turns, flow, gen):
-    """B1, B5, B7 or B8 on the first coupling's values: each library
+    """B1, B5, B6, B7 or B8 on the first coupling's values: each library
     against the plain version, then the timed turns, both directions, at
     12,288 and 1,048,575 elements."""
     import chip_smoke as cs
     from nflows_tpu_torch import NeuralSplineFlow
-    from nflows_tpu_torch.ops.cuda import cubic_spline, lrs_spline, quadratic_spline, rq_spline
-    from nflows_tpu_torch.ops.splines import cubic, linear_rational, quadratic, rational_quadratic
+    from nflows_tpu_torch.ops.cuda import (cubic_spline, linear_spline, lrs_spline,
+                                           quadratic_spline, rq_spline)
+    from nflows_tpu_torch.ops.splines import (cubic, linear, linear_rational, quadratic,
+                                              rational_quadratic)
 
     family = SPLINES[kernel][0]
     wrapper, plain = {
@@ -165,6 +169,7 @@ def spline_turns(torch, kernel, olds, new, use, turns, flow, gen):
                rational_quadratic.unconstrained_rational_quadratic_spline_plain),
         "lrs": (lrs_spline.lrs_spline_cuda,
                 linear_rational.unconstrained_linear_rational_spline_plain),
+        "linear": (linear_spline.linear_spline_cuda, linear.unconstrained_linear_spline_plain),
         "quadratic": (quadratic_spline.quadratic_spline_cuda,
                       quadratic.unconstrained_quadratic_spline_plain),
         "cubic": (cubic_spline.cubic_spline_cuda,
