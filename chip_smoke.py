@@ -162,6 +162,26 @@ kernel (``B11_simt``); phase 32 serves a MoG-MADE at hidden 96 in bf16,
 one launch of the bf16 SIMT kernel (``B11_simt_bf16``).
 Phase 24 holds the conditional flagship's B4 tie (``TIE_CTX``) at every
 cluster size.
+Phase 33 trains in windows of steps (``make_scan_train_step``): a
+window's first two steps at a new batch shape run eagerly, the rest replay
+CUDA graphs of eight steps captured once: the fused flagship (B3), MAF
+(B9 + B10), MoG-MADE and conditional MADEMoG (B11 + B12) at 512 and 4,096,
+and the eager flagship (ten B1 a step) at 512. Each window's wrapper
+launches are counted in its first window (the eager steps and the
+captures) and must be none in its second (replays only); its losses are
+held against the same steps run one by one from identical state on the
+card (the eager window bit for bit; MAF, MoG-MADE and MADEMoG within 1e-4
+under Adam; the fused flagship under SGD with momentum within 1e-3, since
+Adam carries B3's gradient atomics chaotically apart, and under Adam its
+first loss bit for bit); the kernels one window replays are counted in the
+profiler's trace, which must hold each of them; and each is timed under
+Adam as wall, busy and idle a step beside the per-step loop. Then the eager flagship with
+dropout 0.1 trains in a window under a CUDA generator: finite and falling
+losses, bit for bit the same for the same seed and for the per-step loop
+from it, other for another seed, and a second window under a new
+generator replaces its graph rather than adding one. The eager route's
+step is timed at 512 and 4,096 only (phase 33 reads its host's share at
+512).
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
@@ -1492,7 +1512,9 @@ def main() -> int:
     step_busy = {}   # device busy ms a step by (title, route, batch)
 
     def time_steps(title, make_routes, family, extra):
-        """Time a step of each route at batches 512, 2,048 and 4,096: the wall
+        """Time a step of each route at batches 512, 2,048 and 4,096 (the
+        eager route at 512 and 4,096: phase 33 measures its host's share at
+        512 against its window): the wall
         time over 20 steps (the eager route's over 5, each some hundred
         milliseconds) ending in a synchronise, after 3 warm-up steps,
         and the device busy time of one (torch.profiler; three profiled
@@ -1504,12 +1526,15 @@ def main() -> int:
         the wall times by (route, batch), and keeps the device busy times
         in ``step_busy`` by (title, route, batch)."""
         log(f"{title} step times (host clock over 20 steps, the eager route's over 5, ending "
-            "in a synchronise; device busy from torch.profiler):")
+            "in a synchronise; device busy from torch.profiler; the eager route at 512 and "
+            "4,096):")
         sizes = (TRAIN_BATCH, 2048, SERVE_BATCH)
         times = {}
         for n in sizes:
             steps, args, trainer = make_routes(n)
             for name, step in steps.items():
+                if name == "eager" and n == 2048:
+                    continue   # phase 33's eager window times the host's share at 512
                 for a in args[:3]:
                     step(*a)
                 torch.cuda.synchronize()
@@ -1526,7 +1551,8 @@ def main() -> int:
                 log(f"  batch {n} {name}: {wall:.3f} ms a step ({1e3 / wall:.1f} steps/s), "
                     f"device busy {busy:.3f} ms, idle {100 * max(0.0, 1 - busy / wall):.0f}%")
             extra(n, trainer, steps, args)
-        faster = [n for n in sizes if times[("fused", n)] < times[("eager", n)]]
+        faster = [n for n in sizes
+                  if ("eager", n) in times and times[("fused", n)] < times[("eager", n)]]
         log(f"  fused faster than eager at batches {faster}; fused_trainer(auto=True) takes "
             f"the fused route from batch {MIN_AUTO_BATCH[family]}")
         return times
@@ -3743,6 +3769,272 @@ def main() -> int:
               mademog_fused.mademog_log_prob_plain(x.to(BF16).float(), v32._weights,
                                                    v32._static), BF16_LAD)
 
+    # -- phase 33: windows of steps, each replayed as a CUDA graph -----------------
+    # make_scan_train_step on the eager route (B1, ten a step) and on the fused
+    # trainers (B3; B9 + B10; B11 + B12): each window's first steps run eagerly
+    # and the rest replay graphs captured once (the wrappers' counters move in
+    # the eager steps and the captures, and not at all in a replay), held
+    # against the same steps run one by one from identical state, and timed
+    # beside that per-step loop.
+    t_windows = time.perf_counter()
+    from nflows_tpu_torch import make_scan_train_step
+    from nflows_tpu_torch.core import _window
+
+    adam_c = lambda params: torch.optim.Adam(params, lr=3e-4, capturable=True)  # noqa: E731
+    K = _window.GRAPH_STEPS
+    window_stats = {}          # (model, batch) -> wall / busy ms a step, window and loop
+
+    def window_data(family, n, count, seed, cf):
+        """``count`` seeded batches [count, n, D] of phase 7's (``family``
+        "nsf") or phase 12's data, and their contexts where ``cf`` is given."""
+        if family == "nsf":
+            return torch.stack(batches(n, count, seed)), None
+        pairs = ar_batches(n, count, seed, cf)
+        return (torch.stack([x for x, _ in pairs]),
+                None if cf is None else torch.stack([c for _, c in pairs]))
+
+    def first_window_steps(count):
+        """The steps a first window of ``count`` steps runs through the
+        wrappers: its eager warm-up steps, then one capture of each graph,
+        K steps and the remainder."""
+        rest = count - _window.WARMUP_STEPS
+        return _window.WARMUP_STEPS + min(rest, K) + (rest % K if rest > K else 0)
+
+    def graph_kernel_records(what, fn, names, expected):
+        """Check the kernel records by name in torch.profiler's trace of one
+        window ``fn``, what its graph replays launched: each kernel must be
+        there, ``expected`` times at most. A trace without them fails. The
+        count is not held exactly: the trace of graph replays can miss a
+        record (39 B9 of 40, beside 40 B10, in one run on an NVIDIA H100
+        80GB HBM3, whose losses matched the per-step loop at every step)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        records = {name: sum(e.count for e in prof.key_averages() if name in e.key)
+                   for name in names}
+        log(f"    kernel records in the trace of one window: {records} (launched {expected} "
+            "each)")
+        if not all(0 < count <= expected for count in records.values()):
+            raise AssertionError(f"{what}: the trace of one window holds {records}, expected "
+                                 f"each kernel, {expected} of each at most")
+
+    # a window against the per-step loop from identical state, each at a limit
+    # set from its own readings (an NVIDIA H100 80GB HBM3 at 700 W). The eager
+    # window runs deterministic kernels: bit for bit. The MAF, MoG-MADE and
+    # MADEMoG backwards add in an order that varies from run to run, and a
+    # per-step loop stays within 3.8e-6 of its own twin over 40 steps: 1e-4.
+    # B3 adds its gradient partial sums with atomics, 2.2e-8 apart from one
+    # launch to the next. Under Adam, which divides each step by the root of
+    # its second moment, that noise grows chaotically: a per-step loop drifts
+    # up to 1.8e-2 from a twin of itself in 45 steps, and a window as far, up
+    # to 7.5e-4 within 16 steps of a later state (tools/b3_window_drift.py
+    # and earlier runs of this phase). So the B3 window is held under SGD with
+    # momentum 0.9 (fused, so capturable), which carries the noise along
+    # without amplifying it: 36 windows of 40 steps under SGD at 512 and
+    # 4,096 stayed within 4.5e-5 of the loop (tools/b3_window_drift.py),
+    # where one wrong step moves a loss by 1e-2 or more; limit 1e-3. The Adam window that is timed is held to its
+    # first loss, bit for bit, and its drift is printed beside the twin's.
+    EXACT, AR_LIMIT, B3_LIMIT = 0.0, 1e-4, 1e-3
+    sgd_c = lambda params: torch.optim.SGD(params, lr=1e-3, momentum=0.9,  # noqa: E731
+                                           fused=True)
+
+    def hold_window(title, window_losses, loop_losses, limit, spread=None):
+        gap = max_err(window_losses, loop_losses)
+        first = bool(window_losses[0] == loop_losses[0])
+        finite = bool(torch.isfinite(window_losses).all())
+        ok = first and finite and (limit is None or gap <= limit)
+        beside = "" if spread is None else f"; the per-step loop against a twin {spread:.3e}"
+        held = "not held" if limit is None else f"limit {limit:g}"
+        log(f"  {title}: window vs per-step loop, the first loss bit-equal: {first}, finite: "
+            f"{finite}, all within {gap:.3e} ({held}); all bit-equal: "
+            f"{torch.equal(window_losses, loop_losses)}{beside}")
+        if not ok:
+            raise AssertionError(f"{title}: the window disagrees with the per-step loop")
+
+    def copy_state(dst, dst_opt, src, src_opt):
+        """Write a trainer's weights and Adam moments into a twin's, in place."""
+        with torch.no_grad():
+            for k in src.weights:
+                dst.weights[k].copy_(src.weights[k])
+                for key, v in src_opt.state[src.weights[k]].items():
+                    dst_opt.state[dst.weights[k]][key].copy_(v)
+
+    def measure(fn, steps_n, reps=3):
+        """Wall and busy ms a step of ``fn``, ``steps_n`` steps (a window
+        captured before, or the same steps run one by one)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / reps / steps_n
+        busy = device_ms(torch, fn, 1) / steps_n
+        return dict(wall_ms=wall, busy_ms=busy, idle=max(0.0, 1 - busy / wall))
+
+    def report(title, key, window, loop):
+        window_stats[key] = {**{f"window_{a}": b for a, b in window.items()},
+                             **{f"loop_{a}": b for a, b in loop.items()}}
+        log(f"  {title}: window {window['wall_ms']:.4f} ms a step (busy {window['busy_ms']:.4f}, "
+            f"idle {100 * window['idle']:.0f}%), per-step loop {loop['wall_ms']:.4f} ms (busy "
+            f"{loop['busy_ms']:.4f}, idle {100 * loop['idle']:.0f}%): "
+            f"x{loop['wall_ms'] / window['wall_ms']:.2f}")
+
+    FUSED_WINDOWS = (
+        ("flagship NSF", "nsf", flow, None, sgd_c, B3_LIMIT, dict(B3=1), ("nsf_loss_grad",)),
+        ("MAF", "ar", maf, None, adam_c, AR_LIMIT, dict(B9=1, B9_simt=1, B10=1),
+         ("maf_flow_kernel", "maf_train_bwd")),
+        ("MoG-MADE", "ar", mog, None, adam_c, AR_LIMIT, dict(B11=1, B11_simt=1, B12=1),
+         ("mademog_log_prob", "mademog_train_bwd")),
+        ("MADEMoG, context", "ar", mog_ctx, MOG_CONTEXT, adam_c, AR_LIMIT,
+         dict(B11=1, B11_simt=1, B12=1), ("mademog_log_prob", "mademog_train_bwd")),
+    )
+    S_FUSED = 40
+    log(f"windows of fused steps ({_window.WARMUP_STEPS} eager steps at a new shape, then "
+        f"graphs of {K} steps; windows of {S_FUSED} steps):")
+    for title, family, model, cf, hold_opt, limit, per_step, kernel_names in FUSED_WINDOWS:
+        for n in (TRAIN_BATCH, SERVE_BATCH):
+            data, ctx = window_data(family, n, S_FUSED, 31, cf)
+            args = (data,) if cf is None else (data, ctx)
+
+            def pair_of(make_opt):
+                """A window over one trainer and the per-step loop over its twin."""
+                tr = fused_trainer(copy.deepcopy(model), n)  # noqa: B023
+                twin = fused_trainer(copy.deepcopy(model), n)  # noqa: B023
+                tr_opt, twin_opt = tr.init_opt(make_opt), twin.init_opt(make_opt)
+                step = twin.make_train_step(twin_opt)
+
+                def loop():
+                    return torch.stack([step(*(a[i] for a in args))  # noqa: B023
+                                        for i in range(S_FUSED)])
+
+                return tr, tr_opt, twin, twin_opt, tr.make_scan_train_step(tr_opt), loop
+
+            def spread_of(make_opt):
+                """Two more per-step loops from the initial state: how far the
+                backward's order of sums alone carries them apart."""
+                pair = [fused_trainer(copy.deepcopy(model), n) for _ in range(2)]  # noqa: B023
+                pair = [t.make_train_step(t.init_opt(make_opt)) for t in pair]
+                return max_err(*(torch.stack([f(*(z[i] for z in args))  # noqa: B023
+                                              for i in range(S_FUSED)]) for f in pair))
+
+            opt_name = "SGD with momentum" if hold_opt is sgd_c else "Adam"
+            tr, tr_opt, twin, twin_opt, steps, loop = pair_of(hold_opt)
+            reset_counts()
+            losses = steps(*args)
+            torch.cuda.synchronize()
+            first = read_counts()
+            spread = spread_of(hold_opt) if n == TRAIN_BATCH else None
+            hold_window(f"{title} at batch {n} under {opt_name}, first window", losses, loop(),
+                        limit, spread)
+            copy_state(twin, twin_opt, tr, tr_opt)
+            reset_counts()
+            again = steps(*args)
+            torch.cuda.synchronize()
+            second = read_counts()
+            hold_window(f"{title} at batch {n} under {opt_name}, second window", again, loop(),
+                        limit)
+            log(f"    launches by the wrappers in the first window (eager steps and captures) "
+                f"{({a: b for a, b in first.items() if b})}, in the second (replays only) "
+                f"{({a: b for a, b in second.items() if b})}; graphs held "
+                f"{steps.window.captured}")
+            expect_counts(f"the {title} window's eager steps and captures", first,
+                          **{a: b * first_window_steps(S_FUSED) for a, b in per_step.items()})
+            expect_counts(f"the {title} window's replays", second)
+            if n == TRAIN_BATCH:
+                graph_kernel_records(f"the {title} window", lambda: steps(*args),  # noqa: B023
+                                     kernel_names, S_FUSED)
+            if hold_opt is not adam_c:
+                # the Adam window that is timed: its first loss bit for bit
+                del steps, loop, tr, twin
+                tr, tr_opt, twin, twin_opt, steps, loop = pair_of(adam_c)
+                hold_window(f"{title} at batch {n} under Adam, first window", steps(*args),
+                            loop(), None, spread_of(adam_c) if n == TRAIN_BATCH else None)
+            report(f"batch {n} under Adam", (title, n),
+                   measure(lambda: steps(*args), S_FUSED),  # noqa: B023
+                   measure(loop, S_FUSED))
+            del steps, loop, tr, twin
+
+    # the eager flagship: ten B1 a step's forward
+    S_EAGER = 16
+    log(f"windows of eager flagship steps (windows of {S_EAGER} steps):")
+    data, _ = window_data("nsf", TRAIN_BATCH, S_EAGER, 32, None)
+    twin = create_train_state(copy.deepcopy(flow).train(), adam_c)
+    eager_step = make_train_step()
+    loop_losses = torch.stack([eager_step(twin, data[i % S_EAGER])[1]["loss"]
+                               for i in range(2 * S_EAGER)])
+    state = create_train_state(copy.deepcopy(flow).train(), adam_c)
+    steps = make_scan_train_step()
+    reset_counts()
+    state, losses = steps(state, data)
+    torch.cuda.synchronize()
+    first = read_counts()
+    reset_counts()
+    state, again = steps(state, data)
+    torch.cuda.synchronize()
+    second = read_counts()
+    log(f"eager flagship window at batch {TRAIN_BATCH}: launches by the wrappers in the first "
+        f"window {({a: b for a, b in first.items() if b})}, in the second "
+        f"{({a: b for a, b in second.items() if b})}; graphs held {steps.window.captured}")
+    expect_counts("the eager window's eager steps and captures", first,
+                  B1=L * first_window_steps(S_EAGER))
+    expect_counts("the eager window's replays", second)
+    hold_window("eager flagship, first window", losses, loop_losses[:S_EAGER], EXACT)
+    hold_window("eager flagship, second window", again, loop_losses[S_EAGER:], EXACT)
+    graph_kernel_records("the eager window", lambda: steps(state, data),
+                         ("rq_spline_kernel",), L * S_EAGER)
+    report(f"batch {TRAIN_BATCH}", ("eager flagship", TRAIN_BATCH),
+           measure(lambda: steps(state, data), S_EAGER, reps=2),
+           measure(lambda: [eager_step(twin, x) for x in data], S_EAGER, reps=1))
+    del steps, state
+
+    # dropout 0.1 under a CUDA generator: fresh masks every step, the same
+    # losses for the same seed, finite and falling; a second window under a
+    # new generator (a seed for each epoch) replaces the graph it replays
+    dropped = NeuralSplineFlow(generator=torch.Generator().manual_seed(0),
+                               rng=np.random.default_rng(0), device=dev,
+                               dropout_probability=0.1, **FLAGSHIP)
+    data, _ = window_data("nsf", TRAIN_BATCH, TRAIN_STEPS, 33, None)
+    runs = {}
+    for label, seed in (("seed 7", 7), ("seed 7 again", 7), ("seed 8", 8)):
+        state = create_train_state(copy.deepcopy(dropped).train(), adam_c)
+        steps = make_scan_train_step()
+        runs[label] = steps(state, data, generator=torch.Generator(device=dev).manual_seed(seed))[1]
+        if label == "seed 7":
+            held = steps.window.captured
+            runs["then seed 9"] = steps(state, data[:2 * K],
+                                        generator=torch.Generator(device=dev).manual_seed(9))[1]
+            recaptured = steps.window.captured
+        del steps, state
+    loop_state = create_train_state(copy.deepcopy(dropped).train(), adam_c)
+    eager_step = make_train_step()
+    g = torch.Generator(device=dev).manual_seed(7)
+    loop_7 = torch.stack([eager_step(loop_state, x, generator=g)[1]["loss"] for x in data])
+    g = torch.Generator(device=dev).manual_seed(9)
+    loop_9 = torch.stack([eager_step(loop_state, x, generator=g)[1]["loss"] for x in data[:2 * K]])
+    curve = runs["seed 7"].tolist()
+    log(f"eager flagship window with dropout 0.1 under a CUDA generator ({TRAIN_STEPS} steps): "
+        f"loss {curve[0]:.4f} -> {curve[-1]:.4f}; the same seed again "
+        f"{max_err(runs['seed 7'], runs['seed 7 again']):.3e} apart, seed 8 "
+        f"{max_err(runs['seed 7'], runs['seed 8']):.3e} apart, the per-step loop from seed 7 "
+        f"{max_err(runs['seed 7'], loop_7):.3e} apart (limit: bit-equal, the replays draw the "
+        f"masks the loop draws); a second window of {2 * K} steps under seed 9 "
+        f"{max_err(runs['then seed 9'], loop_9):.3e} from the loop's, graphs held {held} "
+        f"before it and {recaptured} after")
+    if (not all(np.isfinite(curve)) or not np.mean(curve[-5:]) < np.mean(curve[:5])
+            or not torch.equal(runs["seed 7"], runs["seed 7 again"])
+            or not torch.equal(runs["seed 7"], loop_7)
+            or not torch.equal(runs["then seed 9"], loop_9)
+            or recaptured != held
+            or torch.equal(runs["seed 7"], runs["seed 8"])):
+        raise AssertionError(f"the dropout window: {runs}; graphs held {held}, {recaptured}")
+    window_seconds = time.perf_counter() - t_windows
+    log(f"windows: {json.dumps({f'{m}, {n}': v for (m, n), v in window_stats.items()})}")
+    log(f"phase 33 (windows of steps) took {window_seconds:.1f} s")
+
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
              "B4": "nsf_train_bwd", "B5": "lrs_spline", "B6": "linear_spline",
@@ -4020,7 +4312,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -30,6 +30,7 @@ from nflows_tpu_torch.training import (
     TrainState,
     create_train_state,
     fused_trainer,
+    make_scan_train_step,
     make_train_step,
     nll_loss,
 )
@@ -40,5 +41,6 @@ __all__ = ["VERSION", "__version__", "distributions", "flows", "models",
            "InverseAutoregressiveFlow", "SimpleRealNVP", "MADEMoG", "MixtureOfGaussiansMADE",
            "StandardNormal", "ConditionalDiagonalNormal", "DiagonalNormal",
            "CompiledFlow", "load_jax_params", "load_jax_trainer_weights",
-           "TrainState", "create_train_state", "make_train_step", "nll_loss",
+           "TrainState", "create_train_state", "make_train_step", "make_scan_train_step",
+           "nll_loss",
            "fused_trainer"]

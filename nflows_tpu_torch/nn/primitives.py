@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from nflows_tpu_torch.core.stochastic import next_generator
+
 __all__ = ["Dense", "Dropout", "glu", "default_generator"]
 
 
@@ -56,8 +58,12 @@ class Dense(nn.Linear):
 
 
 class Dropout(nn.Module):
-    """Dropout that is active only when a generator is passed (no generator
-    = evaluation = identity), as the JAX Dropout is active only with a key."""
+    """Dropout active only when a generator is available, as the JAX Dropout
+    is active only with a key: pass ``generator=`` directly, or enter
+    ``nflows_tpu_torch.core.stochastic(generator)`` around the loss and every
+    dropout site draws from it (``make_train_step``'s ``generator=`` does
+    that). No generator (the default) = evaluation = identity. The
+    generator must be on the inputs' device."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -65,7 +71,11 @@ class Dropout(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.rate == 0.0 or generator is None:
+        if self.rate == 0.0:
+            return x
+        if generator is None:
+            generator = next_generator()
+        if generator is None:
             return x
         keep = 1.0 - self.rate
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep

@@ -21,8 +21,11 @@ that redefines the loss changes every step at once.
 Where the JAX class is functional (``step(weights, opt_state, batch)``
 returns new ones), PyTorch's optimizers update in place: a step here takes
 the batch, updates ``trainer.weights`` through the optimizer and returns
-the loss. The data-parallel, ZeRO and scanned-window steps are still to
-port.
+the loss. :meth:`FusedTrainerBase.make_scan_train_step` runs a window of
+such steps in one dispatch: on the card a CUDA graph of a few steps,
+captured once and replayed (``core._window``), with an optimizer built
+``capturable=True`` (or ``fused=True``); on the CPU a loop of the step. The
+data-parallel and ZeRO steps are still to port.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Callable, Dict
 import torch
 
 from nflows_tpu_torch.ops.cuda import _build
+from nflows_tpu_torch.core._window import StepWindow
 
 __all__ = ["FusedTrainerBase", "CLUSTER_SIZES", "cluster_gemm_floats", "cluster_size",
            "cluster_layout", "query_active_clusters"]
@@ -235,6 +239,39 @@ class FusedTrainerBase:
             return self._update(vag, optimizer, batch, context)
 
         return step
+
+    def make_scan_train_step(self, optimizer):
+        """``steps(batches[, contexts]) -> losses``: one step of
+        :meth:`make_train_step` for each ``batches[i]`` of ``batches``
+        [S, N, D] (and ``contexts[i]`` of ``contexts`` [S, N, C] for a
+        conditional trainer), in one dispatch; ``losses`` [S] are on the
+        trainer's device and ``trainer.weights`` update in place. It runs
+        the same kernels as a step (B3 for couplings, B9 + B10 for MAF and
+        NSF-AR, B11 + B12 for the MoG-MADEs).
+
+        On the card the window's first two steps at a new batch shape (or
+        with a new optimizer) run eagerly, and the rest replay CUDA graphs of
+        eight steps (and one of the remainder), captured once for each batch
+        shape; ``optimizer`` (from :meth:`init_opt`) must be built with
+        ``capturable=True`` (or ``fused=True``), e.g.
+        ``trainer.init_opt(lambda p: torch.optim.Adam(p, lr=3e-4,
+        capturable=True))``. The graphs are kept until ``steps`` is
+        collected. On the CPU the window is a loop of the step."""
+        vag = self._value_and_grad()
+        window = StepWindow()
+
+        def one(batch, context=None):
+            return self._update(vag, optimizer, batch, context)
+
+        if self._has_ctx:
+            def steps(batches, contexts):
+                return window.run(one, (batches, contexts), optimizer, self.device)
+        else:
+            def steps(batches):
+                return window.run(one, (batches,), optimizer, self.device)
+
+        steps.window = window
+        return steps
 
     def init_loop_state(self, optimizer):
         """A ``TrainState`` carrying the kernel-layout weights as its

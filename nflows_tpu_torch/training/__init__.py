@@ -6,9 +6,10 @@ from nflows_tpu_torch.training.fused import fused_trainer
 from nflows_tpu_torch.training.train import (
     TrainState,
     create_train_state,
+    make_scan_train_step,
     make_train_step,
     nll_loss,
 )
 
-__all__ = ["TrainState", "create_train_state", "make_train_step", "nll_loss",
-           "fused_trainer"]
+__all__ = ["TrainState", "create_train_state", "make_train_step", "make_scan_train_step",
+           "nll_loss", "fused_trainer"]

@@ -9,7 +9,8 @@ weight types, with and without a context, and one GEMM of its wgmma
 route alone; B9's one-pass direction on both of its routes (MAF, NSF-AR and
 IAF, both weight types, with and without a context); B11 on both of its
 routes (both weight types, with and without a context, the final layer in
-one pass and in two).
+one pass and in two); a window of eager steps replayed as a CUDA graph
+against the per-step loop.
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -2386,3 +2387,38 @@ def test_compiled_flow_in_bf16_launches_the_bf16_kernels(cuda):
         assert (module.launch_count, module.bf16_launch_count) == (before[0], before[1] + 1)
         assert lp.dtype == torch.float32
         _close(lp, CompiledFlow(model, batch_size=256, features=features).log_prob(x), 0.1)
+
+
+def test_a_window_is_the_per_step_loop_and_recaptures_in_place(cuda):
+    """A window of eager steps (``make_scan_train_step``, B1 ten a step):
+    its warm-up steps are its first real steps, so it equals the per-step
+    loop bit for bit for an optimizer whose initial state is not zero
+    (NAdam's mu_product starts at 1), dropout drawing from the same
+    generator; a new generator for each window replaces the graph rather
+    than adding one."""
+    import copy
+
+    from nflows_tpu_torch import make_scan_train_step
+    from nflows_tpu_torch.core import _window
+
+    flow = NeuralSplineFlow(6, 32, num_layers=3, num_blocks_per_layer=2, num_bins=4,
+                            tail_bound=3.0, dropout_probability=0.1, device=cuda,
+                            generator=torch.Generator().manual_seed(0),
+                            rng=np.random.default_rng(0)).train()
+    nadam = lambda p: torch.optim.NAdam(p, lr=1e-2, capturable=True)  # noqa: E731
+    count = _window.WARMUP_STEPS + _window.GRAPH_STEPS
+    rng = np.random.default_rng(30)
+    batches = torch.from_numpy((1.5 * rng.standard_normal((2 * count, 128, 6)))
+                               .astype(np.float32)).to(cuda)
+    state = create_train_state(copy.deepcopy(flow), nadam)
+    ref = create_train_state(copy.deepcopy(flow), nadam)
+    steps, step = make_scan_train_step(), make_train_step()
+    for seed, window in ((7, batches[:count]), (8, batches[count:count + _window.GRAPH_STEPS])):
+        state, losses = steps(state, window,
+                              generator=torch.Generator(device=cuda).manual_seed(seed))
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        loop = torch.stack([step(ref, x, generator=g)[1]["loss"] for x in window])
+        assert torch.isfinite(losses).all() and torch.equal(losses, loop), seed
+        assert steps.window.captured == 1
+    for a, b in zip(state.flow.parameters(), ref.flow.parameters()):
+        assert torch.equal(a, b)
