@@ -181,7 +181,32 @@ losses, bit for bit the same for the same seed and for the per-step loop
 from it, other for another seed, and a second window under a new
 generator replaces its graph rather than adding one. The eager route's
 step is timed at 512 and 4,096 only (phase 33 reads its host's share at
-512).
+512), and at 512 only on the four other spline families and RealNVP;
+phase 21 times the plain B3 and B4 of those six stages at 512 only (their
+holds stay at every batch).
+Phase 34 drives the transforms of queue A5. B1 and B5-B8 are held, both
+directions, as a learned CDF calls them (4,096 rows of the 3 identity
+features, one parameter row a feature shared by the batch), and B7 and
+B5 as the quadratic and linear-rational AR transforms call them (at the
+AR width), in phase 17's bands. Then it serves, through ``CompiledFlow``
+and unfused (no fused kernel has a stage for them; ``use_fused=True``
+raises): the flagship's chain with the learned CDF on the identity half
+of every coupling, for each of the five spline families (20 launches of
+the family's kernel a log_prob request and a sample request: 10
+couplings, 10 CDFs); the AR chain at its width with the quadratic and
+linear-rational transforms (linear tails: 5 launches of B7 or B5 a
+log_prob, 50 a sample) and the linear and cubic ones (bounded splines, no
+kernel, fed inputs in [0, 1]); and UMNN at the reference defaults
+(integrand 50, 50, 50; cond_size 20; 20 steps): 5 autoregressive layers
+at the AR width and 10 couplings at the flagship's, one with the
+unconditional normalizer on its identity half, log_prob at 4,096 and
+sampling at 512 (no kernel). Each request's launches are counted, its
+log_prob held against the same flow on the plain splines (fp32, and in
+float64 for the band), its samples' log_prob against log_prob of the
+samples, and its wall and busy time printed. Last, 5 eager Adam steps at
+512 on the RQ-CDF flow (20 B1 a step), the quadratic AR flow (5 B7) and
+the UMNN AR flow: finite losses, and a finite, nonzero gradient for every
+CDF row and integrand weight.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
@@ -191,7 +216,11 @@ directions at 12,288 and 1,048,575 elements, as phase 17 times B5-B8.
 
 Prints, before the last line, the card's name and power limit, a JSON
 line ``{"kernels": [...]}`` with each kernel's launches on the main path
-(a serving request for B1, B2, B5-B8, B9_wgmma and B11_wgmma, a train step for
+(a serving request for B1, B2, B5-B8, B9_wgmma and B11_wgmma; B1's and
+B5-B8's rows also carry phase 34's: ``cdf_launches`` and
+``cdf_sample_launches``, a log_prob and a sample request of the flow with
+the CDF, and, for B5 and B7, ``ar_launches`` and ``ar_sample_launches``
+of the AR flow, with ``cdf_err`` and ``ar_err`` of their holds; a train step for
 B3, B4, B10, B11 (its SIMT kernel) and B12, a bf16 request of the MoG-MADE at
 hidden 96 for B11_bf16; B9's and B9_bf16's rows count the launches of the
 kernels they time, the SIMT kernel's in a train step (``simt_launches``,
@@ -671,13 +700,14 @@ def hold_exact(name, kernel, plain32, plain64, tol):
     return err
 
 
-def hold_relative(torch, name, kernel, plain32, plain64, limits=(2.0, 2.0, 4.0, 10.0)):
+def hold_relative(torch, name, kernel, plain32, plain64, limits=(2.0, 2.0, 4.0, 10.0),
+                  floor=0.0):
     """Hold a kernel to its plain version where values span many orders of
     magnitude and both fp32 evaluations are far from float64 (see the module
     doc), or where a kernel rounds on other units than the plain version
     (``ONE_PASS_LIMITS``): per-sample relative errors against float64, the
     kernel's quantiles (median, 90%, 99%, max) within ``limits`` times the
-    plain version's."""
+    plain version's, or at most ``floor``."""
     def quantiles(t):
         e = (t.double() - plain64).abs() / (1.0 + plain64.abs())
         e = e.reshape(e.shape[0], -1).max(dim=1).values
@@ -685,11 +715,11 @@ def hold_relative(torch, name, kernel, plain32, plain64, limits=(2.0, 2.0, 4.0, 
         return [*q.tolist(), float(e.max())]
 
     k, p = quantiles(kernel), quantiles(plain32)
-    ok = all(a <= f * b for a, b, f in zip(k, p, limits))
+    ok = all(a <= f * b or a <= floor for a, b, f in zip(k, p, limits))
     fmt = lambda v: " ".join(f"{x:.2e}" for x in v)  # noqa: E731
     log(f"  {name}, relative error against f64 (median, 90%, 99%, max): kernel {fmt(k)}  "
         f"plain {fmt(p)}  limits " + " ".join(f"x{f:g}" for f in limits)
-        + f"  {'ok' if ok else 'FAIL'}")
+        + (f" or {floor:.0e}" if floor else "") + f"  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: the kernel's error is not the plain version's rounding")
     return k, p
@@ -748,13 +778,15 @@ def family_inputs(family, flow, x):
     return [t.contiguous() for t in (z[:, cpl.transform_features], *parts)]
 
 
-def family_flow(family, device, seed, **overrides):
+def family_flow(family, device, seed, cdf=False, **overrides):
     """The flagship's chain at its widths (FLAGSHIP, or ``overrides`` of it)
-    with a linear, quadratic or cubic coupling in place of the RQ one: 10 x
+    with a coupling of ``family`` (rq, lrs, linear, quadratic or cubic): 10 x
     [RandomPermutation, coupling with a 2-block relu ResidualNet], alternating
     masks, 8 bins, linear tails at 3, StandardNormal base, random weights from
     ``seed`` (the repo builds these chains in benchmarks/hw_numerics.py:79-100
-    and tests/ops/test_spline_couplings_fused.py:27-29)."""
+    and tests/ops/test_spline_couplings_fused.py:27-29). With ``cdf``, each
+    coupling also carries its family's learned CDF on the identity half
+    (``apply_unconditional_transform=True``), drawn from the same seed."""
     import torch
 
     from nflows_tpu_torch import Flow
@@ -764,12 +796,16 @@ def family_flow(family, device, seed, **overrides):
         CompositeTransform,
         PiecewiseCubicCouplingTransform,
         PiecewiseLinearCouplingTransform,
+        PiecewiseLinearRationalCouplingTransform,
         PiecewiseQuadraticCouplingTransform,
+        PiecewiseRationalQuadraticCouplingTransform,
         RandomPermutation,
     )
     from nflows_tpu_torch.utils.masks import create_alternating_binary_mask
 
-    cls = {"linear": PiecewiseLinearCouplingTransform,
+    cls = {"rq": PiecewiseRationalQuadraticCouplingTransform,
+           "lrs": PiecewiseLinearRationalCouplingTransform,
+           "linear": PiecewiseLinearCouplingTransform,
            "quadratic": PiecewiseQuadraticCouplingTransform,
            "cubic": PiecewiseCubicCouplingTransform}[family]
     cfg = {**FLAGSHIP, **overrides}
@@ -784,7 +820,7 @@ def family_flow(family, device, seed, **overrides):
                 n_in, n_out, hidden_features=cfg["hidden_features"],
                 num_blocks=cfg["num_blocks_per_layer"], generator=gen, device=device),
             num_bins=cfg["num_bins"], tails="linear", tail_bound=cfg["tail_bound"],
-            device=device))
+            apply_unconditional_transform=cdf, generator=gen, device=device))
     return Flow(CompositeTransform(chain), StandardNormal([cfg["features"]])).to(device).eval()
 
 
@@ -1291,7 +1327,8 @@ def main() -> int:
     serve("NSF", flow, D, "B2", dict(B1=L), dict(B1=L))
 
     # -- phase 6: B3 and B4 against their plain versions (full-width flagship) ----
-    def hold_training_kernels(trainer, batches_n, every_cluster=False, fresh=(2048,)):
+    def hold_training_kernels(trainer, batches_n, every_cluster=False, fresh=(2048,),
+                              plain_sizes=None):
         """B3 and B4 on ``trainer``'s weights against their plain versions at
         each batch size (with a context of N(0, 1) rows where the trainer's
         flow has one), at the cluster size the wrapper chooses and at every
@@ -1301,7 +1338,9 @@ def main() -> int:
         tile's, and with ``every_cluster`` each cluster size's time. The
         inputs at the sizes in ``fresh`` come from a generator of their own
         (seeded with the size), so that the shared one draws what it drew
-        before those sizes were added."""
+        before those sizes were added. The plain versions are timed at the
+        sizes in ``plain_sizes`` (default: every size), their holds at
+        every size."""
         tw32 = {k: v.detach() for k, v in trainer.weights.items()}
         tw64 = {k: v.double() for k, v in tw32.items()}
         tidx = trainer._indices
@@ -1370,12 +1409,14 @@ def main() -> int:
             by_cluster = cluster_times(lambda c: nsf_train.nsf_loss_grad_cuda(
                 x, tw32, tidx, packed=packed, grads=grads, rows=rows, cluster=c, **tkw),
                 "nsf_loss_grad")
-            plain_ms = device_ms(torch, run_plain, 3)
+            timed_plain = plain_sizes is None or n in plain_sizes
+            plain_ms = device_ms(torch, run_plain, 3) if timed_plain else None
             nbytes = 2 * w_bytes + 4 * n * (d["D"] + 1 + C)
             bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
             bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-            log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain {plain_ms:.4f} ms  "
-                f"bound {bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.1f} GFLOP)  "
+            log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain "
+                + ("not timed" if plain_ms is None else f"{plain_ms:.4f} ms")
+                + f"  bound {bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.1f} GFLOP)  "
                 f"{nops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; by "
                 f"cluster size {json.dumps({c: round(t, 4) for c, t in by_cluster.items()})}")
             out3[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
@@ -1418,12 +1459,13 @@ def main() -> int:
             by_cluster = cluster_times(lambda c: nsf_train.nsf_train_bwd_cuda(
                 x, gy, glad, tw32, tidx, packed=packed, grads=grads, rows=rows, cluster=c,
                 **tkw), "nsf_train_bwd")
-            plain_ms = device_ms(torch, run_plain, 3)
+            plain_ms = device_ms(torch, run_plain, 3) if timed_plain else None
             nbytes = 2 * w_bytes + 4 * n * (3 * d["D"] + 1 + 2 * C)
             bound_ms = 1e3 * max(nops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
             bound_by = "operations" if nops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-            log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain {plain_ms:.4f} ms  "
-                f"bound {bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.1f} GFLOP)  "
+            log(f"  time: kernel {ms:.4f} ms (cluster size {chosen})  plain "
+                + ("not timed" if plain_ms is None else f"{plain_ms:.4f} ms")
+                + f"  bound {bound_ms:.4f} ms ({bound_by}, {nops / 1e9:.1f} GFLOP)  "
                 f"{nops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; by "
                 f"cluster size {json.dumps({c: round(t, 4) for c, t in by_cluster.items()})}")
             out4[n] = dict(err=max(errs), ms=ms, ms_source=ms_source, plain_ms=plain_ms,
@@ -1511,10 +1553,10 @@ def main() -> int:
 
     step_busy = {}   # device busy ms a step by (title, route, batch)
 
-    def time_steps(title, make_routes, family, extra):
+    def time_steps(title, make_routes, family, extra, eager_at=(TRAIN_BATCH, SERVE_BATCH)):
         """Time a step of each route at batches 512, 2,048 and 4,096 (the
-        eager route at 512 and 4,096: phase 33 measures its host's share at
-        512 against its window): the wall
+        eager route at the sizes in ``eager_at``, 512 and 4,096 by default:
+        phase 33 measures its host's share at 512 against its window): the wall
         time over 20 steps (the eager route's over 5, each some hundred
         milliseconds) ending in a synchronise, after 3 warm-up steps,
         and the device busy time of one (torch.profiler; three profiled
@@ -1526,15 +1568,15 @@ def main() -> int:
         the wall times by (route, batch), and keeps the device busy times
         in ``step_busy`` by (title, route, batch)."""
         log(f"{title} step times (host clock over 20 steps, the eager route's over 5, ending "
-            "in a synchronise; device busy from torch.profiler; the eager route at 512 and "
-            "4,096):")
+            "in a synchronise; device busy from torch.profiler; the eager route at "
+            + " and ".join(f"{n:,}" for n in eager_at) + "):")
         sizes = (TRAIN_BATCH, 2048, SERVE_BATCH)
         times = {}
         for n in sizes:
             steps, args, trainer = make_routes(n)
             for name, step in steps.items():
-                if name == "eager" and n == 2048:
-                    continue   # phase 33's eager window times the host's share at 512
+                if name == "eager" and n not in eager_at:
+                    continue
                 for a in args[:3]:
                     step(*a)
                 torch.cuda.synchronize()
@@ -1557,13 +1599,14 @@ def main() -> int:
             f"the fused route from batch {MIN_AUTO_BATCH[family]}")
         return times
 
-    def train_three_routes(model, model_flow, eager_kernels, context_features=None):
+    def train_three_routes(model, model_flow, eager_kernels, context_features=None,
+                           eager_at=(TRAIN_BATCH, SERVE_BATCH)):
         """Train ``model_flow`` 20 Adam steps on the fused (B3), fused-autograd
         (B2 + B4) and eager routes, the eager one launching ``eager_kernels``
         a step (with a context of ``context_features`` a sample where given);
         check the launches, the first three losses and a falling loss, serve
         the fused-trained flow, then time a step of each route at batches
-        512, 2,048 and 4,096."""
+        512, 2,048 and 4,096 (the eager one at ``eager_at``)."""
         steps, fused_tr, state = routes(model_flow, TRAIN_BATCH)
         data = batches(TRAIN_BATCH, TRAIN_STEPS, seed=3)
         ctxs = contexts(TRAIN_BATCH, TRAIN_STEPS, 13, context_features)
@@ -1625,7 +1668,7 @@ def main() -> int:
             ms = device_ms(torch, lambda: fused_tr._repack(fused_tr.weights), 20)
             log(f"  batch {n}: re-packing the weights for the forward GEMMs {ms:.4f} ms a step")
 
-        time_steps(f"{model} train", timed_routes, "nsf", extra=repack)
+        time_steps(f"{model} train", timed_routes, "nsf", extra=repack, eager_at=eager_at)
 
     train_three_routes("NSF", flow, dict(B1=L))
 
@@ -2717,7 +2760,10 @@ def main() -> int:
     # fused: one B3 a step; fused-autograd: one B2 and one B4; eager: one launch
     # of the family's kernel in each of the 10 couplings
     for fam, flow_f in family_flows.items():
-        train_three_routes(f"{fam} couplings", flow_f, {families[fam][0]: L})
+        # the eager route timed at 512 only: an eager step at 4,096 took 4-6 s
+        # to time on a slow host, and the flagship's stays timed there
+        train_three_routes(f"{fam} couplings", flow_f, {families[fam][0]: L},
+                           eager_at=(TRAIN_BATCH,))
 
     # -- phase 20: B2's other families against their plain versions ---------------------
     # the six stages this port added to B2 (lrs, linear, quadratic, cubic on the
@@ -2794,12 +2840,14 @@ def main() -> int:
 
     # -- phase 21: B3 and B4 for the other six stages ------------------------------------
     # the lrs, linear, quadratic and cubic stages' adjoints on the four family
-    # flows, the affine and additive ones on RealNVP
+    # flows, the affine and additive ones on RealNVP; their plain versions
+    # timed at the training batch only (the kernels line reads no other; a
+    # plain B3 or B4 at 2,048 and 4,096 took 3-6 s to time on a slow host)
     b3_families, b4_families = {}, {}
     for fam, flow_f in {**family_flows, **realnvp_flows}.items():
         log(f"B3 and B4 on the {fam} chain:")
         b3_families[fam], b4_families[fam] = hold_training_kernels(
-            fused_trainer(flow_f, TRAIN_BATCH), TRAIN_SIZES)
+            fused_trainer(flow_f, TRAIN_BATCH), TRAIN_SIZES, plain_sizes=(TRAIN_BATCH,))
 
     # the held tie (TIE_X): B4 on a batch of 64 rows from a generator of
     # their own with the tie's row at rows 0, 24 (its row in its tile then)
@@ -2863,7 +2911,7 @@ def main() -> int:
         serve(f"RealNVP ({variant})", flow_f, D, "B2", {}, {})
 
     # -- phase 23: training RealNVP on the three routes ----------------------------------
-    train_three_routes("RealNVP", realnvp_flows["affine"], {})
+    train_three_routes("RealNVP", realnvp_flows["affine"], {}, eager_at=(TRAIN_BATCH,))
 
     # -- phase 24: B2, B3 and B4 with a context against their plain versions -----------
     # the flagship's conditional twin (context 10, MOG_CONTEXT) with its blocks'
@@ -4035,6 +4083,344 @@ def main() -> int:
     log(f"windows: {json.dumps({f'{m}, {n}': v for (m, n), v in window_stats.items()})}")
     log(f"phase 33 (windows of steps) took {window_seconds:.1f} s")
 
+    # -- phase 34: the transforms of queue A5 ------------------------------------
+    # the learned CDFs on the identity half of the five spline couplings, the
+    # quadratic, linear-rational, linear and cubic AR transforms, and UMNN: B1
+    # and B5-B8 as a CDF calls them, B7 and B5 as the AR transforms call them;
+    # the flows built from them served unfused through CompiledFlow, then
+    # trained eagerly (see the module doc)
+    t_a5 = time.perf_counter()
+    import copy
+    from contextlib import contextmanager
+
+    from nflows_tpu_torch import Flow
+    from nflows_tpu_torch.distributions import StandardNormal
+    from nflows_tpu_torch.nn import nets
+    from nflows_tpu_torch.transforms import (
+        CompositeTransform,
+        MaskedPiecewiseCubicAutoregressiveTransform,
+        MaskedPiecewiseLinearAutoregressiveTransform,
+        MaskedPiecewiseLinearRationalAutoregressiveTransform,
+        MaskedPiecewiseQuadraticAutoregressiveTransform,
+        MaskedUMNNAutoregressiveTransform,
+        RandomPermutation,
+        ReversePermutation,
+        UMNNCouplingTransform,
+    )
+    from nflows_tpu_torch.utils.masks import create_alternating_binary_mask
+
+    NB = FLAGSHIP["num_bins"]
+    g34 = torch.Generator().manual_seed(34)
+    # family -> (kernel id, wrapper module, wrapper name, plain version)
+    spline_kernels = {"rq": ("B1", rq_spline, "rq_spline_cuda",
+                             rq.unconstrained_rational_quadratic_spline_plain),
+                      **{fam: (kid, module, wrapper.__name__, plain)
+                         for fam, (kid, module, wrapper, plain, *_) in families.items()}}
+    a5 = {kid: {} for kid, *_ in spline_kernels.values()}   # kid -> its row's phase-34 keys
+    a5_stats = {}   # what the phase measured, by model
+
+    @contextmanager
+    def plain_splines():
+        """Every spline wrapper of B1 and B5-B8 replaced by its plain version
+        (same arguments), so that a flow on the card runs the plain splines."""
+        saved = [(module, name, getattr(module, name))
+                 for _, module, name, _ in spline_kernels.values()]
+        try:
+            for _, module, name, plain in spline_kernels.values():
+                setattr(module, name, plain)
+            yield
+        finally:
+            for module, name, fn in saved:
+                setattr(module, name, fn)
+
+    def hold_spline_path(kid, what, wrapper, plain, args):
+        """``hold`` of a wrapper on ``args`` against its plain version, both
+        directions, in phase 17's bands; the largest |kernel - plain|."""
+        errs = []
+        for inverse in (False, True):
+            kw = dict(inverse=inverse, tail_bound=B)
+            out, lad = wrapper(*args, **kw)
+            p_out, p_lad = plain(*args, **kw)
+            d_out, d_lad = plain(*[t.double() for t in args], **kw)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(out).all() and torch.isfinite(lad).all()):
+                raise AssertionError(f"{kid} {what} produced non-finite values")
+            tag = f"{kid} {what}, {'inverse' if inverse else 'forward'}"
+            errs += [hold(f"{tag} out", out, p_out, d_out, 1e-4),
+                     hold(f"{tag} lad", lad, p_lad, d_lad, 1e-3)]
+        return max(errs)
+
+    # (a) the flagship's chain with the CDF on every identity half, each family
+    cdf_flows = {fam: family_flow(fam, dev, seed=34, cdf=True) for fam in spline_kernels}
+    with torch.no_grad():
+        for fam, flow_c in cdf_flows.items():
+            kid, module, wname, plain = spline_kernels[fam]
+            cpl = flow_c.transform.transforms[1]
+            cdf = cpl.unconditional_transform
+            x = torch.randn(SERVE_BATCH, cpl.num_identity_features, generator=g34).to(dev)
+            x.view(-1)[:4] = torch.tensor([B, -B, B + 0.5, -B - 0.5])
+            # the rows the CDF hands its spline: one a feature, expanded over
+            # the batch and made dense by the dispatch's .contiguous()
+            args = [x] + [getattr(cdf, name).detach()[None].expand(
+                SERVE_BATCH, *getattr(cdf, name).shape).contiguous() for name in cdf._PARAMS]
+            log(f"{kid} ({fam}) as the learned CDF calls it, at {x.numel()} elements:")
+            a5[kid]["cdf_err"] = hold_spline_path(kid, "CDF", getattr(module, wname), plain,
+                                                  args)
+
+    # (b) the AR chain at its width with each new spline transform
+    def ar_flow(cls, seed, **kw):
+        """5 x [ReversePermutation, ``cls`` with a 2-block residual MADE] at
+        the AR family's widths (MAF), StandardNormal base, random weights
+        from ``seed``."""
+        g = torch.Generator().manual_seed(seed)
+        chain = []
+        for _ in range(MAF["num_layers"]):
+            chain += [ReversePermutation(MAF["features"], device=dev),
+                      cls(features=MAF["features"], hidden_features=MAF["hidden_features"],
+                          num_blocks=MAF["num_blocks_per_layer"], generator=g, device=dev,
+                          **kw)]
+        return Flow(CompositeTransform(chain), StandardNormal([MAF["features"]])).to(dev).eval()
+
+    linear_tails = dict(num_bins=NB, tails="linear", tail_bound=B)
+    ar_flows = {"quadratic": (ar_flow(MaskedPiecewiseQuadraticAutoregressiveTransform, 34,
+                                      **linear_tails), "B7"),
+                "lrs": (ar_flow(MaskedPiecewiseLinearRationalAutoregressiveTransform, 35,
+                                **linear_tails), "B5"),
+                "linear": (ar_flow(MaskedPiecewiseLinearAutoregressiveTransform, 36,
+                                   num_bins=NB), None),
+                "cubic": (ar_flow(MaskedPiecewiseCubicAutoregressiveTransform, 37,
+                                  num_bins=NB), None)}
+    AR_D = MAF["features"]
+    with torch.no_grad():
+        for fam in ("quadratic", "lrs"):
+            flow_a, kid = ar_flows[fam]
+            _, module, wname, plain = spline_kernels[fam]
+            perm, t = flow_a.transform.transforms[0], flow_a.transform.transforms[1]
+            z, _ = perm(torch.randn(SERVE_BATCH, AR_D, generator=g34).to(dev))
+            z.view(-1)[:4] = torch.tensor([B, -B, B + 0.5, -B - 0.5])
+            p = t.autoregressive_net(z).reshape(SERVE_BATCH, AR_D, -1)
+            s = t._hidden_scale()
+            # as the transform splits and rescales them: quadratic its widths
+            # only, linear-rational widths and heights
+            parts = ([p[..., :NB] * s, p[..., NB:]] if fam == "quadratic" else
+                     [p[..., :NB] * s, p[..., NB:2 * NB] * s, p[..., 3 * NB:],
+                      p[..., 2 * NB:3 * NB]])
+            log(f"{kid} ({fam}) as the AR transform calls it, at {z.numel()} elements:")
+            a5[kid]["ar_err"] = hold_spline_path(
+                kid, "AR", getattr(module, wname), plain,
+                [t_.contiguous() for t_ in (z, *parts)])
+
+    # (c) UMNN at the reference defaults
+    UMNN = dict(integrand_net_layers=(50, 50, 50), cond_size=20, nb_steps=20)
+    umnn_ar = ar_flow(MaskedUMNNAutoregressiveTransform, 38, **UMNN)
+    g = torch.Generator().manual_seed(39)
+    rng = np.random.default_rng(39)
+    chain = []
+    for i in range(FLAGSHIP["num_layers"]):
+        chain += [RandomPermutation(D, rng=rng, device=dev),
+                  UMNNCouplingTransform(
+                      create_alternating_binary_mask(D, even=bool(i % 2)),
+                      lambda n_in, n_out: nets.ResidualNet(
+                          n_in, n_out, hidden_features=FLAGSHIP["hidden_features"],
+                          num_blocks=FLAGSHIP["num_blocks_per_layer"], generator=g, device=dev),
+                      apply_unconditional_transform=i == 0, generator=g, device=dev, **UMNN)]
+    umnn_coupling = Flow(CompositeTransform(chain), StandardNormal([D])).to(dev).eval()
+
+    def serve_a5(model, flow, features, lp_counts, sample_counts, x, num_samples=SERVE_BATCH,
+                 refusal="", ties=0, consistent=True, calls=10):
+        """Serve ``flow`` through CompiledFlow: unfused (``use_fused=True``
+        raises, with ``refusal`` in its reason); count the launches of a
+        log_prob request (``lp_counts``) and of a sample request of
+        ``num_samples`` (``sample_counts``); hold the log_prob against the
+        same flow on the plain splines by ``hold_relative`` (each sample's
+        error against float64, relative to 1 + |log_prob|: the kernels'
+        quantiles within the fp32 plain version's, or at most 1e-6, eight
+        ulps of fp32, which no chain of 20 fp32 splines is held below: at
+        initialisation the cubic chain puts both fp32 paths 1e-3 to 5e-3
+        from float64, one steep bin amplifying the rounding of the layers
+        before it, and B8's median there is twice the plain's, 8e-7); hold the
+        log_prob of sample_and_log_prob against log_prob of its samples
+        (``consistent``; up to ``ties`` samples on a linear spline's bin edge
+        may miss, as in ``serve``, and are set aside in the log_prob hold);
+        time both requests (wall over ``calls``,
+        busy over a third of them)."""
+        try:
+            CompiledFlow(flow, batch_size=SERVE_BATCH, features=features, use_fused=True)
+        except ValueError as e:
+            if refusal not in str(e):
+                raise AssertionError(f"{model}: use_fused=True refused for another reason: {e}")
+        else:
+            raise AssertionError(f"{model}: use_fused=True did not raise")
+        server = CompiledFlow(flow, batch_size=SERVE_BATCH, features=features,
+                              num_samples=num_samples)
+        if server.is_fused:
+            raise AssertionError(f"{model}: CompiledFlow fused a flow no kernel has a stage for")
+        reset_counts()
+        lp = server.log_prob(x)
+        torch.cuda.synchronize()
+        first = read_counts()
+        reset_counts()
+        s = server.sample(torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        second = read_counts()
+        log(f"serving {model} (unfused): launches a log_prob request "
+            f"{ {k: v for k, v in first.items() if v} }, a sample request of {num_samples} "
+            f"{ {k: v for k, v in second.items() if v} }")
+        expect_counts(f"one {model} log_prob request", first, **lp_counts)
+        expect_counts(f"one {model} sample request", second, **sample_counts)
+        flow64 = copy.deepcopy(flow).double()
+        with torch.no_grad(), plain_splines():
+            p_lp = flow.log_prob(x)
+            d_lp = flow64.log_prob(x.double())
+        held = torch.arange(SERVE_BATCH, device=dev)
+        if ties:
+            # a piecewise-constant density (the linear spline's) jumps at
+            # each knot: a sample whose path passes within rounding of one
+            # takes the neighbouring bin's density on one path and not on
+            # the other; the `ties` farthest from float64 are set aside
+            far = (lp.double() - d_lp).abs()
+            held = torch.argsort(far)[:-ties]
+            log(f"  {ties} samples set aside as bin-edge ties, |kernel-f64| "
+                + " ".join(f"{v:.3e}" for v in far.sort().values[-ties:].tolist()))
+        hold_relative(torch, f"{model} log_prob against the flow on the plain splines", lp[held],
+                      p_lp[held], d_lp[held], floor=1e-6)
+        err = max_err(lp, p_lp)
+        log(f"  |kernel-plain| {err:.3e}  |kernel-f64| {max_err(lp, d_lp):.3e}  "
+            f"|plain-f64| {max_err(p_lp, d_lp):.3e}")
+        s2, lp2 = server.sample_and_log_prob(torch.Generator(device=dev).manual_seed(2))
+        for t_, shape in ((lp, (SERVE_BATCH,)), (s, (num_samples, features)),
+                          (s2, (num_samples, features)), (lp2, (num_samples,))):
+            if tuple(t_.shape) != shape or not torch.isfinite(t_).all():
+                raise AssertionError(f"{model}: bad output {tuple(t_.shape)}")
+        if consistent:
+            # sample_and_log_prob's log_prob against log_prob of its samples,
+            # on the same noise through the kernels, the plain splines and
+            # the float64 plain splines
+            def round_trip(f, z):
+                xs, lad = f.transform.inverse(z)
+                return (f.distribution.log_prob(z) - lad - f.log_prob(xs)).double().abs()
+
+            z = torch.randn(num_samples, features, generator=g34).to(dev)
+            with torch.no_grad():
+                gaps = round_trip(flow, z)
+                with plain_splines():
+                    p_gaps = round_trip(flow, z) if lp_counts else gaps
+                    d_gaps = round_trip(flow64, z.double())
+            over = int((gaps > 5e-3).sum())
+            # where a kernel runs, its gap may also be the plain fp32 path's
+            # (twice it at most): a steep cubic bin amplifies the inverse's
+            # rounding in both
+            ok = over <= ties or (bool(lp_counts)
+                                  and float(gaps.max()) <= 2.0 * float(p_gaps.max()))
+            log(f"  sample_and_log_prob vs log_prob(samples): {float(gaps.max()):.3e}, on the "
+                f"plain splines {float(p_gaps.max()):.3e}, in float64 {float(d_gaps.max()):.3e} "
+                f"(limit 5e-3{f'; {over} bin-edge ties allowed up to {ties}' if ties else ''}"
+                f"{', or twice the plain splines' if lp_counts else ''})  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{model}: sample_and_log_prob disagrees with log_prob")
+        stats = dict(err=err, log_prob_launches={k: v for k, v in first.items() if v},
+                     sample_launches={k: v for k, v in second.items() if v})
+        for endpoint, fn in (("log_prob", lambda: server.log_prob(x)),
+                             ("sample", lambda: server.sample(
+                                 torch.Generator(device=dev).manual_seed(3)))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / calls
+            busy = device_ms(torch, fn, max(1, calls // 3))
+            log(f"  {endpoint}: {wall:.3f} ms a request of "
+                f"{SERVE_BATCH if endpoint == 'log_prob' else num_samples} (host clock), "
+                f"device busy {busy:.3f} ms")
+            serve_times[f"{model}, unfused, {endpoint}"] = dict(wall_ms=wall, busy_ms=busy)
+            stats[f"{endpoint}_wall_ms"], stats[f"{endpoint}_busy_ms"] = wall, busy
+        a5_stats[model] = stats
+        return first, second
+
+    for fam, flow_c in cdf_flows.items():
+        kid = spline_kernels[fam][0]
+        first, second = serve_a5(
+            f"{fam} couplings with the CDF", flow_c, D, {kid: 2 * L}, {kid: 2 * L},
+            torch.randn(SERVE_BATCH, D, generator=g34).to(dev), refusal="unconditional",
+            ties=SERVE_BATCH // 1000 if fam == "linear" else 0)
+        a5[kid].update(cdf_launches=first[kid], cdf_sample_launches=second[kid])
+    AR_L = MAF["num_layers"]
+    for fam, (flow_a, kid) in ar_flows.items():
+        bounded = kid is None
+        x = (torch.rand(SERVE_BATCH, AR_D, generator=g34) if bounded
+             else torch.randn(SERVE_BATCH, AR_D, generator=g34)).to(dev)
+        # the bounded cubic's inverse, plain bisection on the host, takes
+        # about 0.5 s a sample request: fewer timed requests
+        first, second = serve_a5(
+            f"{fam} AR" + (" (bounded)" if bounded else ""), flow_a, AR_D,
+            {} if bounded else {kid: AR_L}, {} if bounded else {kid: AR_L * AR_D}, x,
+            refusal="only affine / RQ-spline", consistent=not bounded,
+            calls=3 if fam == "cubic" else 10)
+        if not bounded:
+            a5[kid].update(ar_launches=first[kid], ar_sample_launches=second[kid])
+    # its sample request is about 1.2 s of host time (26 quadratures a
+    # feature a layer): one timed request
+    serve_a5("UMNN AR", umnn_ar, AR_D, {}, {},
+             torch.randn(SERVE_BATCH, AR_D, generator=g34).to(dev), num_samples=512,
+             refusal="only affine / RQ-spline", calls=1)
+    serve_a5("UMNN couplings", umnn_coupling, D, {}, {},
+             torch.randn(SERVE_BATCH, D, generator=g34).to(dev), num_samples=512,
+             refusal="is not fused", calls=3)
+
+    # (d) eager training: 5 Adam steps at 512
+    def train_a5(model, flow, features, new, expected):
+        """5 eager Adam steps at TRAIN_BATCH on a copy of ``flow``: a step's
+        launches ``expected``, finite losses, and before them a finite
+        gradient for every parameter, nonzero for each whose name holds
+        ``new`` (None: no new parameters to check)."""
+        flow_t = copy.deepcopy(flow).train()
+        data = [torch.randn(TRAIN_BATCH, features, generator=g34).to(dev) for _ in range(5)]
+        (-flow_t.log_prob(data[0]).mean()).backward()
+        checked = 0
+        for name, prm in flow_t.named_parameters():
+            if prm.grad is None or not torch.isfinite(prm.grad).all():
+                raise AssertionError(f"{model}: {name} has no finite gradient")
+            if new is not None and new in name:
+                checked += 1
+                if not prm.grad.abs().max() > 0:
+                    raise AssertionError(f"{model}: {name} has a zero gradient")
+        if new is not None and not checked:
+            raise AssertionError(f"{model}: no parameter named {new}")
+        flow_t.zero_grad()
+        state = create_train_state(flow_t, lambda prm: torch.optim.Adam(prm, lr=1e-3))
+        step = make_train_step()
+        losses, counts = [], None
+        t0 = time.perf_counter()
+        for i, batch in enumerate(data):
+            reset_counts()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                counts = read_counts()
+        wall = 1e3 * (time.perf_counter() - t0) / len(data)
+        expect_counts(f"an eager {model} step", counts, **expected)
+        log(f"training {model} eagerly: "
+            + (f"{checked} new parameters with finite, nonzero gradients; "
+               if new is not None else "")
+            + f"launches a step {({k: v for k, v in counts.items() if v})}; losses "
+            + " ".join(f"{v:.4f}" for v in losses) + f"; {wall:.1f} ms a step (host clock, "
+            "the first included)")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{model}: non-finite losses {losses}")
+        a5_stats[f"{model}, training"] = dict(losses=losses, step_ms=wall,
+                                              new_parameters=checked)
+
+    train_a5("rq couplings with the CDF", cdf_flows["rq"], D, "unconditional_transform",
+             {"B1": 2 * L})
+    train_a5("quadratic AR", ar_flows["quadratic"][0], AR_D, None, {"B7": AR_L})
+    train_a5("UMNN AR", umnn_ar, AR_D, "transformer.integrand_net", {})
+    a5_seconds = time.perf_counter() - t_a5
+    log(f"queue A5: {json.dumps(a5_stats)}")
+    log(f"phase 34 (the transforms of queue A5) took {a5_seconds:.1f} s")
+
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
              "B4": "nsf_train_bwd", "B5": "lrs_spline", "B6": "linear_spline",
@@ -4308,6 +4694,9 @@ def main() -> int:
                                 "trained_"))},
             **more,
         })
+    for row in rows:
+        # phase 34's paths: the learned CDF's and the AR transforms' launches
+        row.update(a5.get(row["id"], {}))
     rows.sort(key=lambda row: (int(row["id"].split("_")[0][1:]), row["id"]))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -30,6 +30,14 @@ blocks' ``context_layer``s, and a ``ConditionalDiagonalNormal``'s encoder,
 a ``DiagonalNormal``'s ``mean_`` and ``log_std_`` and a flow's
 ``embedding_net`` carry by the same rule.
 
+The learned CDFs (``transforms/nonlinearities.py``) keep the JAX leaf
+names, one row a feature, and carry untransposed; a learned ``Sigmoid``
+temperature is a [1] parameter, a fixed one no leaf in either package. The
+UMNN integrand nets' layers are ``Dense`` (``nn.Linear``) and transpose as
+any other; a UMNN transform's MADE carries as any MADE; the quadrature's
+nodes and weights are constants of the step count, non-persistent buffers
+here and no leaves there. The loader needed no change for them.
+
 A ``StackedTransform`` (the JAX package's scan-stacked chain) has to be
 unstacked first: build the JAX flow with ``stacked=False``, or walk its
 ``layers()``.

@@ -7,8 +7,9 @@ sample_and_log_prob as one launch each.
 [Permutation?, coupling(ResidualNet)] layers of one of the seven families
 B2 has a stage for: the rq, lrs, linear, quadratic and cubic splines with
 tails='linear', and the affine coupling with the DEFAULT or GENERAL scale
-activation, or the additive one; relu, no dropout or batch norm,
-StandardNormal base, with or without a context) and re-lays the weights out
+activation, or the additive one; relu, no dropout or batch norm, no
+unconditional transform of the identity half, StandardNormal base, with or
+without a context) and re-lays the weights out
 as the JAX package's ``_extract`` does: transposed, the final layer's rows
 permuted K-major for the splines (the affine parameters are already
 param-major), each family's softmax 1/sqrt(hidden) folded in. A
@@ -143,6 +144,9 @@ def _extract(flow, dtype, fold_wh_scale=True):
         spline, scale_act = _family(cpl)
         if spline not in ("affine", "additive") and cpl.tails != "linear":
             raise ValueError("fused path requires tails='linear'")
+        # B2 has no stage for a map of the identity half: fusing would drop it
+        if cpl.unconditional_transform is not None:
+            raise ValueError("unconditional_transform not supported")
         net = cpl.transform_net
         if not isinstance(net, ResidualNet):
             raise ValueError("conditioner must be a ResidualNet")

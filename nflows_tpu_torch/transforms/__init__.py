@@ -3,7 +3,12 @@
 from nflows_tpu_torch.transforms.autoregressive import (
     AutoregressiveTransform,
     MaskedAffineAutoregressiveTransform,
+    MaskedPiecewiseCubicAutoregressiveTransform,
+    MaskedPiecewiseLinearAutoregressiveTransform,
+    MaskedPiecewiseLinearRationalAutoregressiveTransform,
+    MaskedPiecewiseQuadraticAutoregressiveTransform,
     MaskedPiecewiseRationalQuadraticAutoregressiveTransform,
+    MaskedUMNNAutoregressiveTransform,
 )
 from nflows_tpu_torch.transforms.base import (
     CompositeTransform,
@@ -22,12 +27,31 @@ from nflows_tpu_torch.transforms.coupling import (
     PiecewiseLinearRationalCouplingTransform,
     PiecewiseQuadraticCouplingTransform,
     PiecewiseRationalQuadraticCouplingTransform,
+    UMNNCouplingTransform,
+)
+from nflows_tpu_torch.transforms.nonlinearities import (
+    CauchyCDF,
+    CauchyCDFInverse,
+    CompositeCDFTransform,
+    Exp,
+    GatedLinearUnit,
+    LeakyReLU,
+    Logit,
+    LogTanh,
+    PiecewiseCubicCDF,
+    PiecewiseLinearCDF,
+    PiecewiseLinearRationalCDF,
+    PiecewiseQuadraticCDF,
+    PiecewiseRationalQuadraticCDF,
+    Sigmoid,
+    Tanh,
 )
 from nflows_tpu_torch.transforms.permutations import (
     Permutation,
     RandomPermutation,
     ReversePermutation,
 )
+from nflows_tpu_torch.transforms.umnn import IntegrandNet, MonotonicNormalizer
 
 __all__ = [
     "Transform", "CompositeTransform", "InverseTransform",
@@ -37,7 +61,17 @@ __all__ = [
     "PiecewiseCouplingTransform",
     "PiecewiseLinearCouplingTransform", "PiecewiseQuadraticCouplingTransform",
     "PiecewiseCubicCouplingTransform", "PiecewiseRationalQuadraticCouplingTransform",
-    "PiecewiseLinearRationalCouplingTransform",
+    "PiecewiseLinearRationalCouplingTransform", "UMNNCouplingTransform",
     "AutoregressiveTransform", "MaskedAffineAutoregressiveTransform",
+    "MaskedPiecewiseLinearAutoregressiveTransform",
+    "MaskedPiecewiseQuadraticAutoregressiveTransform",
+    "MaskedPiecewiseCubicAutoregressiveTransform",
     "MaskedPiecewiseRationalQuadraticAutoregressiveTransform",
+    "MaskedPiecewiseLinearRationalAutoregressiveTransform",
+    "MaskedUMNNAutoregressiveTransform",
+    "Exp", "Tanh", "LogTanh", "LeakyReLU", "Sigmoid", "Logit", "GatedLinearUnit",
+    "CauchyCDF", "CauchyCDFInverse", "CompositeCDFTransform",
+    "PiecewiseLinearCDF", "PiecewiseQuadraticCDF", "PiecewiseCubicCDF",
+    "PiecewiseRationalQuadraticCDF", "PiecewiseLinearRationalCDF",
+    "IntegrandNet", "MonotonicNormalizer",
 ]

@@ -3,9 +3,12 @@ reference nflows/transforms/coupling.py).
 
 A coupling transform splits the features by a fixed binary mask: the
 identity half feeds a conditioner net whose output parameterises an
-elementwise bijection of the transform half. Ported: the affine (RealNVP)
-and additive (NICE) couplings and the spline couplings (linear, quadratic,
-cubic, rational-quadratic, linear-rational) on [N, D] inputs.
+elementwise bijection of the transform half; an optional unconditional
+transform maps the identity half itself. Ported: the affine (RealNVP) and
+additive (NICE) couplings, the spline couplings (linear, quadratic, cubic,
+rational-quadratic, linear-rational), each with its learned CDF on the
+identity half (``apply_unconditional_transform=True``), and the UMNN
+coupling, on [N, D] inputs.
 
 The conditioner's output columns are feature-major (column ``t*M + j`` is
 parameter j of transformed feature t), as in the JAX package, so weights
@@ -19,8 +22,11 @@ import warnings
 import numpy as np
 import torch
 
+from nflows_tpu_torch.nn.primitives import default_generator
 from nflows_tpu_torch.ops import splines
+from nflows_tpu_torch.transforms import nonlinearities
 from nflows_tpu_torch.transforms.base import Transform
+from nflows_tpu_torch.transforms.umnn import MonotonicNormalizer, UnconditionalMonotonicTransform
 from nflows_tpu_torch.utils import shapes as shapeutils
 
 __all__ = ["CouplingTransform", "AffineCouplingTransform",
@@ -29,7 +35,8 @@ __all__ = ["CouplingTransform", "AffineCouplingTransform",
            "PiecewiseQuadraticCouplingTransform",
            "PiecewiseCubicCouplingTransform",
            "PiecewiseRationalQuadraticCouplingTransform",
-           "PiecewiseLinearRationalCouplingTransform"]
+           "PiecewiseLinearRationalCouplingTransform",
+           "UMNNCouplingTransform"]
 
 
 class CouplingTransform(Transform):
@@ -39,12 +46,17 @@ class CouplingTransform(Transform):
         mask: 1-dim array; ``mask[i] > 0`` means feature i is transformed,
             ``mask[i] <= 0`` means it passes through unchanged.
         transform_net_create_fn: callable (in_features, out_features) -> net.
+        unconditional_transform: optional callable (features) -> Transform
+            applied to the identity half.
 
-    The JAX class's optional unconditional transform of the identity half
-    is not ported yet.
+    Forward runs the conditioner on the identity half as it came in, then
+    the unconditional transform; the inverse undoes the unconditional
+    transform first and runs the conditioner on its output. The logabsdet
+    is the sum of the two in both directions.
     """
 
-    def __init__(self, mask, transform_net_create_fn, device=None):
+    def __init__(self, mask, transform_net_create_fn, unconditional_transform=None,
+                 device=None):
         super().__init__()
         mask = np.asarray(mask)
         if mask.ndim != 1:
@@ -69,6 +81,9 @@ class CouplingTransform(Transform):
         self.transform_net = transform_net_create_fn(
             self.num_identity_features,
             self.num_transform_features * self._transform_dim_multiplier())
+        self.unconditional_transform = (
+            unconditional_transform(features=self.num_identity_features)
+            if unconditional_transform is not None else None)
 
     def _check(self, inputs):
         if inputs.ndim == 4:
@@ -90,15 +105,25 @@ class CouplingTransform(Transform):
         transform_params = self.transform_net(identity_split, context)
         transform_split, logabsdet = self._coupling_transform_forward(
             transform_split, transform_params)
+        if self.unconditional_transform is not None:
+            identity_split, logabsdet_identity = self.unconditional_transform.forward(
+                identity_split, context)
+            logabsdet = logabsdet + logabsdet_identity
         return self._merge(identity_split, transform_split), logabsdet
 
     def inverse(self, inputs, context=None):
         self._check(inputs)
         identity_split = torch.index_select(inputs, 1, self.identity_features)
         transform_split = torch.index_select(inputs, 1, self.transform_features)
+        logabsdet_identity = None
+        if self.unconditional_transform is not None:
+            identity_split, logabsdet_identity = self.unconditional_transform.inverse(
+                identity_split, context)
         transform_params = self.transform_net(identity_split, context)
         transform_split, logabsdet = self._coupling_transform_inverse(
             transform_split, transform_params)
+        if logabsdet_identity is not None:
+            logabsdet = logabsdet_identity + logabsdet
         return self._merge(identity_split, transform_split), logabsdet
 
     def _transform_dim_multiplier(self):
@@ -133,11 +158,9 @@ class AffineCouplingTransform(CouplingTransform):
 
     def __init__(self, mask, transform_net_create_fn, unconditional_transform=None,
                  scale_activation=_default_scale_activation, device=None):
-        if unconditional_transform is not None:
-            raise NotImplementedError(
-                "an unconditional transform of the identity half is not ported yet")
         self.scale_activation = scale_activation
-        super().__init__(mask, transform_net_create_fn, device=device)
+        super().__init__(mask, transform_net_create_fn, unconditional_transform,
+                         device=device)
 
     def _transform_dim_multiplier(self):
         return 2
@@ -207,10 +230,16 @@ class PiecewiseCouplingTransform(CouplingTransform):
         return tuple(p * s for p in param_groups)
 
 
-def _no_unconditional_transform(apply_unconditional_transform):
-    if apply_unconditional_transform:
-        raise NotImplementedError(
-            "the unconditional spline CDF on the identity half is not ported yet")
+def _cdf_on_identity_half(apply_unconditional_transform, cdf_class, img_shape, generator,
+                          device, **kwargs):
+    """The ``unconditional_transform`` argument of a spline coupling: its
+    family's learned CDF over the identity half (and ``img_shape``) with
+    the coupling's bins, tails and minimum sizes, or None."""
+    if not apply_unconditional_transform:
+        return None
+    return lambda features: cdf_class(
+        shape=[features] + (list(img_shape) if img_shape else []), generator=generator,
+        device=device, **kwargs)
 
 
 class PiecewiseLinearCouplingTransform(PiecewiseCouplingTransform):
@@ -219,12 +248,14 @@ class PiecewiseLinearCouplingTransform(PiecewiseCouplingTransform):
 
     def __init__(self, mask, transform_net_create_fn, num_bins=10, tails=None,
                  tail_bound=1.0, apply_unconditional_transform=False,
-                 img_shape=None, device=None):
-        _no_unconditional_transform(apply_unconditional_transform)
+                 img_shape=None, generator=None, device=None):
         self.num_bins = num_bins
         self.tails = tails
         self.tail_bound = tail_bound
-        super().__init__(mask, transform_net_create_fn, device=device)
+        super().__init__(mask, transform_net_create_fn, _cdf_on_identity_half(
+            apply_unconditional_transform, nonlinearities.PiecewiseLinearCDF, img_shape,
+            generator, device, num_bins=num_bins, tails=tails, tail_bound=tail_bound),
+            device=device)
 
     def _transform_dim_multiplier(self):
         return self.num_bins
@@ -246,14 +277,16 @@ class PiecewiseQuadraticCouplingTransform(PiecewiseCouplingTransform):
                  img_shape=None,
                  min_bin_width=splines.quadratic.DEFAULT_MIN_BIN_WIDTH,
                  min_bin_height=splines.quadratic.DEFAULT_MIN_BIN_HEIGHT,
-                 device=None):
-        _no_unconditional_transform(apply_unconditional_transform)
+                 generator=None, device=None):
         self.num_bins = num_bins
         self.tails = tails
         self.tail_bound = tail_bound
         self.min_bin_width = min_bin_width
         self.min_bin_height = min_bin_height
-        super().__init__(mask, transform_net_create_fn, device=device)
+        super().__init__(mask, transform_net_create_fn, _cdf_on_identity_half(
+            apply_unconditional_transform, nonlinearities.PiecewiseQuadraticCDF, img_shape,
+            generator, device, num_bins=num_bins, tails=tails, tail_bound=tail_bound,
+            min_bin_width=min_bin_width, min_bin_height=min_bin_height), device=device)
 
     def _transform_dim_multiplier(self):
         if self.tails == "linear":
@@ -283,14 +316,16 @@ class PiecewiseCubicCouplingTransform(PiecewiseCouplingTransform):
                  img_shape=None,
                  min_bin_width=splines.cubic.DEFAULT_MIN_BIN_WIDTH,
                  min_bin_height=splines.cubic.DEFAULT_MIN_BIN_HEIGHT,
-                 device=None):
-        _no_unconditional_transform(apply_unconditional_transform)
+                 generator=None, device=None):
         self.num_bins = num_bins
         self.tails = tails
         self.tail_bound = tail_bound
         self.min_bin_width = min_bin_width
         self.min_bin_height = min_bin_height
-        super().__init__(mask, transform_net_create_fn, device=device)
+        super().__init__(mask, transform_net_create_fn, _cdf_on_identity_half(
+            apply_unconditional_transform, nonlinearities.PiecewiseCubicCDF, img_shape,
+            generator, device, num_bins=num_bins, tails=tails, tail_bound=tail_bound,
+            min_bin_width=min_bin_width, min_bin_height=min_bin_height), device=device)
 
     def _transform_dim_multiplier(self):
         return self.num_bins * 2 + 2
@@ -320,15 +355,18 @@ class PiecewiseRationalQuadraticCouplingTransform(PiecewiseCouplingTransform):
                  min_bin_width=splines.rational_quadratic.DEFAULT_MIN_BIN_WIDTH,
                  min_bin_height=splines.rational_quadratic.DEFAULT_MIN_BIN_HEIGHT,
                  min_derivative=splines.rational_quadratic.DEFAULT_MIN_DERIVATIVE,
-                 device=None):
-        _no_unconditional_transform(apply_unconditional_transform)
+                 generator=None, device=None):
         self.num_bins = num_bins
         self.tails = tails
         self.tail_bound = tail_bound
         self.min_bin_width = min_bin_width
         self.min_bin_height = min_bin_height
         self.min_derivative = min_derivative
-        super().__init__(mask, transform_net_create_fn, device=device)
+        super().__init__(mask, transform_net_create_fn, _cdf_on_identity_half(
+            apply_unconditional_transform, nonlinearities.PiecewiseRationalQuadraticCDF,
+            img_shape, generator, device, num_bins=num_bins, tails=tails,
+            tail_bound=tail_bound, min_bin_width=min_bin_width,
+            min_bin_height=min_bin_height, min_derivative=min_derivative), device=device)
 
     def _transform_dim_multiplier(self):
         if self.tails == "linear":
@@ -373,8 +411,7 @@ class PiecewiseLinearRationalCouplingTransform(PiecewiseCouplingTransform):
                  min_bin_height=splines.linear_rational.DEFAULT_MIN_BIN_HEIGHT,
                  min_derivative=splines.linear_rational.DEFAULT_MIN_DERIVATIVE,
                  min_lambda=splines.linear_rational.DEFAULT_MIN_LAMBDA,
-                 device=None):
-        _no_unconditional_transform(apply_unconditional_transform)
+                 generator=None, device=None):
         self.num_bins = num_bins
         self.tails = tails
         self.tail_bound = tail_bound
@@ -382,7 +419,12 @@ class PiecewiseLinearRationalCouplingTransform(PiecewiseCouplingTransform):
         self.min_bin_height = min_bin_height
         self.min_derivative = min_derivative
         self.min_lambda = min_lambda
-        super().__init__(mask, transform_net_create_fn, device=device)
+        super().__init__(mask, transform_net_create_fn, _cdf_on_identity_half(
+            apply_unconditional_transform, nonlinearities.PiecewiseLinearRationalCDF,
+            img_shape, generator, device, num_bins=num_bins, tails=tails,
+            tail_bound=tail_bound, min_bin_width=min_bin_width,
+            min_bin_height=min_bin_height, min_derivative=min_derivative,
+            min_lambda=min_lambda), device=device)
 
     def _transform_dim_multiplier(self):
         # widths K + heights K + lambdas K + derivatives (K-1 | K+1)
@@ -406,3 +448,54 @@ class PiecewiseLinearRationalCouplingTransform(PiecewiseCouplingTransform):
         return spline_fn(inputs, unnormalized_widths, unnormalized_heights,
                          transform_params[..., 3 * K:], transform_params[..., 2 * K:3 * K],
                          inverse=inverse, **kwargs)
+
+
+class UMNNCouplingTransform(CouplingTransform):
+    """Unconstrained monotonic neural network coupling (reference
+    coupling.py:145-209; Wehenkel & Louppe, NeurIPS 2019), on [N, D]
+    inputs; a 4-D input raises ``NotImplementedError`` as the other
+    couplings do.
+
+    The conditioner emits a ``cond_size`` embedding a transformed feature
+    (feature-major, as the other couplings' parameters); the shared
+    :class:`~nflows_tpu_torch.transforms.umnn.MonotonicNormalizer`
+    integrates a positive integrand net by Clenshaw-Curtis quadrature.
+    ``apply_unconditional_transform=True`` puts a cond_size-0 normalizer
+    on the identity half (``UnconditionalMonotonicTransform``), the
+    reference's configuration (coupling.py:171-173). All of it is plain
+    PyTorch on the card, as the JAX package runs it outside any Pallas
+    kernel.
+    """
+
+    def __init__(self, mask, transform_net_create_fn, integrand_net_layers=(50, 50, 50),
+                 cond_size=20, nb_steps=20, solver="CCParallel",
+                 apply_unconditional_transform=False, generator=None, device=None):
+        generator = default_generator(generator)
+        unconditional_transform = None
+        if apply_unconditional_transform:
+            def unconditional_transform(features):
+                return UnconditionalMonotonicTransform(
+                    features, integrand_net_layers=integrand_net_layers, nb_steps=nb_steps,
+                    solver=solver, generator=generator, device=device)
+        self.cond_size = cond_size
+        super().__init__(mask, transform_net_create_fn, unconditional_transform,
+                         device=device)
+        self.transformer = MonotonicNormalizer(
+            list(integrand_net_layers), cond_size, nb_steps, solver, generator=generator,
+            device=device)
+
+    def _transform_dim_multiplier(self):
+        return self.cond_size
+
+    def _params(self, inputs, transform_params):
+        return transform_params.reshape(inputs.shape[0], inputs.shape[1], -1)
+
+    def _coupling_transform_forward(self, inputs, transform_params):
+        z, jac = self.transformer.forward(inputs, self._params(inputs, transform_params))
+        return z, torch.log(jac).sum(dim=1)
+
+    def _coupling_transform_inverse(self, inputs, transform_params):
+        params = self._params(inputs, transform_params)
+        x = self.transformer.inverse_transform(inputs, params)
+        _, jac = self.transformer.forward(x, params)
+        return x, -torch.log(jac).sum(dim=1)

@@ -10,7 +10,9 @@ route alone; B9's one-pass direction on both of its routes (MAF, NSF-AR and
 IAF, both weight types, with and without a context); B11 on both of its
 routes (both weight types, with and without a context, the final layer in
 one pass and in two); a window of eager steps replayed as a CUDA graph
-against the per-step loop.
+against the per-step loop; B1 and B5-B8 as a learned CDF calls them and B7
+and B5 as the AR transforms call them, and the launches of a coupling flow
+with a CDF on every identity half and of an AR spline flow served unfused.
 
 The CUDA kernels have no CPU mode, so without a CUDA device every test
 here skips. On a machine with a Hopper card and nvcc (no JAX needed):
@@ -2422,3 +2424,138 @@ def test_a_window_is_the_per_step_loop_and_recaptures_in_place(cuda):
         assert steps.window.captured == 1
     for a, b in zip(state.flow.parameters(), ref.flow.parameters()):
         assert torch.equal(a, b)
+
+
+# -- B1 and B5-B8 on the paths of queue A5: the learned CDFs and the AR splines --------
+
+from nflows_tpu_torch.transforms import ReversePermutation, nonlinearities  # noqa: E402
+from nflows_tpu_torch.transforms import autoregressive as ar_transforms  # noqa: E402
+
+# family -> (kernel module, the CDF class, the spline coupling class)
+CDF_FAMILIES = {
+    "rq": (rq_spline, nonlinearities.PiecewiseRationalQuadraticCDF,
+           "PiecewiseRationalQuadraticCouplingTransform"),
+    "lrs": (lrs_spline, nonlinearities.PiecewiseLinearRationalCDF,
+            "PiecewiseLinearRationalCouplingTransform"),
+    "linear": (linear_spline, nonlinearities.PiecewiseLinearCDF,
+               "PiecewiseLinearCouplingTransform"),
+    "quadratic": (quadratic_spline, nonlinearities.PiecewiseQuadraticCDF,
+                  "PiecewiseQuadraticCouplingTransform"),
+    "cubic": (cubic_spline, nonlinearities.PiecewiseCubicCDF,
+              "PiecewiseCubicCouplingTransform"),
+}
+AR_FAMILIES = {"quadratic": (quadratic_spline,
+                             ar_transforms.MaskedPiecewiseQuadraticAutoregressiveTransform),
+               "lrs": (lrs_spline,
+                       ar_transforms.MaskedPiecewiseLinearRationalAutoregressiveTransform)}
+
+
+def _plain_flow(flow):
+    """A float64 copy of ``flow`` on the CPU, where every spline runs its
+    plain version."""
+    import copy
+
+    return copy.deepcopy(flow).cpu().double()
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("family", sorted(CDF_FAMILIES))
+def test_the_cdf_runs_its_family_kernel_and_matches_plain(cuda, family, inverse):
+    """A learned CDF on a CUDA tensor: one launch of its family's kernel on
+    the rows expanded over the batch, within 1e-4 / 1e-3 of the same CDF
+    on the CPU (the plain version) and with the plain version's gradients
+    on its parameter rows."""
+    module, cls, _ = CDF_FAMILIES[family]
+    cdf = cls([3], num_bins=8, tails="linear", tail_bound=B,
+              generator=torch.Generator().manual_seed(0), device=cuda)
+    x = torch.from_numpy(_spline_inputs(8, "cpu", seed=3)[0].numpy()).to(cuda)
+    before = module.launch_count
+    out, lad = (cdf.inverse if inverse else cdf.forward)(x)
+    assert module.launch_count == before + 1
+    (out.sum() * 1.3 + lad.sum() * 0.7).backward()
+    ref = _plain_flow(cdf).float()
+    p_out, p_lad = (ref.inverse if inverse else ref.forward)(x.cpu())
+    (p_out.sum() * 1.3 + p_lad.sum() * 0.7).backward()
+    _close(out.cpu(), p_out.detach(), 1e-4)
+    _close(lad.cpu(), p_lad.detach(), 1e-3)
+    for (name, a), b in zip(cdf.named_parameters(), ref.parameters()):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-3, rtol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("family", sorted(AR_FAMILIES))
+def test_the_ar_splines_run_b5_and_b7_and_match_plain(cuda, family, inverse):
+    """The quadratic and linear-rational AR transforms with linear tails: one
+    launch of B7 / B5 a forward, D a (sequential) inverse, within the bands
+    of the same transform on the CPU."""
+    module, cls = AR_FAMILIES[family]
+    t = cls(features=5, hidden_features=32, num_bins=8, tails="linear", tail_bound=B,
+            generator=torch.Generator().manual_seed(1), device=cuda).eval()
+    x = (1.5 * torch.randn(300, 5, generator=torch.Generator().manual_seed(2))).to(cuda)
+    before = module.launch_count
+    with torch.no_grad():
+        out, lad = (t.inverse if inverse else t.forward)(x)
+    assert module.launch_count == before + (5 if inverse else 1)
+    ref = _plain_flow(t).float()
+    with torch.no_grad():
+        p_out, p_lad = (ref.inverse if inverse else ref.forward)(x.cpu())
+    _close(out.cpu(), p_out, 2e-4 if inverse else 1e-4)
+    _close(lad.cpu(), p_lad, 1e-3)
+
+
+@pytest.mark.parametrize("family", sorted(CDF_FAMILIES))
+def test_a_cdf_coupling_flow_serves_unfused_with_twenty_launches(cuda, family):
+    """(a) at a small width: 10 couplings with the CDF on their identity
+    half; CompiledFlow serves it unfused, 20 launches of the family's kernel
+    a log_prob and a sample request, and log_prob within 1e-3 of the plain
+    versions' on the CPU."""
+    from nflows_tpu_torch import transforms
+
+    module, _, cls_name = CDF_FAMILIES[family]
+    gen = torch.Generator().manual_seed(4)
+    rng = np.random.default_rng(4)
+    chain = []
+    for i in range(10):
+        chain += [RandomPermutation(6, rng=rng, device=cuda), getattr(transforms, cls_name)(
+            create_alternating_binary_mask(6, even=bool(i % 2)),
+            lambda n_in, n_out: nets.ResidualNet(n_in, n_out, 32, generator=gen, device=cuda),
+            num_bins=8, tails="linear", tail_bound=B, apply_unconditional_transform=True,
+            generator=gen, device=cuda)]
+    flow = Flow(CompositeTransform(chain), StandardNormal([6])).to(cuda).eval()
+    with pytest.raises(ValueError, match="unconditional"):
+        CompiledFlow(flow, batch_size=256, features=6, use_fused=True)
+    served = CompiledFlow(flow, batch_size=256, features=6)
+    assert not served.is_fused
+    x = torch.randn(256, 6, generator=gen).to(cuda)
+    before = module.launch_count
+    lp = served.log_prob(x)
+    assert module.launch_count == before + 20
+    served.sample(torch.Generator(device=cuda).manual_seed(5))
+    assert module.launch_count == before + 40
+    with torch.no_grad():
+        _close(lp.cpu().double(), _plain_flow(flow).log_prob(x.cpu().double()), 1e-3)
+
+
+@pytest.mark.parametrize("family", sorted(AR_FAMILIES))
+def test_an_ar_spline_flow_serves_unfused_with_its_kernel(cuda, family):
+    """(b) at a small width: 5 x [ReversePermutation, the AR transform];
+    5 launches of B7 / B5 a log_prob request, 50 a sample request."""
+    module, cls = AR_FAMILIES[family]
+    gen = torch.Generator().manual_seed(6)
+    chain = []
+    for _ in range(5):
+        chain += [ReversePermutation(10, device=cuda),
+                  cls(features=10, hidden_features=32, num_bins=8, tails="linear",
+                      tail_bound=B, generator=gen, device=cuda)]
+    flow = Flow(CompositeTransform(chain), StandardNormal([10])).to(cuda).eval()
+    served = CompiledFlow(flow, batch_size=256, features=10)
+    assert not served.is_fused
+    x = torch.randn(256, 10, generator=gen).to(cuda)
+    before = module.launch_count
+    lp = served.log_prob(x)
+    assert module.launch_count == before + 5
+    served.sample(torch.Generator(device=cuda).manual_seed(7))
+    assert module.launch_count == before + 55
+    with torch.no_grad():
+        _close(lp.cpu().double(), _plain_flow(flow).log_prob(x.cpu().double()), 1e-3)
+

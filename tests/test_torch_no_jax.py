@@ -2,7 +2,9 @@
 ``chip_smoke.py`` imports JAX or the JAX package, statically or at run
 time (building, serving and training each family, a conditional NSF, a
 conditional NSF-AR, an IAF's variational step, the two diagonal Normal
-bases and serving in bf16 included)."""
+bases, serving in bf16, and serving a coupling flow with a learned CDF on
+its identity half, an autoregressive spline flow and the two UMNN flows
+included)."""
 
 import ast
 import pathlib
@@ -56,7 +58,11 @@ def test_scan_covers_the_port():
             "nflows_tpu_torch/ops/cuda/_fused_view_common.py",
             "nflows_tpu_torch/ops/cuda/_trainer_common.py",
             "nflows_tpu_torch/ops/cuda/nsf_fused.py", "nflows_tpu_torch/ops/cuda/nsf_train.py",
-            "nflows_tpu_torch/ops/cuda/nsf_flow_kernel.py", "nflows_tpu_torch/serving.py"} <= names
+            "nflows_tpu_torch/ops/cuda/nsf_flow_kernel.py", "nflows_tpu_torch/serving.py",
+            "nflows_tpu_torch/transforms/nonlinearities.py",
+            "nflows_tpu_torch/transforms/umnn.py",
+            "nflows_tpu_torch/transforms/UMNN/__init__.py",
+            "nflows_tpu_torch/transforms/UMNN/MonotonicNormalizer.py"} <= names
     sources = {p.name for p in (ROOT / "nflows_tpu_torch" / "csrc").glob("*.cu*")}
     assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh",
             "affine_coupling.cuh", "coupling_stage.cuh", "nsf_flow_kernel.cu", "nsf_train.cu",
@@ -173,6 +179,28 @@ def test_runtime_loads_no_jax():
         "    nt.CompiledFlow(m, 16, d, dtype=bf16, use_fused=False,\n"
         "                    device='cpu').log_prob(torch.randn(16, d).to(bf16))\n"
         "f.fused(bf16).sample(torch.Generator(), 4)\n"
+        "T = nt.transforms\n"
+        "def chain(layers):\n"
+        "    return nt.Flow(T.CompositeTransform([m for l in layers for m in\n"
+        "                                         (T.ReversePermutation(6, device='cpu'), l)]),\n"
+        "                   nt.distributions.StandardNormal([6]))\n"
+        "net = lambda i, o: ResidualNet(i, o, 8, device='cpu')\n"
+        "mask = [1, -1, 1, -1, 1, -1]\n"
+        "for m in (chain([T.PiecewiseRationalQuadraticCouplingTransform(\n"
+        "              mask, net, num_bins=4, tails='linear', tail_bound=3.0,\n"
+        "              apply_unconditional_transform=True, device='cpu')]),\n"
+        "          chain([T.MaskedPiecewiseQuadraticAutoregressiveTransform(\n"
+        "              6, 8, num_bins=4, tails='linear', tail_bound=3.0, device='cpu')]),\n"
+        "          chain([T.MaskedUMNNAutoregressiveTransform(\n"
+        "              6, 8, integrand_net_layers=[8], cond_size=2, nb_steps=4, device='cpu')]),\n"
+        "          chain([T.UMNNCouplingTransform(\n"
+        "              mask, net, integrand_net_layers=[8], cond_size=2, nb_steps=4,\n"
+        "              apply_unconditional_transform=True, device='cpu')])):\n"
+        "    served = nt.CompiledFlow(m, 16, 6, device='cpu')\n"
+        "    assert not served.is_fused\n"
+        "    served.log_prob(x)\n"
+        "    served.sample_and_log_prob(torch.Generator().manual_seed(0))\n"
+        "    nt.make_train_step()(nt.create_train_state(m, adam), x)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'nflows_tpu')]\n"
         "print(bad)\n"

@@ -244,11 +244,131 @@ def test_serving_runs_the_unfused_chain_and_training_the_eager_route(family):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("family", sorted(COUPLINGS))
-def test_unconditional_transform_is_not_ported_yet(family):
-    with pytest.raises(NotImplementedError):
-        COUPLINGS[family][1](mask=[1, -1, 1], transform_net_create_fn=_net, tails="linear",
-                             apply_unconditional_transform=True, device="cpu")
+# the five spline families with their learned CDF on the identity half
+CDF_COUPLINGS = {**COUPLINGS, "rq": (jax_coupling.PiecewiseRationalQuadraticCouplingTransform,
+                                     PiecewiseRationalQuadraticCouplingTransform)}
+
+
+def _cdf_coupling_pair(family, features, tails, seed=0, bins=4):
+    jcls, tcls = CDF_COUPLINGS[family]
+    mask = np.ones(features, dtype=np.float32)
+    mask[::2] = -1
+    kw = dict(mask=mask, num_bins=bins, tails=tails, tail_bound=B,
+              apply_unconditional_transform=True)
+    jc = jcls(transform_net_create_fn=_jax_net(jax.random.key(seed)), **kw)
+    tc = tcls(transform_net_create_fn=_net, device="cpu", **kw)
+    return jc, _load(jc, tc)
+
+
+@pytest.mark.parametrize("tails", ["linear", None])
+@pytest.mark.parametrize("family", sorted(CDF_COUPLINGS))
+def test_coupling_with_a_cdf_matches_jax(family, tails):
+    """``apply_unconditional_transform=True``: the family's learned CDF on
+    the identity half, with the coupling's bins, tails and bound, carried
+    across with the conditioner; forward and inverse."""
+    jc, tc = _cdf_coupling_pair(family, 5, tails, seed=3)
+    cdf = tc.unconditional_transform
+    assert type(cdf).__name__ == type(jc.unconditional_transform).__name__
+    assert (cdf.tails, cdf.tail_bound) == (tails, B)
+    x = _x(5, seed=2)
+    if tails is None:
+        x = 1.0 / (1.0 + np.exp(-x))
+    with torch.no_grad():
+        for direction in ("forward", "inverse"):
+            y, lad = getattr(tc, direction)(torch.from_numpy(x))
+            j_y, j_lad = getattr(jc, direction)(x)
+            _close(y, j_y)
+            _close(lad, j_lad, _lad_atol(family))
+
+
+@pytest.mark.parametrize("cls", ["AffineCouplingTransform", "AdditiveCouplingTransform"])
+def test_affine_coupling_with_an_unconditional_transform_matches_jax(cls):
+    from nflows_tpu.transforms import nonlinearities as jnl
+    from nflows_tpu_torch.transforms import coupling as torch_coupling
+    from nflows_tpu_torch.transforms import nonlinearities as tnl
+
+    mask = np.array([1, -1, 1, -1, 1, -1], dtype=np.float32)
+    kw = dict(num_bins=4, tails="linear", tail_bound=B)
+    jc = getattr(jax_coupling, cls)(
+        mask, _jax_net(jax.random.key(4)),
+        unconditional_transform=lambda features: jnl.PiecewiseRationalQuadraticCDF(
+            [features], key=jax.random.key(5), **kw))
+    tc = _load(jc, getattr(torch_coupling, cls)(
+        mask, _net, device="cpu",
+        unconditional_transform=lambda features: tnl.PiecewiseRationalQuadraticCDF(
+            [features], **kw)))
+    x = _x(6, seed=5)
+    with torch.no_grad():
+        for direction in ("forward", "inverse"):
+            y, lad = getattr(tc, direction)(torch.from_numpy(x))
+            j_y, j_lad = getattr(jc, direction)(x)
+            _close(y, j_y)
+            _close(lad, j_lad)
+
+
+@pytest.mark.parametrize("family", sorted(CDF_COUPLINGS))
+def test_order_in_a_coupling_with_a_cdf(family):
+    """Forward runs the conditioner on the identity half as it came in,
+    then the CDF; the inverse runs the CDF's inverse first and the
+    conditioner on its output; the logabsdet is the sum in both."""
+    _, tc = _cdf_coupling_pair(family, 5, "linear")
+    bare = copy.deepcopy(tc)
+    bare.unconditional_transform = None
+    cdf = tc.unconditional_transform
+    x = torch.from_numpy(_x(5, seed=6))
+    ids, trs = tc.identity_features, tc.transform_features
+    with torch.no_grad():
+        y, lad = tc.forward(x)
+        y_bare, lad_bare = bare.forward(x)
+        id_out, id_lad = cdf.forward(x[:, ids])
+        assert torch.equal(y[:, trs], y_bare[:, trs])
+        assert torch.equal(y[:, ids], id_out)
+        _close(lad, lad_bare + id_lad, 1e-6)
+        back, lad_back = tc.inverse(y)
+        id_in, id_lad_inv = cdf.inverse(y[:, ids])
+        assert torch.equal(back[:, ids], id_in)
+        mid = y.clone()
+        mid[:, ids] = id_in
+        back_bare, lad_back_bare = bare.inverse(mid)
+        assert torch.equal(back[:, trs], back_bare[:, trs])
+        _close(lad_back, lad_back_bare + id_lad_inv, 1e-6)
+        _close(back, x, 1e-4)
+
+
+@pytest.mark.parametrize("family", sorted(CDF_COUPLINGS))
+def test_no_fuser_takes_a_coupling_with_a_cdf(family):
+    """B2, B3 and B4 have no stage for a map of the identity half: the
+    fuser's ``_extract`` refuses a coupling with an unconditional
+    transform, as the JAX one does (nflows_tpu/ops/pallas/nsf_fused.py:
+    200-201), even in one layer of a chain. ``CompiledFlow`` then serves
+    the flow unfused (``use_fused=True`` raises with that reason), and no
+    fused trainer takes it (``required=False`` gives None)."""
+    from nflows_tpu_torch.ops.cuda.nsf_fused import FusedNSF, _extract, fuse_nsf
+
+    jcls, tcls = CDF_COUPLINGS[family]
+    mask = np.array([1, -1, 1, -1, 1, -1], dtype=np.float32)
+    kw = dict(num_bins=4, tails="linear", tail_bound=B)
+    tflow = Flow(CompositeTransform([
+        Permutation(np.arange(6)[::-1].copy(), device="cpu"),
+        tcls(mask, _net, device="cpu", **kw),
+        Permutation(np.arange(6)[::-1].copy(), device="cpu"),
+        tcls(-mask, _net, apply_unconditional_transform=True, device="cpu", **kw)]),
+        StandardNormal([6]))
+    for fuse in (lambda: _extract(tflow, torch.float32), lambda: fuse_nsf(tflow),
+                 lambda: FusedNSF(tflow), lambda: FusedNSFTrainer(tflow, batch_size=128),
+                 lambda: fused_trainer(tflow, 128),
+                 lambda: CompiledFlow(tflow, batch_size=32, features=6, use_fused=True,
+                                      device="cpu")):
+        with pytest.raises(ValueError, match="unconditional_transform not supported"):
+            fuse()
+    assert fused_trainer(tflow, 128, required=False) is None
+    served = CompiledFlow(tflow, batch_size=32, features=6, device="cpu")
+    assert not served.is_fused
+    x = torch.from_numpy(_x(6, n=32, seed=7))
+    with torch.no_grad():
+        assert torch.equal(served.log_prob(x), tflow.log_prob(x))
+    s, lp = served.sample_and_log_prob(torch.Generator().manual_seed(9))
+    assert s.shape == (32, 6) and torch.isfinite(lp).all()
 
 
 class _ChannelNet(torch.nn.Module):
