@@ -207,6 +207,31 @@ samples, and its wall and busy time printed. Last, 5 eager Adam steps at
 512 on the RQ-CDF flow (20 B1 a step), the quadratic AR flow (5 B7) and
 the UMNN AR flow: finite losses, and a finite, nonzero gradient for every
 CDF row and integrand weight.
+Phase 35 drives the transforms of queue A6 (``phase_a6``). An NSF-AR with
+an ``LULinear`` after each permutation (``use_linear_layers=True``) at the
+AR width, its LU parameters moved off the identity by seeded draws: B1
+held, both directions, on the values its first AR transform hands it (after
+the permutation and the LU layer), in phase 17's bands; each LULinear's
+forward (two products) and inverse (two triangular solves), uncached and
+cached, against float64 within 1e-4 of 1 + |f64|; served through
+``CompiledFlow`` unfused (every fuser refuses it: ``use_fused=True`` and
+``fused_trainer`` raise with the AR prober's reason, ``required=False``
+gives None): 5 B1 a log_prob request at 4,096, 50 a sample request at 512,
+the log_prob held against the flow on the plain B1 by ``hold_relative``
+(floor 1e-6), the samples' log_prob against log_prob of the samples within
+5e-3, wall and busy time printed; the same after
+``precompute_linear_caches`` (log_prob within 1e-4 of 1 + |uncached|); 5
+eager Adam steps at 512 (5 B1 a step); three windows of 8 steps
+(``make_scan_train_step``: the warm-up and a capture of 6, a capture of 8,
+a replay with no launch) bit for bit against the per-step loop. The
+flagship with batch statistics in its conditioners
+(``batch_norm_within_layers=True``) at FLAGSHIP: refused by the fused
+routes, 10 B1 a log_prob and a sample request at 4,096, held and timed as
+above, 5 eager steps. The MAF with ``BatchNorm`` between its layers and
+batch statistics in its MADEs (final weights x 0.1) at MAF: refused, a
+sample request in training mode raises ``InverseNotAvailable``, then
+``initialize_with_data`` on 4,096 rows, eval mode, served (no launch) and 5
+eager steps.
 Every phase raises on failure, so the exit code is non-zero. Each report
 line starts with the seconds since the script began.
 
@@ -220,7 +245,10 @@ line ``{"kernels": [...]}`` with each kernel's launches on the main path
 B5-B8's rows also carry phase 34's: ``cdf_launches`` and
 ``cdf_sample_launches``, a log_prob and a sample request of the flow with
 the CDF, and, for B5 and B7, ``ar_launches`` and ``ar_sample_launches``
-of the AR flow, with ``cdf_err`` and ``ar_err`` of their holds; a train step for
+of the AR flow, with ``cdf_err`` and ``ar_err`` of their holds; B1's row
+also phase 35's: ``a6_launches`` and ``a6_sample_launches``, a log_prob and a
+sample request of the NSF-AR with LU layers, ``a6_err`` of its hold, and
+``a6_flagship_bn_launches``, a request of the batch-normed flagship; a train step for
 B3, B4, B10, B11 (its SIMT kernel) and B12, a bf16 request of the MoG-MADE at
 hidden 96 for B11_bf16; B9's and B9_bf16's rows count the launches of the
 kernels they time, the SIMT kernel's in a train step (``simt_launches``,
@@ -876,6 +904,309 @@ def tame_couplings(flow, factor=0.1):
         for t in flow.transform.transforms:
             t.transform_net.final_layer.weight.mul_(factor)
     return flow.eval()
+
+
+def phase_a6(torch, dev, counts, serve_times):
+    """Phase 35: the transforms of queue A6 (see the module doc). ``counts``
+    holds the launch counters' ``reset``, ``read`` and ``expect``;
+    ``serve_times`` takes each request's wall and busy time. Returns the keys
+    B1's row gains and what the phase measured."""
+    import copy
+    from contextlib import contextmanager
+
+    from nflows_tpu_torch import (
+        CompiledFlow,
+        MaskedAutoregressiveFlow,
+        NeuralSplineFlow,
+        NeuralSplineFlowAR,
+        create_train_state,
+        fused_trainer,
+        make_scan_train_step,
+        make_train_step,
+    )
+    from nflows_tpu_torch.core import _window
+    from nflows_tpu_torch.ops.cuda import rq_spline
+    from nflows_tpu_torch.ops.splines import rational_quadratic as rq
+    from nflows_tpu_torch.transforms import LULinear, precompute_linear_caches
+    from nflows_tpu_torch.transforms.base import InverseNotAvailable
+
+    t_a6 = time.perf_counter()
+    B, K, D, L = NSF_AR["tail_bound"], NSF_AR["num_bins"], NSF_AR["features"], NSF_AR["num_layers"]
+    FD, FL = FLAGSHIP["features"], FLAGSHIP["num_layers"]
+    g = torch.Generator().manual_seed(35)
+    b1_keys, stats = {}, {}
+
+    @contextmanager
+    def plain_b1():
+        """B1's wrapper replaced by its plain version (same arguments)."""
+        saved = rq_spline.rq_spline_cuda
+        rq_spline.rq_spline_cuda = rq.unconstrained_rational_quadratic_spline_plain
+        try:
+            yield
+        finally:
+            rq_spline.rq_spline_cuda = saved
+
+    def relative(a, b):
+        """max |a - b| / (1 + |b|)."""
+        return float(((a.double() - b.double()).abs() / (1.0 + b.double().abs())).max())
+
+    def refused(model, flow, features, reason):
+        """``use_fused=True`` and ``fused_trainer`` raise with ``reason``;
+        ``fused_trainer(required=False)`` returns None."""
+        for what, build in (
+                ("CompiledFlow(use_fused=True)", lambda: CompiledFlow(
+                    flow, batch_size=SERVE_BATCH, features=features, use_fused=True)),
+                ("fused_trainer", lambda: fused_trainer(flow, TRAIN_BATCH))):
+            try:
+                build()
+            except ValueError as e:
+                if reason not in str(e):
+                    raise AssertionError(f"{model}: {what} refused for another reason: {e}")
+            else:
+                raise AssertionError(f"{model}: {what} did not raise")
+        if fused_trainer(flow, TRAIN_BATCH, required=False) is not None:
+            raise AssertionError(f"{model}: fused_trainer(required=False) gave a trainer")
+        log(f"{model}: the fused routes refuse it ({reason!r})")
+
+    def serve_a6(model, flow, features, lp_counts, sample_counts, num_samples, kernel=True,
+                 calls=10, x=None):
+        """Serve ``flow`` through CompiledFlow(use_fused=None), which must
+        take the unfused chain: the launches of a log_prob request of
+        SERVE_BATCH inputs ``x`` (default: drawn here) (``lp_counts``) and
+        of a sample_and_log_prob request of
+        ``num_samples`` (``sample_counts``); with ``kernel``, the log_prob
+        held against the same flow on the plain B1 by ``hold_relative``
+        (floor 1e-6, as phase 34); the samples' log_prob against log_prob of
+        the samples within 5e-3; both requests timed (wall over ``calls``,
+        busy over a third of them)."""
+        server = CompiledFlow(flow, batch_size=SERVE_BATCH, features=features,
+                              num_samples=num_samples)
+        if server.is_fused:
+            raise AssertionError(f"{model}: CompiledFlow fused a chain no kernel takes")
+        if x is None:
+            x = torch.randn(SERVE_BATCH, features, generator=g).to(dev)
+        counts.reset()
+        lp = server.log_prob(x)
+        torch.cuda.synchronize()
+        first = counts.read()
+        counts.reset()
+        s, s_lp = server.sample_and_log_prob(torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        second = counts.read()
+        log(f"serving {model} (unfused): launches a log_prob request "
+            f"{ {k: v for k, v in first.items() if v} }, a sample request of {num_samples} "
+            f"{ {k: v for k, v in second.items() if v} }")
+        counts.expect(f"one {model} log_prob request", first, **lp_counts)
+        counts.expect(f"one {model} sample request", second, **sample_counts)
+        for t_, shape in ((lp, (SERVE_BATCH,)), (s, (num_samples, features)),
+                          (s_lp, (num_samples,))):
+            if tuple(t_.shape) != shape or not torch.isfinite(t_).all():
+                raise AssertionError(f"{model}: bad output {tuple(t_.shape)}")
+        flow64 = copy.deepcopy(flow).double()
+        with torch.no_grad(), plain_b1():
+            p_lp = flow.log_prob(x)
+            d_lp = flow64.log_prob(x.double())
+        if kernel:
+            hold_relative(torch, f"{model} log_prob against the flow on the plain B1", lp, p_lp,
+                          d_lp, floor=1e-6)
+        log(f"  |served-plain| {max_err(lp, p_lp):.3e}  |served-f64| {max_err(lp, d_lp):.3e}  "
+            f"|plain-f64| {max_err(p_lp, d_lp):.3e}")
+        with torch.no_grad():
+            gap = max_err(s_lp, flow.log_prob(s))
+        log(f"  sample_and_log_prob vs log_prob(samples): {gap:.3e} (limit 5e-3)  "
+            f"{'ok' if gap <= 5e-3 else 'FAIL'}")
+        if not gap <= 5e-3:
+            raise AssertionError(f"{model}: sample_and_log_prob disagrees with log_prob")
+        out = dict(err=max_err(lp, p_lp), consistency=gap,
+                   log_prob_launches={k: v for k, v in first.items() if v},
+                   sample_launches={k: v for k, v in second.items() if v})
+        for endpoint, fn in (("log_prob", lambda: server.log_prob(x)),
+                             ("sample", lambda: server.sample(
+                                 torch.Generator(device=dev).manual_seed(3)))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / calls
+            busy = device_ms(torch, fn, max(1, calls // 3))
+            log(f"  {endpoint}: {wall:.3f} ms a request of "
+                f"{SERVE_BATCH if endpoint == 'log_prob' else num_samples} (host clock), "
+                f"device busy {busy:.3f} ms")
+            serve_times[f"{model}, unfused, {endpoint}"] = dict(wall_ms=wall, busy_ms=busy)
+            out[f"{endpoint}_wall_ms"], out[f"{endpoint}_busy_ms"] = wall, busy
+        stats[model] = out
+        return x, lp, first, second
+
+    def train_a6(model, flow, features, expected):
+        """5 eager Adam steps at TRAIN_BATCH on a copy of ``flow`` in training
+        mode: a step's launches ``expected`` and finite losses."""
+        state = create_train_state(copy.deepcopy(flow).train(),
+                                   lambda prm: torch.optim.Adam(prm, lr=1e-3))
+        step = make_train_step()
+        data = [1.5 * torch.randn(TRAIN_BATCH, features, generator=g).to(dev) + 0.5
+                for _ in range(5)]
+        losses = []
+        t0 = time.perf_counter()
+        for i, batch in enumerate(data):
+            counts.reset()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                first = counts.read()
+        wall = 1e3 * (time.perf_counter() - t0) / len(data)
+        counts.expect(f"an eager {model} step", first, **expected)
+        log(f"training {model} eagerly: launches a step {({k: v for k, v in first.items() if v})}"
+            f"; losses " + " ".join(f"{v:.4f}" for v in losses) + f"; {wall:.1f} ms a step "
+            "(host clock, the first included)")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{model}: non-finite losses {losses}")
+        stats[f"{model}, training"] = dict(losses=losses, step_ms=wall)
+
+    # (a) NSF-AR with an LULinear after each permutation, at NSF_AR's widths;
+    # the LU layers start as the identity: move them by seeded draws
+    lu_flow = NeuralSplineFlowAR(**NSF_AR, use_linear_layers=True,
+                                 generator=torch.Generator().manual_seed(35),
+                                 rng=np.random.default_rng(35), device=dev).eval()
+    lus = [m for m in lu_flow.modules() if isinstance(m, LULinear)]
+    with torch.no_grad():
+        for m in lus:
+            for p in (m.lower_entries, m.upper_entries):
+                p.copy_(0.3 / D ** 0.5 * torch.randn(p.shape, generator=g))
+            m.unconstrained_upper_diag.add_(0.3 * torch.randn(D, generator=g).to(dev))
+            m.bias.copy_(0.1 * torch.randn(D, generator=g))
+    perm, lu, ar = lu_flow.transform.transforms[:3]
+    with torch.no_grad():
+        x = torch.randn(SERVE_BATCH, D, generator=g).to(dev)
+        z, _ = lu(perm(x)[0])
+        z.view(-1)[:4] = torch.tensor([B, -B, B + 0.5, -B - 0.5])
+        p = ar.autoregressive_net(z).reshape(SERVE_BATCH, D, -1)
+        s = ar._hidden_scale()
+        args = [t.contiguous() for t in (z, p[..., :K] * s, p[..., K:2 * K] * s, p[..., 2 * K:])]
+        log(f"B1 as the NSF-AR with LU layers calls it, at {z.numel()} elements:")
+        errs = []
+        for inverse in (False, True):
+            kw = dict(inverse=inverse, tail_bound=B)
+            out, lad = rq_spline.rq_spline_cuda(*args, **kw)
+            p_out, p_lad = rq.unconstrained_rational_quadratic_spline_plain(*args, **kw)
+            d_out, d_lad = rq.unconstrained_rational_quadratic_spline_plain(
+                *[t.double() for t in args], **kw)
+            torch.cuda.synchronize()
+            tag = "inverse" if inverse else "forward"
+            errs += [hold(f"B1 {tag} out", out, p_out, d_out, 1e-4),
+                     hold(f"B1 {tag} lad", lad, p_lad, d_lad, 1e-3)]
+        b1_keys["a6_err"] = max(errs)
+        # each LULinear on the card against float64, forward (two products)
+        # and inverse (two triangular solves), uncached and cached: the 1e-4
+        # class of 1 + |f64|; TF32, which would put products 1e-3 off, is off
+        # by PyTorch's default, which this script also sets (phase 1)
+        xs = 2.0 * torch.randn(SERVE_BATCH, D, generator=g).to(dev)
+        lu_err = 0.0
+        for i, m in enumerate(lus):
+            m64 = copy.deepcopy(m).double()
+            want = (m64(xs.double()), m64.inverse(xs.double()))
+            for cached in (False, True):
+                mc = copy.deepcopy(m).precompute() if cached else m
+                got = (mc(xs), mc.inverse(xs))
+                e = [relative(a, b) for pair in zip(got, want) for a, b in zip(*pair)]
+                lu_err = max(lu_err, *e)
+                log(f"  LULinear {i}{' cached' if cached else ''} against float64, relative to "
+                    "1 + |f64|: forward out {:.3e} lad {:.3e}, inverse out {:.3e} lad {:.3e}"
+                    .format(*e))
+        ok = lu_err <= 1e-4
+        log(f"  the LU layers' largest relative error {lu_err:.3e} (limit 1e-4; "
+            f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32})  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("an LULinear on the card is past 1e-4 of float64")
+        stats["LU against float64"] = lu_err
+    # 15 transforms: the AR prober's first check
+    refused("NSF-AR with LU layers", lu_flow, D, "expected [permutation, affine-AR] pairs")
+    x_lu, lp_lu, first, second = serve_a6("NSF-AR with LU layers", lu_flow, D, {"B1": L},
+                                          {"B1": L * D}, 512)
+    b1_keys.update(a6_launches=first["B1"], a6_sample_launches=second["B1"])
+    cached_flow = precompute_linear_caches(copy.deepcopy(lu_flow))
+    _, lp_cached, _, _ = serve_a6("NSF-AR with LU layers, cached", cached_flow, D, {"B1": L},
+                                  {"B1": L * D}, 512, calls=5, x=x_lu)
+    gap = relative(lp_cached, lp_lu)
+    log(f"  cached against uncached log_prob: {gap:.3e} of 1 + |log_prob| (limit 1e-4)")
+    if not gap <= 1e-4:
+        raise AssertionError("the cached LU layers disagree with the uncached ones")
+    train_a6("NSF-AR with LU layers", lu_flow, D, {"B1": L})
+    # windows of 8 steps against the per-step loop from identical state: the
+    # first runs the two warm-up steps and captures a graph of the other 6,
+    # the second captures a graph of 8, the third replays it (no launch)
+    adam_c = lambda prm: torch.optim.Adam(prm, lr=3e-4, capturable=True)  # noqa: E731
+    S = _window.GRAPH_STEPS
+    wg = torch.Generator(device=dev).manual_seed(35)
+    data = 1.5 * torch.randn(S, TRAIN_BATCH, D, generator=wg, device=dev) + 0.5
+    twin = create_train_state(copy.deepcopy(lu_flow).train(), adam_c)
+    eager_step = make_train_step()
+    loop = torch.stack([eager_step(twin, data[i % S])[1]["loss"] for i in range(3 * S)])
+    state = create_train_state(copy.deepcopy(lu_flow).train(), adam_c)
+    steps = make_scan_train_step()
+    windows, launched = [], []
+    for expected in (L * S, L * S, 0):
+        counts.reset()
+        state, losses = steps(state, data)
+        torch.cuda.synchronize()
+        launched.append(counts.read())
+        windows.append(losses)
+        counts.expect(f"window {len(windows)} of the NSF-AR with LU layers", launched[-1],
+                      B1=expected)
+    windows = torch.cat(windows)
+    same = torch.equal(windows, loop)
+    log(f"NSF-AR with LU layers, three windows of {S} steps at {TRAIN_BATCH} against the "
+        f"per-step loop: {max_err(windows, loop):.3e} apart, bit-equal {same} (limit: "
+        "bit-equal, as phase 33's eager window); launches "
+        + ", ".join(str({a: b for a, b in c.items() if b}) for c in launched)
+        + f"; graphs held {steps.window.captured}")
+    if not same or not bool(torch.isfinite(loop).all()):
+        raise AssertionError("the NSF-AR-LU window disagrees with the per-step loop")
+    stats["NSF-AR with LU layers, windows"] = dict(gap=max_err(windows, loop))
+    del steps, state, twin
+
+    # (b) the flagship with batch statistics inside its conditioners
+    bn_nsf = NeuralSplineFlow(**FLAGSHIP, batch_norm_within_layers=True,
+                              generator=torch.Generator().manual_seed(36),
+                              rng=np.random.default_rng(36), device=dev)
+    refused("batch-normed flagship", bn_nsf, FD, "batch-norm/dropout conditioners not fused")
+    _, _, first, _ = serve_a6("batch-normed flagship", bn_nsf, FD, {"B1": FL}, {"B1": FL},
+                              SERVE_BATCH)
+    b1_keys["a6_flagship_bn_launches"] = first["B1"]
+    train_a6("batch-normed flagship", bn_nsf, FD, {"B1": FL})
+
+    # (c) the MAF with BatchNorm between its layers and batch statistics in
+    # its MADEs: final MADE weights x 0.1 as phase 9's (an untamed full-width
+    # MAF's fixed point is ill-conditioned); statistics from a batch, then
+    # eval mode; no kernel runs
+    bn_maf = MaskedAutoregressiveFlow(**MAF, batch_norm_between_layers=True,
+                                      batch_norm_within_layers=True,
+                                      generator=torch.Generator().manual_seed(37),
+                                      rng=np.random.default_rng(37), device=dev)
+    with torch.no_grad():
+        for t in bn_maf.transform.transforms:
+            net = getattr(t, "autoregressive_net", None)
+            if net is not None:
+                net.final_layer.weight.mul_(0.1)
+    refused("batch-normed MAF", bn_maf, D, "expected [permutation, affine-AR] pairs")
+    served = CompiledFlow(bn_maf, batch_size=SERVE_BATCH, features=D, num_samples=512)
+    try:
+        served.sample(torch.Generator(device=dev).manual_seed(0))
+    except InverseNotAvailable:
+        log("batch-normed MAF in training mode: a sample request raises InverseNotAvailable")
+    else:
+        raise AssertionError("a training-mode BatchNorm sampled")
+    with torch.no_grad():
+        bn_maf.transform.initialize_with_data(
+            1.5 * torch.randn(SERVE_BATCH, D, generator=g).to(dev) + 0.5)
+    serve_a6("batch-normed MAF", bn_maf.eval(), D, {}, {}, SERVE_BATCH, kernel=False)
+    train_a6("batch-normed MAF", bn_maf, D, {})
+
+    seconds = time.perf_counter() - t_a6
+    log(f"queue A6: {json.dumps(stats)}")
+    log(f"phase 35 (the transforms of queue A6) took {seconds:.1f} s")
+    return b1_keys, stats
 
 
 def main() -> int:
@@ -4421,6 +4752,12 @@ def main() -> int:
     log(f"queue A5: {json.dumps(a5_stats)}")
     log(f"phase 34 (the transforms of queue A5) took {a5_seconds:.1f} s")
 
+    # -- phase 35: the transforms of queue A6 ------------------------------------
+    from types import SimpleNamespace
+
+    a6_keys, _ = phase_a6(torch, dev, SimpleNamespace(reset=reset_counts, read=read_counts,
+                                                      expect=expect_counts), serve_times)
+
     # -- phase 8: the kernels line ---------------------------------------------
     names = {"B1": "rq_spline", "B2": "nsf_flow_kernel", "B3": "nsf_loss_grad",
              "B4": "nsf_train_bwd", "B5": "lrs_spline", "B6": "linear_spline",
@@ -4697,6 +5034,10 @@ def main() -> int:
     for row in rows:
         # phase 34's paths: the learned CDF's and the AR transforms' launches
         row.update(a5.get(row["id"], {}))
+        # phase 35's: B1 as the NSF-AR with LU layers and the batch-normed
+        # flagship call it
+        if row["id"] == "B1":
+            row.update(a6_keys)
     rows.sort(key=lambda row: (int(row["id"].split("_")[0][1:]), row["id"]))
     print(json.dumps({"kernels": rows}))
     print(card)

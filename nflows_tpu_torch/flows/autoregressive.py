@@ -2,9 +2,11 @@
 nflows_tpu/flows/autoregressive.py; reference
 nflows/flows/autoregressive.py:13-62).
 
-``num_layers`` x [permutation, affine masked-autoregressive transform],
-StandardNormal base. Batch norm between the layers waits for
-``transforms/normalization.py``.
+``num_layers`` x [permutation, affine masked-autoregressive transform,
+and with ``batch_norm_between_layers`` a ``BatchNorm``], StandardNormal
+base. With batch norm the flow samples only in eval mode, after
+``flow.transform.initialize_with_data(batch)`` has set the running
+statistics.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from nflows_tpu_torch.transforms.autoregressive import (
     MaskedAffineAutoregressiveTransform,
 )
 from nflows_tpu_torch.transforms.base import CompositeTransform
+from nflows_tpu_torch.transforms.normalization import BatchNorm
 from nflows_tpu_torch.transforms.permutations import (
     RandomPermutation,
     ReversePermutation,
@@ -44,10 +47,6 @@ class MaskedAutoregressiveFlow(Flow):
                  batch_norm_within_layers=False, batch_norm_between_layers=False,
                  rng=None, device=None):
         device = resolve_device(device)
-        if batch_norm_between_layers:
-            raise NotImplementedError(
-                "batch_norm_between_layers needs transforms/normalization.py, "
-                "which is not ported yet")
         generator = default_generator(generator)
         if rng is None:
             rng = np.random.default_rng()
@@ -70,6 +69,8 @@ class MaskedAutoregressiveFlow(Flow):
                 use_batch_norm=batch_norm_within_layers,
                 device=device,
             ))
+            if batch_norm_between_layers:
+                layers.append(BatchNorm(features, device=device))
 
         super().__init__(
             transform=CompositeTransform(layers),

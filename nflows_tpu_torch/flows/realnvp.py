@@ -3,7 +3,10 @@ reference nflows/flows/realnvp.py:17-71).
 
 Affine (or, volume-preserving, additive) coupling layers on a 1-dim
 checkerboard mask that flips every layer, with ResidualNet conditioners
-and a StandardNormal base; no permutations, no multiscale.
+and a StandardNormal base; no permutations, no multiscale. With
+``batch_norm_between_layers`` a ``BatchNorm`` follows each coupling, and
+the flow samples only in eval mode, after
+``flow.transform.initialize_with_data(batch)``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from nflows_tpu_torch.transforms.coupling import (
     AdditiveCouplingTransform,
     AffineCouplingTransform,
 )
+from nflows_tpu_torch.transforms.normalization import BatchNorm
 from nflows_tpu_torch.utils.device import resolve_device
 
 __all__ = ["SimpleRealNVP"]
@@ -39,11 +43,6 @@ class SimpleRealNVP(Flow):
                  batch_norm_within_layers=False, batch_norm_between_layers=False,
                  device=None):
         device = resolve_device(device)
-        if batch_norm_between_layers:
-            raise NotImplementedError(
-                "batch_norm_between_layers needs BatchNorm from "
-                "transforms/normalization.py, which is not ported yet "
-                "(ROADMAP.md, queue A, item 6b)")
         generator = default_generator(generator)
         coupling_constructor = (AdditiveCouplingTransform if use_volume_preserving
                                 else AffineCouplingTransform)
@@ -62,6 +61,8 @@ class SimpleRealNVP(Flow):
             layers.append(coupling_constructor(
                 mask=mask, transform_net_create_fn=create_resnet, device=device))
             mask = mask * -1
+            if batch_norm_between_layers:
+                layers.append(BatchNorm(features, device=device))
 
         super().__init__(transform=CompositeTransform(layers),
                          distribution=StandardNormal([features]))

@@ -38,6 +38,24 @@ any other; a UMNN transform's MADE carries as any MADE; the quadrature's
 nodes and weights are constants of the step count, non-persistent buffers
 here and no leaves there. The loader needed no change for them.
 
+The linear transforms' leaves (``weight_param``, the LU and QR triangles
+and diagonals, ``q_vectors``, the SVD diagonal, the biases) carry
+untransposed: none is a ``Dense``. A JAX ``Linear`` after ``precompute()``
+holds its caches as leaves (``cache_weight``, ``cache_inverse``,
+``cache_logabsdet``); the port's caches are non-persistent buffers, so the
+loader takes the three, writes them into the module's caches and sets
+``using_cache``, and the port's model then serves from the JAX model's
+caches (``invalidate_cache()`` drops them, ``precompute()`` recomputes
+them from the parameters). ``BatchNorm``'s running statistics are buffers
+in both packages and carry as leaves; the conditioners' ``_BatchScale``
+carries ``scale`` and ``offset``. ``ActNorm``'s ``initialized`` is a
+static field in JAX, no leaf, and a persistent bool buffer here: the
+caller adds it to ``params`` from the JAX module, e.g.
+``params[".transform.transforms[0].initialized"] =
+np.asarray(jax_flow.transform.transforms[0].initialized)``, and the
+loader takes it as any leaf (missing, it raises), so that a port ActNorm
+loaded from an initialised JAX one does not initialise itself again.
+
 A ``StackedTransform`` (the JAX package's scan-stacked chain) has to be
 unstacked first: build the JAX flow with ``stacked=False``, or walk its
 ``layers()``.
@@ -114,10 +132,13 @@ def _set_random_degrees(made):
 
 def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None:
     """Write the JAX leaves ``params`` into ``module``'s parameters and
-    persistent buffers, in place. Raises on a missing key, an unexpected
-    key, a shape mismatch, a degree-rule MADE mask that differs from the
-    port's, or random MADE masks that are not autoregressive."""
+    persistent buffers (and a precomputed ``Linear``'s caches), in place.
+    Raises on a missing key, an unexpected key, a shape mismatch, a
+    degree-rule MADE mask that differs from the port's, or random MADE masks
+    that are not autoregressive."""
     from nflows_tpu_torch.nn.made import MADE, MaskedDense
+    from nflows_tpu_torch.transforms.linear import CACHES, Linear
+    from nflows_tpu_torch.transforms.normalization import ActNorm
 
     state = module.state_dict(keep_vars=True)
     linear_weights = {f"{name}.weight" if name else "weight"
@@ -130,10 +151,29 @@ def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None
                     for name, m in module.named_modules()
                     if isinstance(m, MaskedDense) and m.random_mask}
     incoming = {_jax_key_to_name(k): (k, v) for k, v in params.items()}
+    caches = {}   # a precomputed JAX Linear's caches, by module
+    for name, m in module.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(m, Linear):
+            found = {c: incoming.pop(prefix + c) for c in CACHES if prefix + c in incoming}
+            if found and len(found) != len(CACHES):
+                raise KeyError(f"load_jax_params: {name or 'the model'} carries "
+                               f"{sorted(found)} of the three Linear caches {list(CACHES)}")
+            for c, (key, value) in found.items():
+                want = () if c == "cache_logabsdet" else (m.features, m.features)
+                if np.shape(value) != want:
+                    raise ValueError(f"load_jax_params: {key} has shape {np.shape(value)}, "
+                                     f"the port expects {want}")
+            if found:
+                caches[m] = found
     missing = sorted(set(state) - set(incoming))
     unexpected = sorted(incoming[n][0] for n in set(incoming) - set(state))
     if missing or unexpected:
-        raise KeyError(f"load_jax_params: missing {missing}, unexpected {unexpected}")
+        flags = [n for n in missing if n.endswith("initialized") and isinstance(
+            module.get_submodule(n.rpartition(".")[0]), ActNorm)]
+        raise KeyError(f"load_jax_params: missing {missing}, unexpected {unexpected}"
+                       + (f"; ActNorm's initialized flag is no JAX leaf: add "
+                          f"{flags} from the JAX modules' static field" if flags else ""))
     values = {}
     for name, target in state.items():
         key, value = incoming[name]
@@ -164,6 +204,10 @@ def load_jax_params(module: nn.Module, params: Mapping[str, np.ndarray]) -> None
         for name, value in values.items():
             target = state[name]
             target.copy_(torch.from_numpy(np.array(value)).to(target.dtype))
+    for m, found in caches.items():
+        for c, (_, value) in found.items():
+            setattr(m, c, torch.from_numpy(np.array(value)).to(m.bias.dtype).to(m.bias.device))
+        m.using_cache = True
     for _, made in random_mades:
         _set_random_degrees(made)
 

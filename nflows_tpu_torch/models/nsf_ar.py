@@ -5,7 +5,9 @@ nflows_tpu/models/nsf_ar.py).
 with linear tails] (Durkan et al. 2019, Table 1). One MADE pass a layer for
 log_prob and training; sampling costs D sequential passes a layer. The
 constructor mirrors :class:`~nflows_tpu_torch.models.NeuralSplineFlow`'s.
-LU-decomposed linear layers wait for ``transforms/lu.py``.
+``use_linear_layers=True`` puts an ``LULinear`` (identity at the start)
+after each permutation, the NSF paper's AR configuration for the UCI
+datasets (arXiv:1906.04032, section 3.2); such a chain runs unfused.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from nflows_tpu_torch.transforms.autoregressive import (
     MaskedPiecewiseRationalQuadraticAutoregressiveTransform,
 )
 from nflows_tpu_torch.transforms.base import CompositeTransform
+from nflows_tpu_torch.transforms.lu import LULinear
 from nflows_tpu_torch.transforms.permutations import (
     RandomPermutation,
     ReversePermutation,
@@ -45,9 +48,6 @@ class NeuralSplineFlowAR(Flow):
                  dropout_probability=0.0, batch_norm_within_layers=False,
                  rng=None, device=None):
         device = resolve_device(device)
-        if use_linear_layers:
-            raise NotImplementedError(
-                "use_linear_layers needs transforms/lu.py, which is not ported yet")
         generator = default_generator(generator)
         if rng is None:
             rng = np.random.default_rng(generator.initial_seed())
@@ -58,6 +58,8 @@ class NeuralSplineFlowAR(Flow):
                 layers.append(RandomPermutation(features, rng=rng, device=device))
             else:
                 layers.append(ReversePermutation(features, device=device))
+            if use_linear_layers:
+                layers.append(LULinear(features, identity_init=True, device=device))
             layers.append(MaskedPiecewiseRationalQuadraticAutoregressiveTransform(
                 features=features,
                 hidden_features=hidden_features,

@@ -10,7 +10,11 @@ JAX package stores [in, out]; the mask has the weight's orientation. Output
 k depends only on inputs before k: the autoregressive transforms rest on
 that property.
 
-Batch norm inside the blocks is not ported yet.
+``use_batch_norm=True`` puts the ResidualNet's ``_BatchScale`` (batch
+statistics a feature, eps 1e-3) before a feedforward block's masked
+layer, and before each activation of a residual block. It normalises each
+unit over the batch and never mixes units, so the autoregressive property
+holds. Plain PyTorch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nflows_tpu_torch.nn.nets.resnet import _BatchScale
 from nflows_tpu_torch.nn.primitives import Dense, Dropout, default_generator
 
 __all__ = ["MaskedDense", "MaskedFeedforwardBlock", "MaskedResidualBlock", "MADE"]
@@ -83,14 +88,9 @@ class MaskedDense(Dense):
         return F.linear(x, self.weight * self.mask, self.bias)
 
 
-def _refuse_batch_norm(use_batch_norm, what):
-    if use_batch_norm:
-        raise NotImplementedError(f"batch norm inside {what} is not ported yet")
-
-
 class MaskedFeedforwardBlock(nn.Module):
-    """Masked linear -> activation -> dropout (reference made.py:75-123).
-    The output is as wide as the input."""
+    """Batch norm (optional) -> masked linear -> activation -> dropout
+    (reference made.py:75-123). The output is as wide as the input."""
 
     def __init__(self, in_degrees, autoregressive_features, context_features=None,
                  random_mask=False, generator=None, activation=F.relu,
@@ -98,9 +98,9 @@ class MaskedFeedforwardBlock(nn.Module):
                  device=None):
         super().__init__()
         del context_features  # unused, kept for constructor parity
-        _refuse_batch_norm(use_batch_norm, "MaskedFeedforwardBlock")
         in_degrees = np.asarray(in_degrees)
-        self.batch_norm = None
+        self.batch_norm = (_BatchScale(len(in_degrees), device=device)
+                           if use_batch_norm else None)
         self.linear = MaskedDense(
             in_degrees=in_degrees, out_features=len(in_degrees),
             autoregressive_features=autoregressive_features,
@@ -114,7 +114,10 @@ class MaskedFeedforwardBlock(nn.Module):
         return self.linear.degrees
 
     def forward(self, inputs, context=None, generator=None):
-        temps = self.linear(inputs)
+        temps = inputs
+        if self.batch_norm is not None:
+            temps = self.batch_norm(temps)
+        temps = self.linear(temps)
         temps = self.activation(temps)
         return self.dropout(temps, generator=generator)
 
@@ -131,15 +134,14 @@ class MaskedResidualBlock(nn.Module):
         super().__init__()
         if random_mask:
             raise ValueError("Masked residual block can't be used with random masks.")
-        _refuse_batch_norm(use_batch_norm, "MaskedResidualBlock")
         generator = default_generator(generator)
         in_degrees = np.asarray(in_degrees)
         features = len(in_degrees)
         self.context_layer = (
             Dense(context_features, features, generator=generator, device=device)
             if context_features is not None else None)
-        self.batch_norm_0 = None
-        self.batch_norm_1 = None
+        self.batch_norm_0 = _BatchScale(features, device=device) if use_batch_norm else None
+        self.batch_norm_1 = _BatchScale(features, device=device) if use_batch_norm else None
         self.linear_0 = MaskedDense(
             in_degrees=in_degrees, out_features=features,
             autoregressive_features=autoregressive_features,
@@ -161,10 +163,15 @@ class MaskedResidualBlock(nn.Module):
         return self.linear_1.degrees
 
     def forward(self, inputs, context=None, generator=None):
-        temps = self.activation(inputs)
+        temps = inputs
+        if self.batch_norm_0 is not None:
+            temps = self.batch_norm_0(temps)
+        temps = self.activation(temps)
         temps = self.linear_0(temps)
         if context is not None:
             temps = temps + self.context_layer(context)
+        if self.batch_norm_1 is not None:
+            temps = self.batch_norm_1(temps)
         temps = self.activation(temps)
         temps = self.dropout(temps, generator=generator)
         temps = self.linear_1(temps)

@@ -4,7 +4,14 @@ nflows_tpu/nn/nets/resnet.py; reference nflows/nn/nets/resnet.py:9-100).
 Initial layer on [inputs || context], ``num_blocks`` pre-activation
 residual blocks with a context GLU, final projection. The second linear
 layer of each block starts near zero (U(-1e-3, 1e-3)), so couplings start
-near the identity. Batch norm inside the blocks is not ported yet.
+near the identity.
+
+With ``use_batch_norm=True`` each block normalises its input and its
+hidden layer by the batch's statistics (``_BatchScale``: biased variance,
+eps 1e-3, a learned scale and offset) before each activation, in training
+and eval mode alike, as in the JAX package: running statistics belong to
+the flow-level ``BatchNorm`` transform. The statistics are plain PyTorch
+on the tensor's device, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -20,6 +27,31 @@ from nflows_tpu_torch.nn.primitives import Dense, Dropout, default_generator, gl
 __all__ = ["ResidualBlock", "ResidualNet"]
 
 
+def refuse_stats_axis(stats_axis):
+    """Batch statistics over a mesh axis wait for the port of parallel/."""
+    if stats_axis is not None:
+        raise NotImplementedError(
+            "stats_axis (batch statistics over a mesh axis) needs the port of "
+            "parallel/, ROADMAP.md queue A item 8")
+
+
+class _BatchScale(nn.Module):
+    """Normalisation by the batch's mean and biased variance over dim 0,
+    then a learned ``scale`` and ``offset`` (JAX nn/nets/resnet.py:29-63)."""
+
+    def __init__(self, features: int, eps: float = 1e-3, stats_axis=None, device=None):
+        super().__init__()
+        refuse_stats_axis(stats_axis)
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.offset = nn.Parameter(torch.zeros(features, device=device))
+        self.eps = eps
+
+    def forward(self, x):
+        mean = torch.mean(x, dim=0, keepdim=True)
+        var = torch.var(x, dim=0, keepdim=True, correction=0)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.offset
+
+
 class ResidualBlock(nn.Module):
     """Pre-activation residual block for 1-dim inputs."""
 
@@ -27,12 +59,10 @@ class ResidualBlock(nn.Module):
                  activation=F.relu, dropout_probability=0.0,
                  use_batch_norm=False, zero_initialization=True, device=None):
         super().__init__()
-        if use_batch_norm:
-            raise NotImplementedError(
-                "batch norm inside ResidualBlock is not ported yet")
         generator = default_generator(generator)
         self.activation = activation
-        self.batch_norm_0 = None
+        self.batch_norm_0 = _BatchScale(features, device=device) if use_batch_norm else None
+        self.batch_norm_1 = _BatchScale(features, device=device) if use_batch_norm else None
         self.context_layer = (
             Dense(context_features, features, generator=generator, device=device)
             if context_features is not None else None)
@@ -43,8 +73,13 @@ class ResidualBlock(nn.Module):
         self.dropout = Dropout(dropout_probability)
 
     def forward(self, inputs, context=None, generator=None):
-        temps = self.activation(inputs)
+        temps = inputs
+        if self.batch_norm_0 is not None:
+            temps = self.batch_norm_0(temps)
+        temps = self.activation(temps)
         temps = self.linear_0(temps)
+        if self.batch_norm_1 is not None:
+            temps = self.batch_norm_1(temps)
         temps = self.activation(temps)
         temps = self.dropout(temps, generator=generator)
         temps = self.linear_1(temps)

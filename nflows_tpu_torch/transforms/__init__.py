@@ -29,6 +29,8 @@ from nflows_tpu_torch.transforms.coupling import (
     PiecewiseRationalQuadraticCouplingTransform,
     UMNNCouplingTransform,
 )
+from nflows_tpu_torch.transforms.linear import Linear, NaiveLinear, precompute_linear_caches
+from nflows_tpu_torch.transforms.lu import LULinear
 from nflows_tpu_torch.transforms.nonlinearities import (
     CauchyCDF,
     CauchyCDFInverse,
@@ -46,11 +48,15 @@ from nflows_tpu_torch.transforms.nonlinearities import (
     Sigmoid,
     Tanh,
 )
+from nflows_tpu_torch.transforms.normalization import ActNorm, BatchNorm
+from nflows_tpu_torch.transforms.orthogonal import HouseholderSequence
 from nflows_tpu_torch.transforms.permutations import (
     Permutation,
     RandomPermutation,
     ReversePermutation,
 )
+from nflows_tpu_torch.transforms.qr import QRLinear
+from nflows_tpu_torch.transforms.svd import SVDLinear
 from nflows_tpu_torch.transforms.umnn import IntegrandNet, MonotonicNormalizer
 
 __all__ = [
@@ -74,4 +80,6 @@ __all__ = [
     "PiecewiseLinearCDF", "PiecewiseQuadraticCDF", "PiecewiseCubicCDF",
     "PiecewiseRationalQuadraticCDF", "PiecewiseLinearRationalCDF",
     "IntegrandNet", "MonotonicNormalizer",
+    "Linear", "NaiveLinear", "precompute_linear_caches", "LULinear", "QRLinear",
+    "SVDLinear", "HouseholderSequence", "BatchNorm", "ActNorm",
 ]

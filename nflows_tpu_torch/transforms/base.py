@@ -7,6 +7,13 @@ A ``Transform`` is an ``nn.Module`` with two methods::
     inverse(inputs, context=None) -> (outputs, logabsdet)   # y -> x
 
 with ``logabsdet`` shaped ``[batch]``. Composition is a running sum.
+
+``initialize_with_data(inputs, context=None)`` is the data-dependent
+initialisation (ActNorm) and statistics pass (BatchNorm): such transforms
+update themselves in place, a chain passes each transform the outputs of
+the one before, and every transform returns ``(self, outputs)``, the JAX
+package's return shape, so that code written against either reads the
+same.
 """
 
 from __future__ import annotations
@@ -37,6 +44,12 @@ class Transform(nn.Module):
     def inverse(self, inputs, context=None):
         raise InverseNotAvailable()
 
+    def initialize_with_data(self, inputs, context=None):
+        """Data-dependent initialisation; the default is a pass-through.
+        Returns ``(self, outputs)``."""
+        outputs, _ = self.forward(inputs, context)
+        return self, outputs
+
 
 class CompositeTransform(Transform):
     """Composes several transforms into one, in the order given."""
@@ -61,6 +74,12 @@ class CompositeTransform(Transform):
     def inverse(self, inputs, context=None):
         return self._cascade(
             inputs, [t.inverse for t in reversed(self.transforms)], context)
+
+    def initialize_with_data(self, inputs, context=None):
+        outputs = inputs
+        for t in self.transforms:
+            _, outputs = t.initialize_with_data(outputs, context)
+        return self, outputs
 
 
 class InverseTransform(Transform):

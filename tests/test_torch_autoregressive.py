@@ -208,13 +208,39 @@ def test_seeds_give_reproducible_models_and_permutations():
     assert perms(iaf) == [[5, 4, 3, 2, 1, 0]] * 2       # reversal unless asked otherwise
 
 
+def _moved(jmodule, seed):
+    """``jmodule`` with every float leaf but the MADE masks moved by 0.2
+    times a seeded normal draw: batch norm and LU layers start at the
+    identity, where a parity test proves little."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(jmodule)
+    rng = np.random.default_rng(seed)
+    moved = [jnp.asarray(np.asarray(v) + 0.2 * rng.standard_normal(np.shape(v)).astype(np.float32))
+             if jnp.issubdtype(v.dtype, jnp.floating)
+             and not any(n in jax.tree_util.keystr(p) for n in ("mask", "running_"))
+             else v for p, v in leaves]
+    return jax.tree_util.tree_unflatten(treedef, moved)
+
+
 def test_options_that_wait_for_other_modules():
-    with pytest.raises(NotImplementedError, match="transforms/normalization.py"):
-        MaskedAutoregressiveFlow(5, 16, 2, 1, batch_norm_between_layers=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="transforms/lu.py"):
-        NeuralSplineFlowAR(5, 16, num_layers=2, use_linear_layers=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="batch norm"):
-        MaskedAutoregressiveFlow(5, 16, 2, 1, batch_norm_within_layers=True, device="cpu")
+    """The options that waited for the normalization and LU modules build
+    and hold against JAX on moved parameters: batch norm between and within
+    the MAF's layers, and the NSF-AR's LU layers (more in
+    tests/test_torch_normalization.py and tests/test_torch_linear.py)."""
+    x = _normal(8, (33, 5), scale=1.5)
+    for jcls, tcls, kw in (
+            (JaxMAF, MaskedAutoregressiveFlow, dict(num_layers=2, num_blocks_per_layer=1,
+                                                    batch_norm_between_layers=True)),
+            (JaxMAF, MaskedAutoregressiveFlow, dict(num_layers=2, num_blocks_per_layer=1,
+                                                    batch_norm_within_layers=True)),
+            (JaxNSFAR, NeuralSplineFlowAR, dict(num_layers=2, num_bins=4,
+                                                use_linear_layers=True))):
+        jflow = _moved(jcls(5, 16, key=jax.random.key(0), rng=np.random.default_rng(0), **kw),
+                       seed=1)
+        jflow, tflow = _carry(jflow, tcls(5, 16, rng=np.random.default_rng(0), device="cpu",
+                                          **kw))
+        tflow.train()   # batch statistics, as the JAX flow's training mode
+        with torch.no_grad():
+            _close(tflow.log_prob(torch.from_numpy(x)), jflow.log_prob(jnp.asarray(x)), 1e-4)
 
 
 def test_random_mask_maf_carries_over():

@@ -2559,3 +2559,98 @@ def test_an_ar_spline_flow_serves_unfused_with_its_kernel(cuda, family):
     with torch.no_grad():
         _close(lp.cpu().double(), _plain_flow(flow).log_prob(x.cpu().double()), 1e-3)
 
+
+
+# -- queue A6: the linear and normalization transforms ------------------------------------
+
+from nflows_tpu_torch import NeuralSplineFlowAR  # noqa: E402
+from nflows_tpu_torch.transforms import LULinear, precompute_linear_caches  # noqa: E402
+
+
+def _nsf_ar_lu(device, features=10, hidden=32, layers=5):
+    """An NSF-AR with an LULinear after each permutation, its LU parameters
+    moved off the identity by seeded draws (the LU layers start as the
+    identity)."""
+    flow = NeuralSplineFlowAR(features, hidden, num_layers=layers, num_bins=8, tail_bound=B,
+                              use_linear_layers=True, generator=torch.Generator().manual_seed(8),
+                              rng=np.random.default_rng(8), device=device)
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for m in flow.modules():
+            if isinstance(m, LULinear):
+                for p in (m.lower_entries, m.upper_entries):
+                    p.copy_(0.3 / features ** 0.5 * torch.randn(p.shape, generator=gen))
+                m.unconstrained_upper_diag.add_(0.3 * torch.randn(features, generator=gen).to(device))
+                m.bias.copy_(0.1 * torch.randn(features, generator=gen))
+    return flow.eval()
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_b1_as_the_nsf_ar_lu_flow_calls_it(cuda, inverse):
+    """B1 on the values the first AR transform of an NSF-AR with LU layers
+    hands it (after the permutation and the LULinear): one launch, within
+    1e-4 / 1e-3 of the plain version."""
+    flow = _nsf_ar_lu(cuda)
+    perm, lu, ar = flow.transform.transforms[:3]
+    x = (1.5 * torch.randn(512, 10, generator=torch.Generator().manual_seed(10))).to(cuda)
+    with torch.no_grad():
+        z, _ = lu(perm(x)[0])
+        p = ar.autoregressive_net(z).reshape(512, 10, -1)
+        s = ar._hidden_scale()
+        args = [t.contiguous() for t in (z, p[..., :8] * s, p[..., 8:16] * s, p[..., 16:])]
+        before = rq_spline.launch_count
+        out, lad = rq_spline.rq_spline_cuda(*args, inverse=inverse, tail_bound=B)
+        assert rq_spline.launch_count == before + 1
+        p_out, p_lad = rq.unconstrained_rational_quadratic_spline_plain(
+            *args, inverse=inverse, tail_bound=B)
+    _close(out, p_out, 1e-4)
+    _close(lad, p_lad, 1e-3)
+
+
+def test_lu_on_the_card_is_fp32_against_float64(cuda):
+    """LULinear's forward (two products) and inverse (two triangular solves)
+    on the card against float64 on the CPU, and its cached products: within
+    1e-5 of 1 + |f64|, which a TF32 product (10 bits of significand, 1e-3)
+    would miss. PyTorch's default keeps fp32 products on the card: nothing
+    here turns TF32 off."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    lu = _nsf_ar_lu(cuda).transform.transforms[1]
+    x = (2.0 * torch.randn(4096, 10, generator=torch.Generator().manual_seed(11))).to(cuda)
+    ref = _plain_flow(lu)
+    with torch.no_grad():
+        d_out, d_lad = ref(x.cpu().double())
+        d_inv, d_ilad = ref.inverse(x.cpu().double())
+        for cached in (False, True):
+            if cached:
+                lu.precompute()
+            out, lad = lu(x)
+            inv, ilad = lu.inverse(x)
+            for got, want in ((out, d_out), (lad, d_lad), (inv, d_inv), (ilad, d_ilad)):
+                err = ((got.cpu().double() - want).abs() / (1 + want.abs())).max()
+                assert err <= 1e-5, (cached, float(err))
+    assert float(d_inv.abs().max()) > 1.0 and float((d_inv - x.cpu().double()).abs().max()) > 0.1
+
+
+def test_an_nsf_ar_lu_request_launches_b1(cuda):
+    """CompiledFlow serves the NSF-AR with LU layers unfused (no fused kernel
+    takes an LULinear): 5 B1 a log_prob request, 50 a sample request, the
+    same after precompute_linear_caches; log_prob within 1e-3 of float64 on
+    the CPU, and the samples' log_prob consistent."""
+    flow = _nsf_ar_lu(cuda)
+    with pytest.raises(ValueError, match=r"expected \[permutation, affine-AR\] pairs"):
+        CompiledFlow(flow, batch_size=256, features=10, use_fused=True)
+    x = torch.randn(256, 10, generator=torch.Generator().manual_seed(12)).to(cuda)
+    ref = _plain_flow(flow)
+    for cached in (False, True):
+        if cached:
+            precompute_linear_caches(flow)
+        served = CompiledFlow(flow, batch_size=256, features=10)
+        assert not served.is_fused
+        before = rq_spline.launch_count
+        lp = served.log_prob(x)
+        assert rq_spline.launch_count == before + 5
+        s, s_lp = served.sample_and_log_prob(torch.Generator(device=cuda).manual_seed(13))
+        assert rq_spline.launch_count == before + 55
+        with torch.no_grad():
+            _close(lp.cpu().double(), ref.log_prob(x.cpu().double()), 1e-3)
+            _close(s_lp, flow.log_prob(s), 5e-3)

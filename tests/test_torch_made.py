@@ -159,11 +159,28 @@ def test_construction_guards_match_jax():
         torch_made.MaskedResidualBlock(np.array([4, 4, 4, 4]), 5, device="cpu")
     with pytest.raises(RuntimeError, match="output degrees"):
         jax_made.MaskedResidualBlock(np.array([4, 4, 4, 4]), 5)
-    for ctor in (lambda: torch_made.MADE(5, 16, use_batch_norm=True, device="cpu"),
-                 lambda: torch_made.MADE(5, 16, use_residual_blocks=False,
-                                         use_batch_norm=True, device="cpu")):
-        with pytest.raises(NotImplementedError, match="batch norm"):
-            ctor()
+    # batch norm inside both blocks builds and matches JAX on moved scales
+    # and offsets, at an odd batch (tests/test_torch_normalization.py holds
+    # the blocks' statistics and the autoregressive property)
+    x = np.random.default_rng(3).normal(size=(33, 5)).astype(np.float32)
+    for residual in (True, False):
+        kw = dict(use_residual_blocks=residual, use_batch_norm=True)
+        jnet = jax_made.MADE(5, 16, key=jax.random.key(0), **kw)
+        params = _jax_params(jnet)
+        rng = np.random.default_rng(4)
+        for k in params:
+            if "batch_norm" in k:
+                params[k] = params[k] + 0.3 * rng.standard_normal(params[k].shape).astype(
+                    np.float32)
+        jnet = jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(jnet),
+            [jnp.asarray(params[jax.tree_util.keystr(p)])
+             for p, _ in jax.tree_util.tree_flatten_with_path(jnet)[0]])
+        tnet = torch_made.MADE(5, 16, device="cpu", **kw)
+        load_jax_params(tnet, params)
+        with torch.no_grad():
+            np.testing.assert_allclose(tnet(torch.from_numpy(x)).numpy(),
+                                       np.asarray(jnet(jnp.asarray(x))), atol=1e-4, rtol=0)
 
 
 def test_initialisation_and_dropout():

@@ -191,10 +191,18 @@ def test_sample_and_log_prob_of_a_bare_model_and_of_the_distribution():
 def test_refusals():
     with pytest.raises(ValueError, match="random masks"):
         MixtureOfGaussiansMADE(5, 16, random_mask=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="batch norm"):
-        MixtureOfGaussiansMADE(5, 16, use_batch_norm=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="batch norm"):
-        MADEMoG(5, 16, None, use_batch_norm=True, device="cpu")
+    # batch norm inside the MADE is no longer refused: both models build
+    # and match JAX (tests/test_torch_normalization.py moves their scales)
+    for kind, cf in (("residual", None), ("feedforward", 3)):
+        kw = dict(features=5, hidden_features=16, context_features=cf, num_blocks=2,
+                  num_mixture_components=3, use_batch_norm=True, **KINDS[kind])
+        jd = JaxMADEMoG(key=jax.random.key(1), rng=np.random.default_rng(1), **kw)
+        td = MADEMoG(rng=np.random.default_rng(1), device="cpu", **kw)
+        load_jax_params(td, _jax_params(jd))
+        (jx, jc), (tx, tc) = _both(*_inputs(33, 5, cf, seed=2))
+        with torch.no_grad():
+            np.testing.assert_allclose(td.log_prob(tx, tc).numpy(),
+                                       np.asarray(jd.log_prob(jx, jc)), atol=1e-4, rtol=0)
     with pytest.raises(TypeError):
         MADEMoG(5, 16, None, device="cpu").sample(None, 0)
     # the fused view's refusals (tests/ops/test_mademog_fused.py:62-75)

@@ -2,8 +2,9 @@
 ``chip_smoke.py`` imports JAX or the JAX package, statically or at run
 time (building, serving and training each family, a conditional NSF, a
 conditional NSF-AR, an IAF's variational step, the two diagonal Normal
-bases, serving in bf16, and serving a coupling flow with a learned CDF on
-its identity half, an autoregressive spline flow and the two UMNN flows
+bases, serving in bf16, serving a coupling flow with a learned CDF on
+its identity half, an autoregressive spline flow and the two UMNN flows,
+and serving and training an NSF-AR with LU layers and a batch-normed MAF
 included)."""
 
 import ast
@@ -62,7 +63,12 @@ def test_scan_covers_the_port():
             "nflows_tpu_torch/transforms/nonlinearities.py",
             "nflows_tpu_torch/transforms/umnn.py",
             "nflows_tpu_torch/transforms/UMNN/__init__.py",
-            "nflows_tpu_torch/transforms/UMNN/MonotonicNormalizer.py"} <= names
+            "nflows_tpu_torch/transforms/UMNN/MonotonicNormalizer.py",
+            "nflows_tpu_torch/transforms/linear.py", "nflows_tpu_torch/transforms/lu.py",
+            "nflows_tpu_torch/transforms/qr.py", "nflows_tpu_torch/transforms/svd.py",
+            "nflows_tpu_torch/transforms/orthogonal.py",
+            "nflows_tpu_torch/transforms/normalization.py",
+            "nflows_tpu_torch/utils/linalg.py"} <= names
     sources = {p.name for p in (ROOT / "nflows_tpu_torch" / "csrc").glob("*.cu*")}
     assert {"mademog_fused.cu", "mademog_train.cu", "mademog.cuh", "spline_common.cuh",
             "affine_coupling.cuh", "coupling_stage.cuh", "nsf_flow_kernel.cu", "nsf_train.cu",
@@ -86,7 +92,7 @@ def test_forbidden_rule():
 
 def test_runtime_loads_no_jax():
     code = (
-        "import sys, torch\n"
+        "import copy, sys, torch\n"
         "torch.set_num_threads(1)\n"
         "import nflows_tpu_torch as nt\n"
         "f = nt.NeuralSplineFlow(6, 8, num_layers=2, num_bins=4, device='cpu',\n"
@@ -201,6 +207,19 @@ def test_runtime_loads_no_jax():
         "    served.log_prob(x)\n"
         "    served.sample_and_log_prob(torch.Generator().manual_seed(0))\n"
         "    nt.make_train_step()(nt.create_train_state(m, adam), x)\n"
+        "lu = nt.NeuralSplineFlowAR(5, 8, num_layers=2, num_bins=4, use_linear_layers=True,\n"
+        "                           device='cpu')\n"
+        "bn = nt.MaskedAutoregressiveFlow(5, 8, 2, 1, batch_norm_between_layers=True,\n"
+        "                                 batch_norm_within_layers=True, device='cpu')\n"
+        "bn.transform.initialize_with_data(torch.randn(64, 5))\n"
+        "for m in (lu, T.precompute_linear_caches(copy.deepcopy(lu)), bn.eval()):\n"
+        "    served = nt.CompiledFlow(m, 16, 5, device='cpu')\n"
+        "    assert not served.is_fused\n"
+        "    served.log_prob(torch.randn(16, 5))\n"
+        "    served.sample_and_log_prob(torch.Generator().manual_seed(0))\n"
+        "    assert nt.fused_trainer(m, 128, required=False) is None\n"
+        "for m in (lu, bn.train()):\n"
+        "    nt.make_train_step()(nt.create_train_state(m, adam), torch.randn(128, 5))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'nflows_tpu')]\n"
         "print(bad)\n"

@@ -244,10 +244,22 @@ def test_mlp_matches_jax(activate_output):
 
 
 def test_what_realnvp_refuses():
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        SimpleRealNVP(6, HIDDEN, 2, 2, batch_norm_between_layers=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="batch norm"):
-        SimpleRealNVP(6, HIDDEN, 2, 2, batch_norm_within_layers=True, device="cpu")
+    """Nothing of the reference's options now: batch norm between the
+    couplings and inside their conditioners builds and holds against JAX in
+    training mode, on parameters moved off their identity start (more in
+    tests/test_torch_normalization.py)."""
+    for kw in (dict(batch_norm_between_layers=True), dict(batch_norm_within_layers=True)):
+        jflow = JaxRealNVP(6, HIDDEN, 2, 2, key=jax.random.key(0), **kw)
+        leaves, treedef = jax.tree_util.tree_flatten_with_path(jflow)
+        rng = np.random.default_rng(1)
+        jflow = jax.tree_util.tree_unflatten(treedef, [
+            v + 0.2 * rng.standard_normal(v.shape).astype(np.float32)
+            if jnp.issubdtype(v.dtype, jnp.floating) and "running_" not in
+            jax.tree_util.keystr(p) else v for p, v in leaves])
+        tflow = _load(jflow, SimpleRealNVP(6, HIDDEN, 2, 2, device="cpu", **kw))
+        x = _x(n=33)
+        with torch.no_grad():
+            _close(tflow.log_prob(torch.from_numpy(x)), jflow.log_prob(jnp.asarray(x)))
 
 
 # -- B2 for every family ---------------------------------------------------------------
